@@ -22,12 +22,35 @@ Phases, each printing one JSON line:
      from a CUDA graph (the device time of its work alone); one minus their
      ratio bounds from below the share of the step in which the card idles.
 
-Then the kernels summary line, and last the result line. Any failed check
-raises: the script exits non-zero and prints no result line. It exits
-non-zero at once without CUDA, or outside a checkout of the repository.
+  5. the training kernels against their plain versions on the card, after
+     the engine's weights are freed: FlashAttention forward (O and the
+     log-sum-exp) and backward (dQ, dK, dV) at 32 query heads over 8 KV
+     heads, hd 128, bf16, causal, at S 4096 (window 4096: the training
+     shape), 8192 (the window masks) and 1000 (a ragged tile edge, forward
+     only); fused Adam on one ``w1`` leaf (4096 x 14336) with its fp32
+     states on the device and in pinned host memory. Each with its time,
+     its plain version's, a library call's and the card's bound;
+  6. ``train_compare``: ``mistral-7b`` at full width and 2 layers, one
+     training step from one cloned state through the kernels
+     (``attn_impl="blockwise"``, ``use_fused_kernel=True``) and through the
+     plain path (``"naive"``, ``False``): losses, gradient norms and every
+     leaf's gradient must agree;
+  7. ``train``: ``mistral-7b`` at full width and 8 layers, 4 steps through
+     ``train_loop`` under a plan that checkpoints 4 layers, accumulates 2
+     microbatches and keeps the optimizer states of block 7 and the head in
+     pinned host memory; every loss finite, the first near ln 32000, each
+     training kernel launched as often as the plan implies; it prints the
+     median step time, tokens/s, peak device bytes, pinned host bytes and
+     the model-FLOP share of the bf16 peak (``mfu``).
+
+Then the kernels summary line, the card's name and power limit, and last
+the result line. Any failed check raises: the script exits non-zero and
+prints no result line. It exits non-zero at once without CUDA, or outside a
+checkout of the repository.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import statistics
@@ -41,6 +64,7 @@ HERE = pathlib.Path(__file__).resolve().parent
 # and the host link (PCIe 5.0 x16, one direction).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12  # outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # dense tensor cores
 HOST_LINK_BYTES_PER_S = 64e9
 
 # Kernel vs plain version, bf16 outputs compared in fp32. RMSNorm outputs are of
@@ -54,6 +78,32 @@ PAGED_TOL = 2e-2
 # Teacher-forced logits, kernels vs the plain path, bf16 through 32 layers:
 # |diff| <= ENGINE_TOL * (1 + max |logit|).
 ENGINE_TOL = 5e-2
+
+# FlashAttention kernels vs plain, bf16 compared in fp32: O, dQ, dK and dV
+# within FLASH_TOL * max |plain| over each (batch, row, head) (a few bf16
+# roundings of that row's values; a causal row's scale falls as 1/sqrt(q),
+# so a wider scale would hide late rows), plus FLASH_FLOOR * max |plain|
+# over the (batch, head) for rows near 0; the fp32 log-sum-exp within
+# LSE_TOL * (1 + |plain|) (fp32 sums in another order).
+FLASH_TOL, FLASH_FLOOR = 2e-2, 1e-4
+FLASH_TOL_TEXT = (f"{FLASH_TOL} * max |plain| per (batch, row, head) "
+                  f"+ {FLASH_FLOOR} * max |plain| per (batch, head)")
+LSE_TOL = 1e-4
+# Fused Adam vs plain: fp32 master, m and v within ADAM_TOL * (|plain| +
+# max |plain|) (a few ulps: FMAs and the order of sqrt and divide); bf16 p
+# within one bf16 ulp, 2^-7 * |plain|, plus the master's own bound (a master
+# a few fp32 ulps off can round to the neighbouring bf16 value).
+ADAM_TOL = 1e-6
+# train_compare, kernels vs plain path, bf16 through 2 layers at S 4096.
+LOSS_TOL, NORM_RTOL, GRAD_COSINE = 1e-2, 2e-2, 0.999
+# train: the first loss of a random init lies near ln(vocab) = 10.37. The
+# head's init (std 0.02) gives logits of std 0.02 * sqrt(4096) = 1.28 on
+# unit-RMS hidden states, which lifts the log-sum-exp by about 1.28^2 / 2
+# = 0.82: the band is 1.5 either way.
+FIRST_LOSS_BAND = 1.5
+
+SERVING_KERNELS = ("paged_attention", "rmsnorm")
+TRAINING_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm", "fused_adam")
 
 # The serving slice's shapes (mistral-7b: 32 query heads over 8 KV heads, hd 128).
 BATCH, HQ, HKV, HD = 4, 32, 8, 128
@@ -364,7 +414,7 @@ def phase_engine() -> dict[str, int]:
     K.reset_launch_counts()
     report = engine.run(reqs)
     torch.cuda.synchronize()
-    launches = K.launch_counts()
+    launches = {k: K.launch_counts()[k] for k in SERVING_KERNELS}
     assert report.drained, f"engine did not drain: pending {report.pending}"
     assert sorted(report.finished) == list(range(BATCH))
     assert all(len(t) == NEW_TOKENS for t in report.finished.values()), report.finished
@@ -410,6 +460,365 @@ def phase_engine() -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The training slice
+# ---------------------------------------------------------------------------
+TRAIN_SEQ, WINDOW = 4096, 4096
+
+
+def eager_ms(fn, reps: int = 5, inner: int = 3) -> float:
+    """Device time per call of ``fn`` launched from Python: CUDA events around
+    ``inner`` calls, median of ``reps`` windows, after one warm-up call.
+    For calls of a millisecond and more, where launch cost is noise."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+
+    def window():
+        for _ in range(inner):
+            fn()
+
+    return _event_ms(window, reps) / inner
+
+
+def attended_pairs(s: int, window: int) -> int:
+    """(q, k) pairs with k <= q and k > q - window, over one head."""
+    return sum(min(q + 1, window) if window else q + 1 for q in range(s))
+
+
+def row_excess(out, ref) -> tuple[float, float, float]:
+    """For (B, S, H, hd) tensors: (max |out - ref|, max of |out - ref| less
+    its tolerance, and the largest share of the tolerance used). The
+    tolerance: FLASH_TOL * max |ref| per (batch, row, head) + FLASH_FLOOR *
+    max |ref| per (batch, head)."""
+    mag = ref.float().abs()
+    tol = FLASH_TOL * mag.amax(dim=3, keepdim=True) + FLASH_FLOOR * mag.amax(dim=(1, 3),
+                                                                             keepdim=True)
+    err, excess = max_excess(out, ref, tol)
+    share = ((out.float() - ref.float()).abs() / tol).max().item()
+    return err, excess, share
+
+
+def flash_case(s: int, gen, with_bwd: bool) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref
+
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
+    q, k, v, dout = rnd(1, s, HQ, HD), rnd(1, s, HKV, HD), rnd(1, s, HKV, HD), rnd(1, s, HQ, HD)
+    bhsd = lambda t: t.transpose(1, 2)  # noqa: E731
+    out, lse = K.flash_attention(q, k, v, causal=True, window=WINDOW)
+    want = bhsd(ref.flash_attention_ref(bhsd(q), bhsd(k), bhsd(v), causal=True, window=WINDOW))
+    _, want_lse = ref.attention_lse_ref(q, k, v, causal=True, window=WINDOW)
+    torch.cuda.synchronize()
+    err, excess, tol_share = row_excess(out, want)
+    lse_err, lse_excess = max_excess(lse, want_lse, LSE_TOL * (1 + want_lse.abs()))
+    assert excess <= 0, (f"flash forward S={s}: max |diff| {err} beyond tolerance "
+                         f"({tol_share} of the tolerance)")
+    assert lse_excess <= 0, f"flash forward S={s}: lse max |diff| {lse_err} beyond {LSE_TOL}"
+    pairs = attended_pairs(s, WINDOW)
+    qt, kt, vt = bhsd(q), bhsd(k), bhsd(v)
+    if s <= WINDOW:  # the window cuts nothing: SDPA's own causal mask is ours
+        sdpa_mask = dict(is_causal=True)
+    else:  # an explicit band: k <= q and k > q - WINDOW
+        qi = torch.arange(s, device="cuda")[:, None]
+        ki = torch.arange(s, device="cuda")[None, :]
+        sdpa_mask = dict(attn_mask=(ki <= qi) & (ki > qi - WINDOW))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,  # noqa: E731
+                                                  **sdpa_mask)
+    flops = 4 * HD * HQ * pairs
+    rows = [{
+        "kernel": "flash_attention", "s": s, "window": WINDOW, "pairs": pairs,
+        "max_abs_err": err, "max_abs_plain": want.float().abs().max().item(),
+        "tol_share": tol_share, "tol": FLASH_TOL_TEXT, "lse_max_abs_err": lse_err,
+        "lse_tol": f"{LSE_TOL} * (1 + |plain|)",
+        "ms": eager_ms(lambda: K.flash_attention(q, k, v, causal=True, window=WINDOW)),
+        "plain_ms": eager_ms(lambda: ref.flash_attention_ref(
+            bhsd(q), bhsd(k), bhsd(v), causal=True, window=WINDOW), reps=3, inner=1),
+        "library_ms": eager_ms(sdpa),
+        "bound_ms": flops / BF16_FLOP_PER_S * 1e3, "bound_by": "operations", "flops": flops,
+    }]
+    if not with_bwd:
+        return rows
+    grads = K.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=WINDOW)
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True, window=WINDOW)
+    torch.cuda.synchronize()
+    errs, shares = {}, {}
+    for name, got, exp in zip(("dq", "dk", "dv"), grads, wants):
+        e, ex, shares[name] = row_excess(got, exp)
+        assert ex <= 0, (f"flash backward S={s}: {name} max |diff| {e} beyond tolerance "
+                         f"({shares[name]} of it)")
+        errs[name] = e
+    del grads, wants
+    ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, enable_gqa=True, **sdpa_mask)
+    dol = bhsd(dout)
+    library = eager_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), dol, retain_graph=True))
+    del ol
+    flops = 10 * HD * HQ * pairs
+    rows.append({
+        "kernel": "flash_attention_bwd", "s": s, "window": WINDOW, "pairs": pairs,
+        "max_abs_err": max(errs.values()), **{f"{k}_max_abs_err": e for k, e in errs.items()},
+        **{f"{k}_tol_share": r for k, r in shares.items()}, "tol": FLASH_TOL_TEXT,
+        "ms": eager_ms(lambda: K.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                                     window=WINDOW)),
+        "plain_ms": eager_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, causal=True, window=WINDOW), reps=3, inner=1),
+        "library_ms": library,
+        "bound_ms": flops / BF16_FLOP_PER_S * 1e3, "bound_by": "operations", "flops": flops,
+    })
+    return rows
+
+
+def adam_case(on_host: bool, gen) -> dict:
+    """Fused Adam on one w1 leaf of mistral-7b (4096 x 14336)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref
+    from repro_torch.optim.adam import AdamConfig, adam_scalars
+
+    shape = (4096, 14336)
+    n = shape[0] * shape[1]
+    # a leaf mid-training: weights of std 0.02, gradients of 1e-3, m and v
+    # of the gradients' scale (v away from 0, where Adam's step is unbounded)
+    master = 0.02 * torch.randn(*shape, device="cuda", generator=gen)
+    g = (1e-3 * torch.randn(*shape, device="cuda", generator=gen)).bfloat16()
+    m = 1e-4 * torch.randn(*shape, device="cuda", generator=gen)
+    v = 1e-6 * (0.5 + torch.rand(*shape, device="cuda", generator=gen))
+    p = master.bfloat16()
+    cfg = AdamConfig(lr=3e-4, weight_decay=0.1)
+    scalars = adam_scalars(cfg, cfg.lr, 3, "cuda")
+    lr, b1, b2, eps, wd, bc1, bc2, _ = scalars.tolist()
+    want = ref.fused_adam_ref(p, g, master, m, v, lr=lr, b1=b1, b2=b2, eps=eps,
+                              weight_decay=wd, bc1=bc1, bc2=bc2)
+    states = [t.clone() for t in (master, m, v)]
+    if on_host:
+        states = [torch.empty(shape, pin_memory=True).copy_(t) for t in states]
+    got = K.fused_adam_update(p.clone(), g, *states, scalars)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(("master", "m", "v"), got[1:], want[1:]):
+        b = b.to(a.device)
+        errs[name] = max_excess(a, b, ADAM_TOL * (b.abs() + b.abs().max()))
+    master_tol = ADAM_TOL * 2 * want[1].abs().max()
+    errs["p"] = max_excess(got[0], want[0], 2.0 ** -7 * want[0].float().abs() + master_tol)
+    for (name, (e, ex)), a, b in zip(errs.items(), got[1:] + got[:1], want[1:] + want[:1]):
+        if ex > 0:
+            i = (a.float().to(b.device) - b.float()).abs().argmax()
+            at = {t: x.flatten()[i].item() for t, x in (("kernel", a.to(b.device)), ("plain", b),
+                                                        ("master", master), ("g", g),
+                                                        ("m", m), ("v", v))}
+            raise AssertionError(f"fused_adam host={on_host}: {name} max |diff| {e} beyond "
+                                 f"tolerance, at {at}")
+    del want
+    dev_bytes = 28 * n  # read g, master, m, v; write p, master, m, v
+    if on_host:
+        host = 12 * n  # master, m, v each way over the link
+        times = {"bytes": max(host / HOST_LINK_BYTES_PER_S, 4 * n / HBM_BYTES_PER_S)}
+    else:
+        times = {"bytes": dev_bytes / HBM_BYTES_PER_S}
+    times["operations"] = 12 * n / FP32_FLOP_PER_S
+    by = max(times, key=times.get)
+    # yardstick: torch's fused Adam on the same fp32 leaf on the device (it
+    # writes no bf16 copy, so it does less work)
+    lib_p = torch.nn.Parameter(master.clone())
+    lib_p.grad = g.float()
+    opt = torch.optim.Adam([lib_p], lr=3e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+                           fused=True)
+    pc = p.clone()
+    return {
+        "kernel": "fused_adam", "states": "pinned_host" if on_host else "device",
+        "shape": list(shape), "max_abs_err": max(e for e, _ in errs.values()),
+        **{f"{k}_max_abs_err": e for k, (e, _) in errs.items()},
+        "tol": f"fp32 {ADAM_TOL} * (|plain| + max |plain|); p 2^-7 * |plain| + master's",
+        "ms": eager_ms(lambda: K.fused_adam_update(pc, g, *states, scalars)),
+        "plain_ms": eager_ms(lambda: ref.fused_adam_ref(
+            p, g, master, m, v, lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=wd, bc1=bc1,
+            bc2=bc2)),
+        "library_ms": eager_ms(opt.step), "library": "torch.optim.Adam(fused=True), fp32 leaf "
+        "on the device, no bf16 copy",
+        "bound_ms": times[by] * 1e3, "bound_by": by,
+        "device_bytes": dev_bytes if not on_host else 4 * n, "host_bytes": 24 * n if on_host else 0,
+    }
+
+
+def phase_train_kernels() -> dict:
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for case in (lambda: flash_case(TRAIN_SEQ, gen, True), lambda: flash_case(8192, gen, True),
+                 lambda: flash_case(1000, gen, False), lambda: [adam_case(False, gen)],
+                 lambda: [adam_case(True, gen)]):
+        for r in case():
+            emit("kernel_vs_plain", **r)
+            rows.append(r)
+        torch.cuda.empty_cache()
+    main_rows = {}
+    for r in rows:
+        key = r["kernel"]
+        if (key != "fused_adam" and r["s"] == TRAIN_SEQ) or r.get("states") == "device":
+            main_rows[key] = r
+    errs = {k: max(r["max_abs_err"] for r in rows if r["kernel"] == k) for k in main_rows}
+    return {k: {**r, "max_abs_err": errs[k]} for k, r in main_rows.items()}
+
+
+def phase_train_compare() -> None:
+    """One step of 2-layer full-width mistral-7b, kernels vs plain path."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import fully_resident_plan
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.optim.adam import AdamConfig, tree_leaves, tree_map
+    from repro_torch.train.step_builder import build_train_step
+
+    clone = lambda tree: tree_map(lambda t: t.detach().clone(), tree)  # noqa: E731
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=2)
+    shape = ShapeConfig("compare", TRAIN_SEQ, 1, "train")
+    plan = fully_resident_plan(4, 2)
+    batch = SyntheticTokenPipeline(cfg, shape, seed=0, device="cuda").next_sync()
+    init = None
+    out = {}
+    for way, impl, fused in (("kernels", "blockwise", True), ("plain", "naive", False)):
+        art = build_train_step(cfg, plan, "cuda", shape, attn_impl=impl,
+                               adam=AdamConfig(lr=3e-4, use_fused_kernel=fused))
+        if init is None:
+            init = clone(art.init(torch.Generator(device="cuda").manual_seed(0))["params"])
+        state = art.place_state(clone(init))
+        grads, _ = art.grad_fn(state, batch)
+        grads = [g.float() for g in tree_leaves(grads)]
+        state, metrics = art.fn(state, batch)
+        out[way] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                    "grads": grads}
+        del state, art
+        torch.cuda.empty_cache()
+    k, p = out["kernels"], out["plain"]
+    cos = [torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+           for a, b in zip(k["grads"], p["grads"])]
+    rel_norm = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
+    emit("train_compare", arch=cfg.name, layers=cfg.num_layers, seq=TRAIN_SEQ, batch=1,
+         loss_kernels=k["loss"], loss_plain=p["loss"], grad_norm_kernels=k["grad_norm"],
+         grad_norm_plain=p["grad_norm"], grad_norm_rel_diff=rel_norm, min_grad_cosine=min(cos),
+         leaves=len(cos), tol={"loss": LOSS_TOL, "grad_norm_rel": NORM_RTOL,
+                               "cosine": GRAD_COSINE},
+         seconds=time.perf_counter() - t0)
+    assert abs(k["loss"] - p["loss"]) <= LOSS_TOL, (k["loss"], p["loss"])
+    assert rel_norm <= NORM_RTOL, (k["grad_norm"], p["grad_norm"])
+    assert min(cos) >= GRAD_COSINE, f"a leaf's gradient has cosine {min(cos)} to the plain path"
+    del out, init
+    torch.cuda.empty_cache()
+
+
+def expected_train_launches(cfg, art, steps: int, n_leaves: int) -> dict[str, int]:
+    """Launches the plan implies: per microbatch a forward of every layer, a
+    second forward of every checkpointed layer and a backward of every
+    layer; two RMSNorms per layer forward plus the final one (their
+    backward is plain); one Adam launch per parameter leaf per step."""
+    layers = cfg.num_layers
+    recomputed = sum(r.length for r in art.runs if r.act_policy == "checkpoint")
+    mbs = steps * art.plan.microbatch
+    return {"flash_attention": mbs * (layers + recomputed), "flash_attention_bwd": mbs * layers,
+            "rmsnorm": mbs * (2 * layers + 1 + 2 * recomputed), "fused_adam": steps * n_leaves}
+
+
+def phase_train() -> dict[str, int]:
+    """4 steps of 8-layer full-width mistral-7b through train_loop."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.chunks import chunk_inventory, total_param_count
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.optim.adam import AdamConfig, tree_leaves
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.step_builder import build_train_step
+
+    steps, batch = 4, 2
+    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=8)
+    shape = ShapeConfig("train", TRAIN_SEQ, batch, "train")
+    plan = MemoryPlan(n_chunks=10, n_blocks=8, n_persist=4, n_host=2, n_checkpoint=4,
+                      microbatch=2, host_optimizer=True, host_params=False)
+    chunks = chunk_inventory(cfg)
+    assert len(chunks) == plan.n_chunks
+    art = build_train_step(cfg, plan, "cuda", shape, adam=AdamConfig(lr=3e-4))
+    pipe = SyntheticTokenPipeline(cfg, shape, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_loop(art, pipe, None, LoopConfig(total_steps=steps, log_every=1),
+                     generator=torch.Generator(device="cuda").manual_seed(0),
+                     log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: K.launch_counts()[k] for k in TRAINING_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    state = res.state
+    n_leaves = len(tree_leaves(state["params"]))
+    expected = expected_train_launches(cfg, art, steps, n_leaves)
+
+    # where each optimizer state lies: pinned host for the host chunks
+    host_runs = [r.placement == "host" for r in art.runs]
+    pinned_bytes, misplaced = 0, []
+    for key in ("master", "m", "v"):
+        tree = state["opt"][key]
+        for name in ("embed", "final_norm", "head", "runs"):
+            subs = tree[name] if name == "runs" else [tree[name]]
+            chunk = 0 if name == "embed" else plan.n_chunks - 1
+            hosts = host_runs if name == "runs" else [plan.chunk_placement(chunk) == "host"]
+            for sub, on_host in zip(subs, hosts):
+                for t in tree_leaves(sub):
+                    if on_host:
+                        ok = t.device.type == "cpu" and t.is_pinned()
+                        pinned_bytes += t.numel() * t.element_size()
+                    else:
+                        ok = t.device.type == "cuda"
+                    if not ok:
+                        misplaced.append(f"{key}/{name}")
+    tokens = batch * TRAIN_SEQ
+    n_params = total_param_count(chunks)
+    n_matmul = n_params - cfg.vocab_size * cfg.d_model  # the embedding is a lookup
+    attn = 3 * 4 * cfg.resolved_head_dim * cfg.num_heads * attended_pairs(
+        TRAIN_SEQ, cfg.sliding_window) * cfg.num_layers * batch
+    model_flops = 6 * n_matmul * tokens + attn
+    med = statistics.median(res.step_times)
+    emit("train", arch=cfg.name, layers=cfg.num_layers, params=n_params, seq=TRAIN_SEQ,
+         global_batch=batch, plan=plan.describe(), runs=[dataclasses.asdict(r) for r in art.runs],
+         losses=res.losses, step_times_s=res.step_times, median_step_s=med,
+         tokens_per_s=tokens / med, peak_device_bytes=peak, pinned_host_bytes=pinned_bytes,
+         model_flops_per_step=model_flops, mfu=model_flops / med / BF16_FLOP_PER_S,
+         launches=launches, expected_launches=expected, seconds=seconds)
+    assert len(res.losses) == steps and all(math.isfinite(x) for x in res.losses), res.losses
+    assert abs(res.losses[0] - math.log(cfg.vocab_size)) <= FIRST_LOSS_BAND, res.losses[0]
+    assert not misplaced, f"optimizer states in the wrong place: {sorted(set(misplaced))}"
+    assert pinned_bytes > 0
+    assert launches == expected, f"launches {launches} != the plan's {expected}"
+    del res, state, art
+    torch.cuda.empty_cache()
+    return launches
+
+
+def timed_phase(name: str, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    emit("phase_seconds", of=name, seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     if not (HERE / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from the root of a checkout (no src/repro_torch "
@@ -422,10 +831,15 @@ def main() -> int:
         print("chip_smoke.py: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    phase_card()
-    phase_build()
-    measured = phase_kernels()
-    launches = phase_engine()
+    smi = phase_card()
+    timed_phase("build", phase_build)
+    measured = timed_phase("kernels", phase_kernels)
+    launches = timed_phase("engine", phase_engine)
+    gc.collect()  # the engine's weights go with its phase
+    torch.cuda.empty_cache()
+    training = timed_phase("train_kernels", phase_train_kernels)
+    timed_phase("train_compare", phase_train_compare)
+    train_launches = timed_phase("train", phase_train)
     rms = measured["rmsnorm"][0]  # rows = batch: the decode path's shape
     main_case = next(p for p in measured["paged_attention"]
                      if p["case"] == "main" and p["cold"] == "pinned_host")
@@ -444,8 +858,18 @@ def main() -> int:
          "launches": launches["rmsnorm"], "max_abs_err": rms_err,
          **{k: rms[k] for k in keys}},
     ]}
+    for name, source, replaces in (
+            ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:93"),
+            ("flash_attention_bwd", "flash_attention.cu", "src/repro/models/layers.py:221"),
+            ("fused_adam", "fused_adam.cu", "src/repro/kernels/fused_adam.py:48")):
+        row = training[name]
+        summary["kernels"].append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": row["max_abs_err"], **{k: row[k] for k in keys}})
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps(summary), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,79 @@
+"""Chunk inventory of a model in execution order (paper §3.1.1, §B.1).
+
+Copy of ``src/repro/core/chunks.py:27-92``: the embedding chunk, one chunk
+per superblock repeat, then the head. The launcher and ``chip_smoke.py``
+count chunks and model-state bytes with it. The fixed-size chunk search
+comes with the planner slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.models.layers import ParamDef
+
+BYTES = {"bfloat16": 2, "float32": 4, "float16": 2}
+
+
+def _defs_leaves(defs) -> list[ParamDef]:
+    if isinstance(defs, ParamDef):
+        return [defs]
+    return [d for k in sorted(defs) for d in _defs_leaves(defs[k])]
+
+
+def _tree_param_bytes(defs) -> tuple[int, int]:
+    """(total param count, total param bytes) of a ParamDef tree."""
+    leaves = _defs_leaves(defs)
+    count = sum(math.prod(d.shape) for d in leaves)
+    nbytes = sum(math.prod(d.shape) * BYTES[d.dtype] for d in leaves)
+    return count, nbytes
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkInfo:
+    index: int  # execution order
+    name: str
+    param_count: int
+    param_bytes: int  # compute-dtype bytes
+    is_block: bool  # True for superblock chunks (have activations/FLOPs)
+    block_index: int = -1  # which activation block this chunk backs
+
+    @property
+    def grad_bytes(self) -> int:
+        return self.param_bytes  # grads kept in compute dtype
+
+    @property
+    def optim_bytes(self) -> int:
+        # fp32 master + Adam m + v (mixed-precision training, paper §2)
+        return 12 * self.param_count
+
+
+def chunk_inventory(cfg: ModelConfig) -> list[ChunkInfo]:
+    """Execution-order chunks: [embed] [superblock x R] [head]."""
+    defs = M.param_defs(cfg)
+    r = M.num_repeats(cfg)
+    cnt, nbytes = _tree_param_bytes({"embed": defs["embed"]})
+    chunks = [ChunkInfo(0, "embed", cnt, nbytes, is_block=False)]
+    # one chunk per superblock repeat; stacked defs are divided evenly by R
+    cnt_all, bytes_all = _tree_param_bytes(defs["blocks"])
+    per_cnt, per_bytes = cnt_all // r, bytes_all // r
+    for i in range(r):
+        chunks.append(ChunkInfo(1 + i, f"superblock{i}", per_cnt, per_bytes, is_block=True,
+                                block_index=i))
+    tail = {"final_norm": defs["final_norm"]}
+    if "head" in defs:
+        tail["head"] = defs["head"]
+    cnt, nbytes = _tree_param_bytes(tail)
+    chunks.append(ChunkInfo(1 + r, "head", cnt, nbytes, is_block=False))
+    return chunks
+
+
+def total_param_count(chunks: list[ChunkInfo]) -> int:
+    return sum(c.param_count for c in chunks)
+
+
+def model_state_bytes(chunks: list[ChunkInfo]) -> int:
+    """Full mixed-precision model states: ~16 bytes/param (paper §1)."""
+    return sum(c.param_bytes + c.grad_bytes + c.optim_bytes for c in chunks)

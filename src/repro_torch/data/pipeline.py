@@ -1,0 +1,68 @@
+"""Deterministic synthetic token streams, placed on a device.
+
+Port of ``src/repro/data/pipeline.py`` (``:30-125``). Batches are made per
+(seed, step) with the same numpy generator and arithmetic as the JAX
+pipeline, so both give the same tokens, and restoring a checkpoint at step
+N reproduces the batches the interrupted run would have seen. The host
+prefetch thread and the frames and image patches of the encoder-decoder
+and vision families are not ported: the training loop takes one batch a
+step with ``next_sync``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+
+_FAMILIES_TODO = "ROADMAP.md, port queue 4: the other families"
+
+
+@dataclasses.dataclass
+class PipelineState:
+    seed: int
+    step: int
+
+
+class SyntheticTokenPipeline:
+    """Markov-ish synthetic LM batches (learnable structure, not noise).
+    ``device``: where batches are placed (the caller's; tensors are int32)."""
+
+    def __init__(self, cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,
+                 start_step: int = 0, device="cpu"):
+        if cfg.kind == "encdec" or cfg.frontend == "vision_patches":
+            raise NotImplementedError(f"{cfg.name}: frames / patches ({_FAMILIES_TODO})")
+        self.cfg = cfg
+        self.shape = shape
+        self.seed = seed
+        self.step = start_step
+        self.device = torch.device(device)
+
+    # --- synthesis ----------------------------------------------------------
+    def _make_host_batch(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed << 32) ^ step)
+        b, s, v = self.shape.global_batch, self.shape.seq_len, self.cfg.vocab_size
+        # tokens follow t_{i+1} = (a * t_i + b) % v with per-sequence (a, b)
+        a = rng.integers(1, 17, size=(b, 1))
+        c = rng.integers(0, v, size=(b, 1))
+        t0 = rng.integers(0, v, size=(b, 1))
+        idx = np.arange(s)[None, :]
+        tokens = ((a ** (idx % 5 + 1)) * t0 + c * idx) % v
+        tokens = tokens.astype(np.int32)
+        labels = np.roll(tokens, -1, axis=1)
+        return {"tokens": tokens, "labels": labels}
+
+    def _place(self, host: dict) -> dict:
+        return {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+
+    def next_sync(self) -> dict:
+        """The batch of the current step, on the device; advances the step."""
+        batch = self._place(self._make_host_batch(self.step))
+        self.step += 1
+        return batch
+
+    # --- checkpointable state -----------------------------------------------
+    def state(self) -> PipelineState:
+        return PipelineState(seed=self.seed, step=self.step)

@@ -3,7 +3,9 @@
 A CPU tensor gets the plain PyTorch version (``ref.py``); a CUDA tensor gets
 the hand-written kernel, which raises on anything it does not take. There is
 no fallback from one to the other. Launch counts of the kernels:
-``launch_counts`` / ``reset_launch_counts``.
+``launch_counts`` / ``reset_launch_counts``. ``fused_rmsnorm`` carries a
+gradient (``rmsnorm.RMSNormFn``) when grad mode is on and an input requires
+it; the serving path, under ``inference_mode``, calls the forward alone.
 """
 from __future__ import annotations
 
@@ -23,6 +25,11 @@ def _route(t: torch.Tensor, what: str) -> bool:
 
 
 def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        from repro_torch.kernels.rmsnorm import RMSNormFn
+
+        _route(x, "rmsnorm")
+        return RMSNormFn.apply(x, scale, eps)
     if _route(x, "rmsnorm"):
         from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
@@ -40,5 +47,43 @@ def decode_paged_attention(q, k_hot, v_hot, k_cold, v_cold, sel, mask, *, n_hot:
     return ref.paged_attention_ref(q, k_hot, v_hot, k_cold, v_cold, sel, mask)
 
 
-__all__ = ["decode_paged_attention", "fused_rmsnorm", "launch_counts",
-           "reset_launch_counts"]
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
+    """Attention forward with its log-sum-exp. q: (B, Sq, Hq, hd); k, v:
+    (B, Sk, Hkv, hd). Returns out (B, Sq, Hq, hd) and lse (B, Hq, Sq) fp32."""
+    if _route(q, "flash_attention"):
+        from repro_torch.kernels.flash_cuda import flash_attention_cuda
+
+        return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return ref.attention_lse_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
+    """(dq, dk, dv) of ``flash_attention`` for the cotangent ``dout``."""
+    if _route(q, "flash_attention_bwd"):
+        from repro_torch.kernels.flash_cuda import flash_attention_bwd_cuda
+
+        return flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal, window=window,
+                                        q_offset=q_offset)
+    return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window,
+                                       q_offset=q_offset)
+
+
+def fused_adam_update(p, g, master, m, v, scalars):
+    """One Adam step of a leaf, in place on p, master, m and v; routed by
+    p's device. ``scalars``: (8,) fp32 on p's device, ``[lr, b1, b2, eps,
+    wd, bc1, bc2, 0]``. Returns (p, master, m, v)."""
+    if _route(p, "fused_adam"):
+        from repro_torch.kernels.fused_adam import fused_adam_cuda
+
+        return fused_adam_cuda(p, g, master, m, v, scalars)
+    lr, b1, b2, eps, wd, bc1, bc2, _ = scalars.unbind()
+    outs = ref.fused_adam_ref(p, g, master, m, v, lr=lr, b1=b1, b2=b2, eps=eps,
+                              weight_decay=wd, bc1=bc1, bc2=bc2)
+    for dst, src in zip((p, master, m, v), outs):
+        dst.copy_(src)
+    return p, master, m, v
+
+
+__all__ = ["decode_paged_attention", "flash_attention", "flash_attention_bwd",
+           "fused_adam_update", "fused_rmsnorm", "launch_counts", "reset_launch_counts"]

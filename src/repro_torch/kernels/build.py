@@ -30,7 +30,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("rmsnorm", "paged_attention")
+KERNELS = ("rmsnorm", "paged_attention", "flash_attention", "flash_attention_bwd", "fused_adam")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB: ctypes.CDLL | None = None
@@ -118,6 +118,15 @@ def load_library() -> ctypes.CDLL:
     lib.repro_paged_attention.restype = i32
     lib.repro_paged_attention_smem_bytes.argtypes = [i32, i32, i32]
     lib.repro_paged_attention_smem_bytes.restype = i64
+    llp = ctypes.POINTER(ctypes.c_longlong)
+    lib.repro_flash_attention_fwd.argtypes = [vp] * 5 + [llp, llp, i32, i32, i32,
+                                                         ctypes.c_float, vp]
+    lib.repro_flash_attention_fwd.restype = i32
+    lib.repro_flash_attention_bwd.argtypes = [vp] * 10 + [llp, llp, i32, i32, i32,
+                                                          ctypes.c_float, vp]
+    lib.repro_flash_attention_bwd.restype = i32
+    lib.repro_fused_adam.argtypes = [vp] * 6 + [i64, i32, i32, vp]
+    lib.repro_fused_adam.restype = i32
     lib.repro_error_string.argtypes = [i32]
     lib.repro_error_string.restype = ctypes.c_char_p
     _LIB = lib

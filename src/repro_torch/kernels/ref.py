@@ -1,8 +1,13 @@
 """Plain PyTorch versions of the ported kernels.
 
 Op for op the oracles of ``src/repro/kernels/ref.py`` (``rmsnorm_ref``,
-``paged_attention_ref``). The CPU path of the kernels package runs these,
-and the tests and ``chip_smoke.py`` hold the CUDA kernels against them.
+``paged_attention_ref``, ``flash_attention_ref``, ``fused_adam_ref``), plus
+the plain versions of what the training kernels compute beyond them:
+``attention_lse_ref`` (the forward with its log-sum-exp),
+``flash_attention_bwd_ref`` (``models/layers.py::_mea_bwd`` over the whole
+row) and ``rmsnorm_bwd_ref``. The CPU path of the kernels package runs
+these, and the tests and ``chip_smoke.py`` hold the CUDA kernels against
+them.
 """
 from __future__ import annotations
 
@@ -42,3 +47,122 @@ def paged_attention_ref(q, k_hot, v_hot, k_cold, v_cold, sel, mask):
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v.float())
     return out.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+def _mask(sq: int, sk: int, causal: bool, window: int, q_offset: int, device) -> torch.Tensor:
+    """(Sq, Sk) bool: True where query row i (at position i + q_offset) attends key j."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, Hq, Sq, hd); k, v: (B, Hkv, Sk, hd). fp32 softmax, output in q's dtype."""
+    b, hq, sq, hd = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qh = q.reshape(b, hkv, g, sq, hd).float() / math.sqrt(hd)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qh, k.float())
+    mask = _mask(sq, sk, causal, window, 0, q.device)
+    logits = torch.where(mask, logits, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return out.reshape(b, hq, sq, hd).to(q.dtype)
+
+
+def _per_kv_head(q, hkv):
+    """(kv head, its G query heads) for (B, S, Hq, hd) queries, so the (G,
+    Sq, Sk) scores of one group are live at a time."""
+    g = q.shape[2] // hkv
+    return [(h, q[:, :, h * g:(h + 1) * g]) for h in range(hkv)]
+
+
+def attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
+    """What the flash forward kernel computes, over the whole row at once.
+
+    q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd). Returns out (B, Sq, Hq, hd)
+    in q's dtype and the fp32 log-sum-exp (B, Hq, Sq), with
+    ``_mea_forward``'s rounding points: fp32 scores, p rounded to v's dtype
+    before P.V with fp32 accumulation, out = acc / max(l, 1e-30),
+    lse = m + log(max(l, 1e-30)); masked pairs weigh exactly 0.
+    """
+    b, sq, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    mask = _mask(sq, sk, causal, window, q_offset, q.device)
+    outs, lses = [], []
+    for h, qg in _per_kv_head(q, hkv):
+        s = torch.einsum("bqgd,bsd->bgqs", qg.float(), k[:, :, h].float()) * scale
+        s = torch.where(mask, s, torch.tensor(float("-inf"), device=q.device))
+        m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        acc = torch.einsum("bgqs,bsd->bqgd", p.to(v.dtype).float(), v[:, :, h].float())
+        outs.append(acc / l.permute(0, 2, 1, 3))
+        lses.append((m + torch.log(l))[..., 0])
+    out = torch.cat(outs, dim=2).to(q.dtype)
+    return out, torch.cat(lses, dim=1)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
+                            q_offset: int = 0):
+    """``_mea_bwd``'s arithmetic over the whole row: (dq, dk, dv).
+
+    Layouts as ``attention_lse_ref``; ``lse`` (B, Hq, Sq) fp32. p =
+    exp(s - lse) in fp32, rounded to dout's dtype for dV; delta =
+    rowsum(dout * out) in fp32; ds = p * (dp - delta) * scale, rounded to q's
+    dtype for dQ and dK; products accumulate in fp32.
+    """
+    b, sq, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(hd)
+    mask = _mask(sq, sk, causal, window, q_offset, q.device)
+    delta = (dout.float() * out.float()).sum(-1)  # (B, Sq, Hq)
+    dqs, dks, dvs = [], [], []
+    for h, qg in _per_kv_head(q, hkv):
+        heads = slice(h * g, (h + 1) * g)
+        kh, vh, dog = k[:, :, h].float(), v[:, :, h].float(), dout[:, :, heads]
+        s = torch.einsum("bqgd,bsd->bgqs", qg.float(), kh) * scale
+        p = torch.exp(s - lse[:, heads, :, None])
+        p = torch.where(mask, p, torch.zeros((), device=q.device))
+        dv = torch.einsum("bgqs,bqgd->bsd", p.to(dout.dtype).float(), dog.float())
+        dp = torch.einsum("bqgd,bsd->bgqs", dog.float(), vh)
+        ds = p * (dp - delta[:, :, heads].permute(0, 2, 1)[..., None]) * scale
+        dsd = ds.to(q.dtype).float()
+        dqs.append(torch.einsum("bgqs,bsd->bqgd", dsd, kh))
+        dks.append(torch.einsum("bgqs,bqgd->bsd", dsd, qg.float()))
+        dvs.append(dv)
+    dq = torch.cat(dqs, dim=2).to(q.dtype)
+    dk = torch.stack(dks, dim=2).to(k.dtype)
+    dv = torch.stack(dvs, dim=2).to(v.dtype)
+    return dq, dk, dv
+
+
+def rmsnorm_bwd_ref(x, scale, dy, eps: float = 1e-6):
+    """Gradients (dx, dscale) of ``rmsnorm_ref`` at (x, scale) for the
+    cotangent dy, in fp32, cast to x's and scale's dtypes."""
+    xf, dyf = x.float(), dy.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    n = (xf * r).to(x.dtype).float()
+    dscale = (dyf * n).reshape(-1, x.shape[-1]).sum(0)
+    dn = dyf * scale.float()
+    dx = dn * r - xf * (r ** 3) * (dn * xf).mean(dim=-1, keepdim=True)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def fused_adam_ref(p, g, master, m, v, *, lr, b1, b2, eps, weight_decay, bc1, bc2):
+    """Returns (p_new, master_new, m_new, v_new); new tensors, inputs untouched."""
+    gf = g.float()
+    m_new = b1 * m + (1 - b1) * gf
+    v_new = b2 * v + (1 - b2) * gf * gf
+    upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    if weight_decay:
+        upd = upd + weight_decay * master
+    master_new = master - lr * upd
+    return master_new.to(p.dtype), master_new, m_new, v_new

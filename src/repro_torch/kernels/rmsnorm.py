@@ -2,13 +2,16 @@
 
 Replaces the Pallas ``src/repro/kernels/rmsnorm.py::rmsnorm``. Takes CUDA
 tensors only; the kernels package sends CPU tensors to
-``ref.rmsnorm_ref`` instead.
+``ref.rmsnorm_ref`` instead. ``RMSNormFn`` gives the forward a gradient:
+the JAX package differentiates RMSNorm with XLA's autodiff, which has no
+Pallas kernel to port, so its backward is the plain ``ref.rmsnorm_bwd_ref``
+in fp32 on either device (a backward kernel is queued in ROADMAP.md).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -35,3 +38,22 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> tor
     build.check(lib, rc, "rmsnorm launch")
     build.count_launch("rmsnorm")
     return out
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm with a gradient: forward by device (the kernel on CUDA, the
+    plain version on the CPU), backward ``ref.rmsnorm_bwd_ref``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        if x.device.type == "cuda":
+            return rmsnorm_cuda(x, scale, eps)
+        return ref.rmsnorm_ref(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = ref.rmsnorm_bwd_ref(x, scale, dy, ctx.eps)
+        return dx, dscale, None

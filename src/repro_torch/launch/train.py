@@ -1,0 +1,94 @@
+"""End-to-end training launcher of the port.
+
+    python -m repro_torch.launch.train --arch stablelm-3b --reduced \\
+        --steps 4 --batch 2 --seq 64 --plan resident --device cpu
+
+The PyTorch counterpart of ``src/repro/launch/train.py``: picks the
+architecture (``--reduced``: the tiny same-family config), builds the plan
+(``resident``: every chunk persistent, no remat; ``fsdp``: every block
+checkpointed), the plan-realized step, the synthetic data pipeline and the
+fault-tolerant loop with checkpoints and auto-resume. Weights are random,
+drawn on the device from ``--seed``. Runs on CUDA unless ``--device cpu``.
+Prints one JSON summary line. ``--plan auto`` and ``--target-hw`` need the
+planner, which is not ported yet: they raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from repro_torch.ckpt.checkpoint import CheckpointManager
+from repro_torch.compat import resolve_device
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.chunks import chunk_inventory, model_state_bytes
+from repro_torch.core.plan import MemoryPlan, fully_resident_plan
+from repro_torch.data.pipeline import SyntheticTokenPipeline
+from repro_torch.models.model import num_repeats
+from repro_torch.optim.adam import AdamConfig, cosine_schedule
+from repro_torch.train.loop import LoopConfig, train_loop
+from repro_torch.train.step_builder import build_train_step
+
+_PLANNER_TODO = "ROADMAP.md, port queue 2: the planner (hardware, profiler, cost model, autotuner)"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--reduced", action="store_true",
+                    help="train the reduced (smoke-scale) variant of the arch")
+    ap.add_argument("--target-hw", default=None, help="plan against this hardware (planner)")
+    ap.add_argument("--plan", default="resident", choices=["auto", "resident", "fsdp"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="default: cuda (raises without it)")
+    args = ap.parse_args(argv)
+
+    if args.plan == "auto" or args.target_hw is not None:
+        raise NotImplementedError(f"--plan auto / --target-hw ({_PLANNER_TODO})")
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    chunks = chunk_inventory(cfg)
+    nc, nb = len(chunks), num_repeats(cfg)
+    if args.plan == "fsdp":  # one device: every chunk already resident; checkpoint all
+        plan = MemoryPlan(n_chunks=nc, n_blocks=nb, n_persist=nc, n_checkpoint=nb)
+    else:
+        plan = fully_resident_plan(nc, nb)
+    print(f"[train] arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
+          f"state={model_state_bytes(chunks) / 1e9:.2f}GB device={device} "
+          f"plan={plan.describe()}")
+
+    art = build_train_step(
+        cfg, plan, device, shape, adam=AdamConfig(lr=args.lr),
+        lr_schedule=cosine_schedule(args.lr, warmup=min(20, args.steps // 10 + 1),
+                                    total=args.steps))
+    pipe = SyntheticTokenPipeline(cfg, shape, seed=args.seed, device=device)
+    mgr = CheckpointManager(args.ckpt_dir, keep=2) if args.ckpt_dir else None
+    res = train_loop(art, pipe, mgr,
+                     LoopConfig(total_steps=args.steps, checkpoint_every=args.ckpt_every,
+                                log_every=max(1, args.steps // 20)),
+                     generator=torch.Generator(device=device).manual_seed(args.seed))
+    print(json.dumps({
+        "arch": cfg.name,
+        "device": str(device),
+        "steps": res.steps_run,
+        "first_loss": res.losses[0] if res.losses else None,
+        "final_loss": res.losses[-1] if res.losses else None,
+        "resumed_from": res.resumed_from,
+        "straggler_events": res.straggler_events,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -20,10 +20,12 @@ def _leaf_from_numpy(a, device) -> torch.Tensor:
 
 
 def tree_from_numpy(tree, device="cpu"):
-    """Nested dict of numpy arrays (e.g. ``jax.device_get`` of a JAX param or
-    cache tree) -> the same nested dict of tensors on ``device``."""
+    """Nested dict (or list) of numpy arrays (e.g. ``jax.device_get`` of a JAX
+    param, train-state or cache tree) -> the same tree of tensors on ``device``."""
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_from_numpy(v, device) for v in tree]
     return _leaf_from_numpy(tree, device)
 
 
@@ -39,4 +41,6 @@ def tree_to_numpy(tree):
     """The inverse of ``tree_from_numpy``, for the tests."""
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
     return _leaf_to_numpy(tree)

@@ -1,11 +1,13 @@
-"""Transformer layers for decoding: norms, RoPE, attention and MLP params.
+"""Transformer layers: norms, RoPE, attention and the MLP.
 
-Port of ``src/repro/models/layers.py`` (``:27-113`` and ``:293-385``). Layers
-are plain functions of a parameter dict and tensors; parameter *definitions*
-(shape, init, axis tags) sit beside them. RMSNorm runs through the port's
-kernels package (the CUDA kernel on CUDA tensors, its plain version on CPU
-tensors). The blockwise training attention (``_mea``) comes with the
-training slice.
+Port of ``src/repro/models/layers.py`` (``:27-329`` and ``:332-385``).
+Layers are plain functions of a parameter dict and tensors; parameter
+*definitions* (shape, init, axis tags) sit beside them. RMSNorm runs
+through the port's kernels package (the CUDA kernel on CUDA tensors, its
+plain version on CPU tensors), with a gradient when one is needed. The
+training attention is ``blockwise_attention``: on CUDA tensors its forward
+and backward are the FlashAttention kernels; on CPU tensors they are the
+plain block loops of ``_mea_forward`` / ``_mea_bwd``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import kernels as K
 from repro_torch.kernels import fused_rmsnorm
 
 # Sharding axis tags, kept so the definitions read like the JAX package's.
@@ -56,10 +59,12 @@ class ParamDef:
 
 
 def map_defs(fn, defs):
-    """Apply ``fn`` to every ParamDef of a nested dict, keys in sorted order
-    (the order ``jax.tree`` flattens dicts in)."""
+    """Apply ``fn`` to every ParamDef of a nested dict (or list), keys in
+    sorted order (the order ``jax.tree`` flattens dicts in)."""
     if isinstance(defs, ParamDef):
         return fn(defs)
+    if isinstance(defs, list):
+        return [map_defs(fn, d) for d in defs]
     return {k: map_defs(fn, defs[k]) for k in sorted(defs)}
 
 
@@ -120,6 +125,177 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (layers.py:122-329)
+# ---------------------------------------------------------------------------
+def naive_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
+    """Reference attention. q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd). GQA
+    broadcast; fp32 softmax, probs cast to v's dtype before P.V."""
+    b, sq, hq, hd = q.shape
+    _, sk, hkv, _ = k.shape
+    groups = hq // hkv
+    qh = q.reshape(b, sq, hkv, groups, hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qh.float(), k.float())
+    logits = logits * (1.0 / math.sqrt(hd))
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    kpos = torch.arange(sk, device=q.device)
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > (qpos[:, None] - window)
+    logits = torch.where(mask, logits, torch.tensor(NEG_INF, device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(b, sq, hq, hd)
+
+
+def _attn_bias(sq, block_kv, blk_idx, sk, causal, window, q_offset, device):
+    """Additive (sq, block_kv) fp32 bias: 0 where attendable, NEG_INF where masked."""
+    kpos = blk_idx * block_kv + torch.arange(block_kv, device=device)
+    qpos = torch.arange(sq, device=device) + q_offset
+    mask = (kpos[None, :] < sk) & torch.ones(sq, 1, dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > (qpos[:, None] - window)
+    return torch.where(mask, 0.0, NEG_INF).float()
+
+
+def _mm32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum with fp32 accumulation (``preferred_element_type=float32``):
+    the inputs keep their values, widened to fp32."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def _mea_forward(q, k, v, sk, causal, window, q_offset, block_kv):
+    """Online-softmax forward over KV blocks. q: (B, Sq, Hkv, G, hd); k, v
+    padded to a multiple of ``block_kv``. Returns (out fp32, lse fp32)."""
+    b, sq, hkv, g, hd = q.shape
+    nblk = k.shape[1] // block_kv
+    scale = 1.0 / math.sqrt(hd)
+    acc = torch.zeros(b, sq, hkv, g, hd, dtype=torch.float32, device=q.device)
+    m = torch.full((b, sq, hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros(b, sq, hkv, g, dtype=torch.float32, device=q.device)
+    for j in range(nblk):
+        kblk = k[:, j * block_kv:(j + 1) * block_kv]
+        vblk = v[:, j * block_kv:(j + 1) * block_kv]
+        logits = _mm32("bqkgd,bskd->bqkgs", q, kblk) * scale
+        bias = _attn_bias(sq, block_kv, j, sk, causal, window, q_offset, q.device)
+        logits = logits + bias[None, :, None, None, :]
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        scale_old = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        denom = denom * scale_old + p.sum(dim=-1)
+        acc = acc * scale_old[..., None] + _mm32("bqkgs,bskd->bqkgd", p.to(vblk.dtype), vblk)
+        m = m_new
+    denom = denom.clamp_min(1e-30)
+    return acc / denom[..., None], m + torch.log(denom)
+
+
+def _mea_bwd(q, k, v, out, lse, dout, sk, causal, window, q_offset, block_kv):
+    """FlashAttention-style backward: p recomputed per KV block from lse."""
+    b, sq, hkv, g, hd = q.shape
+    nblk = k.shape[1] // block_kv
+    scale = 1.0 / math.sqrt(hd)
+    delta = (dout.float() * out.float()).sum(dim=-1)  # (b, sq, hkv, g)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for j in range(nblk):
+        kblk = k[:, j * block_kv:(j + 1) * block_kv]
+        vblk = v[:, j * block_kv:(j + 1) * block_kv]
+        logits = _mm32("bqkgd,bskd->bqkgs", q, kblk) * scale
+        bias = _attn_bias(sq, block_kv, j, sk, causal, window, q_offset, q.device)
+        logits = logits + bias[None, :, None, None, :]
+        p = torch.exp(logits - lse[..., None])
+        dvs.append(_mm32("bqkgs,bqkgd->bskd", p.to(dout.dtype), dout))
+        dp = _mm32("bqkgd,bskd->bqkgs", dout, vblk)
+        dsd = (p * (dp - delta[..., None]) * scale).to(q.dtype)
+        dq = dq + _mm32("bqkgs,bskd->bqkgd", dsd, kblk)
+        dks.append(_mm32("bqkgs,bqkgd->bskd", dsd, q))
+    dk = torch.cat(dks, dim=1).to(k.dtype)
+    dv = torch.cat(dvs, dim=1).to(v.dtype)
+    return dq.to(q.dtype), dk, dv
+
+
+class _MEA(torch.autograd.Function):
+    """``_mea`` (layers.py:209-259). q: (B, Sq, Hkv, G, hd). On CUDA the
+    FlashAttention kernels (unpadded k, v; the kernel masks the edge); on
+    the CPU the block loops over k, v padded to ``block_kv``. The
+    log-sum-exp is an output (non-differentiable), so a recomputing
+    checkpoint sees it as the forward's own result."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sk, causal, window, q_offset, block_kv):
+        ctx.args = (sk, causal, window, q_offset, block_kv)
+        if q.device.type == "cuda":
+            b, sq, hkv, g, hd = q.shape
+            out, lse = K.flash_attention(q.reshape(b, sq, hkv * g, hd), k, v, causal=causal,
+                                         window=window, q_offset=q_offset)
+            out = out.reshape(q.shape)
+        else:
+            out, lse = _mea_forward(q, k, v, sk, causal, window, q_offset, block_kv)
+            out = out.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        sk, causal, window, q_offset, block_kv = ctx.args
+        if q.device.type == "cuda":
+            b, sq, hkv, g, hd = q.shape
+            flat = lambda t: t.reshape(b, sq, hkv * g, hd)  # noqa: E731
+            dq, dk, dv = K.flash_attention_bwd(flat(q), k, v, flat(out), lse,
+                                               flat(dout.contiguous()), causal=causal,
+                                               window=window, q_offset=q_offset)
+            dq = dq.reshape(q.shape)
+        else:
+            dq, dk, dv = _mea_bwd(q, k, v, out, lse, dout, sk, causal, window, q_offset,
+                                  block_kv)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
+                        block_kv: int = 1024):
+    """Memory-efficient online-softmax attention with a FlashAttention-style
+    backward (layers.py:262-290). q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd)."""
+    b, sq, hq, hd = q.shape
+    _, sk, hkv, _ = k.shape
+    groups = hq // hkv
+    block_kv = min(block_kv, max(128, sk))
+    if q.device.type != "cuda" and sk % block_kv:
+        pad = block_kv - sk % block_kv
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qh = q.reshape(b, sq, hkv, groups, hd)
+    out, _ = _MEA.apply(qh, k, v, sk, causal, window, q_offset, block_kv)
+    return out.reshape(b, sq, hq, hd)
+
+
+def attention_block(params: dict, x: torch.Tensor, cfg, *, positions=None,
+                    impl: str = "blockwise", block_kv: int = 1024) -> torch.Tensor:
+    """Full causal self-attention over x: (B, S, D) -> (B, S, D)."""
+    b, s, d = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd)
+    k = (x @ params["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
+    v = (x @ params["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if impl == "blockwise":
+        out = blockwise_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                                  block_kv=min(block_kv, max(s, 128)))
+    elif impl == "naive":
+        out = naive_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    else:
+        raise ValueError(f"attention impl {impl!r}: 'blockwise' or 'naive'")
+    return out.reshape(b, s, cfg.num_heads * hd) @ params["wo"]
 
 
 # ---------------------------------------------------------------------------

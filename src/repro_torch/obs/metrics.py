@@ -225,6 +225,12 @@ NULL_REGISTRY = NullRegistry()
 # Metric names the port's instrumentation emits (serve/engine.py and
 # serve/scheduler.py); the JAX package's table is docs/observability.md.
 DOCUMENTED_METRICS = (
+    "train.step_time_s",
+    "train.loss",
+    "train.steps",
+    "train.nan_skips",
+    "train.straggler_events",
+    "train.device_mem_watermark_bytes",
     "serve.ticks",
     "serve.generated_tokens",
     "serve.admitted",

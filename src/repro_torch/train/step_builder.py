@@ -1,13 +1,28 @@
-"""Serving step builders: one decode step and one chunked-prefill step.
+"""Step builders: the plan-driven training step, one decode step and one
+chunked-prefill step, on one device.
 
-Port of the serving builders of ``src/repro/train/step_builder.py``
-(``build_decode_step(per_slot_pos=True)`` and ``build_prefill_step(chunk=C)``,
-``:756-923``) for one device and an all-persistent weight placement. Each
-builder returns a ``StepArtifacts`` whose ``fn(state, batch)`` runs the step
-under ``torch.inference_mode`` and returns ``(state, next_tok)``, the greedy
-argmax taken on the device. ``state`` is ``{"params", "cache"}``; the cache
-is written in place; the step runs where the state's tensors lie. The
-training builders come with the training slice.
+Port of ``src/repro/train/step_builder.py``: ``build_train_step``
+(``:126-583``, the xla-sync branch) and the serving builders
+(``build_decode_step(per_slot_pos=True)``, ``build_prefill_step(chunk=C)``,
+``:756-923``). Each returns a ``StepArtifacts``.
+
+Training: ``fn(state, batch) -> (state, metrics)`` runs one step in place on
+``state = {"params", "opt", "step"}``. The params keep the JAX tree,
+``{"embed", "runs": [...], "final_norm", "head"}`` with one ``(length, ...)``
+stacked subtree per run of the plan (``plan_runs``). The plan lowers so on
+one device: ``persist`` and ``hbm`` chunks are one placement, the device; a
+``host`` chunk with ``host_params=False`` (the ZeRO-Offload split) keeps its
+bf16 params on the device and its fp32 ``master``, ``m`` and ``v`` in
+**pinned host memory**, which the fused-Adam kernel reads and writes in
+place -- where the JAX package round-trips them through the device. The
+arithmetic is the same. The block policies become runs of ``none`` or
+``checkpoint`` superblocks (``models/model.apply_runs``), ``microbatch``
+the gradient accumulation of ``train/sync.accumulate_grads``.
+
+Serving: ``fn(state, batch)`` runs the step under ``torch.inference_mode``
+and returns ``(state, next_tok)``, the greedy argmax taken on the device.
+``state`` is ``{"params", "cache"}``; the cache is written in place; the
+step runs where the state's tensors lie.
 """
 from __future__ import annotations
 
@@ -16,18 +31,183 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.compat import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.plan import MemoryPlan
 from repro_torch.core.serve_plan import paging_from_plan
 from repro_torch.models import kvcache as KV
+from repro_torch.models import layers as L
+from repro_torch.models import model as M
+from repro_torch.optim import adam as OPT
 from repro_torch.serve.paging import PagedKV, PagingSpec
+from repro_torch.train.losses import chunked_cross_entropy
+from repro_torch.train.sync import accumulate_grads
+
+_HOST_FETCH_TODO = "ROADMAP.md, port queue 1: host weight fetch per run with n_buffer"
+_SYNC_TODO = "ROADMAP.md, port queue 5: distributed sync"
 
 
 @dataclasses.dataclass
 class StepArtifacts:
-    fn: Callable[[dict, dict], tuple[dict, torch.Tensor]]
-    paging: PagingSpec | None
-    kv_io: Any  # the cache hook the step threads through decode_step
+    fn: Callable[[dict, dict], tuple[dict, Any]]
+    plan: MemoryPlan | None = None
+    runs: list | None = None  # training: the plan's RunLayouts
+    init: Callable[[torch.Generator | None], dict] | None = None  # training: a fresh state
+    place_state: Callable[[dict], dict] | None = None  # training: a state around given params
+    grad_fn: Callable[[dict, dict], tuple] | None = None  # training: the step's gradients
+    paging: PagingSpec | None = None  # serving: the page geometry
+    kv_io: Any = None  # serving: the cache hook the step threads through decode_step
+
+
+# ---------------------------------------------------------------------------
+# Plan -> run layout (step_builder.py:51-90)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class RunLayout:
+    start: int  # first superblock repeat (== chunk index - 1)
+    length: int
+    placement: str  # persist | hbm | host
+    buffered: bool
+    act_policy: str  # none | checkpoint | swap | compress8 | compress16
+
+
+def plan_runs(plan: MemoryPlan, n_repeats: int) -> list[RunLayout]:
+    runs: list[RunLayout] = []
+    for r in range(n_repeats):
+        chunk = r + 1  # chunk 0 is the embedding
+        key = (
+            plan.chunk_placement(chunk),
+            plan.chunk_buffered(chunk),
+            plan.block_policy(min(r, plan.n_blocks - 1)),
+        )
+        if runs and (runs[-1].placement, runs[-1].buffered, runs[-1].act_policy) == key:
+            runs[-1].length += 1
+        else:
+            runs.append(RunLayout(r, 1, *key))
+    return runs
+
+
+def _slice_run_defs(block_defs, length: int):
+    """Stacked (R, ...) ParamDefs -> (length, ...) defs for one run."""
+    return L.map_defs(lambda d: dataclasses.replace(d, shape=(length,) + d.shape[1:]),
+                      block_defs)
+
+
+def check_train_plan(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig) -> None:
+    """Raise ``NotImplementedError`` (naming the ROADMAP item) for what this
+    slice does not run, and ``ValueError`` for a plan that does not fit the
+    model or the batch."""
+    if plan.sync_mode != "xla" or plan.grad_compress != "none":
+        raise NotImplementedError(
+            f"sync_mode={plan.sync_mode!r}, grad_compress={plan.grad_compress!r}: one device "
+            f"runs the plain reduction only ({_SYNC_TODO})")
+    if plan.host_param_chunks and plan.host_params:
+        raise NotImplementedError(f"host_params=True ({_HOST_FETCH_TODO})")
+    for pol in set(plan.block_policies()):
+        M.check_act_policy(pol)
+    n_rep = M.num_repeats(cfg)
+    if plan.n_chunks != n_rep + 2 or plan.n_blocks != n_rep:
+        raise ValueError(f"plan {plan.describe()} does not fit {cfg.name}: it has "
+                         f"{n_rep + 2} chunks and {n_rep} blocks")
+    if shape.global_batch % plan.microbatch:
+        raise ValueError(f"global batch {shape.global_batch} does not split into "
+                         f"{plan.microbatch} microbatches")
+
+
+def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeConfig, *,
+                     adam: OPT.AdamConfig | None = None, attn_impl: str = "blockwise",
+                     ce_chunk: int = 2048,
+                     lr_schedule: Callable[[int], float] | None = None) -> StepArtifacts:
+    """The plan-driven training step on one device (CUDA unless ``device``
+    says otherwise). ``batch``: ``tokens`` and ``labels``, (B, S) integer on
+    the device. ``metrics``: ``loss``, ``ce``, ``grad_norm`` (device scalars)
+    and ``lr``."""
+    device = resolve_device(device)
+    adam = adam or OPT.AdamConfig()
+    check_train_plan(cfg, plan, shape)
+    runs_layout = plan_runs(plan, M.num_repeats(cfg))
+    defs = M.param_defs(cfg)
+    p_defs: dict[str, Any] = {
+        "embed": defs["embed"],
+        "final_norm": defs["final_norm"],
+        "runs": [_slice_run_defs(defs["blocks"], r.length) for r in runs_layout],
+    }
+    if "head" in defs:
+        p_defs["head"] = defs["head"]
+    # optimizer states in pinned host memory, per subtree (on a CPU device
+    # the host is the device: nothing moves)
+    pin = device.type == "cuda"
+    head_chunk = plan.chunk_placement(plan.n_chunks - 1)
+    state_on_host = {
+        "embed": pin and plan.chunk_placement(0) == "host",
+        "final_norm": pin and head_chunk == "host",
+        "head": pin and head_chunk == "host",
+        "runs": [pin and r.placement == "host" for r in runs_layout],
+    }
+
+    def make_runs(params) -> list[M.Run]:
+        return [M.Run(params=params["runs"][i], n_repeats=r.length, act_policy=r.act_policy,
+                      ckpt_group=plan.ckpt_group)
+                for i, r in enumerate(runs_layout)]
+
+    def loss_fn(params, batch):
+        h = M.forward(params, batch, cfg, runs=make_runs(params), attn_impl=attn_impl)
+        h = L.apply_norm(params["final_norm"], h, cfg.norm)
+        w = params["embed"]["tok"].T if cfg.tie_embeddings else params["head"]["w"]
+        return chunked_cross_entropy(h, w, batch["labels"], ce_chunk=ce_chunk)
+
+    def grad_fn(state: dict, batch: dict):
+        """The step's gradients and loss: (grads tree, loss), accumulated
+        over the plan's microbatches."""
+        params = state["params"]
+        flat = OPT.tree_leaves(params)
+
+        def micro_grad(mb_batch):
+            loss = loss_fn(params, mb_batch)
+            grads = iter(torch.autograd.grad(loss, flat))
+            return OPT.tree_map(lambda _: next(grads), params), loss.detach()
+
+        return accumulate_grads(micro_grad, batch, plan.microbatch)
+
+    def step_fn(state: dict, batch: dict):
+        params = state["params"]
+        grads, loss = grad_fn(state, batch)
+        lr = lr_schedule(state["step"]) if lr_schedule else adam.lr
+        gnorm = OPT.adam_update(params, grads, state["opt"], adam, lr)
+        state["step"] += 1
+        # a dense model has no aux loss: the total is the cross-entropy
+        return state, {"loss": loss, "ce": loss, "grad_norm": gnorm, "lr": lr}
+
+    def place_state(params: dict) -> dict:
+        """``{"params", "opt", "step"}`` around ``params`` (tensors on the
+        device, in the tree above), fresh optimizer states placed by plan."""
+        opt = OPT.init_opt_state(params)
+        for key in ("master", "m", "v"):
+            tree = opt[key]
+            for name, on_host in state_on_host.items():
+                if name == "runs":
+                    tree["runs"] = [to_pinned(t) if h else t
+                                    for t, h in zip(tree["runs"], on_host)]
+                elif on_host and name in tree:
+                    tree[name] = to_pinned(tree[name])
+        for p in OPT.tree_leaves(params):
+            p.requires_grad_(True)
+        return {"params": params, "opt": opt, "step": 0}
+
+    def init(generator: torch.Generator | None = None) -> dict:
+        """A fresh state drawn from ``generator`` (on the device; default: seed 0)."""
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        return place_state(L.init_tree(p_defs, generator, device))
+
+    return StepArtifacts(fn=step_fn, plan=plan, runs=runs_layout, init=init,
+                         place_state=place_state, grad_fn=grad_fn)
+
+
+def to_pinned(tree):
+    """A copy of a tree in pinned host memory."""
+    return OPT.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        .copy_(t), tree)
 
 
 def _serve_layout(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig,

@@ -8,7 +8,15 @@ only torch and the port, so it runs on a machine without JAX:
 Tolerance: bf16 outputs compared in fp32. RMSNorm: ``|k - p| <= 2e-2 * (1 +
 |p|)`` (the repository's bf16 bound). Paged attention, whose outputs are
 weighted means far below 1: ``|k - p| <= 2e-2 * max |p|`` over each (batch
-row, head), a few bf16 roundings of that head's output.
+row, head), a few bf16 roundings of that head's output. FlashAttention
+forward and backward (``chip_smoke.py``'s bound): O, dQ, dK and dV within
+``2e-2 * max |p|`` over each (batch, row, head), since a causal row's scale
+falls as 1/sqrt(q), plus ``1e-4 * max |p|`` over the (batch, head) for rows
+near 0; the fp32 log-sum-exp within ``1e-4 * (1 + |p|)``
+(fp32 sums in another order). Fused Adam: fp32 master, m and v within
+``1e-6 * (|p| + max |p|)`` (a few ulps: the kernel's FMAs and division
+order); bf16 p within one bf16 ulp, ``2^-7 * |p|``, plus the master's
+bound.
 """
 import pytest
 import torch
@@ -31,9 +39,18 @@ def _close(out, want):
     return bool(((out - want).abs() <= TOL * (1 + want.abs())).all())
 
 
-def _close_to_head_max(out, want):
+def _close_to_head_max(out, want, dims=-1):
     out, want = out.float(), want.float()
-    return bool(((out - want).abs() <= TOL * want.abs().amax(dim=-1, keepdim=True)).all())
+    return bool(((out - want).abs() <= TOL * want.abs().amax(dim=dims, keepdim=True)).all())
+
+
+def _close_per_row(out, want):
+    """(B, S, H, hd): within TOL * max |want| over each (batch, row, head),
+    plus 1e-4 * max |want| over each (batch, head)."""
+    out, want = out.float(), want.float()
+    mag = want.abs()
+    tol = TOL * mag.amax(dim=3, keepdim=True) + 1e-4 * mag.amax(dim=(1, 3), keepdim=True)
+    return bool(((out - want).abs() <= tol).all())
 
 
 @pytest.mark.cuda
@@ -87,3 +104,110 @@ def test_paged_attention_kernel_refuses_pageable_cold_and_long_rows():
     mask = torch.zeros(1, s, device="cuda")
     with pytest.raises(ValueError, match="split-KV"):
         K.decode_paged_attention(q, hot, hot, cold, cold, sel, mask, n_hot=1)
+
+
+def _attn_inputs(seed, b, s, hq, hkv, hd):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
+    return rnd(b, s, hq, hd), rnd(b, s, hkv, hd), rnd(b, s, hkv, hd), rnd(b, s, hq, hd)
+
+
+FLASH_CASES = [  # (b, s, hq, hkv, hd, causal, window)
+    (2, 200, 8, 2, 128, True, 0),
+    (1, 300, 4, 4, 64, True, 64),
+    (2, 130, 8, 1, 128, False, 0),
+    (1, 513, 8, 2, 128, True, 100),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(b, s, hq, hkv, hd, causal, window):
+    _require_card()
+    q, k, v, dout = _attn_inputs(s + hd, b, s, hq, hkv, hd)
+    before = K.launch_counts()
+    out, lse = K.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=causal, window=window).transpose(1, 2)
+    _, want_lse = ref.attention_lse_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention"] == before["flash_attention"] + 1
+    assert _close_per_row(out, want)
+    assert bool(((lse - want_lse).abs() <= 1e-4 * (1 + want_lse.abs())).all())
+
+    grads = K.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    for got, exp in zip(grads, wants):
+        assert got.shape == exp.shape and got.dtype == exp.dtype
+        assert _close_per_row(got, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("on_host", [False, True])
+@pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
+def test_fused_adam_kernel_matches_plain(on_host, g_dtype):
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n = (1000, 37)  # 37,000 elements: whole groups of 4 and no tail; + a tail case below
+    for shape in (n, (5, 7)):
+        master = torch.randn(*shape, device="cuda", generator=gen)
+        g = torch.randn(*shape, device="cuda", generator=gen).to(g_dtype)
+        m = 0.1 * torch.randn(*shape, device="cuda", generator=gen)
+        v = 0.01 * torch.rand(*shape, device="cuda", generator=gen)
+        p = master.bfloat16()
+        hp = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, bc1=0.271, bc2=0.142625)
+        scalars = torch.tensor([hp["lr"], hp["b1"], hp["b2"], hp["eps"], hp["weight_decay"],
+                                hp["bc1"], hp["bc2"], 0.0], device="cuda")
+        want = ref.fused_adam_ref(p, g, master, m, v, **hp)
+        states = [t.clone() for t in (master, m, v)]
+        if on_host:
+            states = [t.cpu().pin_memory() for t in states]
+        out = K.fused_adam_update(p.clone(), g, *states, scalars)
+        torch.cuda.synchronize()
+        p_tol = 2.0 ** -7 * want[0].float().abs() + 2e-6 * want[1].abs().max()
+        assert bool(((out[0].float() - want[0].float()).abs() <= p_tol).all())
+        for got, exp in zip(out[1:], want[1:]):
+            assert got.device == (torch.device("cpu") if on_host else exp.device)
+            got = got.to(exp.device)
+            assert bool(((got - exp).abs() <= 1e-6 * (exp.abs() + exp.abs().max())).all())
+
+
+@pytest.mark.cuda
+def test_fused_adam_kernel_refuses_pageable_states():
+    _require_card()
+    p = torch.zeros(8, device="cuda", dtype=torch.bfloat16)
+    dev = torch.zeros(8, device="cuda")
+    scalars = torch.ones(8, device="cuda")
+    with pytest.raises(ValueError, match="pinned"):
+        K.fused_adam_update(p, dev, torch.zeros(8), dev, dev, scalars)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mistral-7b", "gpt2-1b"])
+def test_train_step_runs_on_card(arch):
+    """Two steps of a small bf16 model through the training kernels (gpt2:
+    tied embeddings, LayerNorm, MHA), with a host chunk's states pinned."""
+    _require_card()
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.train.step_builder import build_train_step
+
+    cfg = reduced(get_config(arch), head_dim=64, num_kv_heads=2)
+    shape = ShapeConfig("card", 256, 2, "train")
+    plan = MemoryPlan(4, 2, n_persist=2, n_host=1, n_checkpoint=1, microbatch=2,
+                      host_params=False)
+    art = build_train_step(cfg, plan, "cuda", shape)
+    state = art.init(torch.Generator(device="cuda").manual_seed(0))
+    assert state["opt"]["master"]["final_norm"]["scale"].is_pinned()  # the head chunk's
+    pipe = SyntheticTokenPipeline(cfg, shape, device="cuda")
+    before = K.launch_counts()
+    for _ in range(2):
+        state, metrics = art.fn(state, pipe.next_sync())
+        assert torch.isfinite(metrics["loss"]).item()
+    after = K.launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd", "fused_adam"):
+        assert after[name] > before[name], name

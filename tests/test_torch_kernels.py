@@ -5,8 +5,11 @@ On the CPU the port's kernels package runs the plain versions
 (``repro.kernels.ref``), the Pallas kernels in interpret mode, and the model
 path's ``layers.rmsnorm``. Tolerances, as ``atol = rtol`` after casting to
 fp32: fp32 1e-4 (XLA and torch sum in different orders), bf16 2e-2 (the bf16
-bound of tests/test_kernels.py). The CUDA kernels are held against the same plain
-versions on the card in tests/test_torch_cuda.py.
+bound of tests/test_kernels.py). The training kernels' plain versions
+(FlashAttention forward with its log-sum-exp, its backward, fused Adam, the
+RMSNorm backward) are compared in fp32 at 1e-4 as well. The CUDA kernels
+are held against the same plain versions on the card in
+tests/test_torch_cuda.py.
 """
 import jax
 import jax.numpy as jnp
@@ -16,9 +19,13 @@ import torch
 
 from repro.kernels import ops as JOPS
 from repro.kernels import ref as JR
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.fused_adam import fused_adam as j_fused_adam
 from repro.models import layers as JL
+from repro.optim import adam as JADAM
 from repro_torch import kernels as K
 from repro_torch.kernels import ref as TR
+from repro_torch.optim import adam as TADAM
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -131,6 +138,116 @@ def test_paged_attention_every_row_masked_matches_oracle():
 
 
 # ---------------------------------------------------------------------------
+# FlashAttention: a subset of tests/test_kernels.py:23-42's sweep
+# ---------------------------------------------------------------------------
+FLASH_SWEEP = [  # (b, hq, hkv, s, hd, window)
+    (1, 4, 4, 128, 64, 0),    # MHA
+    (2, 8, 2, 128, 64, 0),    # GQA 4:1
+    (1, 8, 1, 64, 32, 0),     # MQA
+    (2, 4, 4, 100, 64, 0),    # ragged S
+    (2, 8, 2, 128, 64, 48),   # sliding window 48
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,hd,window", FLASH_SWEEP)
+def test_flash_attention_plain_matches_jax(b, hq, hkv, s, hd, window):
+    rng = np.random.default_rng(s + hq + window)
+    q = rng.standard_normal((b, hq, s, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((b, hkv, s, hd)).astype(np.float32) for _ in range(2))
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out = TR.flash_attention_ref(tq, tk, tv, causal=True, window=window)
+    for name, ref in (("ref.flash_attention_ref",
+                       JR.flash_attention_ref(jq, jk, jv, causal=True, window=window)),
+                      ("flash_attention (Pallas interpret)",
+                       j_flash(jq, jk, jv, causal=True, window=window, block_q=64, block_k=64,
+                               interpret=True))):
+        _assert_close(out, ref, "float32", name)
+    # the kernels package's CPU route, in the model's (B, S, H, hd) layout
+    o2, lse = K.flash_attention(*(t.transpose(1, 2) for t in (tq, tk, tv)), window=window)
+    _assert_close(o2.transpose(1, 2), out, "float32", "attention_lse_ref")
+    assert lse.shape == (b, hq, s) and torch.isfinite(lse).all()
+
+
+def test_flash_attention_bwd_plain_matches_jax_grad():
+    """The whole-row backward against jax.vjp of the JAX oracle."""
+    rng = np.random.default_rng(11)
+    b, hq, hkv, s, hd, window = 2, 8, 2, 96, 32, 40
+    q, do = (rng.standard_normal((b, s, hq, hd)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, s, hkv, hd)).astype(np.float32) for _ in range(2))
+    bhsd = lambda a: jnp.swapaxes(jnp.asarray(a), 1, 2)  # noqa: E731
+    _, vjp = jax.vjp(lambda q, k, v: JR.flash_attention_ref(q, k, v, causal=True, window=window),
+                     bhsd(q), bhsd(k), bhsd(v))
+    jgrads = [jnp.swapaxes(g, 1, 2) for g in vjp(bhsd(do))]
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = K.flash_attention(tq, tk, tv, window=window)
+    grads = K.flash_attention_bwd(tq, tk, tv, out, lse, tdo, window=window)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, jgrads):
+        _assert_close(got, want, "float32", name)
+
+
+# ---------------------------------------------------------------------------
+# Fused Adam and the RMSNorm backward
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("weight_decay", [0.0, 0.1])
+def test_fused_adam_plain_matches_jax(weight_decay):
+    rng = np.random.default_rng(5)
+    shape = (128, 257)
+    p, g, master = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    m = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+    v = (0.01 * np.abs(rng.standard_normal(shape))).astype(np.float32)
+    hp = dict(lr=3e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=weight_decay, bc1=0.271,
+              bc2=0.142625)
+    scal = jnp.asarray([hp["lr"], hp["b1"], hp["b2"], hp["eps"], weight_decay, hp["bc1"],
+                        hp["bc2"], 0.0], jnp.float32)
+    pallas = j_fused_adam(*(jnp.asarray(a) for a in (p, g, master, m, v)), scal, interpret=True)
+    jref = JR.fused_adam_ref(*(jnp.asarray(a) for a in (p, g, master, m, v)), **hp)
+    tensors = [torch.from_numpy(a.copy()) for a in (p, g, master, m, v)]
+    plain = TR.fused_adam_ref(*tensors, **hp)
+    inplace = K.fused_adam_update(*tensors, torch.from_numpy(np.array(scal)))
+    for i, name in enumerate(("p", "master", "m", "v")):
+        for ref_name, ref in (("ref", jref[i]), ("Pallas interpret", pallas[i])):
+            _assert_close(plain[i], ref, "float32", f"{name} vs {ref_name}")
+        _assert_close(inplace[i], plain[i], "float32", f"{name} in place")
+    assert inplace[1] is tensors[2]  # the update wrote the state tensor itself
+
+    # one adam_update step of a one-leaf tree, against the JAX optimizer
+    cfg = JADAM.AdamConfig(lr=3e-3, weight_decay=weight_decay)
+    jstate = {"master": {"w": jnp.asarray(master)}, "m": {"w": jnp.asarray(m)},
+              "v": {"w": jnp.asarray(v)}, "count": jnp.asarray(2, jnp.int32)}
+    jp, jst, jnorm = JADAM.adam_update({"w": jnp.asarray(p)}, {"w": jnp.asarray(g)}, jstate,
+                                       cfg, cfg.lr)
+    tcfg = TADAM.AdamConfig(lr=3e-3, weight_decay=weight_decay)
+    tstate = {"master": {"w": torch.from_numpy(master.copy())},
+              "m": {"w": torch.from_numpy(m.copy())}, "v": {"w": torch.from_numpy(v.copy())},
+              "count": 2}
+    tp = {"w": torch.from_numpy(p.copy())}
+    tnorm = TADAM.adam_update(tp, {"w": torch.from_numpy(g.copy())}, tstate, tcfg, tcfg.lr)
+    _assert_close(tnorm, jnorm, "float32", "grad norm")
+    _assert_close(tp["w"], jp["w"], "float32", "adam_update p")
+    for key in ("master", "m", "v"):
+        _assert_close(tstate[key]["w"], jst[key]["w"], "float32", f"adam_update {key}")
+    assert tstate["count"] == 3
+
+
+@pytest.mark.parametrize("shape", [(4, 128), (2, 3, 64)])
+def test_rmsnorm_bwd_plain_matches_jax_grad(shape):
+    rng = np.random.default_rng(9)
+    x, dy = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    s = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    _, vjp = jax.vjp(JR.rmsnorm_ref, jnp.asarray(x), jnp.asarray(s))
+    jdx, jds = vjp(jnp.asarray(dy))
+    tx, ts, tdy = (torch.from_numpy(a) for a in (x, s, dy))
+    dx, ds = TR.rmsnorm_bwd_ref(tx, ts, tdy)
+    _assert_close(dx, jdx, "float32", "dx")
+    _assert_close(ds, jds, "float32", "dscale")
+    # the kernels package differentiates through it
+    xr, sr = tx.clone().requires_grad_(), ts.clone().requires_grad_()
+    gx, gs = torch.autograd.grad(K.fused_rmsnorm(xr, sr), (xr, sr), tdy)
+    assert torch.equal(gx, dx) and torch.equal(gs, ds)
+
+
+# ---------------------------------------------------------------------------
 # The CUDA wrappers refuse what their kernels do not take
 # ---------------------------------------------------------------------------
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -144,3 +261,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         paged_attention_cuda(*tx, n_hot=2)
     with pytest.raises(ValueError, match="no kernel"):
         K.fused_rmsnorm(torch.ones(2, 8, device="meta"), torch.ones(8, device="meta"))
+    from repro_torch.kernels.flash_cuda import flash_attention_cuda
+    from repro_torch.kernels.fused_adam import fused_adam_cuda
+
+    q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, q, q)
+    z = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_adam_cuda(z, z, z, z, z, z)
