@@ -41,7 +41,27 @@ Phases, each printing one JSON line:
      pinned host memory; every loss finite, the first near ln 32000, each
      training kernel launched as often as the plan implies; it prints the
      median step time, tokens/s, peak device bytes, pinned host bytes and
-     the model-FLOP share of the bf16 peak (``mfu``).
+     the model-FLOP share of the bf16 peak (``mfu``);
+  8. ``train_policies``: the same model, seq 4096, global batch 2 in 2
+     microbatches, through ``build_train_step`` and ``train_loop``: one run
+     of 2 steps per uniform act policy (none, compress16, compress8,
+     checkpoint, swap; all chunks on the device), whose device bytes left
+     for the backward (``act_bytes``) must fall in that order; then 4 steps
+     of a mixed plan with every policy, host-resident weights (one ``none``
+     block fetched again for its backward, one block and the head
+     buffered) and host optimizer states, whose kernel launches, weight
+     bytes fetched, activation bytes swapped and quantizer calls must equal
+     what the plan implies; last, 2 steps of that plan and 2 of the same
+     act policies with every chunk on the device, from one init: losses
+     and final fp32 masters must agree bitwise (the host weights' fetches,
+     swaps and updates run on a side stream and through pinned memory,
+     and change no value).
+
+The fused int8 quantize kernel (``fused_quantize_ef``) is held to its
+plain version bitwise (q, scales and the residual) in phase 5, at the
+activation shape (4096 x 4096 bf16), the gradient-wire shape (4 x
+14,680,064 fp32) and edge rows; ``train_compare`` runs a second case under
+a ``compress8`` / ``swap`` plan with the head's weights in host memory.
 
 Then the kernels summary line, the card's name and power limit, and last
 the result line. Any failed check raises: the script exits non-zero and
@@ -50,8 +70,10 @@ checkout of the repository.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -96,6 +118,13 @@ LSE_TOL = 1e-4
 ADAM_TOL = 1e-6
 # train_compare, kernels vs plain path, bf16 through 2 layers at S 4096.
 LOSS_TOL, NORM_RTOL, GRAD_COSINE = 1e-2, 2e-2, 0.999
+# Its plan case (compress8 and swap layers, host head weights) is held to the
+# same bounds. Its compress8 sites quantize activations that the two paths
+# compute with bf16 differences, so an int8 value may flip by one step where
+# that noise crosses a rounding boundary; on an H100 80GB HBM3 at 700 W that
+# moved the loss 1.98e-4 (resident 1.73e-4), the gradient norm 4.0e-5
+# relative and the smallest leaf cosine to 0.99919 (resident 0.99991):
+# inside the resident bounds, so nothing is loosened.
 # train: the first loss of a random init lies near ln(vocab) = 10.37. The
 # head's init (std 0.02) gives logits of std 0.02 * sqrt(4096) = 1.28 on
 # unit-RMS hidden states, which lifts the log-sum-exp by about 1.28^2 / 2
@@ -103,7 +132,8 @@ LOSS_TOL, NORM_RTOL, GRAD_COSINE = 1e-2, 2e-2, 0.999
 FIRST_LOSS_BAND = 1.5
 
 SERVING_KERNELS = ("paged_attention", "rmsnorm")
-TRAINING_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm", "fused_adam")
+TRAINING_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm", "fused_adam",
+                    "fused_quantize_ef")
 
 # The serving slice's shapes (mistral-7b: 32 query heads over 8 KV heads, hd 128).
 BATCH, HQ, HKV, HD = 4, 32, 8, 128
@@ -646,14 +676,82 @@ def adam_case(on_host: bool, gen) -> dict:
     }
 
 
+QUANT_WIRE = (4, 14_680_064)  # one w1 leaf of mistral-7b (4096 x 14336) in 4 chunks
+
+
+def quant_inputs(case: str, gen):
+    """(x, me) of a fused_quantize_ef case. ``activation``: a site tensor of
+    the training path, 4096 rows (tokens) x 4096 (d_model) bf16, rows of
+    varied scale; ``wire``: the gradient-wire chunks, fp32; ``edges`` and
+    ``edges_long``: a zero row, exact half-way quotients, values at the clip
+    bound and a random row, at lengths that are not a multiple of 4 (one
+    pass, then two)."""
+    import torch
+
+    if case == "activation":
+        scale = torch.exp(torch.randn(4096, 1, device="cuda", generator=gen))
+        x = (torch.randn(4096, 4096, device="cuda", generator=gen) * scale).bfloat16()
+        return x, 0
+    if case == "wire":
+        return 1e-3 * torch.randn(*QUANT_WIRE, device="cuda", generator=gen), 2
+    n = 4099 if case == "edges" else 20_001
+    ties = torch.zeros(n, device="cuda")
+    ties[0] = 127.0  # the scale is exactly 1: x / scale is x
+    ties[1:9] = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5])
+    clip = torch.linspace(-3.3, 3.3, n, device="cuda")
+    rnd = torch.randn(n, device="cuda", generator=gen)
+    return torch.stack([torch.zeros(n, device="cuda"), ties, clip, rnd]), 1
+
+
+def quant_case(case: str, gen) -> dict:
+    """fused_quantize_ef against its plain version, bitwise."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref
+
+    x, me = quant_inputs(case, gen)
+    got = K.fused_quantize_ef(x, me)
+    want = ref.fused_quantize_ef_ref(x, me)
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    mismatches = {name: int((bits(a) != bits(b)).sum())
+                  for name, a, b in zip(("q", "scales", "err"), got, want)}
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    assert not any(mismatches.values()), f"fused_quantize_ef {case}: not bitwise: {mismatches}"
+    if case == "edges":
+        q = got[0]
+        assert q[1, 1:9].tolist() == [0, 2, 2, 0, -2, -2, 126, -126], q[1, 1:9].tolist()
+        assert got[1][0].item() == (torch.tensor(1e-30, dtype=torch.float32) / 127).item()
+    z, n = x.shape[0], x[0].numel()
+    # read x once; write q, the (z,) scales and one row's residual
+    nbytes = x.numel() * x.element_size() + x.numel() + 4 * z + 4 * n
+    flops = 5 * x.numel()  # abs, max, divide, round, clip
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / FP32_FLOP_PER_S}
+    by = max(times, key=times.get)
+    kernel = lambda: K.fused_quantize_ef(x, me)  # noqa: E731
+    plain = lambda: ref.fused_quantize_ef_ref(x, me)  # noqa: E731
+    if case == "wire":  # milliseconds: launch cost is noise, and no graph pool of copies
+        t = {"ms": eager_ms(kernel), "plain_ms": eager_ms(plain)}
+    else:
+        t = {**timed("ms", kernel), **timed("plain_ms", plain)}
+    return {"kernel": "fused_quantize_ef", "case": case, "shape": [z, n],
+            "dtype": str(x.dtype).replace("torch.", ""), "me": me, "max_abs_err": err,
+            "mismatches": mismatches, "tol": "bitwise", **t, "library_ms": None,
+            "library": "none: no single PyTorch call computes it",
+            "bound_ms": times[by] * 1e3, "bound_by": by, "bound_bytes": nbytes}
+
+
 def phase_train_kernels() -> dict:
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for case in (lambda: flash_case(TRAIN_SEQ, gen, True), lambda: flash_case(8192, gen, True),
+    quant = [lambda c=c: [quant_case(c, gen)]
+             for c in ("activation", "wire", "edges", "edges_long")]
+    for case in [lambda: flash_case(TRAIN_SEQ, gen, True), lambda: flash_case(8192, gen, True),
                  lambda: flash_case(1000, gen, False), lambda: [adam_case(False, gen)],
-                 lambda: [adam_case(True, gen)]):
+                 lambda: [adam_case(True, gen)]] + quant:
         for r in case():
             emit("kernel_vs_plain", **r)
             rows.append(r)
@@ -661,30 +759,25 @@ def phase_train_kernels() -> dict:
     main_rows = {}
     for r in rows:
         key = r["kernel"]
-        if (key != "fused_adam" and r["s"] == TRAIN_SEQ) or r.get("states") == "device":
+        if (r.get("s") == TRAIN_SEQ or r.get("states") == "device"
+                or r.get("case") == "activation"):
             main_rows[key] = r
     errs = {k: max(r["max_abs_err"] for r in rows if r["kernel"] == k) for k in main_rows}
     return {k: {**r, "max_abs_err": errs[k]} for k, r in main_rows.items()}
 
 
-def phase_train_compare() -> None:
-    """One step of 2-layer full-width mistral-7b, kernels vs plain path."""
-    import dataclasses
-
+def compare_step(cfg, shape, plan) -> dict:
+    """One training step of ``plan`` from one cloned state through the
+    kernels (``attn_impl="blockwise"``, ``use_fused_kernel=True``) and
+    through the plain path (``"naive"``, ``False``): losses, gradient norms
+    and each leaf's gradient cosine."""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.core.plan import fully_resident_plan
     from repro_torch.data.pipeline import SyntheticTokenPipeline
     from repro_torch.optim.adam import AdamConfig, tree_leaves, tree_map
     from repro_torch.train.step_builder import build_train_step
 
     clone = lambda tree: tree_map(lambda t: t.detach().clone(), tree)  # noqa: E731
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=2)
-    shape = ShapeConfig("compare", TRAIN_SEQ, 1, "train")
-    plan = fully_resident_plan(4, 2)
     batch = SyntheticTokenPipeline(cfg, shape, seed=0, device="cuda").next_sync()
     init = None
     out = {}
@@ -704,37 +797,81 @@ def phase_train_compare() -> None:
     k, p = out["kernels"], out["plain"]
     cos = [torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
            for a, b in zip(k["grads"], p["grads"])]
-    rel_norm = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
-    emit("train_compare", arch=cfg.name, layers=cfg.num_layers, seq=TRAIN_SEQ, batch=1,
-         loss_kernels=k["loss"], loss_plain=p["loss"], grad_norm_kernels=k["grad_norm"],
-         grad_norm_plain=p["grad_norm"], grad_norm_rel_diff=rel_norm, min_grad_cosine=min(cos),
-         leaves=len(cos), tol={"loss": LOSS_TOL, "grad_norm_rel": NORM_RTOL,
-                               "cosine": GRAD_COSINE},
-         seconds=time.perf_counter() - t0)
-    assert abs(k["loss"] - p["loss"]) <= LOSS_TOL, (k["loss"], p["loss"])
-    assert rel_norm <= NORM_RTOL, (k["grad_norm"], p["grad_norm"])
-    assert min(cos) >= GRAD_COSINE, f"a leaf's gradient has cosine {min(cos)} to the plain path"
-    del out, init
+    return {"loss_kernels": k["loss"], "loss_plain": p["loss"],
+            "grad_norm_kernels": k["grad_norm"], "grad_norm_plain": p["grad_norm"],
+            "grad_norm_rel_diff": abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"],
+            "min_grad_cosine": min(cos), "leaves": len(cos)}
+
+
+def phase_train_compare() -> None:
+    """One step of 2-layer full-width mistral-7b, kernels vs plain path: all
+    resident, then under a compress8 / swap plan with the head's weights in
+    pinned host memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan, fully_resident_plan
+
+    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=2)
+    shape = ShapeConfig("compare", TRAIN_SEQ, 1, "train")
+    cases = (("resident", fully_resident_plan(4, 2)),
+             ("compress8_swap_host_head",
+              MemoryPlan(4, 2, n_persist=3, n_host=1, host_params=True, n_buffer=1,
+                         act_policies=("compress8", "swap"))))
+    for name, plan in cases:
+        t0 = time.perf_counter()
+        r = compare_step(cfg, shape, plan)
+        emit("train_compare", case=name, plan=plan.describe(), arch=cfg.name,
+             layers=cfg.num_layers, seq=TRAIN_SEQ, batch=1, **r,
+             tol={"loss": LOSS_TOL, "grad_norm_rel": NORM_RTOL, "cosine": GRAD_COSINE},
+             seconds=time.perf_counter() - t0)
+        assert abs(r["loss_kernels"] - r["loss_plain"]) <= LOSS_TOL, (name, r)
+        assert r["grad_norm_rel_diff"] <= NORM_RTOL, (name, r)
+        assert r["min_grad_cosine"] >= GRAD_COSINE, (name, r)
     torch.cuda.empty_cache()
 
 
 def expected_train_launches(cfg, art, steps: int, n_leaves: int) -> dict[str, int]:
     """Launches the plan implies: per microbatch a forward of every layer, a
-    second forward of every checkpointed layer and a backward of every
-    layer; two RMSNorms per layer forward plus the final one (their
-    backward is plain); one Adam launch per parameter leaf per step."""
+    second forward (the replay) of every layer that does not keep its
+    activations (checkpoint, swap, compress8, compress16) and a backward of
+    every layer; two RMSNorms per layer forward plus the final one (their
+    backward is plain); the quantizer at the three sites of every compress8
+    layer in the forward, never in the replay; one Adam launch per
+    parameter leaf per step."""
     layers = cfg.num_layers
-    recomputed = sum(r.length for r in art.runs if r.act_policy == "checkpoint")
+    policies = [r.act_policy for r in art.runs for _ in range(r.length)]
+    recomputed = sum(p != "none" for p in policies)
     mbs = steps * art.plan.microbatch
     return {"flash_attention": mbs * (layers + recomputed), "flash_attention_bwd": mbs * layers,
-            "rmsnorm": mbs * (2 * layers + 1 + 2 * recomputed), "fused_adam": steps * n_leaves}
+            "rmsnorm": mbs * (2 * layers + 1 + 2 * recomputed), "fused_adam": steps * n_leaves,
+            "fused_quantize_ef": mbs * 3 * policies.count("compress8")}
+
+
+def expected_host_traffic(cfg, plan, shape, steps: int) -> dict[str, int]:
+    """The ``train.*`` counters the plan implies, from the chunk inventory:
+    each host-resident chunk's weights fetched once per microbatch, an
+    unbuffered block's once more for its backward; two site tensors (norm1's
+    output, the mixer's) swapped out and back per swap layer and microbatch;
+    the quantizer at three sites per compress8 layer and microbatch."""
+    from repro_torch.core.chunks import chunk_inventory
+
+    mbs = steps * plan.microbatch
+    host = [c for c in chunk_inventory(cfg)
+            if plan.host_params and plan.chunk_placement(c.index) == "host"]
+    fetched = sum(c.param_bytes for c in host) + sum(
+        c.param_bytes for c in host if c.is_block and not plan.chunk_buffered(c.index))
+    policies = plan.block_policies()
+    site = shape.global_batch // plan.microbatch * shape.seq_len * cfg.d_model * 2  # bf16
+    swapped = 2 * site * policies.count("swap")
+    return {"train.weight_fetch_bytes": mbs * fetched, "train.act_swap_out_bytes": mbs * swapped,
+            "train.act_swap_in_bytes": mbs * swapped,
+            "train.act_quantize_launches": mbs * 3 * policies.count("compress8")}
 
 
 def phase_train() -> dict[str, int]:
     """4 steps of 8-layer full-width mistral-7b through train_loop."""
-    import dataclasses
-    import math
-
     import torch
 
     from repro_torch import kernels as K
@@ -791,16 +928,13 @@ def phase_train() -> dict[str, int]:
                         misplaced.append(f"{key}/{name}")
     tokens = batch * TRAIN_SEQ
     n_params = total_param_count(chunks)
-    n_matmul = n_params - cfg.vocab_size * cfg.d_model  # the embedding is a lookup
-    attn = 3 * 4 * cfg.resolved_head_dim * cfg.num_heads * attended_pairs(
-        TRAIN_SEQ, cfg.sliding_window) * cfg.num_layers * batch
-    model_flops = 6 * n_matmul * tokens + attn
+    flops = model_flops(cfg, tokens)
     med = statistics.median(res.step_times)
     emit("train", arch=cfg.name, layers=cfg.num_layers, params=n_params, seq=TRAIN_SEQ,
          global_batch=batch, plan=plan.describe(), runs=[dataclasses.asdict(r) for r in art.runs],
          losses=res.losses, step_times_s=res.step_times, median_step_s=med,
          tokens_per_s=tokens / med, peak_device_bytes=peak, pinned_host_bytes=pinned_bytes,
-         model_flops_per_step=model_flops, mfu=model_flops / med / BF16_FLOP_PER_S,
+         model_flops_per_step=flops, mfu=flops / med / BF16_FLOP_PER_S,
          launches=launches, expected_launches=expected, seconds=seconds)
     assert len(res.losses) == steps and all(math.isfinite(x) for x in res.losses), res.losses
     assert abs(res.losses[0] - math.log(cfg.vocab_size)) <= FIRST_LOSS_BAND, res.losses[0]
@@ -810,6 +944,261 @@ def phase_train() -> dict[str, int]:
     del res, state, art
     torch.cuda.empty_cache()
     return launches
+
+
+def pinned_state_bytes(state) -> int:
+    from repro_torch.optim.adam import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(state["params"])
+               + tree_leaves({k: state["opt"][k] for k in ("master", "m", "v")})
+               if t.device.type == "cpu" and t.is_pinned())
+
+
+def model_flops(cfg, tokens: int) -> int:
+    """6 x matmul parameters (the embedding is a lookup) x tokens plus the
+    attention products (x3 for the backward) of one step."""
+    from repro_torch.core.chunks import chunk_inventory, total_param_count
+
+    n_matmul = total_param_count(chunk_inventory(cfg)) - cfg.vocab_size * cfg.d_model
+    attn = 3 * 4 * cfg.resolved_head_dim * cfg.num_heads * attended_pairs(
+        TRAIN_SEQ, cfg.sliding_window) * cfg.num_layers * (tokens // TRAIN_SEQ)
+    return 6 * n_matmul * tokens + attn
+
+
+KERNEL_KINDS = (  # device work of a training step, by kernel name
+    ("flash_forward", ("flash_fwd_kernel",)),
+    ("flash_backward", ("flash_delta_kernel", "flash_dkdv_kernel", "flash_dq_kernel")),
+    ("fused_adam", ("fused_adam_kernel",)),
+    ("fused_quantize_ef", ("quant_rows_kernel", "segment_absmax_kernel",
+                           "segment_quant_kernel")),
+    ("rmsnorm", ("rmsnorm_kernel",)),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("copy_to_device", ("Memcpy HtoD",)),
+    ("copy_to_host", ("Memcpy DtoH",)),
+)
+
+
+def profile_step(art, state, batch) -> dict:
+    """One more step under ``torch.profiler``: device time by kind of
+    kernel (``KERNEL_KINDS``, the rest as ``other``), and the share of the
+    step's wall time in which no device work ran (the union of the device
+    intervals against the step's span). The profiler's own cost inflates
+    the wall time, so the idle share is an upper bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("train_step"):
+            state, metrics = art.fn(state, batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+    events = prof.events()
+    span = next(e for e in events if e.name == "train_step").time_range
+    # the device track also carries the step's own annotation: not work
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name != "train_step"]
+    by_kind = dict.fromkeys([k for k, _ in KERNEL_KINDS] + ["other"], 0.0)
+    others: dict[str, list] = {}
+    intervals = []
+    for e in device:
+        start, end = max(e.time_range.start, span.start), min(e.time_range.end, span.end)
+        if end <= start:
+            continue
+        intervals.append((start, end))
+        kind = next((k for k, keys in KERNEL_KINDS if any(x in e.name for x in keys)), "other")
+        by_kind[kind] += (end - start) / 1e3
+        if kind == "other":
+            o = others.setdefault(e.name[:80], [0, 0.0])
+            o[0] += 1
+            o[1] += (end - start) / 1e3
+    top_other = sorted(others.items(), key=lambda kv: -kv[1][1])[:8]
+    busy, last = 0.0, span.start
+    for start, end in sorted(intervals):
+        busy += max(0.0, end - max(start, last))
+        last = max(last, end)
+    wall_ms = (span.end - span.start) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "device_ms_by_kind": by_kind,
+            "other_top": [{"name": n, "calls": c, "ms": ms} for n, (c, ms) in top_other],
+            "device_events": len(device),
+            "idle_share_at_most": 1.0 - busy / 1e3 / wall_ms if device else None}
+
+
+def policy_run(cfg, shape, plan, steps: int, profile: bool = False) -> dict:
+    """``steps`` steps of ``plan`` through build_train_step and train_loop,
+    with the launch counts zeroed just before: losses, step times, device
+    and pinned bytes, the ``train.*`` counters and the launches; with
+    ``profile``, then one more step under the profiler."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch import obs
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.optim.adam import AdamConfig, tree_leaves
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.step_builder import build_train_step
+
+    tel = obs.Telemetry(trace=False)
+    art = build_train_step(cfg, plan, "cuda", shape, adam=AdamConfig(lr=3e-4), telemetry=tel)
+    pipe = SyntheticTokenPipeline(cfg, shape, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_loop(art, pipe, None, LoopConfig(total_steps=steps, log_every=1),
+                     generator=torch.Generator(device="cuda").manual_seed(0),
+                     log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: K.launch_counts()[k] for k in TRAINING_KERNELS}
+    snap = {k: v["value"] for k, v in tel.registry.snapshot().items() if "value" in v}
+    n_leaves = len(tree_leaves(res.state["params"]))
+    out = {"plan": plan.describe(), "runs": [dataclasses.asdict(r) for r in art.runs],
+           "losses": res.losses, "step_times_s": res.step_times,
+           "median_step_s": statistics.median(res.step_times),
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "act_bytes": snap["train.act_bytes"],
+           "pinned_state_bytes": pinned_state_bytes(res.state),
+           # swapped sites wait in pinned memory from the forward to the backward
+           "pinned_act_bytes": snap["train.act_swap_out_bytes"] / (steps * plan.microbatch),
+           "counters": {k: v for k, v in snap.items() if k != "train.act_bytes"},
+           "expected_counters": expected_host_traffic(cfg, plan, shape, steps),
+           "launches": launches,
+           "expected_launches": expected_train_launches(cfg, art, steps, n_leaves),
+           "seconds": seconds}
+    if profile:
+        out["profile"] = profile_step(art, res.state, pipe.next_sync())
+    del res, art
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# block 6 (chunk 7, unbuffered) keeps its activations: its weights are
+# re-fetched for the backward through the saved-tensor hooks; block 7
+# (chunk 8, buffered) keeps its fetched weights for its replay
+MIXED_POLICIES = ("checkpoint", "compress8", "compress16", "swap", "none", "compress8", "none",
+                  "compress8")
+
+
+def _relayout(params, runs):
+    """A copy of a tree with stacked ``blocks`` as the state tree of a run
+    layout (a copy: the step updates its state in place)."""
+    import torch
+
+    def sl(tree, start=0, length=None):
+        if isinstance(tree, torch.Tensor):
+            return (tree if length is None else tree[start:start + length]).clone()
+        return {k: sl(v, start, length) for k, v in tree.items()}
+
+    out = {k: sl(v) for k, v in params.items() if k != "blocks"}
+    out["runs"] = [sl(params["blocks"], r.start, r.length) for r in runs]
+    return out
+
+
+def host_vs_device(cfg, shape, plan, steps: int) -> dict:
+    """``steps`` steps of ``plan`` and of its act policies with every chunk
+    on the device, from one init and one batch stream: the losses, and how
+    many final fp32 master leaves differ, with the largest difference."""
+    import torch
+
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.optim.adam import AdamConfig, tree_leaves
+    from repro_torch.train.step_builder import build_train_step
+
+    device_plan = MemoryPlan(n_chunks=plan.n_chunks, n_blocks=plan.n_blocks,
+                             n_persist=plan.n_chunks, microbatch=plan.microbatch,
+                             act_policies=plan.act_policies)
+    init = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    out = {}
+    for name, p in (("device", device_plan), ("host", plan)):
+        art = build_train_step(cfg, p, "cuda", shape, adam=AdamConfig(lr=3e-4))
+        state = art.place_state(_relayout(init, art.runs))
+        pipe = SyntheticTokenPipeline(cfg, shape, seed=0, device="cuda")
+        losses = [float(art.fn(state, pipe.next_sync())[1]["loss"]) for _ in range(steps)]
+        torch.cuda.synchronize()
+        master = state["opt"]["master"]  # the runs' leaves joined back into blocks
+        blocks = [torch.cat([t.cpu() for t in ts])
+                  for ts in zip(*(tree_leaves(r) for r in master["runs"]))]
+        rest = tree_leaves({k: v for k, v in master.items() if k != "runs"})
+        out[name] = (losses, blocks + [t.cpu() for t in rest])
+        del state, art, master
+        gc.collect()
+        torch.cuda.empty_cache()
+    del init
+    (dev_losses, dev_m), (losses, m) = out["device"], out["host"]
+    diffs = [float((a - b).abs().max()) for a, b in zip(m, dev_m) if not torch.equal(a, b)]
+    return {"plan": plan.describe(), "device_plan": device_plan.describe(), "steps": steps,
+            "losses_host": losses, "losses_device": dev_losses,
+            "master_leaves": len(m), "master_leaves_differing": len(diffs),
+            "master_max_abs_diff": max(diffs, default=0.0)}
+
+
+def check_run(name: str, run: dict) -> None:
+    assert all(math.isfinite(x) for x in run["losses"]), (name, run["losses"])
+    assert run["launches"] == run["expected_launches"], (
+        f"{name}: launches {run['launches']} != the plan's {run['expected_launches']}")
+    for key, want in run["expected_counters"].items():
+        assert run["counters"][key] == want, f"{name}: {key} {run['counters'][key]} != {want}"
+
+
+def phase_train_policies() -> dict[str, int]:
+    """8-layer full-width mistral-7b under each uniform act policy (2 steps,
+    all chunks on the device), then a mixed plan with every policy and host
+    weights (4 steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.chunks import chunk_inventory
+    from repro_torch.core.plan import MemoryPlan
+
+    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=8)
+    shape = ShapeConfig("train", TRAIN_SEQ, 2, "train")
+    uniform = {}
+    for pol in ("none", "compress16", "compress8", "checkpoint", "swap"):
+        plan = MemoryPlan(n_chunks=10, n_blocks=8, n_persist=10, microbatch=2,
+                          act_policies=(pol,) * 8)
+        run = policy_run(cfg, shape, plan, steps=2)
+        emit("train_policies", case=f"uniform_{pol}", arch=cfg.name, layers=cfg.num_layers,
+             seq=TRAIN_SEQ, global_batch=shape.global_batch, **run)
+        check_run(pol, run)
+        uniform[pol] = run["act_bytes"]
+    order = ("none", "compress16", "compress8", "checkpoint")
+    assert all(uniform[a] > uniform[b] for a, b in zip(order, order[1:])), (
+        f"act_bytes not ordered {order}: {uniform}")
+
+    plan = MemoryPlan(n_chunks=10, n_blocks=8, n_persist=4, n_host=3, host_params=True,
+                      n_buffer=2, microbatch=2, act_policies=MIXED_POLICIES)
+    steps = 4
+    run = policy_run(cfg, shape, plan, steps=steps, profile=True)
+    tokens = shape.global_batch * TRAIN_SEQ
+    flops = model_flops(cfg, tokens)
+    c = run["counters"]
+    host_params = sum(ci.param_count for ci in chunk_inventory(cfg)
+                      if plan.chunk_placement(ci.index) == "host")
+    # Adam reads fp32 master, m, v of each host chunk over the link and
+    # writes them back with the new bf16 weights (the kernel's zero-copy)
+    adam_read, adam_write = 12 * host_params * steps, 14 * host_params * steps
+    emit("train_policies", case="mixed", arch=cfg.name, layers=cfg.num_layers, seq=TRAIN_SEQ,
+         global_batch=shape.global_batch, **run, tokens_per_s=tokens / run["median_step_s"],
+         model_flops_per_step=flops, mfu=flops / run["median_step_s"] / BF16_FLOP_PER_S,
+         host_link_bytes={"to_device": c["train.weight_fetch_bytes"]
+                          + c["train.act_swap_in_bytes"] + adam_read,
+                          "to_host": c["train.act_swap_out_bytes"] + adam_write,
+                          "of": f"{steps} steps, counted from the counters and the plan"})
+    check_run("mixed", run)
+    assert len(run["losses"]) == steps
+    assert abs(run["losses"][0] - math.log(cfg.vocab_size)) <= FIRST_LOSS_BAND, run["losses"]
+    assert run["pinned_state_bytes"] > 0
+
+    t0 = time.perf_counter()
+    cmp = host_vs_device(cfg, shape, plan, steps=2)
+    emit("train_policies", case="mixed_vs_device", arch=cfg.name, layers=cfg.num_layers, **cmp,
+         tol="bitwise", seconds=time.perf_counter() - t0)
+    assert cmp["losses_host"] == cmp["losses_device"], cmp
+    assert cmp["master_leaves_differing"] == 0, cmp
+    return run["launches"]
 
 
 def timed_phase(name: str, fn):
@@ -840,6 +1229,7 @@ def main() -> int:
     training = timed_phase("train_kernels", phase_train_kernels)
     timed_phase("train_compare", phase_train_compare)
     train_launches = timed_phase("train", phase_train)
+    policy_launches = timed_phase("train_policies", phase_train_policies)
     rms = measured["rmsnorm"][0]  # rows = batch: the decode path's shape
     main_case = next(p for p in measured["paged_attention"]
                      if p["case"] == "main" and p["cold"] == "pinned_host")
@@ -861,11 +1251,15 @@ def main() -> int:
     for name, source, replaces in (
             ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:93"),
             ("flash_attention_bwd", "flash_attention.cu", "src/repro/models/layers.py:221"),
-            ("fused_adam", "fused_adam.cu", "src/repro/kernels/fused_adam.py:48")):
+            ("fused_adam", "fused_adam.cu", "src/repro/kernels/fused_adam.py:48"),
+            ("fused_quantize_ef", "fused_quant.cu", "src/repro/kernels/fused_quant.py:52")):
         row = training[name]
+        # each kernel's launches on the path it came with: the quantizer's
+        # on the mixed plan of train_policies, the others' on train
+        launches = (policy_launches if name == "fused_quantize_ef" else train_launches)[name]
         summary["kernels"].append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": replaces, "launches": train_launches[name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], **{k: row[k] for k in keys}})
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps(summary), flush=True)

@@ -71,9 +71,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
 
 def fused_adam_update(p, g, master, m, v, scalars):
     """One Adam step of a leaf, in place on p, master, m and v; routed by
-    p's device. ``scalars``: (8,) fp32 on p's device, ``[lr, b1, b2, eps,
-    wd, bc1, bc2, 0]``. Returns (p, master, m, v)."""
-    if _route(p, "fused_adam"):
+    g's device (p and the states may lie in pinned host memory beside a
+    CUDA g). ``scalars``: (8,) fp32 on g's device, ``[lr, b1, b2, eps, wd,
+    bc1, bc2, 0]``. Returns (p, master, m, v)."""
+    if _route(g, "fused_adam"):
         from repro_torch.kernels.fused_adam import fused_adam_cuda
 
         return fused_adam_cuda(p, g, master, m, v, scalars)
@@ -85,5 +86,16 @@ def fused_adam_update(p, g, master, m, v, scalars):
     return p, master, m, v
 
 
+def fused_quantize_ef(ch: torch.Tensor, me: int):
+    """Per-chunk absmax int8 quantize of ``ch`` (z, ...) plus chunk ``me``'s
+    residual: (q int8, scales (z,) fp32, err fp32 like ch[0])."""
+    if _route(ch, "fused_quantize_ef"):
+        from repro_torch.kernels.fused_quant import fused_quantize_ef_cuda
+
+        return fused_quantize_ef_cuda(ch, me)
+    return ref.fused_quantize_ef_ref(ch, me)
+
+
 __all__ = ["decode_paged_attention", "flash_attention", "flash_attention_bwd",
-           "fused_adam_update", "fused_rmsnorm", "launch_counts", "reset_launch_counts"]
+           "fused_adam_update", "fused_quantize_ef", "fused_rmsnorm", "launch_counts",
+           "reset_launch_counts"]

@@ -30,7 +30,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("rmsnorm", "paged_attention", "flash_attention", "flash_attention_bwd", "fused_adam")
+KERNELS = ("rmsnorm", "paged_attention", "flash_attention", "flash_attention_bwd", "fused_adam",
+           "fused_quantize_ef")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB: ctypes.CDLL | None = None
@@ -127,6 +128,10 @@ def load_library() -> ctypes.CDLL:
     lib.repro_flash_attention_bwd.restype = i32
     lib.repro_fused_adam.argtypes = [vp] * 6 + [i64, i32, i32, vp]
     lib.repro_fused_adam.restype = i32
+    lib.repro_fused_quant_scratch.argtypes = [i64, i64]
+    lib.repro_fused_quant_scratch.restype = i64
+    lib.repro_fused_quantize_ef.argtypes = [vp, i32] + [vp] * 4 + [i64, i64, i64, vp]
+    lib.repro_fused_quantize_ef.restype = i32
     lib.repro_error_string.argtypes = [i32]
     lib.repro_error_string.restype = ctypes.c_char_p
     _LIB = lib

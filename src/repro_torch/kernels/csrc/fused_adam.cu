@@ -13,9 +13,10 @@
 // What bounds it on the card: bytes. Per element it reads g, master, m, v
 // and writes p, master, m, v: 28 bytes with a bf16 g and bf16 p, about 12
 // flops, far below the card's flop-per-byte balance. master, m and v may
-// lie in pinned host memory (the ZeRO-Offload split of a host chunk): the
-// kernel then reads and writes them in place through unified addressing,
-// and the host link (12 bytes each way per element) bounds it.
+// lie in pinned host memory (a host chunk's optimizer states), and p too
+// (a host chunk's weights under host_params): the kernel then reads and
+// writes them in place through unified addressing, and the host link (12
+// bytes each way per element, 2 more written for a pinned p) bounds it.
 //
 // Design: a grid-stride loop over groups of 4 elements, with 16-byte vector
 // loads and stores of the fp32 states (8-byte ones of bf16 g and p); the

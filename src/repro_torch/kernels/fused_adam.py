@@ -1,12 +1,13 @@
 """Wrapper of the CUDA fused-Adam kernel (``csrc/fused_adam.cu``).
 
 Replaces the Pallas ``src/repro/kernels/fused_adam.py::fused_adam``. The
-update runs in place: p, master, m and v are overwritten. p (bf16 or fp32)
-and g (bf16 or fp32) lie on one CUDA device; the fp32 master, m and v lie
-there too or in pinned host memory, which the kernel reads and writes in
-place through unified addressing (so a CPU read of them must wait for the
-stream). Anything else raises: the kernels package sends CPU parameters to
-``ref.fused_adam_ref`` instead.
+update runs in place: p, master, m and v are overwritten. g (bf16 or fp32)
+lies on a CUDA device, the one the kernel runs on; p (bf16 or fp32) and the
+fp32 master, m and v lie there too or in pinned host memory (a host chunk's
+weights under ``host_params=True``, its optimizer states), which the kernel
+reads and writes in place through unified addressing (so a CPU read of them
+must wait for the stream). Anything else raises: the kernels package sends
+CPU gradients to ``ref.fused_adam_ref`` instead.
 """
 from __future__ import annotations
 
@@ -16,11 +17,11 @@ from repro_torch.kernels import build
 
 
 def fused_adam_cuda(p, g, master, m, v, scalars):
-    """One in-place Adam step of a leaf. ``scalars``: (8,) fp32 on p's device,
+    """One in-place Adam step of a leaf. ``scalars``: (8,) fp32 on g's device,
     ``[lr, b1, b2, eps, wd, bc1, bc2, 0]``. Returns (p, master, m, v)."""
-    dev = p.device
+    dev = g.device
     if dev.type != "cuda":
-        raise ValueError(f"fused-Adam kernel needs p on CUDA, got {dev}")
+        raise ValueError(f"fused-Adam kernel needs g on CUDA, got {dev}")
     for name, t, dtypes in (("p", p, build.DTYPE_CODES), ("g", g, build.DTYPE_CODES),
                             ("master", master, (torch.float32,)), ("m", m, (torch.float32,)),
                             ("v", v, (torch.float32,))):
@@ -29,9 +30,7 @@ def fused_adam_cuda(p, g, master, m, v, scalars):
         if t.shape != p.shape or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"fused-Adam kernel: {name} must be contiguous, 16-byte aligned "
                              f"and of p's shape {tuple(p.shape)}, got {tuple(t.shape)}")
-    if g.device != dev:
-        raise ValueError(f"fused-Adam kernel: g on {g.device}, p on {dev}")
-    for name, t in (("master", master), ("m", m), ("v", v)):
+    for name, t in (("p", p), ("master", master), ("m", m), ("v", v)):
         if t.device != dev and not (t.device.type == "cpu" and t.is_pinned()):
             raise ValueError(f"fused-Adam kernel: {name} must lie on {dev} or in pinned host "
                              f"memory, got {t.device} (pinned={t.is_pinned()})")

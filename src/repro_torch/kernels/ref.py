@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the ported kernels.
 
 Op for op the oracles of ``src/repro/kernels/ref.py`` (``rmsnorm_ref``,
-``paged_attention_ref``, ``flash_attention_ref``, ``fused_adam_ref``), plus
+``paged_attention_ref``, ``flash_attention_ref``, ``fused_adam_ref``,
+``fused_quantize_ef_ref``), plus
 the plain versions of what the training kernels compute beyond them:
 ``attention_lse_ref`` (the forward with its log-sum-exp),
 ``flash_attention_bwd_ref`` (``models/layers.py::_mea_bwd`` over the whole
@@ -166,3 +167,25 @@ def fused_adam_ref(p, g, master, m, v, *, lr, b1, b2, eps, weight_decay, bc1, bc
         upd = upd + weight_decay * master
     master_new = master - lr * upd
     return master_new.to(p.dtype), master_new, m_new, v_new
+
+
+def fused_quantize_ef_ref(ch: torch.Tensor, me: int):
+    """The three-op sequence of ``src/repro/kernels/ref.py::fused_quantize_ef_ref``
+    (per-chunk absmax int8 quantize plus the owned chunk's residual), verbatim.
+
+    ch: (z, *shard), fp32 or bf16 (widened to fp32 first). Returns (q int8
+    like ch, scales (z,) fp32, err fp32 like ch[0]): ``scale = max(max |x|,
+    1e-30) / 127``, ``q = clip(round(x / scale), -127, 127)`` (round half to
+    even), ``err = ch[me] - f32(q[me]) * scale[me]``.
+    """
+    ch = ch.float()
+    z = ch.shape[0]
+    amax = torch.clamp_min(ch.abs().amax(dim=tuple(range(1, ch.ndim))), 1e-30)
+    # divide by a tensor: on CUDA, PyTorch divides by a Python scalar as a
+    # multiply by its fp32 reciprocal, which is not the IEEE quotient
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(ch / scale.reshape((z,) + (1,) * (ch.ndim - 1))),
+                    -127, 127).to(torch.int8)
+    own = ch[me]
+    new_err = own - q[me].float() * scale[me]
+    return q, scale, new_err

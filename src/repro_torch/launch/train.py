@@ -31,7 +31,8 @@ from repro_torch.optim.adam import AdamConfig, cosine_schedule
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.step_builder import build_train_step
 
-_PLANNER_TODO = "ROADMAP.md, port queue 2: the planner (hardware, profiler, cost model, autotuner)"
+_PLANNER_TODO = ("ROADMAP.md, port queue 1 item 5: the planner (hardware, profiler, cost model, "
+                 "autotuner)")
 
 
 def main(argv=None) -> int:

@@ -13,11 +13,24 @@ superblock repeats, ``(R, ...)``; the training state splits ``blocks`` into
 The layer stack runs as a list of ``Run``s (``apply_runs``). JAX scans each
 run over its stacked leaves; here a Python loop walks the leaves' first axis
 (``unbind``, so the backward stacks the per-repeat gradients in one copy).
-Act policy ``"none"`` keeps every activation; ``"checkpoint"`` recomputes
-each layer position in the backward (``torch.utils.checkpoint`` without
-reentrancy), or each region of ``ckpt_group`` superblocks. The other
-policies (``swap``, ``compress8``, ``compress16``) raise
-``NotImplementedError``: ROADMAP.md, port queue.
+Each layer position tags three save sites -- norm1's output, the mixer's
+output and the MLP's output (``save_act``) -- and the run's act policy
+decides what lives FWD->BWD, as ``_remat_policy`` (``model.py:414-452``)
+does: ``none`` keeps every activation; ``checkpoint`` keeps the position's
+input and recomputes the rest in the backward (``torch.utils.checkpoint``
+without reentrancy), or each region of ``ckpt_group`` superblocks;
+``compress8`` / ``compress16`` / ``swap`` keep the input plus the sites
+the backward reads (norm1's output and the mixer's; the MLP output feeds
+only the residual add) -- as int8 rows with fp32 scales (the
+``fused_quantize_ef`` kernel, which runs at all three sites in the forward
+and never in the replay), as bf16, or in pinned host memory -- and the
+backward's replay takes the sites from there (``ActSites``) and recomputes
+everything else. A run whose
+weights live in host memory (``Run.proxies``) fetches them per repeat, one
+repeat ahead, through ``offload.HostIO``; ``buffered`` keeps the fetched
+copy FWD->BWD, else the backward fetches it again (inside the replay of a
+recomputed position, as in JAX, where the gather sits inside the remat
+region).
 
 MoE, Mamba-2 and encoder-decoder positions are queued in ROADMAP.md and raise
 ``NotImplementedError`` here.
@@ -32,14 +45,15 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch import kernels as K
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.offload import HostIO
 from repro_torch.models.layers import LAYER, TP, ZERO, ParamDef
 
 _FAMILIES_TODO = "ROADMAP.md, port queue: the MoE, Mamba-2 and encoder-decoder families"
-_SWAP_TODO = "ROADMAP.md, port queue 1: host weight fetch with n_buffer, and the swap policy"
-_COMPRESS_TODO = "ROADMAP.md, port queue 3: activation compression with fused_quantize_ef"
-ACT_POLICIES = ("none", "checkpoint")
+ACT_POLICIES = ("none", "checkpoint", "swap", "compress8", "compress16")
+SITE_POLICIES = ("swap", "compress8", "compress16")  # keep the three save sites
 
 
 def superblock_period(cfg: ModelConfig) -> int:
@@ -153,41 +167,191 @@ class DecoderLM(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Training forward (model.py:297-375, 454-560, 665-688)
+# Training forward (model.py:178-266, 297-375, 414-560, 665-688)
 # ---------------------------------------------------------------------------
 def check_act_policy(policy: str) -> None:
-    """Raise ``NotImplementedError`` (naming the ROADMAP item) for an act
-    policy this port does not run."""
     if policy not in ACT_POLICIES:
-        todo = _SWAP_TODO if policy == "swap" else _COMPRESS_TODO
-        raise NotImplementedError(f"act policy {policy!r} ({todo})")
+        raise ValueError(f"act policy {policy!r} not in {ACT_POLICIES}")
+
+
+@torch.no_grad()
+def _quantize_rows(x: torch.Tensor):
+    """Per-row absmax int8 quantize of an activation's rows (its last axis)
+    -> (q (rows, d), scale (rows,)): the ``fused_quantize_ef`` kernel on CUDA
+    (it widens bf16 itself), its plain version on the CPU. The residual of
+    chunk 0 is discarded. No gradient flows through the rounding."""
+    q, s, _ = K.fused_quantize_ef(x.contiguous().reshape(-1, x.shape[-1]), 0)
+    return q, s
+
+
+@torch.no_grad()
+def _dequantize(q: torch.Tensor, s: torch.Tensor, shape, dtype) -> torch.Tensor:
+    return (q.float() * s[:, None]).reshape(shape).to(dtype)
+
+
+class _Use(torch.autograd.Function):
+    """``use(value, x)``: carries on with ``value`` (a stored site's payload
+    brought back, e.g. dequantized), while the gradient goes straight
+    through to x (``compress_act``'s ``use``, ``model.py:238-248``)."""
+
+    @staticmethod
+    def forward(ctx, value, x):
+        return value
+
+    @staticmethod
+    def backward(ctx, ct):
+        return None, ct
+
+
+def _compressed(x: torch.Tensor, mode: str):
+    """(the value a compressed save site carries on with, its payload)."""
+    if mode == "compress16":
+        v = x.to(torch.bfloat16)
+        return v.to(x.dtype), v.detach()
+    if mode != "compress8":
+        raise ValueError(mode)
+    q, s = _quantize_rows(x)
+    return _Use.apply(_dequantize(q, s, x.shape, x.dtype), x), (q, s)
+
+
+def compress_act(x: torch.Tensor, mode: str = "compress8") -> torch.Tensor:
+    """The value a compressed save site carries on with (``model.py:197-258``).
+
+    ``compress8``: the int8 rows dequantized, ``bf16(f32(q) * scale)`` in x's
+    dtype, with the straight-through gradient; ``compress16``: a bf16 round
+    trip. What is kept FWD->BWD is the run's business (``ActSites``)."""
+    return _compressed(x, mode)[0]
+
+
+class ActSites:
+    """The save sites of one recomputed layer position under a ``swap`` /
+    ``compress8`` / ``compress16`` run.
+
+    In the forward each site carries on with the value ``compress_act``
+    gives (``swap`` leaves it as it is) and stores its payload -- int8 rows
+    and scales (one ``fused_quantize_ef`` launch), the bf16 tensor, or a
+    pinned host copy (``HostIO.swap_out``) -- when the backward reads it
+    (``keep``). Once the forward is over (``seal``), the position's replay
+    calls the sites again in the same order (``begin`` at the top of the
+    position); they return the value from the stored payload and quantize
+    nothing. A site that is not kept (the MLP output, whose only consumer
+    is the residual add: its gradient needs neither operand) is never
+    reached by the replay, which stops once the backward's saved tensors
+    are rebuilt; were it reached, it returns x, which only the discarded
+    output of the position would see. This is what JAX keeps too: its
+    remat saves a named value only when the backward reads it."""
+
+    def __init__(self, mode: str, io: HostIO):
+        self.mode, self.io = mode, io
+        self.saved: list = []
+        self._replay: int | None = None  # None while the forward runs
+
+    def begin(self) -> None:
+        if self._replay is not None:
+            self._replay = 0
+
+    def seal(self) -> None:
+        self._replay = 0
+
+    def __call__(self, x: torch.Tensor, keep: bool = True) -> torch.Tensor:
+        if self._replay is None:
+            return self._save(x, keep)
+        if not keep:
+            return x
+        payload = self.saved[self._replay]
+        self._replay += 1
+        if self.mode == "compress8":
+            value = _dequantize(*payload, x.shape, x.dtype)
+        elif self.mode == "compress16":
+            value = payload.to(x.dtype)
+        else:
+            value = self.io.swap_in(payload)
+        return _Use.apply(value, x)
+
+    def _save(self, x: torch.Tensor, keep: bool) -> torch.Tensor:
+        if self.mode == "swap":
+            if keep:
+                self.saved.append(self.io.swap_out(x))
+            return x
+        value, payload = _compressed(x, self.mode)
+        if self.mode == "compress8":
+            self.io.quantized.inc()
+        if keep:
+            self.saved.append(payload)
+        return value
+
+
+def save_act(x: torch.Tensor, sites: ActSites | None = None, keep: bool = True):
+    """A save site (``model.py:261-266``): through the run's ``sites`` when
+    it has them (``keep``: the backward reads this one), else unchanged."""
+    return x if sites is None else sites(x, keep)
 
 
 def apply_position(pparams: dict, x: torch.Tensor, cfg: ModelConfig, pos_j: int, *,
-                   positions=None, attn_impl: str = "blockwise") -> torch.Tensor:
+                   positions=None, attn_impl: str = "blockwise",
+                   sites: ActSites | None = None) -> torch.Tensor:
     """One layer (superblock position): norm, attention, residual, norm, MLP,
-    residual."""
-    h = L.apply_norm(pparams["norm1"], x, cfg.norm)
-    x = x + L.attention_block(pparams["attn"], h, cfg, positions=positions, impl=attn_impl)
+    residual, with its three save sites (``save_act``); the backward reads
+    the first two (the MLP output only feeds the residual add)."""
+    h = save_act(L.apply_norm(pparams["norm1"], x, cfg.norm), sites)
+    mix = L.attention_block(pparams["attn"], h, cfg, positions=positions, impl=attn_impl)
+    x = x + save_act(mix, sites)
     if "mlp" in pparams:
         h2 = L.apply_norm(pparams["norm2"], x, cfg.norm)
-        x = x + L.apply_mlp(pparams["mlp"], h2, cfg.mlp)
+        x = x + save_act(L.apply_mlp(pparams["mlp"], h2, cfg.mlp), sites, keep=False)
     return x
 
 
 def _checkpointed(fn, *args):
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    # the layers draw no random numbers: no RNG state to keep for the replay
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
+def _weights(src: dict, proxies: dict | None, io: HostIO) -> dict:
+    """A position's (or repeat's) weights on the device: ``src`` itself, or
+    the fetched copy of host weights ``src`` with gradients to ``proxies``."""
+    return src if proxies is None else io.fetch(proxies, src)
+
+
+def _apply_layer(src, proxies, x, cfg, pos_j, *, act_policy: str, buffered: bool,
+                 io: HostIO, attn_impl: str) -> torch.Tensor:
+    """One position under its run's act policy and weight buffering."""
+    fetch_again = proxies is not None and not buffered
+    if act_policy == "none":
+        pp = _weights(src, proxies, io)
+        if not fetch_again:
+            return apply_position(pp, x, cfg, pos_j, attn_impl=attn_impl)
+        with io.refetch_saved(pp, src):
+            return apply_position(pp, x, cfg, pos_j, attn_impl=attn_impl)
+    sites = ActSites(act_policy, io) if act_policy in SITE_POLICIES else None
+    # kept weights are fetched outside the recomputed region; the others
+    # inside it, so the replay fetches them again
+    kept = None if fetch_again else _weights(src, proxies, io)
+
+    def one(x):
+        if sites is not None:
+            sites.begin()
+        pp = _weights(src, proxies, io) if fetch_again else kept
+        return apply_position(pp, x, cfg, pos_j, attn_impl=attn_impl, sites=sites)
+
+    x = _checkpointed(one, x)
+    if sites is not None:
+        sites.seal()
+    return x
 
 
 def apply_superblock(block_params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                     remat: bool = False, **kw) -> torch.Tensor:
-    """block_params: {posJ: params of one repeat}. ``remat`` recomputes each
-    position (layer) in the backward, the paper's per-block granularity."""
+                     act_policy: str = "none", buffered: bool = True, proxies: dict | None = None,
+                     io: HostIO | None = None, attn_impl: str = "blockwise") -> torch.Tensor:
+    """block_params: {posJ: params of one repeat}, on the device or (with
+    ``proxies``, the autograd stand-ins of the same tree) in host memory.
+    ``act_policy`` applies per position (layer), the paper's per-block
+    granularity."""
     for j in range(superblock_period(cfg)):
-        def one(x, _j=j):
-            return apply_position(block_params[f"pos{_j}"], x, cfg, _j, **kw)
-
-        x = _checkpointed(one, x) if remat else one(x)
+        key = f"pos{j}"
+        x = _apply_layer(block_params[key], None if proxies is None else proxies[key], x, cfg,
+                         j, act_policy=act_policy, buffered=buffered, io=io, attn_impl=attn_impl)
     return x
 
 
@@ -195,10 +359,12 @@ def apply_superblock(block_params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 class Run:
     """A contiguous range of superblock repeats sharing one policy."""
 
-    params: dict  # stacked over this run's repeats
+    params: dict  # stacked over this run's repeats, on the device or in host memory
     n_repeats: int
-    act_policy: str = "none"  # none | checkpoint (swap / compress: not ported)
-    ckpt_group: int = 1  # remat region size in superblock repeats
+    act_policy: str = "none"  # none | checkpoint | swap | compress8 | compress16
+    ckpt_group: int = 1  # remat region size in superblock repeats (checkpoint only)
+    buffered: bool = True  # fetched host weights kept FWD->BWD (else fetched again)
+    proxies: dict | None = None  # host weights: their device autograd stand-ins, stacked
 
 
 def _unstack(tree, n: int) -> list:
@@ -209,9 +375,10 @@ def _unstack(tree, n: int) -> list:
     return [{k: per[k][i] for k in per} for i in range(n)]
 
 
-def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
-               attn_impl: str = "blockwise") -> torch.Tensor:
-    """Execute the layer stack as policy runs of superblocks."""
+def _units(runs: list[Run]) -> list[tuple[Run, list, list]]:
+    """The layer stack in forward order as (run, repeat params, repeat
+    proxies) units: one repeat each, or one remat group of ``ckpt_group``."""
+    units = []
     for run in runs:
         check_act_policy(run.act_policy)
         g = run.ckpt_group if run.act_policy == "checkpoint" else 1
@@ -219,19 +386,39 @@ def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
         while run.n_repeats % g:
             g -= 1  # group must tile the run
         reps = _unstack(run.params, run.n_repeats)
-        if g == 1:
-            remat = run.act_policy == "checkpoint"
-            for bp in reps:
-                x = apply_superblock(bp, x, cfg, remat=remat, attn_impl=attn_impl)
-            continue
-        # grouped remat: one checkpoint region spans g superblocks
-        for start in range(0, run.n_repeats, g):
-            def region(x, _bps=reps[start:start + g]):
-                for bp in _bps:
-                    x = apply_superblock(bp, x, cfg, attn_impl=attn_impl)
-                return x
+        prox = ([None] * run.n_repeats if run.proxies is None
+                else _unstack(run.proxies, run.n_repeats))
+        units += [(run, reps[i:i + g], prox[i:i + g]) for i in range(0, run.n_repeats, g)]
+    return units
 
-            x = _checkpointed(region, x)
+
+def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
+               attn_impl: str = "blockwise", io: HostIO | None = None) -> torch.Tensor:
+    """Execute the layer stack as policy runs of superblocks. ``io``: the
+    step's host copies and counters (a fresh one on x's device if None)."""
+    units = _units(runs)
+    io = io if io is not None else HostIO(x.device)
+    for i, (run, reps, prox) in enumerate(units):
+        if i + 1 < len(units) and units[i + 1][0].proxies is not None:
+            for src in units[i + 1][1]:
+                io.prefetch(src)  # the next unit's host weights, during this one
+        if len(reps) == 1:
+            x = apply_superblock(reps[0], x, cfg, act_policy=run.act_policy,
+                                 buffered=run.buffered, proxies=prox[0], io=io,
+                                 attn_impl=attn_impl)
+            continue
+        # grouped remat: one checkpoint region spans the group's superblocks;
+        # unbuffered host weights are fetched inside it, the rest outside
+        kept = [None if px is not None and not run.buffered else _weights(src, px, io)
+                for src, px in zip(reps, prox)]
+
+        def region(x, _items=list(zip(reps, prox, kept))):
+            for src, px, pp in _items:
+                pp = pp if pp is not None else _weights(src, px, io)
+                x = apply_superblock(pp, x, cfg, attn_impl=attn_impl)
+            return x
+
+        x = _checkpointed(region, x)
     return x
 
 
@@ -241,12 +428,13 @@ def default_runs(cfg: ModelConfig, params: dict) -> list[Run]:
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *, runs: list[Run] | None = None,
-            attn_impl: str = "blockwise") -> torch.Tensor:
+            attn_impl: str = "blockwise", io: HostIO | None = None) -> torch.Tensor:
     """Training forward. ``batch["tokens"]``: (B, S) integer. Returns the
     hidden states (B, S, D); a dense model has no aux loss (JAX returns a
-    zero one beside them)."""
+    zero one beside them). ``io``: the host copies of runs with host weights
+    and of swapped activations."""
     check_dense(cfg)
     x = embed_tokens(params, batch["tokens"], cfg)
     if runs is None:
         runs = default_runs(cfg, params)
-    return apply_runs(runs, x, cfg, attn_impl=attn_impl)
+    return apply_runs(runs, x, cfg, attn_impl=attn_impl, io=io)

@@ -222,8 +222,9 @@ class NullRegistry(MetricsRegistry):
 NULL_REGISTRY = NullRegistry()
 
 
-# Metric names the port's instrumentation emits (serve/engine.py and
-# serve/scheduler.py); the JAX package's table is docs/observability.md.
+# Metric names the port's instrumentation emits (serve/engine.py,
+# serve/scheduler.py, train/loop.py, train/step_builder.py and
+# models/offload.py); the JAX package's table is docs/observability.md.
 DOCUMENTED_METRICS = (
     "train.step_time_s",
     "train.loss",
@@ -231,6 +232,11 @@ DOCUMENTED_METRICS = (
     "train.nan_skips",
     "train.straggler_events",
     "train.device_mem_watermark_bytes",
+    "train.act_bytes",
+    "train.weight_fetch_bytes",
+    "train.act_swap_out_bytes",
+    "train.act_swap_in_bytes",
+    "train.act_quantize_launches",
     "serve.ticks",
     "serve.generated_tokens",
     "serve.admitted",

@@ -10,14 +10,15 @@ through the kernels package's ``fused_adam_update`` -- the CUDA kernel for
 parameters on the card, the plain ``ref.fused_adam_ref`` for parameters on
 the CPU. Its default here is **True**, the one default that differs from
 the JAX package: on the CPU it reaches the plain version, so it costs the
-tests nothing. The kernel also takes optimizer states that lie in pinned
-host memory and updates them there in place; the plain path
-(``use_fused_kernel=False``) copies such states to the device and back, as
-the JAX package round-trips host states (``adam.py:61-65, 86-90``). The
-arithmetic is the same. The per-step scalars ``[lr, b1, b2, eps, wd, bc1,
-bc2, 0]`` reach the kernel as one (8,) fp32 device tensor, and gradient
-clipping scales the grads with plain torch ops before the kernel, as JAX
-does outside the Pallas call.
+tests nothing. Each leaf's update runs where its gradient lies. The kernel
+also takes parameters and optimizer states that lie in pinned host memory
+(a ``host`` chunk's, see ``train/step_builder.py``) and updates them there
+in place; the plain path (``use_fused_kernel=False``) copies such tensors
+to the gradient's device and back, as the JAX package round-trips host
+states (``adam.py:61-65, 86-90``). The arithmetic is the same. The per-step
+scalars ``[lr, b1, b2, eps, wd, bc1, bc2, 0]`` reach the kernel as one (8,)
+fp32 device tensor, and gradient clipping scales the grads with plain torch
+ops before the kernel, as JAX does outside the Pallas call.
 """
 from __future__ import annotations
 
@@ -103,9 +104,9 @@ def adam_scalars(cfg: AdamConfig, lr, count: int, device) -> torch.Tensor:
 
 
 def _plain_update(p, g, master, m, v, cfg: AdamConfig, lr, bc1, bc2) -> None:
-    """The jnp path of ``_update_leaf``, in place; states that lie elsewhere
-    than p (pinned host) are copied to p's device and back."""
-    dev = p.device
+    """The jnp path of ``_update_leaf``, in place; p and states that lie
+    elsewhere than g (pinned host) are copied to g's device and back."""
+    dev = g.device
     ma, mm, vv = (t.to(dev, non_blocking=True) for t in (master, m, v))
     gf = g.float()
     m_new = cfg.b1 * mm + (1 - cfg.b1) * gf
@@ -114,8 +115,8 @@ def _plain_update(p, g, master, m, v, cfg: AdamConfig, lr, bc1, bc2) -> None:
     if cfg.weight_decay:
         upd = upd + cfg.weight_decay * ma
     master_new = ma - lr * upd
-    p.copy_(master_new.to(p.dtype))
-    for dst, src in ((master, master_new), (m, m_new), (v, v_new)):
+    for dst, src in ((p, master_new.to(p.dtype)), (master, master_new), (m, m_new),
+                     (v, v_new)):
         dst.copy_(src, non_blocking=True)
 
 
@@ -132,11 +133,11 @@ def adam_update(params, grads, opt_state: dict, cfg: AdamConfig, lr,
     if cfg.use_fused_kernel:
         scalars = {}
         for p, g, ma, m, v in zip(flat_p, *flat):
-            if p.device not in scalars:
-                scalars[p.device] = adam_scalars(cfg, lr, count, p.device)
+            if g.device not in scalars:
+                scalars[g.device] = adam_scalars(cfg, lr, count, g.device)
             # a tied embedding's gradient sums a row-major and a transposed
             # product, and comes out strided: the kernel takes dense rows
-            K.fused_adam_update(p, g.contiguous(), ma, m, v, scalars[p.device])
+            K.fused_adam_update(p, g.contiguous(), ma, m, v, scalars[g.device])
     else:
         bc1, bc2 = bias_corrections(cfg, count)
         for p, g, ma, m, v in zip(flat_p, *flat):

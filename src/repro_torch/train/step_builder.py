@@ -10,14 +10,26 @@ Training: ``fn(state, batch) -> (state, metrics)`` runs one step in place on
 ``state = {"params", "opt", "step"}``. The params keep the JAX tree,
 ``{"embed", "runs": [...], "final_norm", "head"}`` with one ``(length, ...)``
 stacked subtree per run of the plan (``plan_runs``). The plan lowers so on
-one device: ``persist`` and ``hbm`` chunks are one placement, the device; a
-``host`` chunk with ``host_params=False`` (the ZeRO-Offload split) keeps its
-bf16 params on the device and its fp32 ``master``, ``m`` and ``v`` in
-**pinned host memory**, which the fused-Adam kernel reads and writes in
-place -- where the JAX package round-trips them through the device. The
-arithmetic is the same. The block policies become runs of ``none`` or
-``checkpoint`` superblocks (``models/model.apply_runs``), ``microbatch``
-the gradient accumulation of ``train/sync.accumulate_grads``.
+one device: ``persist`` and ``hbm`` chunks are one placement, the device. A
+``host`` chunk keeps its fp32 ``master``, ``m`` and ``v`` in **pinned host
+memory**, which the fused-Adam kernel reads and writes in place -- where the
+JAX package round-trips them through the device. The arithmetic is the
+same. With ``host_params=False`` (the ZeRO-Offload split) its bf16 params
+stay on the device; with ``host_params=True`` they live in pinned memory
+too and are fetched per repeat, one repeat ahead on a side stream
+(``models/offload.HostIO``): a buffered chunk (``plan.chunk_buffered``)
+keeps the fetched copy FWD->BWD, an unbuffered one fetches it again for the
+backward. A host embedding, final norm and head are fetched once per
+microbatch, the head's copy during the layer stack (the JAX ``fetch``,
+``:286-310``, with its overlap ordering). The gradient of a host chunk is
+accumulated on the device, like every other chunk's (its bf16 bytes, plus
+fp32 accumulators over microbatches), and the Adam kernel writes the new
+bf16 weights back to pinned memory in place. The block policies become
+runs of ``none``, ``checkpoint``, ``swap``, ``compress8`` or ``compress16``
+superblocks (``models/model.apply_runs``), ``microbatch`` the gradient
+accumulation of ``train/sync.accumulate_grads``. With ``telemetry`` the
+step records ``train.act_bytes`` (on CUDA: the device bytes a microbatch's
+forward leaves allocated for its backward) and ``HostIO``'s counters.
 
 Serving: ``fn(state, batch)`` runs the step under ``torch.inference_mode``
 and returns ``(state, next_tok)``, the greedy argmax taken on the device.
@@ -31,6 +43,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.compat import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.plan import MemoryPlan
@@ -38,13 +51,13 @@ from repro_torch.core.serve_plan import paging_from_plan
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models.offload import HostIO, proxy_like
 from repro_torch.optim import adam as OPT
 from repro_torch.serve.paging import PagedKV, PagingSpec
 from repro_torch.train.losses import chunked_cross_entropy
 from repro_torch.train.sync import accumulate_grads
 
-_HOST_FETCH_TODO = "ROADMAP.md, port queue 1: host weight fetch per run with n_buffer"
-_SYNC_TODO = "ROADMAP.md, port queue 5: distributed sync"
+_SYNC_TODO = "ROADMAP.md, port queue 1 item 7: distributed sync"
 
 
 @dataclasses.dataclass
@@ -101,10 +114,6 @@ def check_train_plan(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig) -> 
         raise NotImplementedError(
             f"sync_mode={plan.sync_mode!r}, grad_compress={plan.grad_compress!r}: one device "
             f"runs the plain reduction only ({_SYNC_TODO})")
-    if plan.host_param_chunks and plan.host_params:
-        raise NotImplementedError(f"host_params=True ({_HOST_FETCH_TODO})")
-    for pol in set(plan.block_policies()):
-        M.check_act_policy(pol)
     n_rep = M.num_repeats(cfg)
     if plan.n_chunks != n_rep + 2 or plan.n_blocks != n_rep:
         raise ValueError(f"plan {plan.describe()} does not fit {cfg.name}: it has "
@@ -117,7 +126,8 @@ def check_train_plan(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig) -> 
 def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeConfig, *,
                      adam: OPT.AdamConfig | None = None, attn_impl: str = "blockwise",
                      ce_chunk: int = 2048,
-                     lr_schedule: Callable[[int], float] | None = None) -> StepArtifacts:
+                     lr_schedule: Callable[[int], float] | None = None,
+                     telemetry: obs.Telemetry | None = None) -> StepArtifacts:
     """The plan-driven training step on one device (CUDA unless ``device``
     says otherwise). ``batch``: ``tokens`` and ``labels``, (B, S) integer on
     the device. ``metrics``: ``loss``, ``ce``, ``grad_norm`` (device scalars)
@@ -134,36 +144,79 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
     }
     if "head" in defs:
         p_defs["head"] = defs["head"]
-    # optimizer states in pinned host memory, per subtree (on a CPU device
-    # the host is the device: nothing moves)
-    pin = device.type == "cuda"
-    head_chunk = plan.chunk_placement(plan.n_chunks - 1)
-    state_on_host = {
-        "embed": pin and plan.chunk_placement(0) == "host",
-        "final_norm": pin and head_chunk == "host",
-        "head": pin and head_chunk == "host",
-        "runs": [pin and r.placement == "host" for r in runs_layout],
+    head_host = plan.chunk_placement(plan.n_chunks - 1) == "host"
+    on_host = {  # subtrees of host chunks
+        "embed": plan.chunk_placement(0) == "host",
+        "final_norm": head_host,
+        "head": head_host,
+        "runs": [r.placement == "host" for r in runs_layout],
     }
+    # where a subtree's bf16 weights live: in host memory for a host chunk
+    # under host_params, else on the device
+    weights_on_host = on_host if plan.host_params else {
+        k: [False] * len(v) if k == "runs" else False for k, v in on_host.items()}
+    # host memory is pinned memory beside a CUDA device; on a CPU device the
+    # host is the device and nothing is moved, but host weights are still
+    # fetched (copied), so the CPU runs the same path
+    pin = device.type == "cuda"
+    tel = telemetry if telemetry is not None else obs.NULL_TELEMETRY
+    act_bytes = tel.registry.gauge("train.act_bytes")
+    io = HostIO(device, tel.registry)
 
-    def make_runs(params) -> list[M.Run]:
+    def host_subtrees(tree, flags):
+        """The subtrees of ``tree`` (embed, final_norm, head, runs[i]) whose
+        flag is set."""
+        subs = [tree[k] for k in ("embed", "final_norm", "head") if k in tree and flags[k]]
+        return subs + [sub for sub, f in zip(tree["runs"], flags["runs"]) if f]
+
+    def map_host(tree, flags, fn) -> dict:
+        """A copy of ``tree`` with ``fn`` applied to its flagged subtrees."""
+        out = {k: fn(v) if k != "runs" and flags.get(k) else v for k, v in tree.items()}
+        out["runs"] = [fn(sub) if f else sub for sub, f in zip(tree["runs"], flags["runs"])]
+        return out
+
+    def make_proxies(params) -> dict:
+        """``params`` with each host weight replaced by its device proxy:
+        the leaves autograd differentiates."""
+        return map_host(params, weights_on_host,
+                        lambda sub: OPT.tree_map(lambda t: proxy_like(t, device), sub))
+
+    def make_runs(params, proxies) -> list[M.Run]:
         return [M.Run(params=params["runs"][i], n_repeats=r.length, act_policy=r.act_policy,
-                      ckpt_group=plan.ckpt_group)
+                      ckpt_group=plan.ckpt_group, buffered=r.buffered,
+                      proxies=proxies["runs"][i] if weights_on_host["runs"][i] else None)
                 for i, r in enumerate(runs_layout)]
 
-    def loss_fn(params, batch):
-        h = M.forward(params, batch, cfg, runs=make_runs(params), attn_impl=attn_impl)
-        h = L.apply_norm(params["final_norm"], h, cfg.norm)
-        w = params["embed"]["tok"].T if cfg.tie_embeddings else params["head"]["w"]
+    def loss_fn(params, proxies, batch):
+        fparams = dict(params)
+        host_keys = [k for k in ("embed", "final_norm", "head")
+                     if k in params and weights_on_host[k]]
+        for key in host_keys:  # in flight from the start: the head's during the layers
+            io.prefetch(params[key])
+        if "embed" in host_keys:
+            fparams["embed"] = io.fetch(proxies["embed"], params["embed"])
+        h = M.forward(fparams, batch, cfg, runs=make_runs(params, proxies),
+                      attn_impl=attn_impl, io=io)
+        for key in host_keys:
+            if key != "embed":
+                fparams[key] = io.fetch(proxies[key], params[key])
+        h = L.apply_norm(fparams["final_norm"], h, cfg.norm)
+        w = fparams["embed"]["tok"].T if cfg.tie_embeddings else fparams["head"]["w"]
         return chunked_cross_entropy(h, w, batch["labels"], ce_chunk=ce_chunk)
 
     def grad_fn(state: dict, batch: dict):
         """The step's gradients and loss: (grads tree, loss), accumulated
-        over the plan's microbatches."""
+        over the plan's microbatches. Every gradient lies on the device."""
         params = state["params"]
-        flat = OPT.tree_leaves(params)
+        proxies = make_proxies(params)
+        flat = OPT.tree_leaves(proxies)
 
         def micro_grad(mb_batch):
-            loss = loss_fn(params, mb_batch)
+            io.reset()
+            before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+            loss = loss_fn(params, proxies, mb_batch)
+            if device.type == "cuda":
+                act_bytes.set(torch.cuda.memory_allocated(device) - before)
             grads = iter(torch.autograd.grad(loss, flat))
             return OPT.tree_map(lambda _: next(grads), params), loss.detach()
 
@@ -180,18 +233,18 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
 
     def place_state(params: dict) -> dict:
         """``{"params", "opt", "step"}`` around ``params`` (tensors on the
-        device, in the tree above), fresh optimizer states placed by plan."""
+        device, in the tree above): a host chunk's weights move to pinned
+        memory under host_params, fresh optimizer states are placed by plan."""
+        if pin:
+            params = map_host(params, weights_on_host, to_pinned)
         opt = OPT.init_opt_state(params)
-        for key in ("master", "m", "v"):
-            tree = opt[key]
-            for name, on_host in state_on_host.items():
-                if name == "runs":
-                    tree["runs"] = [to_pinned(t) if h else t
-                                    for t, h in zip(tree["runs"], on_host)]
-                elif on_host and name in tree:
-                    tree[name] = to_pinned(tree[name])
+        if pin:
+            for key in ("master", "m", "v"):
+                opt[key] = map_host(opt[key], on_host, to_pinned)
         for p in OPT.tree_leaves(params):
             p.requires_grad_(True)
+        for p in OPT.tree_leaves(host_subtrees(params, weights_on_host)):
+            p.requires_grad_(False)  # their proxies take the gradients
         return {"params": params, "opt": opt, "step": 0}
 
     def init(generator: torch.Generator | None = None) -> dict:

@@ -16,7 +16,8 @@ near 0; the fp32 log-sum-exp within ``1e-4 * (1 + |p|)``
 (fp32 sums in another order). Fused Adam: fp32 master, m and v within
 ``1e-6 * (|p| + max |p|)`` (a few ulps: the kernel's FMAs and division
 order); bf16 p within one bf16 ulp, ``2^-7 * |p|``, plus the master's
-bound.
+bound. The fused int8 quantize: q, scales and the residual bitwise equal to
+the plain version.
 """
 import pytest
 import torch
@@ -211,3 +212,132 @@ def test_train_step_runs_on_card(arch):
     after = K.launch_counts()
     for name in ("flash_attention", "flash_attention_bwd", "fused_adam"):
         assert after[name] > before[name], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["activation", "edges", "long_rows"])
+def test_fused_quantize_ef_kernel_matches_plain_bitwise(case):
+    """A bf16 activation block (one pass per row), edge rows (a zero row,
+    exact half-way quotients, the clip bound, n not a multiple of 4) and
+    long fp32 rows (the two-pass path)."""
+    _require_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    if case == "activation":
+        x = (torch.randn(256, 4096, device="cuda", generator=g)
+             * torch.exp(torch.randn(256, 1, device="cuda", generator=g))).bfloat16()
+        me = 0
+    elif case == "edges":
+        n = 131
+        ties = torch.zeros(n, device="cuda")
+        ties[0] = 127.0
+        ties[1:9] = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5])
+        x = torch.stack([torch.zeros(n, device="cuda"), ties,
+                         torch.linspace(-3.3, 3.3, n, device="cuda"),
+                         torch.randn(n, device="cuda", generator=g)])
+        me = 1
+    else:
+        x, me = torch.randn(3, 50_001, device="cuda", generator=g), 2
+    got = K.fused_quantize_ef(x, me)
+    want = ref.fused_quantize_ef_ref(x, me)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if case == "edges":
+        assert got[0][1, 1:9].tolist() == [0, 2, 2, 0, -2, -2, 126, -126]
+
+
+@pytest.mark.cuda
+def test_compress8_swap_host_weights_step_runs_on_card():
+    """Two steps of a small bf16 mistral under compress8 and swap layers with
+    the last block's and the head's weights in pinned host memory: finite
+    losses, the quantizer launched at three sites per compress8 layer and
+    microbatch, the host weights pinned."""
+    _require_card()
+    from repro_torch import obs
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.train.step_builder import build_train_step
+
+    cfg = reduced(get_config("mistral-7b"), head_dim=64, num_kv_heads=2)
+    shape = ShapeConfig("card", 256, 2, "train")
+    plan = MemoryPlan(4, 2, n_persist=1, n_host=2, host_params=True, n_buffer=1, microbatch=2,
+                      act_policies=("compress8", "swap"))
+    tel = obs.Telemetry()
+    art = build_train_step(cfg, plan, "cuda", shape, telemetry=tel)
+    state = art.init(torch.Generator(device="cuda").manual_seed(0))
+    assert state["params"]["head"]["w"].is_pinned() and state["params"]["runs"][1][
+        "pos0"]["attn"]["wq"].is_pinned()
+    pipe = SyntheticTokenPipeline(cfg, shape, device="cuda")
+    before = K.launch_counts()["fused_quantize_ef"]
+    for _ in range(2):
+        state, metrics = art.fn(state, pipe.next_sync())
+        assert torch.isfinite(metrics["loss"]).item()
+    assert K.launch_counts()["fused_quantize_ef"] - before == 2 * 2 * 3
+    snap = tel.registry.snapshot()
+    assert snap["train.act_swap_out_bytes"]["value"] == snap["train.act_swap_in_bytes"]["value"] > 0
+    assert snap["train.weight_fetch_bytes"]["value"] > 0 and snap["train.act_bytes"]["value"] > 0
+
+
+def _blocks_as_runs(params, runs):
+    """A copy of a tree with stacked ``blocks`` as the state tree of a run
+    layout (a copy: the step updates its state in place)."""
+    out = {k: _slice_blocks(v, 0, None) for k, v in params.items() if k != "blocks"}
+    out["runs"] = [{k: _slice_blocks(v, r.start, r.length) for k, v in params["blocks"].items()}
+                   for r in runs]
+    return out
+
+
+def _slice_blocks(tree, start, length):
+    if isinstance(tree, torch.Tensor):
+        return (tree if length is None else tree[start:start + length]).clone()
+    return {k: _slice_blocks(v, start, length) for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_buffer,policies", [(0, ("none", "none")),
+                                               (1, ("checkpoint", "none")),
+                                               (0, ("compress8", "swap"))])
+def test_host_weights_step_equals_device_weights_on_card(n_buffer, policies):
+    """Two steps of a small bf16 mistral with both blocks and the head in
+    pinned host memory give the same losses and weights, bitwise, as the
+    same plan with every chunk on the card (one init); the weight bytes
+    fetched are the plan's: every host chunk once per microbatch, an
+    unbuffered block once more for its backward (a ``none`` block through
+    the saved-tensor re-fetch, a recomputed one in its replay)."""
+    _require_card()
+    from repro_torch import obs
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.optim.adam import tree_leaves
+    from repro_torch.train.step_builder import build_train_step
+
+    cfg = reduced(get_config("mistral-7b"), head_dim=64, num_kv_heads=2)
+    shape = ShapeConfig("card", 256, 2, "train")
+    init = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    kw = dict(n_persist=1, microbatch=2, act_policies=policies)
+    out = {}
+    for name, plan in (("device", MemoryPlan(4, 2, **kw)),
+                       ("host", MemoryPlan(4, 2, n_host=3, host_params=True, n_buffer=n_buffer,
+                                           **kw))):
+        tel = obs.Telemetry()
+        art = build_train_step(cfg, plan, "cuda", shape, telemetry=tel)
+        state = art.place_state(_blocks_as_runs(init, art.runs))
+        pipe = SyntheticTokenPipeline(cfg, shape, seed=0, device="cuda")
+        losses = [float(art.fn(state, pipe.next_sync())[1]["loss"]) for _ in range(2)]
+        blocks = [torch.cat(xs) for xs in zip(*(tree_leaves(r) for r in state["params"]["runs"]))]
+        out[name] = (losses, [t.cpu() for t in blocks + tree_leaves(state["params"]["head"])],
+                     tel.registry.snapshot()["train.weight_fetch_bytes"]["value"], plan)
+    (dev_losses, dev_w, _, _), (losses, w, fetched, plan) = out["device"], out["host"]
+    assert losses == dev_losses
+    assert all(torch.equal(a, b) for a, b in zip(w, dev_w))
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    per_block = nbytes(tree_leaves(init["blocks"])) // 2
+    head = nbytes(tree_leaves(init["final_norm"]) + tree_leaves(init["head"]))
+    refetched = sum(1 for c in (1, 2) if not plan.chunk_buffered(c)) * per_block
+    assert fetched == 2 * 2 * (2 * per_block + head + refetched)

@@ -7,8 +7,10 @@ path's ``layers.rmsnorm``. Tolerances, as ``atol = rtol`` after casting to
 fp32: fp32 1e-4 (XLA and torch sum in different orders), bf16 2e-2 (the bf16
 bound of tests/test_kernels.py). The training kernels' plain versions
 (FlashAttention forward with its log-sum-exp, its backward, fused Adam, the
-RMSNorm backward) are compared in fp32 at 1e-4 as well. The CUDA kernels
-are held against the same plain versions on the card in
+RMSNorm backward) are compared in fp32 at 1e-4 as well. The fused int8
+quantize's plain version is held **bitwise** to the JAX oracle and to the
+Pallas kernel in interpret mode (q, scales and the residual). The CUDA
+kernels are held against the same plain versions on the card in
 tests/test_torch_cuda.py.
 """
 import jax
@@ -16,11 +18,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels import ops as JOPS
 from repro.kernels import ref as JR
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.fused_adam import fused_adam as j_fused_adam
+from repro.kernels.fused_quant import fused_quantize_ef as j_fused_quantize_ef
 from repro.models import layers as JL
 from repro.optim import adam as JADAM
 from repro_torch import kernels as K
@@ -248,6 +253,81 @@ def test_rmsnorm_bwd_plain_matches_jax_grad(shape):
 
 
 # ---------------------------------------------------------------------------
+# Fused int8 quantize + error-feedback residual: bitwise against JAX
+# ---------------------------------------------------------------------------
+def _quant_both(ch: np.ndarray, me: int):
+    """(port plain, JAX oracle, Pallas interpret) results as numpy triples."""
+    port = K.fused_quantize_ef(torch.from_numpy(ch), me)
+    jref = JR.fused_quantize_ef_ref(jnp.asarray(ch), me)
+    pallas = j_fused_quantize_ef(jnp.asarray(ch), me, interpret=True)
+    out = [tuple(t.numpy() for t in port)]
+    out += [tuple(np.asarray(a) for a in r) for r in (jref, pallas)]
+    return out
+
+
+def _xla_cpu_quantize(ch: np.ndarray, me: int):
+    """What XLA's CPU backend compiles the Pallas kernel (and any jitted
+    three-op sequence) into: the division by the constant 127 becomes a
+    multiply by fp32(1/127), and ``ch - q * scale`` one fused multiply-add
+    (the exact difference rounded once; exact in fp64, since q is an integer
+    of at most 7 bits)."""
+    amax = np.abs(ch).max(axis=1)
+    scale = np.maximum(amax, np.float32(1e-30)) * np.float32(1.0 / 127.0)
+    q = np.clip(np.rint(ch / scale[:, None]), -127, 127).astype(np.int8)
+    err = ch[me].astype(np.float64) - q[me].astype(np.float64) * np.float64(scale[me])
+    return q, scale.astype(np.float32), err.astype(np.float32)
+
+
+def _assert_quant_bitwise(ch: np.ndarray, me: int):
+    """The port's plain version bitwise against the JAX oracle run op by op
+    (IEEE division, the product rounded before the difference, as the CUDA
+    kernel computes). The Pallas kernel in interpret mode is jitted, and
+    XLA's CPU backend rewrites two of those ops (``_xla_cpu_quantize``): it
+    is held bitwise against that rewrite, whose q differs from the port's
+    only where the rewritten scale is an ulp away."""
+    (q, s, e), (qj, sj, ej), (qp, sp, ep) = _quant_both(ch, me)
+    assert q.dtype == np.int8 and s.dtype == np.float32 and e.dtype == np.float32
+    np.testing.assert_array_equal(q, qj, err_msg="q vs JAX ref")
+    np.testing.assert_array_equal(s.view(np.int32), sj.view(np.int32), err_msg="scales vs JAX ref")
+    np.testing.assert_array_equal(e.view(np.int32), ej.view(np.int32), err_msg="err vs JAX ref")
+    qx, sx, ex = _xla_cpu_quantize(ch, me)
+    np.testing.assert_array_equal(qp, qx, err_msg="Pallas interpret q")
+    np.testing.assert_array_equal(sp.view(np.int32), sx.view(np.int32),
+                                  err_msg="Pallas interpret scales")
+    np.testing.assert_array_equal(ep.view(np.int32), ex.view(np.int32),
+                                  err_msg="Pallas interpret err")
+    same = sx.view(np.int32) == s.view(np.int32)  # rows whose scales agree agree in q
+    np.testing.assert_array_equal(qp[same], q[same], err_msg="q where the scales agree")
+
+
+@settings(max_examples=30, deadline=None)
+@given(z=st.integers(min_value=1, max_value=4), n=st.integers(min_value=1, max_value=257),
+       me=st.integers(min_value=0, max_value=3), seed=st.integers(min_value=0, max_value=2**16),
+       log_spread=st.integers(min_value=-3, max_value=4))
+def test_fused_quantize_ef_plain_matches_jax_bitwise(z, n, me, seed, log_spread):
+    rng = np.random.default_rng(seed)
+    ch = (rng.standard_normal((z, n)) * np.exp(rng.standard_normal((z, 1)) * log_spread))
+    _assert_quant_bitwise(ch.astype(np.float32), me % z)
+
+
+def test_fused_quantize_ef_edge_rows_match_jax_bitwise():
+    """A zero row (scale 1e-30 / 127), exact half-way quotients (round half
+    to even), values at the clip bound, n not a multiple of 4."""
+    n = 131
+    ties = np.zeros(n, np.float32)
+    ties[0] = 127.0  # scale exactly 1: every x / scale is x
+    ties[1:9] = [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5]
+    clip = np.linspace(-1.0, 1.0, n).astype(np.float32) * np.float32(3.3)
+    ch = np.stack([np.zeros(n, np.float32), ties, clip, -clip])
+    for me in range(4):
+        _assert_quant_bitwise(ch, me)
+    q, s, _ = (t.numpy() for t in K.fused_quantize_ef(torch.from_numpy(ch), 0))
+    assert s[0] == np.float32(1e-30) / np.float32(127) and not q[0].any()
+    assert list(q[1, 1:9]) == [0, 2, 2, 0, -2, -2, 126, -126]  # half to even
+    assert q[2].min() == -127 and q[2].max() == 127
+
+
+# ---------------------------------------------------------------------------
 # The CUDA wrappers refuse what their kernels do not take
 # ---------------------------------------------------------------------------
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -270,3 +350,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     z = torch.zeros(8)
     with pytest.raises(ValueError, match="CUDA"):
         fused_adam_cuda(z, z, z, z, z, z)
+    from repro_torch.kernels.fused_quant import fused_quantize_ef_cuda
+
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_quantize_ef_cuda(torch.zeros(2, 8), 0)

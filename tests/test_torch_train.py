@@ -165,14 +165,6 @@ def _rebuild(tree, it):
     return {k: _rebuild(tree[k], it) for k in sorted(tree)}
 
 
-def test_unported_act_policies_raise():
-    params = convert.tree_from_numpy(_jax_params())
-    x = torch.zeros(1, 4, CFG.d_model)
-    for pol in ("swap", "compress8", "compress16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.apply_runs([TM.Run(params=params["blocks"], n_repeats=2, act_policy=pol)], x, CFG)
-
-
 # ---------------------------------------------------------------------------
 # The step: three plans, three steps, against the JAX step on one device
 # ---------------------------------------------------------------------------
@@ -311,9 +303,6 @@ def test_default_device_without_cuda_raises():
 
 
 OUT_OF_SCOPE = {
-    "host_params": dict(n_host=1, host_params=True),
-    "swap": dict(n_persist=4, n_swap=1),
-    "compress8": dict(n_persist=4, act_policies=("compress8", "none")),
     "manual_sync": dict(n_persist=4, sync_mode="manual"),
     "grad_compress": dict(n_persist=4, grad_compress="int8_ef"),
 }
