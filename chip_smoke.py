@@ -8,10 +8,15 @@ Run from the root of a checkout on a machine with one sm_90 card and nvcc:
 Phases, each printing one JSON line:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-  2. the kernels' build from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
+  2. the kernels' build from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a),
+     with each kernel's registers, shared memory and spills from ptxas;
   3. each kernel against its plain PyTorch version on the card, at the
      serving path's shapes, with its time, its plain version's, a library
-     call's and the card's bound for the same work;
+     call's and the card's bound for the same work; the paged kernel also
+     over a 65,536-row cache, with its split count (``n_split``) and, for a
+     pinned cold store, a second yardstick that copies the rows the kernel
+     reads over the host link, and no others, to the device before the
+     library call (``library_with_copy_ms``);
   4. ``DecodeEngine`` at the full width and depth of ``mistral-7b`` (random
      bf16 weights from a seeded generator), serving 4 requests with chunked
      admission on a paged plan whose cold pages sit in pinned host memory;
@@ -140,6 +145,7 @@ BATCH, HQ, HKV, HD = 4, 32, 8, 128
 SEQ_LEN, PAGE, N_HOT = 1024, 256, 2
 PREFILL_CHUNK, NEW_TOKENS = 32, 16
 PROMPT_LENS = (520, 800)  # past the 2-page hot window: cold pages are read
+LONG_SEQ = 65536  # a long cache for the paged kernel alone (no S cap since split-KV)
 
 
 def emit(phase: str, **fields) -> None:
@@ -211,14 +217,29 @@ def phase_card() -> str:
     return smi
 
 
+def ptxas_report(log: str) -> list[str]:
+    """One line per compiled kernel from ``nvcc -Xptxas -v``: its (mangled)
+    name, then its registers, shared memory and spills."""
+    lines, name, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            spill = ""
+    return lines
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
     build.load_library()
-    ptxas = [line for line in build.BUILD_INFO["log"].splitlines() if "Used" in line]
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=build.BUILD_INFO["seconds"],
-         built=build.BUILD_INFO["built"], lib=build.BUILD_INFO["lib"], ptxas=ptxas)
+         built=build.BUILD_INFO["built"], lib=build.BUILD_INFO["lib"],
+         ptxas=ptxas_report(build.BUILD_INFO["log"]))
 
 
 def rmsnorm_case(rows: int, gen) -> dict:
@@ -254,14 +275,16 @@ def paged_inputs(case: str, cold_on_host: bool, gen):
     and mask from ``PagedKV.prepare`` at mid-run positions of mistral-7b's
     ring cache (past the hot window, so cold rows are attended); ``full``
     masks by position without the ring rule; ``ring`` is a wrapped ring
-    (every row attendable) with a random 50/50 sel."""
+    (every row attendable) with a random 50/50 sel; ``long`` is ``full`` over
+    a cache of LONG_SEQ rows."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import kvcache as KV
     from repro_torch.serve.paging import PagedKV, choose_paging
 
-    b, s, w = BATCH, SEQ_LEN, PAGE * N_HOT
+    b, w = BATCH, PAGE * N_HOT
+    s = LONG_SEQ if case == "long" else SEQ_LEN
     rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
     q, kh, vh = rnd(b, 1, HQ, HD), rnd(b, w, HKV, HD), rnd(b, w, HKV, HD)
     kc, vc = rnd(b, s, HKV, HD), rnd(b, s, HKV, HD)
@@ -271,7 +294,9 @@ def paged_inputs(case: str, cold_on_host: bool, gen):
         cache = {"pos0": {"k_hot": kh[None]}}
         step = PagedKV(spec).prepare(cache, pos, get_config("mistral-7b"), "cuda")
         sel, mask = step.sel, step.mask
-    elif case == "full":
+    elif case in ("full", "long"):
+        if case == "long":
+            pos = torch.tensor([40_000, 50_000, 60_000, LONG_SEQ - 1])
         sel = torch.rand(b, s, device="cuda", generator=gen) < 0.5
         mask = KV.decode_mask(pos, s, sliding=False).to("cuda")
     else:
@@ -297,21 +322,67 @@ def paged_bound(args, cold_on_host: bool) -> tuple[float, str, dict]:
     host = cold_rows * row if cold_on_host else 0
     if not cold_on_host:
         hbm += cold_rows * row
-    flops = (hot_rows + cold_rows) * HQ * HD * 4 + 5 * HQ * SEQ_LEN * BATCH
+    flops = (hot_rows + cold_rows) * HQ * HD * 4 + 5 * HQ * mask.numel()
     times = {"bytes": max(hbm / HBM_BYTES_PER_S, host / HOST_LINK_BYTES_PER_S),
              "operations": flops / FP32_FLOP_PER_S}
     by = max(times, key=times.get)
     return times[by] * 1e3, by, {"hbm_bytes": hbm, "host_bytes": host, "flops": flops}
 
 
-def paged_case(case: str, cold_on_host: bool, gen) -> dict:
+def paged_library(args) -> dict:
+    """The library yardsticks: SDPA over the cache gathered beforehand on the
+    device (``library_ms``); for a pinned cold store also the same SDPA after
+    copying, inside the timed call, the attended cold rows to the device
+    (``library_with_copy_ms``). Those rows are packed beforehand into one
+    pinned buffer, as a cache that copies would keep its cold pages, so the
+    copy moves the kernel's host-link bytes and no more
+    (``library_copy_bytes``, held equal to the bound's ``host_bytes``)."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.serve.paging import attended_rows
+
+    q, kh, vh, kc, vc, sel, mask = args
+    s = mask.shape[1]
+    rows = torch.arange(s, device="cuda") % kh.shape[1]
+    s4 = sel[..., None, None]
+    kd, vd = kc.cuda(), vc.cuda()
+    k = torch.where(s4, kh[:, rows], kd).transpose(1, 2)
+    v = torch.where(s4, vh[:, rows], vd).transpose(1, 2)
+    qt = q.transpose(1, 2)
+    am = mask[:, None, None, :].to(q.dtype)
+    lib = lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=am, enable_gqa=True)  # noqa: E731
+    out = timed("library_ms", lib)
+    if kc.device.type == "cuda":
+        return out
+    cold = (attended_rows(mask) & ~sel).flatten().nonzero().squeeze(1)  # b * S + s
+    flat = lambda t: t.view(-1, *t.shape[2:])  # noqa: E731
+    kp, vp = (flat(t)[cold.cpu()].pin_memory() for t in (kc, vc))
+    kb, vb = torch.empty_like(kp, device="cuda"), torch.empty_like(vp, device="cuda")
+
+    def copy_then_sdpa():
+        kb.copy_(kp, non_blocking=True)
+        vb.copy_(vp, non_blocking=True)
+        flat(kd).index_copy_(0, cold, kb)
+        flat(vd).index_copy_(0, cold, vb)
+        kk = torch.where(s4, kh[:, rows], kd).transpose(1, 2)
+        vv = torch.where(s4, vh[:, rows], vd).transpose(1, 2)
+        return F.scaled_dot_product_attention(qt, kk, vv, attn_mask=am, enable_gqa=True)
+
+    out.update(timed("library_with_copy_ms", copy_then_sdpa))
+    out["library_copy_bytes"] = 2 * kp.numel() * kp.element_size()
+    return out
+
+
+def paged_case(case: str, cold_on_host: bool, gen) -> dict:
+    import torch
+
     from repro_torch.kernels import decode_paged_attention
+    from repro_torch.kernels.paged_attention import split_rows
     from repro_torch.kernels.ref import paged_attention_ref
 
     args = paged_inputs(case, cold_on_host, gen)
+    s = args[-1].shape[1]
     out = decode_paged_attention(*args, n_hot=N_HOT)
     ref = paged_attention_ref(*args)
     torch.cuda.synchronize()
@@ -320,34 +391,47 @@ def paged_case(case: str, cold_on_host: bool, gen) -> dict:
     assert excess <= 0, (f"paged_attention {case} host={cold_on_host}: max |diff| {err} "
                          f"beyond {PAGED_TOL} * max |plain| of its head")
     bound, by, work = paged_bound(args, cold_on_host)
-    # library yardstick: SDPA over the cache gathered beforehand on the device
-    q, kh, vh, kc, vc, sel, mask = args
-    rows = torch.arange(SEQ_LEN, device="cuda") % kh.shape[1]
-    s4 = sel[..., None, None]
-    k = torch.where(s4, kh[:, rows], kc.cuda()).transpose(1, 2)
-    v = torch.where(s4, vh[:, rows], vc.cuda()).transpose(1, 2)
-    qt = q.transpose(1, 2)
-    am = mask[:, None, None, :].to(q.dtype)
-    lib = lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=am, enable_gqa=True)  # noqa: E731
-    return {
-        "case": case, "cold": "pinned_host" if cold_on_host else "device",
+    rows, n_split = split_rows(BATCH, HKV, s, PAGE,
+                               torch.cuda.get_device_properties(0).multi_processor_count)
+    res = {
+        "case": case, "s": s, "cold": "pinned_host" if cold_on_host else "device",
+        "n_split": n_split, "rows_per_split": rows,
         "max_abs_err": err, "max_abs_plain": ref.float().abs().max().item(),
         "tol": f"{PAGED_TOL} * max |plain| per (batch, head)", "tol_min": tol.min().item(),
         **timed("ms", lambda: decode_paged_attention(*args, n_hot=N_HOT)),
         **timed("plain_ms", lambda: paged_attention_ref(*args)),
-        **timed("library_ms", lib), "bound_ms": bound, "bound_by": by, **work,
+        **paged_library(args), "bound_ms": bound, "bound_by": by, **work,
     }
+    assert res.get("library_copy_bytes", 0) == res["host_bytes"], (
+        f"paged_attention {case}: the copy yardstick moves {res.get('library_copy_bytes')} B, "
+        f"the kernel reads {res['host_bytes']} B over the host link")
+    return res
+
+
+def host_link_rate() -> dict:
+    """This machine's host-to-device copy rate: one 256 MiB copy from pinned
+    memory by the copy engine, CUDA-event timed (median of 5). The paged
+    kernel's host-cold reads are set beside it, and beside the 64 GB/s
+    specification that ``paged_bound`` uses."""
+    import torch
+
+    src = torch.empty(256 << 20, dtype=torch.uint8).pin_memory()
+    dst = torch.empty_like(src, device="cuda")
+    dst.copy_(src, non_blocking=True)
+    ms = _event_ms(lambda: dst.copy_(src, non_blocking=True), 5)
+    return {"bytes": src.numel(), "ms": ms, "gb_per_s": src.numel() / ms / 1e6}
 
 
 def phase_kernels() -> dict:
     import torch
 
+    emit("host_link", **host_link_rate())
     gen = torch.Generator(device="cuda").manual_seed(0)
     rms = [rmsnorm_case(rows, gen) for rows in (BATCH, BATCH * 32)]
     for r in rms:
         emit("kernel_vs_plain", kernel="rmsnorm", **r)
     paged = [paged_case(case, host, gen)
-             for case in ("main", "full", "ring") for host in (True, False)]
+             for case in ("main", "full", "ring", "long") for host in (True, False)]
     for p in paged:
         emit("kernel_vs_plain", kernel="paged_attention", **p)
     return {"rmsnorm": rms, "paged_attention": paged}
@@ -967,7 +1051,7 @@ def model_flops(cfg, tokens: int) -> int:
 
 KERNEL_KINDS = (  # device work of a training step, by kernel name
     ("flash_forward", ("flash_fwd_kernel",)),
-    ("flash_backward", ("flash_delta_kernel", "flash_dkdv_kernel", "flash_dq_kernel")),
+    ("flash_backward", ("flash_delta_kernel", "flash_dkdv_", "flash_dq_")),
     ("fused_adam", ("fused_adam_kernel",)),
     ("fused_quantize_ef", ("quant_rows_kernel", "segment_absmax_kernel",
                            "segment_quant_kernel")),

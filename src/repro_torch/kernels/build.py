@@ -115,10 +115,8 @@ def load_library() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.repro_rmsnorm.argtypes = [vp, vp, vp, i64, i32, ctypes.c_float, i32, vp]
     lib.repro_rmsnorm.restype = i32
-    lib.repro_paged_attention.argtypes = [vp] * 8 + [i64] + [i32] * 6 + [vp]
+    lib.repro_paged_attention.argtypes = [vp] * 9 + [i64] + [i32] * 8 + [vp]
     lib.repro_paged_attention.restype = i32
-    lib.repro_paged_attention_smem_bytes.argtypes = [i32, i32, i32]
-    lib.repro_paged_attention_smem_bytes.restype = i64
     llp = ctypes.POINTER(ctypes.c_longlong)
     lib.repro_flash_attention_fwd.argtypes = [vp] * 5 + [llp, llp, i32, i32, i32,
                                                          ctypes.c_float, vp]

@@ -13,16 +13,17 @@
 // rounded to dout's dtype for dV; ds = p * (dp - delta) * scale rounded to
 // q's dtype for dQ and dK. Three kernels: delta = rowsum(dO * O) in fp32;
 // dK and dV, one block per (batch, kv head, 64-key tile) looping over the
-// query tiles and the G query heads of the group; dQ, one block per (batch,
-// query head, 64-row query tile) looping over key tiles. No atomics: every
-// output element is written by one block, so the gradients are deterministic.
+// live query tiles and the G query heads of the group; dQ, one block per
+// (batch, query head, 64-row query tile) looping over the live key tiles.
+// No atomics: every output element is written by one block, so the
+// gradients are deterministic, bit for bit, from call to call.
 //
 // What bounds them on the card: operations. Forward 4 * hd flops and
 // backward 10 * hd flops per attended (q, k) pair and query head, against
 // the bf16 tensor-core peak; at S = 4096 a head's K and V (2 MB) are re-read
 // from L2, not HBM.
 //
-// Design (simple first; wgmma, TMA and warp specialisation are later work):
+// Forward design (simple first; its redesign is the next step):
 //   * 128 threads, 4 warps; a warp owns 16 rows of the 64-row tile;
 //   * tiles of 64 rows x hd staged in shared memory with 16-byte loads,
 //     read through the caller's strides (the (B, S, H, hd) layout of the
@@ -30,10 +31,37 @@
 //   * the products run on the tensor cores through WMMA bf16 16x16x16
 //     fragments (mma.sync m16n8k16 underneath) with fp32 accumulation;
 //     scores go through shared memory for the elementwise softmax, and the
-//     fp32 accumulators (O, dQ, dK, dV) live in shared memory, where the
-//     online rescale of O by exp(m_old - m_new) is an elementwise pass;
+//     fp32 accumulator O lives in shared memory, where the online rescale
+//     by exp(m_old - m_new) is an elementwise pass;
 //   * key tiles outside the causal / window band of the query tile are
 //     skipped; inside a live tile masked pairs get p = 0 exactly.
+//
+// Backward design (dK / dV and dQ kernels):
+//   * one warpgroup (128 threads, 4 warps) a block; every product is a
+//     64-row wgmma (m64n64k16 for S and dP, m64n{hd}k16 for dK, dV, dQ);
+//     the tiles wgmma reads from shared memory sit in its 128-byte-swizzle
+//     layout (K-major for S = Q.K^T and dP = dO.V^T, the same bytes read
+//     MN-major as the B operand of dV = P^T.dO, dK = dS^T.Q, dQ = dS.K), so
+//     the (B, S, H, hd) inputs are read through their strides, no transposes;
+//   * everything fp32 stays in registers: the dK and dV (or dQ)
+//     accumulators for the whole loop, and the S and dP tiles, on whose
+//     fragments the elementwise pass (exp, mask, ds) runs; P and dS become
+//     bf16 A operands in registers (the fragments of two n8 accumulator
+//     tiles are the A fragment of one k16 step), so no score or
+//     accumulator tile goes through shared memory;
+//   * the streamed tiles (Q, dO, lse, delta for dK / dV; K and V for dQ)
+//     load through a 2-stage ring with cp.async; each step issues this
+//     step's dV / dK (or dQ) products and then the next step's S and dP
+//     back to back, the tensor cores busy while the next tiles land;
+//   * shared memory ~98 KB a block (hd 128) and registers sized for two
+//     blocks (8 warps) an SM; ptxas's register counts are in the build log
+//     (``chip_smoke.py``'s build line);
+//   * live tiles form one contiguous range per block (causal bounds it
+//     below, the window above), found before the loop so the ring always
+//     knows the next live tile; masked pairs in a live tile get p = 0, and
+//     tiles wholly inside the band skip the mask; the grids are tile-major,
+//     so the longest tiles (the most live partners) start first.
+// TMA and warp specialisation are later work.
 #include <mma.h>
 
 #include "common.cuh"
@@ -71,21 +99,20 @@ struct Layout {
   static constexpr int kScoreB = kTile * kLdP * 2;
   static constexpr int kRowVec = kTile * 4;
   static constexpr int kFwdSmem = 3 * kTileB + kScoreF + kScoreB + kTileO + kRowVec;
-  static constexpr int kDkvSmem = 4 * kTileB + 2 * kScoreF + kScoreB + 2 * kTileO + 2 * kRowVec;
-  static constexpr int kDqSmem = 4 * kTileB + 2 * kScoreF + kScoreB + kTileO + 2 * kRowVec;
 };
 
 __device__ __forceinline__ bool attends(int qpos, int kpos, const Dims& d) {
   return kpos < d.sk && (!d.causal || kpos <= qpos) && (d.window <= 0 || kpos > qpos - d.window);
 }
 
-// Can any (q, k) of query tile q0 and key tile k0 attend? (A necessary
-// condition: tiles failing it are skipped; a live tile masks per pair.)
-__device__ __forceinline__ bool tile_live(int q0, int k0, const Dims& d) {
+// Can any (q, k) of the nq query rows from q0 and the nk keys from k0
+// attend? (A necessary condition: tiles failing it are skipped; a live
+// tile masks per pair.)
+__device__ __forceinline__ bool tiles_live(int q0, int nq, int k0, int nk, const Dims& d) {
   if (q0 >= d.sq || k0 >= d.sk) return false;
   const int qmin = q0 + d.q_offset;
-  const int qmax = min(q0 + kTile, d.sq) - 1 + d.q_offset;
-  const int kmax = min(k0 + kTile, d.sk) - 1;
+  const int qmax = min(q0 + nq, d.sq) - 1 + d.q_offset;
+  const int kmax = min(k0 + nk, d.sk) - 1;
   if (d.causal && k0 > qmax) return false;
   if (d.window > 0 && kmax <= qmin - d.window) return false;
   return true;
@@ -155,18 +182,6 @@ __device__ __forceinline__ void zero_rows(float* acc) {
   for (int i = threadIdx.x; i < kTile * L::kLdO; i += kThreads) acc[i] = 0.f;
 }
 
-// Write rows [row0, row0 + 64) (those below n) of a shared fp32 accumulator
-// as bf16 through row stride ``rs``.
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* g, long long rs, const float* acc, int row0, int n) {
-  using L = Layout<HD>;
-  for (int i = threadIdx.x; i < kTile * HD; i += kThreads) {
-    const int r = i / HD;
-    const int c = i % HD;
-    if (row0 + r < n) g[(row0 + r) * rs + c] = __float2bfloat16(acc[r * L::kLdO + c]);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Forward
 // ---------------------------------------------------------------------------
@@ -209,7 +224,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int n_kt = (d.sk + kTile - 1) / kTile;
   for (int kt = 0; kt < n_kt; ++kt) {
-    if (!tile_live(q0, kt * kTile, d)) continue;  // uniform over the block
+    if (!tiles_live(q0, kTile, kt * kTile, kTile, d)) continue;  // uniform over the block
     __syncthreads();  // the previous tile's K / V are consumed
     load_tile<HD, L::kLdB>(sK, kb, ks.s, kt * kTile, d.sk);
     load_tile<HD, L::kLdB>(sV, vb, vs.s, kt * kTile, d.sk);
@@ -289,177 +304,532 @@ flash_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
-// Backward: dK and dV for one (b, kv head, 64-key tile)
+// Backward, dK / dV and dQ: helpers
 // ---------------------------------------------------------------------------
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, Dims d,
-                  Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs) {
-  using L = Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::kTileB);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + 2 * L::kTileB);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + 3 * L::kTileB);
-  float* sS = reinterpret_cast<float*>(smem + 4 * L::kTileB);
-  float* sDP = reinterpret_cast<float*>(smem + 4 * L::kTileB + L::kScoreF);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 4 * L::kTileB + 2 * L::kScoreF);
-  float* sDK = reinterpret_cast<float*>(smem + 4 * L::kTileB + 2 * L::kScoreF + L::kScoreB);
-  float* sDV = sDK + kTile * L::kLdO;
-  float* sLse = sDV + kTile * L::kLdO;
-  float* sDelta = sLse + kTile;
+constexpr float kLog2e = 1.4426950408889634f;
 
-  const int k0 = blockIdx.x * kTile;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wr = warp * kWarpRows;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  load_tile<HD, L::kLdB>(sK, k + b * ks.b + kvh * ks.h, ks.s, k0, d.sk);
-  load_tile<HD, L::kLdB>(sV, v + b * vs.b + kvh * vs.h, vs.s, k0, d.sk);
-  zero_rows<HD>(sDK);
-  zero_rows<HD>(sDV);
+// 16 (or 4) bytes global -> shared, asynchronously; zero-filled when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  float* sSw = sS + wr * kLdF;
-  float* sDPw = sDP + wr * kLdF;
-  bf16* sPw = sP + wr * kLdP;
-  const int n_qt = (d.sq + kTile - 1) / kTile;
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    if (!tile_live(q0, k0, d)) continue;
-    for (int g = 0; g < d.group; ++g) {
-      const int h = kvh * d.group + g;
-      __syncthreads();  // the previous (tile, head)'s Q / dO are consumed
-      load_tile<HD, L::kLdB>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, d.sq);
-      load_tile<HD, L::kLdB>(sDO, dout + b * dos.b + h * dos.h, dos.s, q0, d.sq);
-      for (int i = threadIdx.x; i < kTile; i += kThreads) {
-        const long long base = (static_cast<long long>(b) * d.hq + h) * d.sq;
-        const bool in = q0 + i < d.sq;
-        sLse[i] = in ? lse[base + q0 + i] : 0.f;
-        sDelta[i] = in ? delta[base + q0 + i] : 0.f;
-      }
-      __syncthreads();
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
-      // S^T (16 keys x 64 queries) = K_w . Q^T ; dP^T = V_w . dO^T
-      mm_abt<HD>(sSw, sK + wr * L::kLdB, L::kLdB, sQ, L::kLdB);
-      mm_abt<HD>(sDPw, sV + wr * L::kLdB, L::kLdB, sDO, L::kLdB);
-      __syncwarp();
-      // p = exp(s * scale - lse) (0 where masked), rounded to dout's dtype for dV
-#pragma unroll 1
-      for (int r = 0; r < kWarpRows; ++r) {
-        const int kpos = k0 + wr + r;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int c = lane + 32 * half;
-          const int qrow = q0 + c;
-          const bool ok = qrow < d.sq && attends(qrow + d.q_offset, kpos, d);
-          const float p = ok ? expf(sSw[r * kLdF + c] * d.scale - sLse[c]) : 0.f;
-          sSw[r * kLdF + c] = p;
-          sPw[r * kLdP + c] = __float2bfloat16(p);
-        }
-      }
-      __syncwarp();
-      mm_acc<HD>(sDV + wr * L::kLdO, L::kLdO, sPw, sDO, L::kLdB);
-      __syncwarp();
-      // ds = p * (dp - delta) * scale, rounded to q's dtype for dK
-#pragma unroll 1
-      for (int r = 0; r < kWarpRows; ++r) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int c = lane + 32 * half;
-          const float ds = sSw[r * kLdF + c] * (sDPw[r * kLdF + c] - sDelta[c]) * d.scale;
-          sPw[r * kLdP + c] = __float2bfloat16(ds);
-        }
-      }
-      __syncwarp();
-      mm_acc<HD>(sDK + wr * L::kLdO, L::kLdO, sPw, sQ, L::kLdB);
+template <int R>
+__device__ __forceinline__ void load_rows_async(float* sm, const float* g, int row0, int n) {
+  for (int i = threadIdx.x; i < R; i += kThreads) {
+    const bool in = row0 + i < n;
+    cp_async4(sm + i, g + (in ? row0 + i : 0), in);
+  }
+}
+
+// The live tiles of a row of tiles form one contiguous range [lo, hi)
+// (causal bounds it below, the window above); hi == lo when none is.
+template <typename Live>
+__device__ __forceinline__ void live_range(int n, Live live, int& lo, int& hi) {
+  lo = n;
+  hi = 0;
+  for (int i = 0; i < n; ++i) {
+    if (live(i)) {
+      lo = min(lo, i);
+      hi = i + 1;
     }
   }
-  __syncthreads();
-  store_rows<HD>(dk + b * dks.b + kvh * dks.h, dks.s, sDK, k0, d.sk);
-  store_rows<HD>(dv + b * dvs.b + kvh * dvs.h, dvs.s, sDV, k0, d.sk);
+  if (hi < lo) hi = lo;
+}
+
+// Does every (q, k) of the tiles attend? Then the elementwise pass needs no mask.
+__device__ __forceinline__ bool tiles_full(int q0, int nq, int k0, int nk, const Dims& d) {
+  if (q0 + nq > d.sq || k0 + nk > d.sk) return false;
+  if (d.causal && k0 + nk - 1 > q0 + d.q_offset) return false;
+  if (d.window > 0 && k0 <= q0 + nq - 1 + d.q_offset - d.window) return false;
+  return true;
+}
+
+// Store a warp's 16 x HD fp32 accumulator fragments as bf16 rows [row0,
+// row0 + 16) (those below n) through row stride ``rs``.
+template <int HD>
+__device__ __forceinline__ void store_frags(bf16* g, long long rs, float (&acc)[HD / 8][4],
+                                            int row0, int n) {
+  const int lane = threadIdx.x & 31;
+  const int r = row0 + (lane >> 2);
+  const int c = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    if (r < n)
+      *reinterpret_cast<uint32_t*>(g + r * rs + j * 8 + c) = pack_bf16(acc[j][0], acc[j][1]);
+    if (r + 8 < n)
+      *reinterpret_cast<uint32_t*>(g + (r + 8) * rs + j * 8 + c) = pack_bf16(acc[j][2], acc[j][3]);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// Backward: dQ for one (b, query head, 64-row query tile)
+// Backward on wgmma: one warpgroup (the block's 4 warps) issues each product
+// as 64-row wgmma; operands in shared memory sit in the 128-byte-swizzled
+// layout the instruction reads, written by cp.async; P and dS are A operands
+// in registers. S, dP and the accumulators are n8 tiles of mma.sync-style C
+// fragments: warp w holds rows 16w..16w+15, thread (g = lane / 4, t = lane
+// % 4) rows g and g + 8, columns 2t and 2t + 1 of each tile.
 // ---------------------------------------------------------------------------
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dq, Dims d, Strides qs, Strides ks, Strides vs,
-                Strides dos, Strides dqs) {
-  using L = Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L::kTileB);
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * L::kTileB);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * L::kTileB);
-  float* sS = reinterpret_cast<float*>(smem + 4 * L::kTileB);
-  float* sDP = reinterpret_cast<float*>(smem + 4 * L::kTileB + L::kScoreF);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 4 * L::kTileB + 2 * L::kScoreF);
-  float* sDQ = reinterpret_cast<float*>(smem + 4 * L::kTileB + 2 * L::kScoreF + L::kScoreB);
-  float* sLse = sDQ + kTile * L::kLdO;
-  float* sDelta = sLse + kTile;
+// d (64 x 64 fp32 as n8 tiles of mma.sync C fragments, warp w holding rows
+// 16w..16w+15) (+)= A (64 x 16, K-major in shared memory) . B^T (B: 64 x 16,
+// K-major in shared memory); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 }, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
 
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / d.group;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wr = warp * kWarpRows;
+// d (64 x 64 fp32, C fragments as above) += A (64 x 16 bf16 in registers:
+// warp w holds rows 16w..16w+15 as an mma.sync A fragment) . B (16 x 64,
+// MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 }, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
 
-  load_tile<HD, L::kLdB>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, d.sq);
-  load_tile<HD, L::kLdB>(sDO, dout + b * dos.b + h * dos.h, dos.s, q0, d.sq);
-  zero_rows<HD>(sDQ);
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    const long long base = (static_cast<long long>(b) * d.hq + h) * d.sq;
-    const bool in = q0 + i < d.sq;
-    sLse[i] = in ? lse[base + q0 + i] : 0.f;
-    sDelta[i] = in ? delta[base + q0 + i] : 0.f;
+// d (64 x 128 fp32, C fragments as above) += A (64 x 16 bf16 in registers:
+// warp w holds rows 16w..16w+15 as an mma.sync A fragment) . B (16 x 128,
+// MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 }, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (N == 128) {
+    wgmma_rs_n128(d, a, desc_b);
+  } else {
+    wgmma_rs_n64(d, a, desc_b);
   }
+}
 
-  float* sSw = sS + wr * kLdF;
-  float* sDPw = sDP + wr * kLdF;
-  bf16* sPw = sP + wr * kLdP;
-  const bf16* kb = k + b * ks.b + kvh * ks.h;
-  const bf16* vb = v + b * vs.b + kvh * vs.h;
-  const int n_kt = (d.sk + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    if (!tile_live(q0, k0, d)) continue;
-    __syncthreads();
-    load_tile<HD, L::kLdB>(sK, kb, ks.s, k0, d.sk);
-    load_tile<HD, L::kLdB>(sV, vb, vs.s, k0, d.sk);
-    __syncthreads();
-
-    mm_abt<HD>(sSw, sQ + wr * L::kLdB, L::kLdB, sK, L::kLdB);
-    mm_abt<HD>(sDPw, sDO + wr * L::kLdB, L::kLdB, sV, L::kLdB);
-    __syncwarp();
-#pragma unroll 1
-    for (int r = 0; r < kWarpRows; ++r) {
-      const int qrow = q0 + wr + r;
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// cp.async writes are generic-proxy writes; wgmma reads through the async proxy
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator registers across an in-flight wgmma
+template <int N>
+__device__ __forceinline__ void fence_frags(float (&r)[N][4]) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
-        const bool ok = qrow < d.sq && attends(qrow + d.q_offset, k0 + c, d);
-        const float p = ok ? expf(sSw[r * kLdF + c] * d.scale - sLse[wr + r]) : 0.f;
-        const float ds = p * (sDPw[r * kLdF + c] - sDelta[wr + r]) * d.scale;
-        sPw[r * kLdP + c] = __float2bfloat16(ds);
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[j][e])::"memory");
+}
+
+// keep A-operand registers live (and unmoved) until the wgmma reading them is waited for
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[j][e])::"memory");
+}
+
+// An R-row, hd-wide bf16 tile in the 128-byte-swizzle layout: hd / 64 column
+// blocks of R rows x 128 bytes; the 16-byte chunk c of row r sits at chunk
+// c ^ (r % 8) of its row. Tiles start on 1024-byte boundaries.
+template <int R, int HD>
+__device__ __forceinline__ void load_tile_swizzled(unsigned char* sm, const bf16* g, long long rs,
+                                                   int row0, int n) {
+  constexpr int kVec = HD / 8;
+  for (int i = threadIdx.x; i < R * kVec; i += kThreads) {
+    const int r = i / kVec;
+    const int c = i % kVec;
+    const bool in = row0 + r < n;
+    cp_async16(sm + (c >> 3) * R * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+               g + (in ? (row0 + r) * rs + c * 8 : 0), in);
+  }
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), 128-byte swizzle.
+__device__ __forceinline__ uint64_t gmma_desc(const unsigned char* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint32_t a = smem_u32(p);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+// The k16 step kk along hd of a swizzled R-row tile read K-major (its rows
+// are M or N): 8-row groups 1024 bytes apart.
+template <int R>
+__device__ __forceinline__ uint64_t desc_kmajor(const unsigned char* tile, int kk) {
+  return gmma_desc(tile + (kk >> 2) * R * 128 + (kk & 3) * 32, 16, 1024);
+}
+// Rows [16 kk, 16 kk + 16) of a swizzled R-row tile read MN-major, as the
+// (16 x hd) B operand: hd's 64-column blocks R * 128 bytes apart.
+template <int R>
+__device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* tile, int kk) {
+  return gmma_desc(tile + kk * 2048, R * 128, 1024);
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+template <int HD>
+struct WgSmem {
+  static constexpr int kTileBytes = 64 * HD * 2;  // a 64-row bf16 tile
+  // dK / dV: K, V; 2 stages of (Q, dO); 2 of (lse, delta); alignment slack
+  static constexpr int kDkv = 6 * kTileBytes + 4 * 64 * 4 + 1024;
+  // dQ: Q, dO; 2 stages of (K, V)
+  static constexpr int kDq = 6 * kTileBytes + 1024;
+};
+
+// dK and dV for one (b, kv head, 64-key tile). Each step issues dV, dK +=
+// (this step) and then S^T, dP^T of the next step back to back, so the
+// tensor cores work while the next tiles are waited for.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, Dims d, Strides qs,
+                        Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs) {
+  constexpr int BR = kTile;   // query rows a step
+  constexpr int NQ = BR / 8;  // n8 tiles of S^T across the queries
+  constexpr int ND = HD / 8;  // n8 tiles of dK, dV across hd
+  constexpr int T = WgSmem<HD>::kTileBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = align_1024(smem_raw);
+  unsigned char* sV = sK + T;
+  unsigned char* sQ = sV + T;       // 2 stages
+  unsigned char* sDO = sQ + 2 * T;  // 2 stages
+  float* sLse = reinterpret_cast<float*>(sDO + 2 * T);  // 2 stages
+  float* sDelta = sLse + 2 * BR;                        // 2 stages
+
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kTile;  // tile-major grid: the longest tiles start first
+  const int lane = threadIdx.x & 31;
+  const int wk = (threadIdx.x >> 5) * 16;
+  const int n_qt = (d.sq + BR - 1) / BR;
+  int qt_lo, qt_hi;
+  live_range(n_qt, [&](int qt) { return tiles_live(qt * BR, BR, k0, kTile, d); }, qt_lo, qt_hi);
+  const int n_it = (qt_hi - qt_lo) * d.group;
+
+  auto issue = [&](int it, int stage) {
+    const int q0 = (qt_lo + it / d.group) * BR;
+    const int h = kvh * d.group + it % d.group;
+    const long long row = (static_cast<long long>(b) * d.hq + h) * d.sq;
+    load_tile_swizzled<BR, HD>(sQ + stage * T, q + b * qs.b + h * qs.h, qs.s, q0, d.sq);
+    load_tile_swizzled<BR, HD>(sDO + stage * T, dout + b * dos.b + h * dos.h, dos.s, q0, d.sq);
+    load_rows_async<BR>(sLse + stage * BR, lse + row, q0, d.sq);
+    load_rows_async<BR>(sDelta + stage * BR, delta + row, q0, d.sq);
+  };
+  float s[NQ][4], dp[NQ][4];
+  // S^T = K . Q^T and dP^T = V . dO^T, (64 keys x BR queries), from a stage
+  // that has landed in shared memory
+  auto scores = [&](int stage) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(s, desc_kmajor<kTile>(sK, kk), desc_kmajor<BR>(sQ + stage * T, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(dp, desc_kmajor<kTile>(sV, kk), desc_kmajor<BR>(sDO + stage * T, kk), kk > 0);
+    wgmma_commit();
+    fence_frags(s);
+    fence_frags(dp);
+  };
+  load_tile_swizzled<kTile, HD>(sK, k + b * ks.b + kvh * ks.h, ks.s, k0, d.sk);
+  load_tile_swizzled<kTile, HD>(sV, v + b * vs.b + kvh * vs.h, vs.s, k0, d.sk);
+  if (n_it > 0) issue(0, 0);
+  cp_async_commit();
+  if (n_it > 0) scores(0);
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  const float scale_log2 = d.scale * kLog2e;
+  const int krow = k0 + wk + (lane >> 2);
+  uint32_t pa[BR / 16][4], dsa[BR / 16][4];  // P^T, dS^T: A operands of dV, dK
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it & 1;
+    wgmma_wait_all();  // this step's scores; the previous step's dV, dK
+    fence_frags(s);
+    fence_frags(dp);
+    fence_frags(dv_acc);
+    fence_frags(dk_acc);
+    fence_frags(pa);
+    fence_frags(dsa);
+    __syncthreads();  // the other stage is read by no wgmma now: refill it
+    if (it + 1 < n_it) issue(it + 1, stage ^ 1);
+    cp_async_commit();
+    const float* cLse = sLse + stage * BR;
+    const float* cDelta = sDelta + stage * BR;
+    const int q0 = (qt_lo + it / d.group) * BR;
+    const bool full = tiles_full(q0, BR, k0, kTile, d);
+
+    // p = exp(s * scale - lse), 0 where masked; ds = p * (dp - delta) * scale;
+    // P rounds to dout's dtype for dV, dS to q's for dK (A operands)
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = krow + (e >> 1) * 8;
+        const int qi = j * 8 + 2 * (lane & 3) + (e & 1);
+        const int qrow = q0 + qi;
+        const bool ok = full || (qrow < d.sq && attends(qrow + d.q_offset, kpos, d));
+        const float p = ok ? exp2f(s[j][e] * scale_log2 - cLse[qi] * kLog2e) : 0.f;
+        dp[j][e] = p * (dp[j][e] - cDelta[qi]) * d.scale;
+        s[j][e] = p;
       }
     }
-    __syncwarp();
-    mm_acc<HD>(sDQ + wr * L::kLdO, L::kLdO, sPw, sK, L::kLdB);
-    __syncwarp();
+#pragma unroll
+    for (int jj = 0; jj < BR / 16; ++jj) {
+      pa[jj][0] = pack_bf16(s[2 * jj][0], s[2 * jj][1]);
+      pa[jj][1] = pack_bf16(s[2 * jj][2], s[2 * jj][3]);
+      pa[jj][2] = pack_bf16(s[2 * jj + 1][0], s[2 * jj + 1][1]);
+      pa[jj][3] = pack_bf16(s[2 * jj + 1][2], s[2 * jj + 1][3]);
+      dsa[jj][0] = pack_bf16(dp[2 * jj][0], dp[2 * jj][1]);
+      dsa[jj][1] = pack_bf16(dp[2 * jj][2], dp[2 * jj][3]);
+      dsa[jj][2] = pack_bf16(dp[2 * jj + 1][0], dp[2 * jj + 1][1]);
+      dsa[jj][3] = pack_bf16(dp[2 * jj + 1][2], dp[2 * jj + 1][3]);
+    }
+    // dV += P^T . dO and dK += dS^T . Q, (64 keys x hd)
+    wgmma_fence();
+#pragma unroll
+    for (int jj = 0; jj < BR / 16; ++jj)
+      wgmma_rs<HD>(dv_acc, pa[jj], desc_mnmajor<BR>(sDO + stage * T, jj));
+#pragma unroll
+    for (int jj = 0; jj < BR / 16; ++jj)
+      wgmma_rs<HD>(dk_acc, dsa[jj], desc_mnmajor<BR>(sQ + stage * T, jj));
+    wgmma_commit();
+    fence_frags(dv_acc);
+    fence_frags(dk_acc);
+    fence_frags(pa);
+    fence_frags(dsa);
+    if (it + 1 < n_it) scores(stage ^ 1);
   }
-  __syncthreads();
-  store_rows<HD>(dq + b * dqs.b + h * dqs.h, dqs.s, sDQ, q0, d.sq);
+  wgmma_wait_all();
+  fence_frags(dv_acc);
+  fence_frags(dk_acc);
+  cp_async_wait<0>();
+  store_frags<HD>(dk + b * dks.b + kvh * dks.h, dks.s, dk_acc, k0 + wk, d.sk);
+  store_frags<HD>(dv + b * dvs.b + kvh * dvs.h, dvs.s, dv_acc, k0 + wk, d.sk);
+}
+
+// dQ for one (b, query head, 64-row query tile), with the same overlap:
+// dQ += (this step), then S, dP of the next step.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      bf16* __restrict__ dq, Dims d, Strides qs, Strides ks, Strides vs,
+                      Strides dos, Strides dqs) {
+  constexpr int NK = kTile / 8;
+  constexpr int ND = HD / 8;
+  constexpr int T = WgSmem<HD>::kTileBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);
+  unsigned char* sDO = sQ + T;
+  unsigned char* sK = sDO + T;     // 2 stages
+  unsigned char* sV = sK + 2 * T;  // 2 stages
+
+  const int n_qt = (d.sq + kTile - 1) / kTile;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.z)) * kTile;  // the longest rows first
+  const int kvh = h / d.group;
+  const int lane = threadIdx.x & 31;
+  const int wq = (threadIdx.x >> 5) * 16;
+  const int n_kt = (d.sk + kTile - 1) / kTile;
+  int kt_lo, kt_hi;
+  live_range(n_kt, [&](int kt) { return tiles_live(q0, kTile, kt * kTile, kTile, d); }, kt_lo,
+             kt_hi);
+  const int n_it = kt_hi - kt_lo;
+
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+  auto issue = [&](int it, int stage) {
+    const int k0 = (kt_lo + it) * kTile;
+    load_tile_swizzled<kTile, HD>(sK + stage * T, kb, ks.s, k0, d.sk);
+    load_tile_swizzled<kTile, HD>(sV + stage * T, vb, vs.s, k0, d.sk);
+  };
+  float s[NK][4], dp[NK][4];
+  // S = Q . K^T and dP = dO . V^T, (64 queries x 64 keys)
+  auto scores = [&](int stage) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(s, desc_kmajor<kTile>(sQ, kk), desc_kmajor<kTile>(sK + stage * T, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(dp, desc_kmajor<kTile>(sDO, kk), desc_kmajor<kTile>(sV + stage * T, kk),
+                   kk > 0);
+    wgmma_commit();
+    fence_frags(s);
+    fence_frags(dp);
+  };
+  load_tile_swizzled<kTile, HD>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, d.sq);
+  load_tile_swizzled<kTile, HD>(sDO, dout + b * dos.b + h * dos.h, dos.s, q0, d.sq);
+  if (n_it > 0) issue(0, 0);
+  cp_async_commit();
+  if (n_it > 0) scores(0);
+
+  const int qrow = q0 + wq + (lane >> 2);
+  const long long row = (static_cast<long long>(b) * d.hq + h) * d.sq;
+  float lse_l2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = qrow + 8 * i < d.sq;
+    lse_l2[i] = in ? lse[row + qrow + 8 * i] * kLog2e : 0.f;
+    dlt[i] = in ? delta[row + qrow + 8 * i] : 0.f;
+  }
+  float dq_acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
+  const float scale_log2 = d.scale * kLog2e;
+  uint32_t dsa[kTile / 16][4];  // dS: the A operand of dQ
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it & 1;
+    wgmma_wait_all();
+    fence_frags(s);
+    fence_frags(dp);
+    fence_frags(dq_acc);
+    fence_frags(dsa);
+    __syncthreads();
+    if (it + 1 < n_it) issue(it + 1, stage ^ 1);
+    cp_async_commit();
+    const int k0 = (kt_lo + it) * kTile;
+    const bool full = tiles_full(q0, kTile, k0, kTile, d);
+
+    // ds = p * (dp - delta) * scale, rounded to q's dtype: the A operand of dS . K
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int kpos = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
+        const bool ok =
+            full || (qrow + 8 * i < d.sq && attends(qrow + 8 * i + d.q_offset, kpos, d));
+        const float p = ok ? exp2f(s[j][e] * scale_log2 - lse_l2[i]) : 0.f;
+        dp[j][e] = p * (dp[j][e] - dlt[i]) * d.scale;
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kTile / 16; ++jj) {
+      dsa[jj][0] = pack_bf16(dp[2 * jj][0], dp[2 * jj][1]);
+      dsa[jj][1] = pack_bf16(dp[2 * jj][2], dp[2 * jj][3]);
+      dsa[jj][2] = pack_bf16(dp[2 * jj + 1][0], dp[2 * jj + 1][1]);
+      dsa[jj][3] = pack_bf16(dp[2 * jj + 1][2], dp[2 * jj + 1][3]);
+    }
+    // dQ += dS . K, (64 queries x hd)
+    wgmma_fence();
+#pragma unroll
+    for (int jj = 0; jj < kTile / 16; ++jj)
+      wgmma_rs<HD>(dq_acc, dsa[jj], desc_mnmajor<kTile>(sK + stage * T, jj));
+    wgmma_commit();
+    fence_frags(dq_acc);
+    fence_frags(dsa);
+    if (it + 1 < n_it) scores(stage ^ 1);
+  }
+  wgmma_wait_all();
+  fence_frags(dq_acc);
+  cp_async_wait<0>();
+  store_frags<HD>(dq + b * dqs.b + h * dqs.h, dqs.s, dq_acc, q0 + wq, d.sq);
 }
 
 template <typename Kern>
@@ -504,7 +874,6 @@ template <int HD>
 int bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
         const void* lse, void* delta, void* dq, void* dk, void* dv, const Dims& d,
         const long long* st, cudaStream_t stream) {
-  using L = Layout<HD>;
   const Strides qs = strides_at(st, 0), ks = strides_at(st, 1), vs = strides_at(st, 2);
   const Strides os = strides_at(st, 3), dos = strides_at(st, 4), dqs = strides_at(st, 5);
   const Strides dks = strides_at(st, 6), dvs = strides_at(st, 7);
@@ -516,30 +885,33 @@ int bwd(const void* q, const void* k, const void* v, const void* out, const void
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  auto dkdv = flash_dkdv_kernel<HD>;
-  e = allow_smem(dkdv, L::kDkvSmem);
+  const auto* q_ = static_cast<const bf16*>(q);
+  const auto* k_ = static_cast<const bf16*>(k);
+  const auto* v_ = static_cast<const bf16*>(v);
+  const auto* do_ = static_cast<const bf16*>(dout);
+  const auto* lse_ = static_cast<const float*>(lse);
+  const auto* delta_ = static_cast<const float*>(delta);
+  auto dkdv = flash_dkdv_wgmma_kernel<HD>;
+  e = allow_smem(dkdv, WgSmem<HD>::kDkv);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dkdv<<<dim3((d.sk + kTile - 1) / kTile, d.hkv, d.batch), kThreads, L::kDkvSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), d,
-      qs, ks, vs, dos, dks, dvs);
+  // tile-major grids: blocks dispatch in order, so the longest tiles start first
+  dkdv<<<dim3(d.hkv, d.batch, (d.sk + kTile - 1) / kTile), kThreads, WgSmem<HD>::kDkv, stream>>>(
+      q_, k_, v_, do_, lse_, delta_, static_cast<bf16*>(dk), static_cast<bf16*>(dv), d, qs, ks,
+      vs, dos, dks, dvs);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-
-  auto dqk = flash_dq_kernel<HD>;
-  e = allow_smem(dqk, L::kDqSmem);
+  auto dqk = flash_dq_wgmma_kernel<HD>;
+  e = allow_smem(dqk, WgSmem<HD>::kDq);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dqk<<<dim3((d.sq + kTile - 1) / kTile, d.hq, d.batch), kThreads, L::kDqSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), d, qs, ks, vs, dos, dqs);
+  dqk<<<dim3(d.hq, d.batch, (d.sq + kTile - 1) / kTile), kThreads, WgSmem<HD>::kDq, stream>>>(
+      q_, k_, v_, do_, lse_, delta_, static_cast<bf16*>(dq), d, qs, ks, vs, dos, dqs);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool dims_ok(const long long* dims) {
   return dims[0] > 0 && dims[1] > 0 && dims[2] > 0 && dims[3] > 0 && dims[4] > 0 &&
-         dims[3] % dims[4] == 0 && dims[3] <= 65535 && dims[0] <= 65535;
+         dims[3] % dims[4] == 0 && dims[3] <= 65535 && dims[0] <= 65535 &&
+         (dims[1] + 63) / 64 <= 65535 && (dims[2] + 63) / 64 <= 65535;
 }
 
 }  // namespace

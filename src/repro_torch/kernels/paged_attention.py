@@ -5,14 +5,46 @@ q, the hot ring, ``sel`` and ``mask`` lie on one CUDA device; the cold store
 lies there too or in pinned host memory, which the kernel reads in place
 through unified addressing. Anything else raises: the kernels package sends
 CPU queries to ``ref.paged_attention_ref`` instead.
+
+The kernel splits each (batch row, kv head) over ``n_split`` blocks of
+``rows_per_split`` cache rows (split-KV); ``split_rows`` chooses them here,
+in Python, so the CPU tests reach the choice.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import build
 
-SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
+BLOCKS_PER_SM = 2  # 4-warp blocks (registers: ptxas in the build log): 2 an SM, one wave
+MIN_SPLIT_ROWS = 64  # below this a block's fixed cost outweighs its rows
+
+
+def split_rows(batch: int, hkv: int, s_kv: int, page: int, sm_count: int) -> tuple[int, int]:
+    """(rows_per_split, n_split) for a (batch, hkv, s_kv) call: at most
+    about ``BLOCKS_PER_SM * sm_count`` blocks in all, at least ``MIN_SPLIT_ROWS``
+    rows a split (or the whole row), and split bounds on page bounds: the
+    split is a whole number of pages, or a power-of-two fraction of one.
+    Split i covers rows [i * rows_per_split, min((i + 1) * rows_per_split,
+    s_kv)); the last may be ragged."""
+    want = max(1, BLOCKS_PER_SM * sm_count // (batch * hkv))
+    rows = max(-(-s_kv // want), MIN_SPLIT_ROWS)
+    if rows >= page:
+        rows = -(-rows // page) * page
+    else:
+        unit = page
+        while unit % 2 == 0 and unit // 2 >= rows:
+            unit //= 2
+        rows = unit
+    rows = min(rows, s_kv)
+    return rows, -(-s_kv // rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def paged_attention_cuda(q, k_hot, v_hot, k_cold, v_cold, sel, mask, *, n_hot: int):
@@ -57,16 +89,17 @@ def paged_attention_cuda(q, k_hot, v_hot, k_cold, v_cold, sel, mask, *, n_hot: i
     tensors = (q, k_hot, v_hot, k_cold, v_cold, sel, mask)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged-attention kernel takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in tensors[:5]):
+        raise ValueError("paged-attention kernel reads q and the caches 16 bytes at a time: "
+                         "their data must be 16-byte aligned")
+    rows, n_split = split_rows(b, hkv, s_kv, w // n_hot, _sm_count(dev))
     lib = build.load_library()
-    smem = lib.repro_paged_attention_smem_bytes(g, hd, s_kv)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"paged-attention kernel keeps the whole (G, S) logits row in "
-                         f"shared memory: {smem} bytes at G={g}, S={s_kv} exceeds "
-                         f"{SMEM_LIMIT}; longer caches need split-KV")
     out = torch.empty_like(q)
+    part = torch.empty(b * hkv * n_split * g * (hd + 2) if n_split > 1 else 0,
+                       dtype=torch.float32, device=dev)
     rc = lib.repro_paged_attention(*(t.data_ptr() for t in tensors), out.data_ptr(),
-                                   b, hkv, g, hd, s_kv, w, build.DTYPE_CODES[q.dtype],
-                                   build.stream_handle(dev))
+                                   part.data_ptr(), b, hkv, g, hd, s_kv, w, rows, n_split,
+                                   build.DTYPE_CODES[q.dtype], build.stream_handle(dev))
     build.check(lib, rc, "paged_attention launch")
     build.count_launch("paged_attention")
     return out

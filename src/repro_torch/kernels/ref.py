@@ -6,9 +6,10 @@ Op for op the oracles of ``src/repro/kernels/ref.py`` (``rmsnorm_ref``,
 the plain versions of what the training kernels compute beyond them:
 ``attention_lse_ref`` (the forward with its log-sum-exp),
 ``flash_attention_bwd_ref`` (``models/layers.py::_mea_bwd`` over the whole
-row) and ``rmsnorm_bwd_ref``. The CPU path of the kernels package runs
-these, and the tests and ``chip_smoke.py`` hold the CUDA kernels against
-them.
+row) and ``rmsnorm_bwd_ref``; and ``paged_attention_split_ref``, the paged
+kernel's split-KV arithmetic, which only the tests run. The CPU path of the
+kernels package runs these, and the tests and ``chip_smoke.py`` hold the
+CUDA kernels against them.
 """
 from __future__ import annotations
 
@@ -48,6 +49,50 @@ def paged_attention_ref(q, k_hot, v_hot, k_cold, v_cold, sel, mask):
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v.float())
     return out.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+def paged_attention_split_ref(q, k_hot, v_hot, k_cold, v_cold, sel, mask, rows_per_split: int):
+    """The CUDA kernel's split-KV arithmetic in plain PyTorch, for the tests:
+    the same function as ``paged_attention_ref``, computed per split of
+    ``rows_per_split`` cache rows as an online-softmax partial (m, l, acc)
+    and merged in split order.
+
+    Rows masked at -1e30 weigh exactly 0 when the batch row has any
+    attendable row (a whole-row flag, not a per-split one); a split with no
+    attendable row has m = -inf and weighs 0 in the merge. A batch row with
+    every entry masked keeps the mask in its logits, so every row weighs
+    the same, as in the reference.
+    """
+    b, _, hq, hd = q.shape
+    s_kv, hkv = k_cold.shape[1], k_cold.shape[2]
+    w = k_hot.shape[1]
+    g = hq // hkv
+    dev = q.device
+    rows = torch.arange(s_kv, device=dev) % w
+    s = sel.to(dev)[..., None, None]
+    k = torch.where(s, k_hot[:, rows], k_cold.to(dev)).float()
+    v = torch.where(s, v_hot[:, rows], v_cold.to(dev)).float()
+    qh = (q.float() / math.sqrt(hd)).reshape(b, hkv, g, hd)
+    mask = mask.to(dev)
+    live = mask > -1e30
+    skip = live.any(dim=1, keepdim=True)
+    logits = torch.einsum("bkgd,bskd->bkgs", qh, k) + mask[:, None, None, :]
+    logits = torch.where((live | ~skip)[:, None, None, :], logits, float("-inf"))
+    ms, ls, accs = [], [], []
+    for s0 in range(0, s_kv, rows_per_split):
+        part = logits[..., s0:s0 + rows_per_split]
+        m = part.amax(dim=-1, keepdim=True)  # -inf for a split with no attended row
+        p = torch.where(part == float("-inf"), 0.0, torch.exp(part - m))
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p, v[:, s0:s0 + rows_per_split]))
+    m_all = torch.stack(ms).amax(dim=0)
+    num, den = torch.zeros_like(accs[0]), torch.zeros_like(ls[0])
+    for m, l, acc in zip(ms, ls, accs):
+        c = torch.where(m == float("-inf"), 0.0, torch.exp(m - m_all))
+        num = num + c * acc
+        den = den + c * l
+    return (num / den).reshape(b, 1, hq, hd).to(q.dtype)
 
 
 def _mask(sq: int, sk: int, causal: bool, window: int, q_offset: int, device) -> torch.Tensor:

@@ -9,7 +9,8 @@ Tolerance: bf16 outputs compared in fp32. RMSNorm: ``|k - p| <= 2e-2 * (1 +
 |p|)`` (the repository's bf16 bound). Paged attention, whose outputs are
 weighted means far below 1: ``|k - p| <= 2e-2 * max |p|`` over each (batch
 row, head), a few bf16 roundings of that head's output. FlashAttention
-forward and backward (``chip_smoke.py``'s bound): O, dQ, dK and dV within
+forward and backward (``chip_smoke.py``'s bound; the backward is also
+bitwise equal from one call to the next): O, dQ, dK and dV within
 ``2e-2 * max |p|`` over each (batch, row, head), since a causal row's scale
 falls as 1/sqrt(q), plus ``1e-4 * max |p|`` over the (batch, head) for rows
 near 0; the fp32 log-sum-exp within ``1e-4 * (1 + |p|)``
@@ -90,7 +91,29 @@ def test_paged_attention_kernel_matches_plain(cold_on_host, g_heads, hd):
 
 
 @pytest.mark.cuda
-def test_paged_attention_kernel_refuses_pageable_cold_and_long_rows():
+@pytest.mark.parametrize("g_heads,hd", [(4, 128), (8, 64), (1, 128)])
+def test_paged_attention_kernel_fp32_matches_plain(g_heads, hd):
+    """The fp32 instantiations (4 values a 16-byte load: a 128-wide row is
+    one warp instruction) over several splits, cold store pinned."""
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(g_heads * hd)
+    b, hkv, s, w = 2, 2, 768, 128
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)  # noqa: E731
+    q = rnd(b, 1, hkv * g_heads, hd)
+    kh, vh = rnd(b, w, hkv, hd), rnd(b, w, hkv, hd)
+    kc, vc = rnd(b, s, hkv, hd).cpu().pin_memory(), rnd(b, s, hkv, hd).cpu().pin_memory()
+    sel = torch.rand(b, s, device="cuda", generator=gen) < 0.5
+    pos = torch.tensor([300, s - 1], device="cuda")[:, None]
+    mask = torch.where(torch.arange(s, device="cuda")[None] <= pos, 0.0, -1e30)
+    out = K.decode_paged_attention(q, kh, vh, kc, vc, sel, mask, n_hot=2)
+    want = ref.paged_attention_ref(q, kh, vh, kc, vc, sel, mask)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert _close_to_head_max(out, want)
+
+
+@pytest.mark.cuda
+def test_paged_attention_kernel_refuses_pageable_cold():
     _require_card()
     q = torch.zeros(1, 1, 4, 128, device="cuda", dtype=torch.bfloat16)
     hot = torch.zeros(1, 64, 1, 128, device="cuda", dtype=torch.bfloat16)
@@ -99,12 +122,73 @@ def test_paged_attention_kernel_refuses_pageable_cold_and_long_rows():
     mask = torch.zeros(1, 128, device="cuda")
     with pytest.raises(ValueError, match="pinned"):
         K.decode_paged_attention(q, hot, hot, cold, cold, sel, mask, n_hot=1)
-    s = 65536  # a (G, S) fp32 logits row past the 227 KB a block may use
-    cold = torch.zeros(1, s, 1, 128, device="cuda", dtype=torch.bfloat16)
-    sel = torch.zeros(1, s, device="cuda", dtype=torch.bool)
-    mask = torch.zeros(1, s, device="cuda")
-    with pytest.raises(ValueError, match="split-KV"):
-        K.decode_paged_attention(q, hot, hot, cold, cold, sel, mask, n_hot=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cold_on_host", [False, True])
+def test_paged_attention_kernel_long_rows_match_plain(cold_on_host):
+    """S 65,536 at G 4, hd 128: shared memory does not grow with S, so long
+    caches run (whole pages a split, the last one ragged)."""
+    _require_card()
+    from repro_torch.kernels.paged_attention import split_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(65536)
+    b, hkv, g, hd, s, page, n_hot = 2, 2, 4, 128, 65536, 256, 2
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
+    q = rnd(b, 1, hkv * g, hd)
+    kh, vh = rnd(b, page * n_hot, hkv, hd), rnd(b, page * n_hot, hkv, hd)
+    kc, vc = rnd(b, s, hkv, hd), rnd(b, s, hkv, hd)
+    sel = torch.rand(b, s, device="cuda", generator=gen) < 0.5
+    pos = torch.tensor([40_000, s - 1], device="cuda")[:, None]
+    mask = torch.where(torch.arange(s, device="cuda")[None] <= pos, 0.0, -1e30)
+    if cold_on_host:
+        kc, vc = kc.cpu().pin_memory(), vc.cpu().pin_memory()
+    rows, n_split = split_rows(b, hkv, s, page, torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+    assert n_split > 1
+    out = K.decode_paged_attention(q, kh, vh, kc, vc, sel, mask, n_hot=n_hot)
+    want = ref.paged_attention_ref(q, kh, vh, kc, vc, sel, mask)
+    torch.cuda.synchronize()
+    assert _close_to_head_max(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_split", [64, 192, 1408])
+@pytest.mark.parametrize("mask_case", ["causal", "masked_split", "all_masked", "one_row"])
+def test_paged_attention_kernel_forced_splits(monkeypatch, rows_per_split, mask_case):
+    """Splits forced through the wrapper's choice: many one-page splits, a
+    ragged last split (1408 = 7 * 192 + 64) and one split, each under a
+    causal mask, a wholly masked first half, every row masked and one
+    attendable row; against the plain version and the split model."""
+    _require_card()
+    from repro_torch.kernels import paged_attention as PA
+
+    b, hkv, g, hd, s, page = 3, 2, 4, 128, 1408, 64
+    monkeypatch.setattr(PA, "split_rows",
+                        lambda *args: (rows_per_split, -(-s // rows_per_split)))
+    gen = torch.Generator(device="cuda").manual_seed(rows_per_split)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
+    q = rnd(b, 1, hkv * g, hd)
+    kh, vh = rnd(b, 2 * page, hkv, hd), rnd(b, 2 * page, hkv, hd)
+    kc, vc = rnd(b, s, hkv, hd), rnd(b, s, hkv, hd)
+    sel = torch.rand(b, s, device="cuda", generator=gen) < 0.5
+    mask = torch.zeros(b, s, device="cuda")
+    if mask_case == "causal":
+        pos = torch.tensor([0, 700, s - 1], device="cuda")[:, None]
+        mask = torch.where(torch.arange(s, device="cuda")[None] <= pos, 0.0, -1e30)
+    elif mask_case == "masked_split":
+        mask[:, : s // 2] = -1e30
+    elif mask_case == "all_masked":
+        mask[:] = -1e30
+    else:
+        mask[:] = -1e30
+        mask[:, s // 2 + 1] = 0.0
+    out = K.decode_paged_attention(q, kh, vh, kc, vc, sel, mask, n_hot=2)
+    args = (q, kh, vh, kc, vc, sel, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _close_to_head_max(out, ref.paged_attention_ref(*args))
+    assert _close_to_head_max(out, ref.paged_attention_split_ref(*args, rows_per_split))
 
 
 def _attn_inputs(seed, b, s, hq, hkv, hd):
@@ -118,6 +202,12 @@ FLASH_CASES = [  # (b, s, hq, hkv, hd, causal, window)
     (1, 300, 4, 4, 64, True, 64),
     (2, 130, 8, 1, 128, False, 0),
     (1, 513, 8, 2, 128, True, 100),
+    # the backward's tile edges: S off its 64-row tiles, windows off them,
+    # G 8, hd 64
+    (1, 1000, 16, 2, 64, True, 100),
+    (2, 333, 16, 2, 128, True, 77),
+    (1, 96, 8, 1, 64, True, 0),
+    (1, 70, 8, 1, 128, False, 0),
 ]
 
 
@@ -143,6 +233,25 @@ def test_flash_attention_kernel_matches_plain(b, s, hq, hkv, hd, causal, window)
     for got, exp in zip(grads, wants):
         assert got.shape == exp.shape and got.dtype == exp.dtype
         assert _close_per_row(got, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_offset", [0, 37])
+def test_flash_attention_bwd_is_deterministic(q_offset):
+    """Two backward calls on the same inputs agree bit for bit (no atomics),
+    and a query offset (queries at q + q_offset) matches the plain version."""
+    _require_card()
+    b, s, hq, hkv, hd, window = 1, 777, 16, 2, 128, 300
+    q, k, v, dout = _attn_inputs(q_offset + 5, b, s, hq, hkv, hd)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    out, lse = K.flash_attention(q, k, v, **kw)
+    first = K.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    second = K.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for a, c, want in zip(first, second, wants):
+        assert torch.equal(a.view(torch.int16), c.view(torch.int16))
+        assert _close_per_row(a, want)
 
 
 @pytest.mark.cuda

@@ -143,6 +143,90 @@ def test_paged_attention_every_row_masked_matches_oracle():
 
 
 # ---------------------------------------------------------------------------
+# Paged attention, split-KV: the CUDA kernel's split choice and a plain model
+# of its split-and-combine arithmetic
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,hkv,s,page,sms", [
+    (4, 8, 1024, 256, 132),    # the serving shape: 8 splits of half a page
+    (4, 8, 65536, 256, 132),   # a long cache: whole pages a split
+    (1, 1, 8, 8, 132),         # tiny S: one split
+    (1, 1, 65536, 256, 132),   # one (b, h): many splits of one page
+    (2, 2, 65536, 256, 132),   # a ragged last split (86 splits of 768 rows)
+    (3, 2, 1408, 64, 132),     # page-sized splits
+    (2, 8, 40, 8, 4),          # few SMs: whole row
+    (64, 8, 4096, 256, 132),   # many (b, h): one split each
+])
+def test_paged_split_rows_cover_the_row_on_page_bounds(b, hkv, s, page, sms):
+    from repro_torch.kernels.paged_attention import split_rows
+
+    rows, n = split_rows(b, hkv, s, page, sms)
+    assert n >= 1 and rows >= 1
+    covered = [r for i in range(n) for r in range(i * rows, min((i + 1) * rows, s))]
+    assert covered == list(range(s))  # every row once, in order; no empty split
+    assert rows % page == 0 or page % rows == 0 or rows == s  # bounds on page bounds
+    if n > 1:
+        assert rows >= min(64, s)
+
+
+def _split_cases(s):
+    """rows_per_split values: one row, a ragged split, half the row, all of it."""
+    return sorted({1, max(1, s // 3 + 1), max(1, s // 2), s})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,w,psz,hd", SWEEP)
+def test_paged_split_model_matches_jax(b, hq, hkv, s, w, psz, hd, dtype):
+    """The split-and-combine model against the port's plain version, the
+    jitted JAX oracle and the Pallas kernel in interpret mode, for several
+    split sizes (one row a split, a ragged last split, the whole row)."""
+    arrays = _paged_inputs(s + w + 1, b, hq, hkv, s, w, hd)
+    _, ref_j, pallas, tx = _run_both(arrays, dtype, n_hot=w // psz)
+    plain = TR.paged_attention_ref(*tx)
+    for rows in _split_cases(s):
+        out = TR.paged_attention_split_ref(*tx, rows_per_split=rows)
+        assert out.shape == plain.shape and out.dtype == plain.dtype
+        for name, ref in (("plain", plain), ("jit ref.paged_attention_ref", ref_j),
+                          ("ops.decode_paged_attention (Pallas interpret)", pallas)):
+            _assert_close(out, ref, dtype, f"rows_per_split={rows} vs {name}")
+
+
+def _mask_case(case: str, b: int, s: int) -> np.ndarray:
+    mask = np.zeros((b, s), np.float32)
+    if case == "masked_split":  # the first half masked, the rest attendable
+        mask[:, : s // 2] = -1e30
+    elif case == "all_masked":
+        mask[:] = -1e30
+    else:  # one attendable row, in the middle of a split
+        mask[:] = -1e30
+        mask[:, s // 2 + 1] = 0.0
+    return mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["masked_split", "all_masked", "one_row"])
+def test_paged_split_model_masked_splits(case, dtype):
+    """A split wholly masked beside attendable rows enters the merge with
+    weight 0; every row masked weighs all rows equally (the oracle's
+    softmax over equal logits); one attendable row gives its V row."""
+    b, hq, hkv, s, w = 2, 8, 2, 64, 16
+    q, kh, vh, kc, vc, sel, _ = _paged_inputs(7, b, hq, hkv, s, w, 32)
+    mask = _mask_case(case, b, s)
+    _, ref_j, pallas, tx = _run_both((q, kh, vh, kc, vc, sel, mask), dtype, n_hot=2)
+    for rows in (8, 16, 24):
+        out = TR.paged_attention_split_ref(*tx, rows_per_split=rows)
+        assert torch.isfinite(out.float()).all()
+        for name, ref in (("plain", TR.paged_attention_ref(*tx)), ("jit ref", ref_j),
+                          ("Pallas interpret", pallas)):
+            _assert_close(out, ref, dtype, f"{case} rows_per_split={rows} vs {name}")
+    if case == "one_row":  # the output is that row's V, whichever split holds it
+        r = s // 2 + 1
+        v_row = np.where(sel[:, r, None, None], vh[:, r % w], vc[:, r])  # (b, hkv, hd)
+        want = np.repeat(v_row, hq // hkv, axis=1)[:, None]
+        _assert_close(TR.paged_attention_split_ref(*tx, rows_per_split=8), want.astype(np.float32),
+                      dtype, "one attendable row")
+
+
+# ---------------------------------------------------------------------------
 # FlashAttention: a subset of tests/test_kernels.py:23-42's sweep
 # ---------------------------------------------------------------------------
 FLASH_SWEEP = [  # (b, hq, hkv, s, hd, window)
