@@ -34,7 +34,12 @@ Phases, each printing one JSON line:
      shape), 8192 (the window masks) and 1000 (a ragged tile edge, forward
      only); fused Adam on one ``w1`` leaf (4096 x 14336) with its fp32
      states on the device and in pinned host memory. Each with its time,
-     its plain version's, a library call's and the card's bound;
+     its plain version's, a library call's and the card's bound; the
+     pinned case also with its segments and staging bytes (the wrapper's
+     copy-engine pipeline) and a second yardstick that moves the same host
+     bytes: master, m and v copied to the device, torch's fused Adam, the
+     three copied back (``library_with_copy_ms``; ``library_copy_bytes``
+     must equal ``host_bytes``);
   6. ``train_compare``: ``mistral-7b`` at full width and 2 layers, one
      training step from one cloned state through the kernels
      (``attn_impl="blockwise"``, ``use_fused_kernel=True``) and through the
@@ -56,7 +61,9 @@ Phases, each printing one JSON line:
      block fetched again for its backward, one block and the head
      buffered) and host optimizer states, whose kernel launches, weight
      bytes fetched, activation bytes swapped and quantizer calls must equal
-     what the plan implies; last, 2 steps of that plan and 2 of the same
+     what the plan implies, then one profiled step (device time by kind,
+     and the optimizer's span on the device with its time by kind); last,
+     2 steps of that plan and 2 of the same
      act policies with every chunk on the device, from one init: losses
      and final fp32 masters must agree bitwise (the host weights' fetches,
      swaps and updates run on a side stream and through pinned memory,
@@ -237,9 +244,16 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     build.load_library()
+    log = build.BUILD_INFO["log"]
+    # e.g. C7514: ptxas serialized a kernel's wgmma, which costs its overlap
+    notes = [line.strip() for line in log.splitlines() if "Performance Loss" in line]
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=build.BUILD_INFO["seconds"],
-         built=build.BUILD_INFO["built"], lib=build.BUILD_INFO["lib"],
-         ptxas=ptxas_report(build.BUILD_INFO["log"]))
+         built=build.BUILD_INFO["built"], lib=build.BUILD_INFO["lib"], ptxas=ptxas_report(log),
+         ptxas_notes=notes)
+    # the forward's loop keeps every wgmma and wait out of a branch so that
+    # ptxas overlaps them; a note on it means that was lost
+    fwd_notes = [n for n in notes if "flash_fwd_wgmma_kernel" in n]
+    assert not fwd_notes, f"ptxas serialized the flash forward's wgmma: {fwd_notes}"
 
 
 def rmsnorm_case(rows: int, gen) -> dict:
@@ -409,17 +423,33 @@ def paged_case(case: str, cold_on_host: bool, gen) -> dict:
 
 
 def host_link_rate() -> dict:
-    """This machine's host-to-device copy rate: one 256 MiB copy from pinned
-    memory by the copy engine, CUDA-event timed (median of 5). The paged
-    kernel's host-cold reads are set beside it, and beside the 64 GB/s
-    specification that ``paged_bound`` uses."""
+    """This machine's copy-engine rates over the host link, 256 MiB copies
+    between pinned memory and the device, CUDA-event timed (median of 5):
+    host to device (``gb_per_s``), device to host, and both at once on two
+    streams (each way), the rate the pinned-state Adam's pipeline can reach.
+    The paged kernel's host-cold reads are set beside them, and beside the
+    64 GB/s specification that ``paged_bound`` uses."""
     import torch
 
-    src = torch.empty(256 << 20, dtype=torch.uint8).pin_memory()
-    dst = torch.empty_like(src, device="cuda")
+    n = 256 << 20
+    src, back = (torch.empty(n, dtype=torch.uint8).pin_memory() for _ in range(2))
+    dst, out = (torch.empty(n, dtype=torch.uint8, device="cuda") for _ in range(2))
+    side = torch.cuda.Stream()
+    cur = torch.cuda.current_stream()
+
+    def both_ways():
+        side.wait_stream(cur)
+        dst.copy_(src, non_blocking=True)
+        with torch.cuda.stream(side):
+            back.copy_(out, non_blocking=True)
+        cur.wait_stream(side)
+
     dst.copy_(src, non_blocking=True)
     ms = _event_ms(lambda: dst.copy_(src, non_blocking=True), 5)
-    return {"bytes": src.numel(), "ms": ms, "gb_per_s": src.numel() / ms / 1e6}
+    d2h_ms = _event_ms(lambda: back.copy_(out, non_blocking=True), 5)
+    both_ms = _event_ms(both_ways, 5)
+    return {"bytes": n, "ms": ms, "gb_per_s": n / ms / 1e6, "d2h_gb_per_s": n / d2h_ms / 1e6,
+            "both_ways_gb_per_s_each": n / both_ms / 1e6}
 
 
 def phase_kernels() -> dict:
@@ -620,7 +650,6 @@ def flash_case(s: int, gen, with_bwd: bool) -> list[dict]:
 
     from repro_torch import kernels as K
     from repro_torch.kernels import ref
-
     rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
     q, k, v, dout = rnd(1, s, HQ, HD), rnd(1, s, HKV, HD), rnd(1, s, HKV, HD), rnd(1, s, HQ, HD)
     bhsd = lambda t: t.transpose(1, 2)  # noqa: E731
@@ -692,7 +721,7 @@ def adam_case(on_host: bool, gen) -> dict:
     import torch
 
     from repro_torch import kernels as K
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import fused_adam, ref
     from repro_torch.optim.adam import AdamConfig, adam_scalars
 
     shape = (4096, 14336)
@@ -744,7 +773,7 @@ def adam_case(on_host: bool, gen) -> dict:
     opt = torch.optim.Adam([lib_p], lr=3e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
                            fused=True)
     pc = p.clone()
-    return {
+    row = {
         "kernel": "fused_adam", "states": "pinned_host" if on_host else "device",
         "shape": list(shape), "max_abs_err": max(e for e, _ in errs.values()),
         **{f"{k}_max_abs_err": e for k, (e, _) in errs.items()},
@@ -758,6 +787,27 @@ def adam_case(on_host: bool, gen) -> dict:
         "bound_ms": times[by] * 1e3, "bound_by": by,
         "device_bytes": dev_bytes if not on_host else 4 * n, "host_bytes": 24 * n if on_host else 0,
     }
+    if on_host:
+        # the same host bytes for the library: master, m and v copied in, the
+        # fused Adam on the device leaf, the three copied back
+        lib_state = opt.state[lib_p]
+        dev = [lib_p.data, lib_state["exp_avg"], lib_state["exp_avg_sq"]]
+
+        def copy_adam_copy():
+            for d, h in zip(dev, states):
+                d.copy_(h, non_blocking=True)
+            opt.step()
+            for d, h in zip(dev, states):
+                h.copy_(d, non_blocking=True)
+
+        row.update(library_with_copy_ms=eager_ms(copy_adam_copy),
+                   library_copy_bytes=2 * sum(t.numel() * t.element_size() for t in dev),
+                   segment_elements=fused_adam.SEGMENT, segments=len(fused_adam.segments(n)),
+                   staging_bytes=fused_adam.staging_bytes(g.device))
+        assert row["library_copy_bytes"] == row["host_bytes"], (
+            f"fused_adam: the copy yardstick moves {row['library_copy_bytes']} B, the kernel's "
+            f"pipeline {row['host_bytes']} B")
+    return row
 
 
 QUANT_WIRE = (4, 14_680_064)  # one w1 leaf of mistral-7b (4096 x 14336) in 4 chunks
@@ -916,20 +966,33 @@ def phase_train_compare() -> None:
     torch.cuda.empty_cache()
 
 
-def expected_train_launches(cfg, art, steps: int, n_leaves: int) -> dict[str, int]:
+def adam_launches(state) -> int:
+    """Fused-Adam launches of one step: one a parameter leaf, and one a
+    segment (``kernels/fused_adam.segments``) for a leaf whose weights or
+    optimizer states lie in pinned host memory (the copy-engine pipeline)."""
+    from repro_torch.kernels.fused_adam import segments
+    from repro_torch.optim.adam import tree_leaves
+
+    trees = [tree_leaves(state["params"])] + [tree_leaves(state["opt"][k])
+                                              for k in ("master", "m", "v")]
+    return sum(len(segments(ts[0].numel())) if any(t.device.type == "cpu" for t in ts) else 1
+               for ts in zip(*trees))
+
+
+def expected_train_launches(cfg, art, steps: int, adam_per_step: int) -> dict[str, int]:
     """Launches the plan implies: per microbatch a forward of every layer, a
     second forward (the replay) of every layer that does not keep its
     activations (checkpoint, swap, compress8, compress16) and a backward of
     every layer; two RMSNorms per layer forward plus the final one (their
     backward is plain); the quantizer at the three sites of every compress8
-    layer in the forward, never in the replay; one Adam launch per
-    parameter leaf per step."""
+    layer in the forward, never in the replay; ``adam_per_step`` Adam
+    launches per step (``adam_launches``)."""
     layers = cfg.num_layers
     policies = [r.act_policy for r in art.runs for _ in range(r.length)]
     recomputed = sum(p != "none" for p in policies)
     mbs = steps * art.plan.microbatch
     return {"flash_attention": mbs * (layers + recomputed), "flash_attention_bwd": mbs * layers,
-            "rmsnorm": mbs * (2 * layers + 1 + 2 * recomputed), "fused_adam": steps * n_leaves,
+            "rmsnorm": mbs * (2 * layers + 1 + 2 * recomputed), "fused_adam": steps * adam_per_step,
             "fused_quantize_ef": mbs * 3 * policies.count("compress8")}
 
 
@@ -989,8 +1052,7 @@ def phase_train() -> dict[str, int]:
     launches = {k: K.launch_counts()[k] for k in TRAINING_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     state = res.state
-    n_leaves = len(tree_leaves(state["params"]))
-    expected = expected_train_launches(cfg, art, steps, n_leaves)
+    expected = expected_train_launches(cfg, art, steps, adam_launches(state))
 
     # where each optimizer state lies: pinned host for the host chunks
     host_runs = [r.placement == "host" for r in art.runs]
@@ -1050,7 +1112,7 @@ def model_flops(cfg, tokens: int) -> int:
 
 
 KERNEL_KINDS = (  # device work of a training step, by kernel name
-    ("flash_forward", ("flash_fwd_kernel",)),
+    ("flash_forward", ("flash_fwd_",)),
     ("flash_backward", ("flash_delta_kernel", "flash_dkdv_", "flash_dq_")),
     ("fused_adam", ("fused_adam_kernel",)),
     ("fused_quantize_ef", ("quant_rows_kernel", "segment_absmax_kernel",
@@ -1067,7 +1129,11 @@ def profile_step(art, state, batch) -> dict:
     kernel (``KERNEL_KINDS``, the rest as ``other``), and the share of the
     step's wall time in which no device work ran (the union of the device
     intervals against the step's span). The profiler's own cost inflates
-    the wall time, so the idle share is an upper bound."""
+    the wall time, so the idle share is an upper bound. The optimizer's
+    span on the device (``adam_update``: the device track of the
+    optimizer's annotation, from its first copy or kernel to its last
+    write-back) is reported beside the kinds, with the device time by kind
+    inside it: the Adam pipeline's copies are counted under the copy kinds."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1079,10 +1145,14 @@ def profile_step(art, state, batch) -> dict:
             torch.cuda.synchronize()
     events = prof.events()
     span = next(e for e in events if e.name == "train_step").time_range
-    # the device track also carries the step's own annotation: not work
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.name != "train_step"]
-    by_kind = dict.fromkeys([k for k, _ in KERNEL_KINDS] + ["other"], 0.0)
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the device track also carries the annotations: spans, not work. The
+    # optimizer's shows once per stream it used: its span is their union
+    adam = [e.time_range for e in on_device if e.name == "adam_update"]
+    adam_span = (min(a.start for a in adam), max(a.end for a in adam)) if adam else None
+    device = [e for e in on_device if e.name not in ("train_step", "adam_update")]
+    kinds = [k for k, _ in KERNEL_KINDS] + ["other"]
+    by_kind, in_adam = dict.fromkeys(kinds, 0.0), dict.fromkeys(kinds, 0.0)
     others: dict[str, list] = {}
     intervals = []
     for e in device:
@@ -1092,6 +1162,8 @@ def profile_step(art, state, batch) -> dict:
         intervals.append((start, end))
         kind = next((k for k, keys in KERNEL_KINDS if any(x in e.name for x in keys)), "other")
         by_kind[kind] += (end - start) / 1e3
+        if adam_span:
+            in_adam[kind] += max(0, min(end, adam_span[1]) - max(start, adam_span[0])) / 1e3
         if kind == "other":
             o = others.setdefault(e.name[:80], [0, 0.0])
             o[0] += 1
@@ -1103,6 +1175,8 @@ def profile_step(art, state, batch) -> dict:
         last = max(last, end)
     wall_ms = (span.end - span.start) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "device_ms_by_kind": by_kind,
+            "adam_update_span_ms": (adam_span[1] - adam_span[0]) / 1e3 if adam_span else None,
+            "adam_update_ms_by_kind": in_adam if adam_span else None,
             "other_top": [{"name": n, "calls": c, "ms": ms} for n, (c, ms) in top_other],
             "device_events": len(device),
             "idle_share_at_most": 1.0 - busy / 1e3 / wall_ms if device else None}
@@ -1118,7 +1192,7 @@ def policy_run(cfg, shape, plan, steps: int, profile: bool = False) -> dict:
     from repro_torch import kernels as K
     from repro_torch import obs
     from repro_torch.data.pipeline import SyntheticTokenPipeline
-    from repro_torch.optim.adam import AdamConfig, tree_leaves
+    from repro_torch.optim.adam import AdamConfig
     from repro_torch.train.loop import LoopConfig, train_loop
     from repro_torch.train.step_builder import build_train_step
 
@@ -1136,7 +1210,6 @@ def policy_run(cfg, shape, plan, steps: int, profile: bool = False) -> dict:
     seconds = time.perf_counter() - t0
     launches = {k: K.launch_counts()[k] for k in TRAINING_KERNELS}
     snap = {k: v["value"] for k, v in tel.registry.snapshot().items() if "value" in v}
-    n_leaves = len(tree_leaves(res.state["params"]))
     out = {"plan": plan.describe(), "runs": [dataclasses.asdict(r) for r in art.runs],
            "losses": res.losses, "step_times_s": res.step_times,
            "median_step_s": statistics.median(res.step_times),
@@ -1148,7 +1221,8 @@ def policy_run(cfg, shape, plan, steps: int, profile: bool = False) -> dict:
            "counters": {k: v for k, v in snap.items() if k != "train.act_bytes"},
            "expected_counters": expected_host_traffic(cfg, plan, shape, steps),
            "launches": launches,
-           "expected_launches": expected_train_launches(cfg, art, steps, n_leaves),
+           "expected_launches": expected_train_launches(cfg, art, steps,
+                                                        adam_launches(res.state)),
            "seconds": seconds}
     if profile:
         out["profile"] = profile_step(art, res.state, pipe.next_sync())
@@ -1261,8 +1335,8 @@ def phase_train_policies() -> dict[str, int]:
     c = run["counters"]
     host_params = sum(ci.param_count for ci in chunk_inventory(cfg)
                       if plan.chunk_placement(ci.index) == "host")
-    # Adam reads fp32 master, m, v of each host chunk over the link and
-    # writes them back with the new bf16 weights (the kernel's zero-copy)
+    # Adam copies fp32 master, m, v of each host chunk in over the link and
+    # back out with the new bf16 weights (the copy-engine pipeline)
     adam_read, adam_write = 12 * host_params * steps, 14 * host_params * steps
     emit("train_policies", case="mixed", arch=cfg.name, layers=cfg.num_layers, seq=TRAIN_SEQ,
          global_batch=shape.global_batch, **run, tokens_per_s=tokens / run["median_step_s"],

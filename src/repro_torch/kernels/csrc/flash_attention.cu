@@ -23,60 +23,68 @@
 // the bf16 tensor-core peak; at S = 4096 a head's K and V (2 MB) are re-read
 // from L2, not HBM.
 //
-// Forward design (simple first; its redesign is the next step):
-//   * 128 threads, 4 warps; a warp owns 16 rows of the 64-row tile;
-//   * tiles of 64 rows x hd staged in shared memory with 16-byte loads,
-//     read through the caller's strides (the (B, S, H, hd) layout of the
-//     model, no transposes); rows past the sequence are zero-filled;
-//   * the products run on the tensor cores through WMMA bf16 16x16x16
-//     fragments (mma.sync m16n8k16 underneath) with fp32 accumulation;
-//     scores go through shared memory for the elementwise softmax, and the
-//     fp32 accumulator O lives in shared memory, where the online rescale
-//     by exp(m_old - m_new) is an elementwise pass;
-//   * key tiles outside the causal / window band of the query tile are
-//     skipped; inside a live tile masked pairs get p = 0 exactly.
-//
-// Backward design (dK / dV and dQ kernels):
-//   * one warpgroup (128 threads, 4 warps) a block; every product is a
-//     64-row wgmma (m64n64k16 for S and dP, m64n{hd}k16 for dK, dV, dQ);
-//     the tiles wgmma reads from shared memory sit in its 128-byte-swizzle
-//     layout (K-major for S = Q.K^T and dP = dO.V^T, the same bytes read
-//     MN-major as the B operand of dV = P^T.dO, dK = dS^T.Q, dQ = dS.K), so
-//     the (B, S, H, hd) inputs are read through their strides, no transposes;
-//   * everything fp32 stays in registers: the dK and dV (or dQ)
-//     accumulators for the whole loop, and the S and dP tiles, on whose
-//     fragments the elementwise pass (exp, mask, ds) runs; P and dS become
-//     bf16 A operands in registers (the fragments of two n8 accumulator
-//     tiles are the A fragment of one k16 step), so no score or
-//     accumulator tile goes through shared memory;
-//   * the streamed tiles (Q, dO, lse, delta for dK / dV; K and V for dQ)
-//     load through a 2-stage ring with cp.async; each step issues this
-//     step's dV / dK (or dQ) products and then the next step's S and dP
-//     back to back, the tensor cores busy while the next tiles land;
-//   * shared memory ~98 KB a block (hd 128) and registers sized for two
-//     blocks (8 warps) an SM; ptxas's register counts are in the build log
-//     (``chip_smoke.py``'s build line);
+// Both directions run on the same machinery:
+//   * one warpgroup (128 threads, 4 warps) issues each product as a 64-row
+//     wgmma; the tiles wgmma reads from shared memory sit in its
+//     128-byte-swizzle layout, written by cp.async with the swizzle applied
+//     by hand, and are read K-major as the B operand of a product over hd
+//     (S = Q.K^T, dP = dO.V^T) and MN-major as the B operand of a product
+//     over the keys or queries (O = P.V, dV = P^T.dO, dK = dS^T.Q,
+//     dQ = dS.K), so the (B, S, H, hd) inputs are read through their
+//     strides and no transposed copy exists;
+//   * everything fp32 stays in registers: the accumulators for the whole
+//     loop and the S (and dP) tiles, on whose fragments the elementwise pass
+//     runs; P and dS become bf16 A operands in registers (the fragments of
+//     two n8 accumulator tiles are the A fragment of one k16 step), so no
+//     score or accumulator tile goes through shared memory;
 //   * live tiles form one contiguous range per block (causal bounds it
 //     below, the window above), found before the loop so the ring always
 //     knows the next live tile; masked pairs in a live tile get p = 0, and
 //     tiles wholly inside the band skip the mask; the grids are tile-major,
 //     so the longest tiles (the most live partners) start first.
-// TMA and warp specialisation are later work.
-#include <mma.h>
-
+//
+// Forward: a block per (batch, 64-row query tile) and NW query heads of one
+// kv group, one warpgroup a head, sharing K / V tiles of 64 NW keys: NW = 2
+// (128-key tiles, one block an SM) when the group is even, which halves the
+// K / V reads from L2 and the steps' fixed costs, else NW = 1 (64-key tiles,
+// two blocks an SM). Q is loaded once; K and V stream through a ring of two
+// K and two V slots, each loaded a whole step before it is read (K(it + 2)
+// and V(it + 1) are issued as step it starts). Step it issues S(it + 1) and
+// O += P(it).V(it), and runs the softmax of S(it + 1) while the tensor cores
+// work on P(it).V(it); the loop has no branch around a wgmma or a wait, or
+// ptxas serializes every wgmma of the kernel (its C7514 note). The online
+// softmax runs on S's fragments: a row lives in the 4 threads of a quad, so
+// its max needs two shuffles; exp2 with scale * log2(e) folded in; the
+// running max starts at -1e30, so exp2(m_old - m_new) is 1 and never NaN for
+// a row with nothing attended yet; p is rounded to bf16 against the running
+// max (the rounding point of _fa_kernel) and packed straight into the A
+// fragments of O += P.V; the fp32 O accumulator (64 registers a thread at hd
+// 128) is rescaled in place. Each thread keeps a partial row sum and the
+// quad adds them once at the end. A row with nothing attended gives out 0
+// and lse -1e30 + log(1e-30) (= -1e30 in fp32), as the plain version.
+//
+// Backward (dK / dV and dQ kernels): the streamed tiles (Q, dO, lse, delta
+// for dK / dV; K and V for dQ) load through a 2-stage cp.async ring; each
+// step issues this step's dV / dK (or dQ) products and then the next step's
+// S and dP back to back, meant to keep the tensor cores busy while the next
+// tiles land, but ptxas serializes these wgmma (its notes C7515, and C7511
+// for dK / dV at hd 128, in the build log); shared memory ~98 KB a block
+// (hd 128) and registers sized for two blocks (8 warps) an SM.
+//
+// ptxas's register, shared-memory and spill counts of every kernel are in
+// the build log (``chip_smoke.py``'s build line). TMA and warp
+// specialisation are later work.
 #include "common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int kThreads = 128;
-constexpr int kTile = 64;  // rows of a query tile and of a key tile
-constexpr int kWarpRows = 16;
-constexpr int kLdP = kTile + 8;  // bf16 (64 x 64) score tiles
-constexpr int kLdF = kTile + 4;  // fp32 (64 x 64) score tiles
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kTile = 64;      // rows of a query tile and of a key tile
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Dims {
   int batch, sq, sk, hq, hkv, group;
@@ -87,18 +95,6 @@ struct Dims {
 // element strides (batch, seq, head) of one (B, S, H, hd) tensor
 struct Strides {
   long long b, s, h;
-};
-
-template <int HD>
-struct Layout {
-  static constexpr int kLdB = HD + 8;  // bf16 (64 x hd) tiles
-  static constexpr int kLdO = HD + 4;  // fp32 (64 x hd) accumulators
-  static constexpr int kTileB = kTile * kLdB * 2;
-  static constexpr int kTileO = kTile * kLdO * 4;
-  static constexpr int kScoreF = kTile * kLdF * 4;
-  static constexpr int kScoreB = kTile * kLdP * 2;
-  static constexpr int kRowVec = kTile * 4;
-  static constexpr int kFwdSmem = 3 * kTileB + kScoreF + kScoreB + kTileO + kRowVec;
 };
 
 __device__ __forceinline__ bool attends(int qpos, int kpos, const Dims& d) {
@@ -116,169 +112,6 @@ __device__ __forceinline__ bool tiles_live(int q0, int nq, int k0, int nk, const
   if (d.causal && k0 > qmax) return false;
   if (d.window > 0 && kmax <= qmin - d.window) return false;
   return true;
-}
-
-// Rows [row0, row0 + 64) of a (S, hd) slice with row stride ``rs`` into a
-// shared (64 x ld) tile; rows at or past ``n`` are zero.
-template <int HD, int LD>
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* g, long long rs, int row0, int n) {
-  constexpr int kVec = HD / 8;
-  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
-    const int r = i / kVec;
-    const int c = (i % kVec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) val = *reinterpret_cast<const uint4*>(g + (row0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(sm + r * LD + c) = val;
-  }
-}
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// out (16 x 64, fp32, ld kLdF) = A (16 x hd, row-major, ld lda) . B^T, where
-// B is a (64 x hd) row-major tile (ld ldb): the transpose is a col-major read.
-template <int HD>
-__device__ __forceinline__ void mm_abt(float* out, const bf16* a, int lda, const bf16* b, int ldb) {
-#pragma unroll
-  for (int nf = 0; nf < kTile / 16; ++nf) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      FragA fa;
-      FragBCol fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, lda);
-      wmma::load_matrix_sync(fb, b + nf * 16 * ldb + kk * 16, ldb);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(out + nf * 16, c, kLdF, wmma::mem_row_major);
-  }
-}
-
-// acc (16 x hd, fp32, ld ldo) += A (16 x 64 bf16, ld kLdP) . B (64 x hd, row-major, ld ldb)
-template <int HD>
-__device__ __forceinline__ void mm_acc(float* acc, int ldo, const bf16* a, const bf16* b, int ldb) {
-#pragma unroll
-  for (int nf = 0; nf < HD / 16; ++nf) {
-    FragC c;
-    wmma::load_matrix_sync(c, acc + nf * 16, ldo, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      FragA fa;
-      FragBRow fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, kLdP);
-      wmma::load_matrix_sync(fb, b + kk * 16 * ldb + nf * 16, ldb);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(acc + nf * 16, c, ldo, wmma::mem_row_major);
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void zero_rows(float* acc) {
-  using L = Layout<HD>;
-  for (int i = threadIdx.x; i < kTile * L::kLdO; i += kThreads) acc[i] = 0.f;
-}
-
-// ---------------------------------------------------------------------------
-// Forward
-// ---------------------------------------------------------------------------
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
-                 Dims d, Strides qs, Strides ks, Strides vs, Strides os) {
-  using L = Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::kTileB);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * L::kTileB);
-  float* sS = reinterpret_cast<float*>(smem + 3 * L::kTileB);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 3 * L::kTileB + L::kScoreF);
-  float* sO = reinterpret_cast<float*>(smem + 3 * L::kTileB + L::kScoreF + L::kScoreB);
-  float* sAlpha = sO + kTile * L::kLdO;
-
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / d.group;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wr = warp * kWarpRows;
-
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + kvh * ks.h;
-  const bf16* vb = v + b * vs.b + kvh * vs.h;
-
-  load_tile<HD, L::kLdB>(sQ, qb, qs.s, q0, d.sq);
-  zero_rows<HD>(sO);
-
-  float m_r[kWarpRows], l_r[kWarpRows];
-#pragma unroll
-  for (int r = 0; r < kWarpRows; ++r) {
-    m_r[r] = kNegInf;
-    l_r[r] = 0.f;
-  }
-
-  const int n_kt = (d.sk + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (!tiles_live(q0, kTile, kt * kTile, kTile, d)) continue;  // uniform over the block
-    __syncthreads();  // the previous tile's K / V are consumed
-    load_tile<HD, L::kLdB>(sK, kb, ks.s, kt * kTile, d.sk);
-    load_tile<HD, L::kLdB>(sV, vb, vs.s, kt * kTile, d.sk);
-    __syncthreads();
-
-    float* sSw = sS + wr * kLdF;
-    bf16* sPw = sP + wr * kLdP;
-    mm_abt<HD>(sSw, sQ + wr * L::kLdB, L::kLdB, sK, L::kLdB);
-    __syncwarp();
-
-#pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) {  // unrolled: m_r / l_r stay in registers
-      const int qpos = q0 + wr + r + d.q_offset;
-      const int k0 = kt * kTile + lane;
-      const float s0 = sSw[r * kLdF + lane] * d.scale;
-      const float s1 = sSw[r * kLdF + lane + 32] * d.scale;
-      const bool v0 = attends(qpos, k0, d);
-      const bool v1 = attends(qpos, k0 + 32, d);
-      const float mx = repro::warp_max(fmaxf(v0 ? s0 : -INFINITY, v1 ? s1 : -INFINITY));
-      const float m_new = fmaxf(m_r[r], mx);
-      const float p0 = v0 ? expf(s0 - m_new) : 0.f;
-      const float p1 = v1 ? expf(s1 - m_new) : 0.f;
-      const float alpha = expf(m_r[r] - m_new);
-      l_r[r] = l_r[r] * alpha + repro::warp_sum(p0 + p1);
-      m_r[r] = m_new;
-      sPw[r * kLdP + lane] = __float2bfloat16(p0);
-      sPw[r * kLdP + lane + 32] = __float2bfloat16(p1);
-      if (lane == 0) sAlpha[wr + r] = alpha;
-    }
-    __syncwarp();
-    float* sOw = sO + wr * L::kLdO;
-    for (int i = lane; i < kWarpRows * HD; i += 32) {
-      const int r = i / HD;
-      sOw[r * L::kLdO + i % HD] *= sAlpha[wr + r];
-    }
-    __syncwarp();
-    mm_acc<HD>(sOw, L::kLdO, sPw, sV, L::kLdB);
-    __syncwarp();
-  }
-
-  __syncthreads();  // sO is complete (also when no key tile was live)
-  // out = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30))
-  bf16* ob = out + b * os.b + h * os.h;
-#pragma unroll
-  for (int r = 0; r < kWarpRows; ++r) {
-    const int row = q0 + wr + r;
-    if (row < d.sq) {
-      const float l = fmaxf(l_r[r], 1e-30f);
-      for (int c = lane; c < HD; c += 32) {
-        ob[row * os.s + c] = __float2bfloat16(sO[(wr + r) * L::kLdO + c] / l);
-      }
-      if (lane == 0) lse[(static_cast<long long>(b) * d.hq + h) * d.sq + row] = m_r[r] + logf(l);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -304,10 +137,8 @@ flash_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dK / dV and dQ: helpers
+// Helpers of the wgmma kernels
 // ---------------------------------------------------------------------------
-constexpr float kLog2e = 1.4426950408889634f;
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -385,12 +216,12 @@ __device__ __forceinline__ void store_frags(bf16* g, long long rs, float (&acc)[
 }
 
 // ---------------------------------------------------------------------------
-// Backward on wgmma: one warpgroup (the block's 4 warps) issues each product
-// as 64-row wgmma; operands in shared memory sit in the 128-byte-swizzled
-// layout the instruction reads, written by cp.async; P and dS are A operands
-// in registers. S, dP and the accumulators are n8 tiles of mma.sync-style C
-// fragments: warp w holds rows 16w..16w+15, thread (g = lane / 4, t = lane
-// % 4) rows g and g + 8, columns 2t and 2t + 1 of each tile.
+// wgmma: a warpgroup (4 warps) issues each product as 64-row wgmma; operands
+// in shared memory sit in the 128-byte-swizzled layout the instruction
+// reads, written by cp.async; P and dS are A operands in registers. S, dP
+// and the accumulators are n8 tiles of mma.sync-style C fragments: warp w of
+// the warpgroup holds rows 16w..16w+15, thread (g = lane / 4, t = lane % 4)
+// rows g and g + 8, columns 2t and 2t + 1 of each tile.
 // ---------------------------------------------------------------------------
 // d (64 x 64 fp32 as n8 tiles of mma.sync C fragments, warp w holding rows
 // 16w..16w+15) (+)= A (64 x 16, K-major in shared memory) . B^T (B: 64 x 16,
@@ -413,6 +244,50 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t desc_a,
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 128 fp32, C fragments as above) (+)= A (64 x 16, K-major in
+// shared memory) . B^T (B: 128 x 16, K-major in shared memory).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 }, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  if constexpr (N == 128) {
+    wgmma_ss_n128(d, desc_a, desc_b, scale_d);
+  } else {
+    wgmma_ss_n64(d, desc_a, desc_b, scale_d);
+  }
 }
 
 // d (64 x 64 fp32, C fragments as above) += A (64 x 16 bf16 in registers:
@@ -489,9 +364,11 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
 // cp.async writes are generic-proxy writes; wgmma reads through the async proxy
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -516,12 +393,13 @@ __device__ __forceinline__ void fence_frags(uint32_t (&r)[N][4]) {
 
 // An R-row, hd-wide bf16 tile in the 128-byte-swizzle layout: hd / 64 column
 // blocks of R rows x 128 bytes; the 16-byte chunk c of row r sits at chunk
-// c ^ (r % 8) of its row. Tiles start on 1024-byte boundaries.
-template <int R, int HD>
+// c ^ (r % 8) of its row. Tiles start on 1024-byte boundaries. Loaded by the
+// block's NT threads.
+template <int R, int HD, int NT = kThreads>
 __device__ __forceinline__ void load_tile_swizzled(unsigned char* sm, const bf16* g, long long rs,
                                                    int row0, int n) {
   constexpr int kVec = HD / 8;
-  for (int i = threadIdx.x; i < R * kVec; i += kThreads) {
+  for (int i = threadIdx.x; i < R * kVec; i += NT) {
     const int r = i / kVec;
     const int c = i % kVec;
     const bool in = row0 + r < n;
@@ -562,7 +440,222 @@ struct WgSmem {
   static constexpr int kDkv = 6 * kTileBytes + 4 * 64 * 4 + 1024;
   // dQ: Q, dO; 2 stages of (K, V)
   static constexpr int kDq = 6 * kTileBytes + 1024;
+  // forward with nw warpgroups: nw Q tiles, 2 K and 2 V slots of 64 nw rows
+  static constexpr int fwd_bytes(int nw) { return 5 * nw * kTileBytes + 1024; }
 };
+
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+// out and lse for NW query heads of one kv group (one warpgroup each) and one
+// 64-row query tile, over key tiles of KT = 64 NW rows. Step it issues
+// S(it + 1) = Q.K(it + 1)^T and then O += P(it).V(it), waits for S(it + 1)
+// alone and runs its softmax while the tensor cores work on P(it).V(it),
+// then waits for that, rescales O and packs P(it + 1); the loads of K(it + 2)
+// and V(it + 1), issued at the step's start, have the whole step to land.
+template <int HD, int NW>
+__global__ void __launch_bounds__(NW * kThreads, 2 / NW)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                       float* __restrict__ lse, Dims d, Strides qs, Strides ks, Strides vs,
+                       Strides os) {
+  constexpr int NT = NW * kThreads;
+  constexpr int KT = NW * kTile;  // keys a step
+  constexpr int NK = KT / 8;      // n8 tiles of S across the keys
+  constexpr int ND = HD / 8;      // n8 tiles of O across hd
+  constexpr int T = WgSmem<HD>::kTileBytes;
+  constexpr int TK = NW * T;      // a K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);  // one tile a warpgroup
+  unsigned char* sK = sQ + NW * T;           // 2 slots
+  unsigned char* sV = sK + 2 * TK;           // 2 slots
+
+  const int n_qt = (d.sq + kTile - 1) / kTile;
+  const int h0 = blockIdx.x * NW;  // NW divides the group: one kv head a block
+  const int wg = threadIdx.x / kThreads;
+  const int h = h0 + wg;
+  const int b = blockIdx.y;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.z)) * kTile;  // the longest rows first
+  const int kvh = h0 / d.group;
+  const int lane = threadIdx.x & 31;
+  const int wq = ((threadIdx.x >> 5) & 3) * 16;
+  const int n_kt = (d.sk + KT - 1) / KT;
+  int kt_lo, kt_hi;
+  live_range(n_kt, [&](int kt) { return tiles_live(q0, kTile, kt * KT, KT, d); }, kt_lo, kt_hi);
+  const int n_it = kt_hi - kt_lo;
+
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+  auto load_k = [&](int it) {
+    load_tile_swizzled<KT, HD, NT>(sK + (it & 1) * TK, kb, ks.s, (kt_lo + it) * KT, d.sk);
+  };
+  auto load_v = [&](int it) {
+    load_tile_swizzled<KT, HD, NT>(sV + (it & 1) * TK, vb, vs.s, (kt_lo + it) * KT, d.sk);
+  };
+  unsigned char* myQ = sQ + wg * T;
+  float s[NK][4];
+  // S = Q . K(it)^T, (64 queries x KT keys)
+  auto scores = [&](int it) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<KT>(s, desc_kmajor<kTile>(myQ, kk), desc_kmajor<KT>(sK + (it & 1) * TK, kk),
+                   kk > 0);
+  };
+
+  const int qrow = q0 + wq + (lane >> 2);  // this thread's rows: qrow and qrow + 8
+  const float scale_log2 = d.scale * kLog2e;
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m2[2] = {kNegInf, kNegInf};  // running max of s * scale * log2(e)
+  float l[2] = {0.f, 0.f};           // this thread's part of the row sums
+  float alpha[2];                    // exp2(m_old - m_new) of the latest softmax
+  uint32_t pa[KT / 16][4];           // P: the A operand of O += P.V
+
+  // online softmax of the scores of step it, in place on s: a row's KT
+  // scores lie in one quad; s becomes p (0 where masked)
+  auto softmax = [&](int it) {
+    const int k0 = (kt_lo + it) * KT;
+    const bool full = tiles_full(q0, kTile, k0, KT, d);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int kpos = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
+        const bool ok = full || attends(qrow + 8 * i + d.q_offset, kpos, d);
+        s[j][e] = ok ? s[j][e] * scale_log2 : -INFINITY;
+        mx[i] = fmaxf(mx[i], s[j][e]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m2[i], mx[i]);  // -1e30 while nothing is attended
+      alpha[i] = exp2f(m2[i] - m_new);
+      m2[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - m2[e >> 1]);  // masked: exp2(-inf) = 0
+        l[e >> 1] += p;
+        s[j][e] = p;
+      }
+    }
+  };
+  // rescale O by the latest alpha and pack p into the A operand
+  auto rescale_pack = [&]() {
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int jj = 0; jj < KT / 16; ++jj) {
+      pa[jj][0] = pack_bf16(s[2 * jj][0], s[2 * jj][1]);
+      pa[jj][1] = pack_bf16(s[2 * jj][2], s[2 * jj][3]);
+      pa[jj][2] = pack_bf16(s[2 * jj + 1][0], s[2 * jj + 1][1]);
+      pa[jj][3] = pack_bf16(s[2 * jj + 1][2], s[2 * jj + 1][3]);
+    }
+  };
+
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+    load_tile_swizzled<kTile, HD, NT>(sQ + w * T, q + b * qs.b + (h0 + w) * qs.h, qs.s, q0, d.sq);
+  if (n_it > 0) {
+    load_k(0);
+    load_v(0);
+  }
+  if (n_it > 1) load_k(1);
+  cp_async_commit();
+  if (n_it > 0) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    wgmma_fence();
+    scores(0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_frags(s);
+    softmax(0);
+    rescale_pack();
+  }
+
+  // O += P(it).V(it) for the last step; its V has landed once it returns
+  auto pv = [&](int it) {
+#pragma unroll
+    for (int jj = 0; jj < KT / 16; ++jj)
+      wgmma_rs<HD>(acc, pa[jj], desc_mnmajor<KT>(sV + (it & 1) * TK, jj));
+  };
+  // the steps before the last, with no branch around a wgmma or a wait, so
+  // ptxas can tell the two groups apart and keep them asynchronous
+  for (int it = 0; it + 1 < n_it; ++it) {
+    cp_async_wait<0>();  // K(it + 1) and V(it), issued a step ago
+    fence_async_smem();
+    // every warp has landed its part of them, and is past S(it) and
+    // O += P(it - 1).V(it - 1): K(it)'s and V(it - 1)'s slots are free
+    __syncthreads();
+    if (it + 2 < n_it) load_k(it + 2);
+    load_v(it + 1);
+    cp_async_commit();
+    wgmma_fence();
+    scores(it + 1);
+    wgmma_commit();
+    pv(it);
+    wgmma_commit();
+    wgmma_wait<1>();  // S(it + 1); P(it).V(it) may still run
+    fence_frags(s);
+    softmax(it + 1);
+    wgmma_wait_all();
+    fence_frags(acc);
+    fence_frags(pa);
+    rescale_pack();
+  }
+  if (n_it > 0) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    wgmma_fence();
+    pv(n_it - 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_frags(acc);
+  }
+
+  // out = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30)) in natural log
+  float lf[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    lf[i] = fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    acc[j][0] /= lf[0];
+    acc[j][1] /= lf[0];
+    acc[j][2] /= lf[1];
+    acc[j][3] /= lf[1];
+  }
+  store_frags<HD>(out + b * os.b + h * os.h, os.s, acc, q0 + wq, d.sq);
+  if ((lane & 3) == 0) {
+    const long long row = (static_cast<long long>(b) * d.hq + h) * d.sq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (qrow + 8 * i < d.sq)
+        lse[row + qrow + 8 * i] = (m2[i] == kNegInf ? kNegInf : m2[i] * kLn2) + logf(lf[i]);
+    }
+  }
+}
 
 // dK and dV for one (b, kv head, 64-key tile). Each step issues dV, dK +=
 // (this step) and then S^T, dP^T of the next step back to back, so the
@@ -855,19 +948,28 @@ Dims make_dims(const long long* dims, int causal, int window, int q_offset, floa
 
 Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
 
-template <int HD>
-int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Dims& d,
-        const long long* st, cudaStream_t stream) {
-  using L = Layout<HD>;
-  auto kern = flash_fwd_kernel<HD>;
-  cudaError_t e = allow_smem(kern, L::kFwdSmem);
+template <int HD, int NW>
+int fwd_launch(const void* q, const void* k, const void* v, void* out, void* lse, const Dims& d,
+               const long long* st, cudaStream_t stream) {
+  auto kern = flash_fwd_wgmma_kernel<HD, NW>;
+  constexpr int smem = WgSmem<HD>::fwd_bytes(NW);
+  cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((d.sq + kTile - 1) / kTile, d.hq, d.batch);
-  kern<<<grid, kThreads, L::kFwdSmem, stream>>>(
+  // tile-major grid: blocks dispatch in order, so the longest tiles start first
+  const dim3 grid(d.hq / NW, d.batch, (d.sq + kTile - 1) / kTile);
+  kern<<<grid, NW * kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), static_cast<float*>(lse), d, strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3));
   return static_cast<int>(cudaGetLastError());
+}
+
+// two query heads a block when the group is even, else one (see the note above)
+template <int HD>
+int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Dims& d,
+        const long long* st, cudaStream_t stream) {
+  if (d.group % 2 == 0) return fwd_launch<HD, 2>(q, k, v, out, lse, d, st, stream);
+  return fwd_launch<HD, 1>(q, k, v, out, lse, d, st, stream);
 }
 
 template <int HD>

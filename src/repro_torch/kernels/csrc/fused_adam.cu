@@ -12,18 +12,21 @@
 //
 // What bounds it on the card: bytes. Per element it reads g, master, m, v
 // and writes p, master, m, v: 28 bytes with a bf16 g and bf16 p, about 12
-// flops, far below the card's flop-per-byte balance. master, m and v may
-// lie in pinned host memory (a host chunk's optimizer states), and p too
-// (a host chunk's weights under host_params): the kernel then reads and
-// writes them in place through unified addressing, and the host link (12
-// bytes each way per element, 2 more written for a pinned p) bounds it.
+// flops, far below the card's flop-per-byte balance. Every pointer is device
+// memory: a leaf whose states (or weights) lie in pinned host memory reaches
+// the kernel segment by segment through device staging buffers, copied in
+// and out by the copy engines on side streams (kernels/fused_adam.py), so
+// the kernel never reads across the host link itself; the link's bound (12
+// bytes each way per element) applies to those copies.
 //
 // Design: a grid-stride loop over groups of 4 elements, with 16-byte vector
 // loads and stores of the fp32 states (8-byte ones of bf16 g and p); the
-// wrapper checks that every pointer is 16-byte aligned. The tail past the
-// last whole group runs element by element. Updates are in place: the
-// output pointers are the input pointers. One launch per leaf; a single
-// launch over all leaves is later work.
+// wrapper keeps every pointer 16-byte aligned (segments start on multiples
+// of 8 elements).
+// The tail past the last whole group runs element by element. Updates are in
+// place: the output pointers are the input pointers. One launch per leaf, or
+// per segment of a staged leaf; a single launch over all leaves is later
+// work.
 #include "common.cuh"
 
 namespace {

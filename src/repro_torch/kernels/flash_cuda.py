@@ -56,7 +56,8 @@ def _strides(*ts: torch.Tensor):
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
     """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd), bf16. Returns out (B, Sq,
-    Hq, hd) bf16 and the fp32 log-sum-exp (B, Hq, Sq)."""
+    Hq, hd) bf16 and the fp32 log-sum-exp (B, Hq, Sq). A block computes two
+    query heads of a kv group when the group is even, else one."""
     b, sq, sk, hq, hkv, hd = _geometry(q, k, v)
     out = torch.empty(b, sq, hq, hd, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)

@@ -6,8 +6,10 @@ Op for op the oracles of ``src/repro/kernels/ref.py`` (``rmsnorm_ref``,
 the plain versions of what the training kernels compute beyond them:
 ``attention_lse_ref`` (the forward with its log-sum-exp),
 ``flash_attention_bwd_ref`` (``models/layers.py::_mea_bwd`` over the whole
-row) and ``rmsnorm_bwd_ref``; and ``paged_attention_split_ref``, the paged
-kernel's split-KV arithmetic, which only the tests run. The CPU path of the
+row) and ``rmsnorm_bwd_ref``; and two models of a kernel's own arithmetic,
+which only the tests run: ``paged_attention_split_ref`` (the paged kernel's
+split-KV) and ``flash_attention_tiled_ref`` (the flash forward's key tiles
+and online softmax). The CPU path of the
 kernels package runs these, and the tests and ``chip_smoke.py`` hold the
 CUDA kernels against them.
 """
@@ -153,6 +155,76 @@ def attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0, q_offset
         lses.append((m + torch.log(l))[..., 0])
     out = torch.cat(outs, dim=2).to(q.dtype)
     return out, torch.cat(lses, dim=1)
+
+
+def _tiles_live(q0: int, nq: int, k0: int, nk: int, sq: int, sk: int, causal: bool,
+                window: int, q_offset: int) -> bool:
+    """``tiles_live`` of ``csrc/flash_attention.cu``: can any (q, k) of the
+    query rows [q0, q0 + nq) and keys [k0, k0 + nk) attend?"""
+    if q0 >= sq or k0 >= sk:
+        return False
+    qmin, qmax = q0 + q_offset, min(q0 + nq, sq) - 1 + q_offset
+    if causal and k0 > qmax:
+        return False
+    return not (window and min(k0 + nk, sk) - 1 <= qmin - window)
+
+
+def flash_attention_tiled_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                              q_offset: int = 0, key_tile: int | None = None):
+    """The flash forward kernel's arithmetic in plain PyTorch, for the tests:
+    the same function as ``attention_lse_ref``, computed as the kernel does.
+
+    Per 64-row query tile, the key tiles of its live range (the contiguous
+    range that ``tiles_live`` admits; the others are skipped) in order, with
+    an online softmax in the log2 domain: scores times ``scale * log2(e)``,
+    masked pairs at -inf, the running max starting at -1e30 (so a row with
+    nothing attended yet rescales by exp2(0) = 1), p = exp2(s - m) against
+    the running max, rounded to v's dtype before P.V with fp32
+    accumulation, the accumulator and row sum rescaled by exp2(m_old -
+    m_new). Then out = acc / max(l, 1e-30) and lse = m * ln 2 +
+    log(max(l, 1e-30)) in natural log, -1e30 + log(1e-30) for a row with
+    nothing attended (whose out is 0). Layouts as ``attention_lse_ref``.
+    ``key_tile``: 64 or 128 keys a step; None takes the kernel's choice
+    (128 when the group Hq / Hkv is even: two heads a block, else 64).
+    """
+    b, sq, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    k_tile = key_tile or (128 if g % 2 == 0 else 64)
+    q_tile = 64
+    dev = q.device
+    scale_log2 = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32) * torch.tensor(
+        math.log2(math.e), dtype=torch.float32)
+    mask = _mask(sq, sk, causal, window, q_offset, dev)
+    qf = q.float().transpose(1, 2)  # (B, Hq, Sq, hd)
+    kf = k.float().transpose(1, 2).repeat_interleave(g, dim=1)  # (B, Hq, Sk, hd)
+    vh = v.transpose(1, 2).repeat_interleave(g, dim=1)
+    out = torch.empty(b, hq, sq, hd, dtype=torch.float32, device=dev)
+    lse = torch.empty(b, hq, sq, dtype=torch.float32, device=dev)
+    n_kt = -(-sk // k_tile)
+    for q0 in range(0, sq, q_tile):
+        rows = slice(q0, q0 + q_tile)
+        nq = min(q_tile, sq - q0)
+        live = [kt for kt in range(n_kt)
+                if _tiles_live(q0, q_tile, kt * k_tile, k_tile, sq, sk, causal, window, q_offset)]
+        m = torch.full((b, hq, nq), -1e30, device=dev)
+        l = torch.zeros(b, hq, nq, device=dev)
+        acc = torch.zeros(b, hq, nq, hd, device=dev)
+        for kt in range(min(live, default=0), max(live, default=-1) + 1):
+            keys = slice(kt * k_tile, (kt + 1) * k_tile)
+            s = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, rows], kf[:, :, keys]) * scale_log2
+            s = torch.where(mask[rows, keys], s, torch.tensor(float("-inf"), device=dev))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(v.dtype).float(), vh[:, :, keys].float())
+            m = m_new
+        lf = l.clamp_min(1e-30)
+        out[:, :, rows] = acc / lf[..., None]
+        lse[:, :, rows] = torch.where(m == -1e30, m, m * math.log(2.0)) + torch.log(lf)
+    return out.transpose(1, 2).to(q.dtype), lse
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,

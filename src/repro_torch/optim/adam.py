@@ -11,14 +11,17 @@ parameters on the card, the plain ``ref.fused_adam_ref`` for parameters on
 the CPU. Its default here is **True**, the one default that differs from
 the JAX package: on the CPU it reaches the plain version, so it costs the
 tests nothing. Each leaf's update runs where its gradient lies. The kernel
-also takes parameters and optimizer states that lie in pinned host memory
-(a ``host`` chunk's, see ``train/step_builder.py``) and updates them there
-in place; the plain path (``use_fused_kernel=False``) copies such tensors
+path also takes parameters and optimizer states that lie in pinned host
+memory (a ``host`` chunk's, see ``train/step_builder.py``): its wrapper
+streams them through device staging buffers with copy-engine copies and
+writes them back in place (``kernels/fused_adam.py``); the plain path (``use_fused_kernel=False``) copies such tensors
 to the gradient's device and back, as the JAX package round-trips host
 states (``adam.py:61-65, 86-90``). The arithmetic is the same. The per-step
 scalars ``[lr, b1, b2, eps, wd, bc1, bc2, 0]`` reach the kernel as one (8,)
 fp32 device tensor, and gradient clipping scales the grads with plain torch
-ops before the kernel, as JAX does outside the Pallas call.
+ops before the kernel, as JAX does outside the Pallas call. The leaves'
+updates run under the profiler annotation ``adam_update``, so a trace shows
+the optimizer's span on the device (its copies included) beside its kernels.
 """
 from __future__ import annotations
 
@@ -130,18 +133,19 @@ def adam_update(params, grads, opt_state: dict, cfg: AdamConfig, lr,
     count = opt_state["count"]
     flat_p = tree_leaves(params)
     flat = [tree_leaves(t) for t in (grads, opt_state["master"], opt_state["m"], opt_state["v"])]
-    if cfg.use_fused_kernel:
-        scalars = {}
-        for p, g, ma, m, v in zip(flat_p, *flat):
-            if g.device not in scalars:
-                scalars[g.device] = adam_scalars(cfg, lr, count, g.device)
-            # a tied embedding's gradient sums a row-major and a transposed
-            # product, and comes out strided: the kernel takes dense rows
-            K.fused_adam_update(p, g.contiguous(), ma, m, v, scalars[g.device])
-    else:
-        bc1, bc2 = bias_corrections(cfg, count)
-        for p, g, ma, m, v in zip(flat_p, *flat):
-            _plain_update(p, g, ma, m, v, cfg, lr, bc1, bc2)
+    with torch.profiler.record_function("adam_update"):  # the leaves' updates, copies included
+        if cfg.use_fused_kernel:
+            scalars = {}
+            for p, g, ma, m, v in zip(flat_p, *flat):
+                if g.device not in scalars:
+                    scalars[g.device] = adam_scalars(cfg, lr, count, g.device)
+                # a tied embedding's gradient sums a row-major and a transposed
+                # product, and comes out strided: the kernel takes dense rows
+                K.fused_adam_update(p, g.contiguous(), ma, m, v, scalars[g.device])
+        else:
+            bc1, bc2 = bias_corrections(cfg, count)
+            for p, g, ma, m, v in zip(flat_p, *flat):
+                _plain_update(p, g, ma, m, v, cfg, lr, bc1, bc2)
     return gnorm
 
 

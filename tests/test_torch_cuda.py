@@ -221,10 +221,13 @@ def test_flash_attention_kernel_matches_plain(b, s, hq, hkv, hd, causal, window)
     want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                    causal=causal, window=window).transpose(1, 2)
     _, want_lse = ref.attention_lse_ref(q, k, v, causal=causal, window=window)
+    model, model_lse = ref.flash_attention_tiled_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert K.launch_counts()["flash_attention"] == before["flash_attention"] + 1
     assert _close_per_row(out, want)
     assert bool(((lse - want_lse).abs() <= 1e-4 * (1 + want_lse.abs())).all())
+    assert _close_per_row(out, model)
+    assert bool(((lse - model_lse).abs() <= 1e-4 * (1 + model_lse.abs())).all())
 
     grads = K.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
     wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
@@ -233,6 +236,65 @@ def test_flash_attention_kernel_matches_plain(b, s, hq, hkv, hd, causal, window)
     for got, exp in zip(grads, wants):
         assert got.shape == exp.shape and got.dtype == exp.dtype
         assert _close_per_row(got, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,hd", [
+    (16, 16, 128),  # gpt2-1b's heads (group 1): one query head a block, 64-key tiles
+    (40, 40, 128),  # opt-13b's and llama-13b's heads (group 1)
+    (6, 2, 64),     # group 3: one head a block
+    (6, 2, 128),
+    (8, 2, 64),     # group 4: two heads a block sharing 128-key tiles
+    (32, 8, 128),   # mistral-7b's heads
+])
+def test_flash_attention_kernel_block_shapes(hq, hkv, hd):
+    """The kernel takes one query head a block when the kv group is odd and
+    two, sharing 128-key tiles, when it is even; each against the plain
+    version and the tiled model with that key tile."""
+    _require_card()
+    q, k, v, _ = _attn_inputs(hq + hd, 2, 333, hq, hkv, hd)
+    kw = dict(causal=True, window=77)
+    out, lse = K.flash_attention(q, k, v, **kw)
+    want, want_lse = ref.attention_lse_ref(q, k, v, **kw)
+    model, model_lse = ref.flash_attention_tiled_ref(
+        q, k, v, key_tile=128 if (hq // hkv) % 2 == 0 else 64, **kw)
+    torch.cuda.synchronize()
+    for exp, exp_lse in ((want, want_lse), (model, model_lse)):
+        assert _close_per_row(out, exp)
+        assert bool(((lse - exp_lse).abs() <= 1e-4 * (1 + exp_lse.abs())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,hq,hkv,hd,window,q_offset", [
+    (150, 60, 8, 2, 128, 40, 37),   # rows 62..149 attend no key; whole query tiles have none
+    (100, 164, 8, 2, 64, 0, 64),    # queries at 64..163 over 164 keys
+    (70, 333, 6, 2, 128, 77, 263),  # group 3: one head a block; window off the tiles
+])
+def test_flash_attention_kernel_offset_and_unattended_rows(sq, sk, hq, hkv, hd, window, q_offset):
+    """Sk != Sq with a query offset: the kernel against the whole-row plain
+    version and the tiled model; rows with no attended key give out 0 and
+    lse -1e30, and the backward gives them zero gradients."""
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
+    q, k, v, dout = rnd(1, sq, hq, hd), rnd(1, sk, hkv, hd), rnd(1, sk, hkv, hd), rnd(1, sq, hq, hd)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    out, lse = K.flash_attention(q, k, v, **kw)
+    want, want_lse = ref.attention_lse_ref(q, k, v, **kw)
+    model, model_lse = ref.flash_attention_tiled_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    for exp, exp_lse in ((want, want_lse), (model, model_lse)):
+        assert _close_per_row(out, exp)
+        assert bool(((lse - exp_lse).abs() <= 1e-4 * (1 + exp_lse.abs())).all())
+    attended = ref._mask(sq, sk, True, window, q_offset, "cuda").any(dim=1)
+    assert not out[:, ~attended].float().any()
+    assert bool((lse[:, :, ~attended] == -1e30).all())
+    grads = K.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for got, exp in zip(grads, wants):
+        assert _close_per_row(got, exp)
+    assert not grads[0][:, ~attended].float().any()
 
 
 @pytest.mark.cuda
@@ -282,6 +344,45 @@ def test_fused_adam_kernel_matches_plain(on_host, g_dtype):
             assert got.device == (torch.device("cpu") if on_host else exp.device)
             got = got.to(exp.device)
             assert bool(((got - exp).abs() <= 1e-6 * (exp.abs() + exp.abs().max())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,pinned_p", [
+    (4096, True),                  # less than one segment, a pinned p
+    (1 << 20, False),              # one whole segment
+    (2 << 20, False),              # two whole segments
+    ((1 << 20) + 1027, True),      # a tail off a multiple of 4, a pinned p
+    (2 * (1 << 20) + 12, False),   # two segments and a ragged tail
+])
+def test_fused_adam_pinned_pipeline_matches_device_kernel_bitwise(n, pinned_p):
+    """States in pinned memory (and a pinned p) go through the copy-engine
+    pipeline, one kernel launch a segment; the result equals the same kernel
+    on device copies of the same inputs, bit for bit, and is in the pinned
+    tensors when the current stream is done."""
+    _require_card()
+    from repro_torch.kernels import fused_adam
+
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    master = torch.randn(n, device="cuda", generator=gen)
+    g = torch.randn(n, device="cuda", generator=gen).bfloat16()
+    m = 0.1 * torch.randn(n, device="cuda", generator=gen)
+    v = 0.01 * torch.rand(n, device="cuda", generator=gen)
+    p = master.bfloat16()
+    scalars = torch.tensor([3e-4, 0.9, 0.95, 1e-8, 0.1, 0.271, 0.142625, 0.0], device="cuda")
+    want = K.fused_adam_update(p.clone(), g, master.clone(), m.clone(), v.clone(), scalars)
+    host = [t.cpu().pin_memory() for t in (p, master, m, v)]
+    if not pinned_p:
+        host[0] = p.clone()
+    before = K.launch_counts()["fused_adam"]
+    got = K.fused_adam_update(host[0], g, *host[1:], scalars)
+    torch.cuda.current_stream().synchronize()  # the write-back is ordered on this stream
+    assert K.launch_counts()["fused_adam"] == before + len(fused_adam.segments(n))
+    assert fused_adam.staging_bytes(g.device) == fused_adam.SLOTS * 16 * fused_adam.SEGMENT
+    assert all(a is h for a, h in zip(got, host))  # updated in place
+    for a, b in zip(got, want):
+        a = a.to(b.device)
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(a.view(bits), b.view(bits))
 
 
 @pytest.mark.cuda

@@ -275,6 +275,61 @@ def test_flash_attention_bwd_plain_matches_jax_grad():
         _assert_close(got, want, "float32", name)
 
 
+# The flash forward kernel's arithmetic (64- or 128-key tiles over each
+# 64-row query tile's live range, online softmax in the log2 domain, p
+# rounded against the running max) in plain PyTorch, against the whole-row plain version, the JAX
+# training path's _mea_forward and the Pallas kernel in interpret mode, in
+# fp32 and bf16 (TOL: 1e-4 fp32, 2e-2 bf16, as atol = rtol; the fp32 lse at
+# 1e-4 in both). The JAX versions mask additively at -1e30, so a row with no
+# attended key averages V over its masked keys there; the port gives 0 and
+# lse = -1e30, as attention_lse_ref does: such rows are held to
+# attention_lse_ref alone. The Pallas kernel has no query offset.
+TILED_CASES = [(b, hq, hkv, s, s, hd, window, 0, True) for b, hq, hkv, s, hd, window in FLASH_SWEEP]
+TILED_CASES += [  # (b, hq, hkv, sq, sk, hd, window, q_offset, causal)
+    (1, 4, 2, 200, 200, 64, 70, 0, True),    # S and the window off the 64-row tiles
+    (1, 4, 2, 130, 130, 64, 0, 0, False),    # no causal mask, ragged S
+    (2, 4, 1, 100, 164, 32, 0, 64, True),    # queries at 64..163 over 164 keys
+    (1, 4, 2, 150, 60, 32, 40, 37, True),    # rows 62..149 attend no key
+]
+
+
+@pytest.mark.parametrize("key_tile", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,hd,window,q_offset,causal", TILED_CASES)
+def test_flash_tiled_model_matches_jax(b, hq, hkv, sq, sk, hd, window, q_offset, causal, dtype,
+                                       key_tile):
+    rng = np.random.default_rng(sq + 7 * sk + hd + window + q_offset)
+    jq, tq = _both(rng.standard_normal((b, sq, hq, hd)).astype(np.float32), dtype)
+    jk, tk = _both(rng.standard_normal((b, sk, hkv, hd)).astype(np.float32), dtype)
+    jv, tv = _both(rng.standard_normal((b, sk, hkv, hd)).astype(np.float32), dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = TR.flash_attention_tiled_ref(tq, tk, tv, key_tile=key_tile, **kw)
+    assert out.dtype == tq.dtype and lse.shape == (b, hq, sq)
+    want, want_lse = TR.attention_lse_ref(tq, tk, tv, **kw)
+    _assert_close(out, want, dtype, "attention_lse_ref")
+    _assert_close(lse, want_lse, "float32", "attention_lse_ref lse")
+    attended = TR._mask(sq, sk, causal, window, q_offset, "cpu").any(dim=1).numpy()
+    if not attended.all():  # rows with nothing attended: out 0, lse -1e30
+        assert not out[:, ~attended].float().any()
+        assert bool((lse[:, :, ~attended] == -1e30).all())
+
+    # _mea_forward on K / V padded to its 64-key blocks: out fp32, lse (B, Sq, Hkv, G)
+    pad = -sk % 64
+    kp, vp = (jnp.pad(a, ((0, 0), (0, pad), (0, 0), (0, 0))) for a in (jk, jv))
+    mea, mea_lse = JL._mea_forward(jq.reshape(b, sq, hkv, hq // hkv, hd), kp, vp, sk, causal,
+                                   window, q_offset, 64)
+    mea = np.asarray(mea.astype(jq.dtype).astype(jnp.float32)).reshape(b, sq, hq, hd)
+    mea_lse = np.asarray(mea_lse).reshape(b, sq, hq).transpose(0, 2, 1)
+    _assert_close(out[:, attended], mea[:, attended], dtype, "_mea_forward")
+    _assert_close(lse[:, :, attended], mea_lse[:, :, attended], "float32", "_mea_forward lse")
+    if q_offset == 0:
+        bhsd = lambda a: jnp.swapaxes(a, 1, 2)  # noqa: E731
+        pallas = j_flash(bhsd(jq), bhsd(jk), bhsd(jv), causal=causal, window=window, block_q=64,
+                         block_k=64, interpret=True)
+        pallas = np.asarray(bhsd(pallas).astype(jnp.float32))
+        _assert_close(out[:, attended], pallas[:, attended], dtype, "Pallas interpret")
+
+
 # ---------------------------------------------------------------------------
 # Fused Adam and the RMSNorm backward
 # ---------------------------------------------------------------------------
@@ -317,6 +372,47 @@ def test_fused_adam_plain_matches_jax(weight_decay):
     for key in ("master", "m", "v"):
         _assert_close(tstate[key]["w"], jst[key]["w"], "float32", f"adam_update {key}")
     assert tstate["count"] == 3
+
+
+# The copy-engine pipeline of a leaf with pinned states cuts it into
+# segments; the update is elementwise, so segment by segment it must equal
+# the whole-leaf update bit for bit.
+@pytest.mark.parametrize("n,seg", [(0, 8), (3, 8), (8, 8), (37, 8), (4096, 1024), (4099, 1024),
+                                   (3 * 1024 + 13, 1024), (10, 4 << 20)])
+def test_fused_adam_segments_cover_every_element_once(n, seg):
+    from repro_torch.kernels.fused_adam import segments
+
+    segs = segments(n, seg)
+    assert [i for start, length in segs for i in range(start, start + length)] == list(range(n))
+    assert all(start % 4 == 0 and 0 < length <= seg for start, length in segs)
+    assert len(segs) == -(-n // seg)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        segments(n, 12)
+
+
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,seg", [(37, 8), (4096, 1024), (4099, 1024)])
+def test_fused_adam_plain_update_by_segments_is_bitwise(n, seg, g_dtype):
+    from repro_torch.kernels.fused_adam import segments
+
+    rng = np.random.default_rng(n + seg)
+    master, g = (rng.standard_normal(n).astype(np.float32) for _ in range(2))
+    m = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    v = (0.01 * np.abs(rng.standard_normal(n))).astype(np.float32)
+    scalars = torch.tensor([3e-3, 0.9, 0.95, 1e-8, 0.1, 0.271, 0.142625, 0.0])
+
+    def leaf():
+        return [torch.from_numpy(master).bfloat16(), torch.from_numpy(g).to(TORCH_DT[g_dtype])] + [
+            torch.from_numpy(a.copy()) for a in (master, m, v)]
+
+    whole = leaf()
+    K.fused_adam_update(*whole, scalars)
+    pieces = leaf()
+    for start, length in segments(n, seg):
+        K.fused_adam_update(*(t[start:start + length] for t in pieces), scalars)
+    bits = lambda t: t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)  # noqa: E731
+    for name, a, b in zip(("p", "g", "master", "m", "v"), pieces, whole):
+        assert torch.equal(bits(a), bits(b)), name
 
 
 @pytest.mark.parametrize("shape", [(4, 128), (2, 3, 64)])
