@@ -19,13 +19,17 @@ Phases, each printing one JSON line:
      library call (``library_with_copy_ms``);
   4. ``DecodeEngine`` at the full width and depth of ``mistral-7b`` (random
      bf16 weights from a seeded generator), serving 4 requests with chunked
-     admission on a paged plan whose cold pages sit in pinned host memory;
-     both kernels must have been launched by that run, and one teacher-forced
+     admission on a paged plan whose cold pages sit in pinned host memory,
+     every decode tick and prefill step replayed from the engine's CUDA
+     graph; both kernels must have been launched by that run. The same
+     requests are then served once more by an engine on the same weights
+     that launches every step from Python (``graphs=False``): its tokens and
+     its launch counts must equal the graph engine's. One teacher-forced
      decode step through the kernels must agree with the plain path (same
-     greedy token in every row). The same step is then timed twice: launched
-     from Python as the engine launches it (host wall time), and replayed
-     from a CUDA graph (the device time of its work alone); one minus their
-     ratio bounds from below the share of the step in which the card idles.
+     greedy token in every row). The engine's captured step is then timed
+     twice: launched from Python (host wall time) and replayed from its
+     graph (device time); one minus their ratio bounds from below the share
+     of an eager step in which the card idles.
 
   5. the training kernels against their plain versions on the card, after
      the engine's weights are freed: FlashAttention forward (O and the
@@ -192,7 +196,7 @@ def time_ms(fn, reps: int = 15, inner: int = 10) -> tuple[float, float]:
     torch.cuda.synchronize()
     eager_ms = _event_ms(eager, reps) / inner
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph):
         eager()
     graph.replay()
     torch.cuda.synchronize()
@@ -247,9 +251,10 @@ def phase_build() -> None:
     log = build.BUILD_INFO["log"]
     # e.g. C7514: ptxas serialized a kernel's wgmma, which costs its overlap
     notes = [line.strip() for line in log.splitlines() if "Performance Loss" in line]
+    ptxas = ptxas_report(log)
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=build.BUILD_INFO["seconds"],
-         built=build.BUILD_INFO["built"], lib=build.BUILD_INFO["lib"], ptxas=ptxas_report(log),
-         ptxas_notes=notes)
+         built=build.BUILD_INFO["built"], lib=build.BUILD_INFO["lib"], ptxas=ptxas,
+         ptxas_notes=notes, rmsnorm=[line for line in ptxas if "rmsnorm_kernel" in line])
     # the forward's loop keeps every wgmma and wait out of a branch so that
     # ptxas overlaps them; a note on it means that was lost
     fwd_notes = [n for n in notes if "flash_fwd_wgmma_kernel" in n]
@@ -257,6 +262,8 @@ def phase_build() -> None:
 
 
 def rmsnorm_case(rows: int, gen) -> dict:
+    """The kernel at ``rows`` x 4096 bf16 (rows = BATCH: the decode step's
+    shape; 4096: a training microbatch's), graph-replayed."""
     import torch
     import torch.nn.functional as F
 
@@ -457,9 +464,15 @@ def phase_kernels() -> dict:
 
     emit("host_link", **host_link_rate())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rms = [rmsnorm_case(rows, gen) for rows in (BATCH, BATCH * 32)]
+    rms = [rmsnorm_case(rows, gen) for rows in (BATCH, BATCH * 32, TRAIN_SEQ)]
     for r in rms:
         emit("kernel_vs_plain", kernel="rmsnorm", **r)
+    from repro_torch.kernels.rmsnorm import empty_kernel_cuda
+
+    # the least a launch costs, in the same graph-replay harness: the floor
+    # under a decode-shape row's time
+    dev = torch.device("cuda")
+    emit("kernel_floor", kernel="empty", **timed("ms", lambda: empty_kernel_cuda(dev)))
     paged = [paged_case(case, host, gen)
              for case in ("main", "full", "ring", "long") for host in (True, False)]
     for p in paged:
@@ -478,54 +491,134 @@ def _clone_cache(cache: dict) -> dict:
     return {pos: {k: clone(v) for k, v in e.items()} for pos, e in cache.items()}
 
 
-def step_account(params, cache, tokens, pos, cfg, spec, reps: int = 10) -> dict:
-    """One decode step through the kernels, timed two ways on the same inputs.
+def step_account(engine, tokens, pos, reps: int = 10) -> dict:
+    """The engine's captured step, timed two ways on the same inputs.
 
-    ``eager_wall_ms``: host wall time of the step launched from Python as the
-    engine launches it, per-step indices (``PagedKV.prepare``) included.
-    ``graph_device_ms``: the same work replayed from a CUDA graph, so its
-    kernels run back to back; the indices are built once before the capture
-    (host work and small host-to-device copies). Graph replay leaves gaps of
-    its own, so ``1 - graph/eager`` is a lower bound on the share of the eager
-    step in which the card waits for the host. The step rewrites the same
-    token at the same slot each time, so every run sees the same cache."""
+    ``eager_wall_ms``: host wall time of the step launched from Python, its
+    indices built on the device as in the graph. ``graph_device_ms``: the
+    same step replayed from the engine's CUDA graph, CUDA-event timed
+    (``graph_wall_ms``: that replay's host wall time to a synchronise). Graph
+    replay leaves gaps of its own, so ``1 - graph/eager`` is a lower bound
+    on the share of an eager step in which the card waits for the host. The
+    step rewrites the same token at the same slot each time, so every run
+    sees the same cache."""
     import torch
 
-    from repro_torch.models import kvcache as KV
-    from repro_torch.serve import PagedKV
+    step = engine.serve_step
+    assert step.graph is not None, "the engine did not capture its step"
+    step.tokens[:, 0].copy_(tokens[:, 0])
+    step.pos.copy_(pos)
+    step.n_tok.fill_(1)
 
     def eager():
-        KV.decode_step(params, cache, tokens, pos, cfg, kv_io=PagedKV(spec))
+        step.t.zero_()
+        with torch.inference_mode():
+            step.step()
 
-    with torch.inference_mode():
+    def replay():
+        step.t.zero_()
+        step.graph.replay()
+
+    def walls(fn):
         for _ in range(3):
-            eager()
+            fn()
         torch.cuda.synchronize()
-        walls = []
+        out = []
         for _ in range(reps):
             t0 = time.perf_counter()
-            eager()
+            fn()
             torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        kv = PagedKV(spec)
-        prepared = kv.prepare(cache, pos, cfg, tokens.device)
-        kv.prepare = lambda *args, **kwargs: prepared
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-            KV.decode_step(params, cache, tokens, pos, cfg, kv_io=kv)
-        graph.replay()
-        torch.cuda.synchronize()
-        device_ms = _event_ms(graph.replay, reps)
-    wall_ms = statistics.median(walls)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    wall_ms = walls(eager)
+    graph_wall_ms = walls(replay)
+    device_ms = _event_ms(replay, reps)
     return {"positions": pos.tolist(), "eager_wall_ms": wall_ms, "graph_device_ms": device_ms,
+            "graph_wall_ms": graph_wall_ms,
             "device_idle_share_at_least": 1.0 - device_ms / wall_ms}
+
+
+def tick_device_times(engine):
+    """Wrap ``engine``'s ticks to time, on the card, the step replays each
+    served tick runs: CUDA events around every ``replay_once`` (a graph's
+    replay: its device time, whether or not earlier replays are still
+    queued), summed per tick beside the tick's host wall time. Returns the
+    per-kind list of ``(wall_ms, [(start, end) events])`` the run fills."""
+    import torch
+
+    ticks = {"decode": [], "prefill": []}
+    step, replay_once = engine.serve_step, engine.serve_step.replay_once
+    current = []
+
+    def timed_replay():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        replay_once()
+        end.record()
+        current.append((start, end))
+
+    def wrap(kind, tick):
+        def run():
+            current.clear()
+            t0 = time.perf_counter()
+            tick()
+            if current:
+                ticks[kind].append(((time.perf_counter() - t0) * 1e3, list(current)))
+        return run
+
+    step.replay_once = timed_replay
+    engine._decode_tick = wrap("decode", engine._decode_tick)
+    engine._prefill_tick = wrap("prefill", engine._prefill_tick)
+    return ticks
+
+
+def tick_account(ticks) -> dict:
+    """Per tick kind: the median host wall time and device time of a tick,
+    and the card's idle share over those ticks, 1 - device / wall summed."""
+    out = {}
+    for kind, rows in ticks.items():
+        walls = [w for w, _ in rows]
+        devs = [sum(a.elapsed_time(b) for a, b in ev) for _, ev in rows]
+        out[kind] = {"n": len(rows), "wall_median_ms": statistics.median(walls),
+                     "device_median_ms": statistics.median(devs),
+                     "idle_share": 1.0 - sum(devs) / sum(walls)}
+    return out
+
+
+def serve(engine, reqs, device_times: bool = False) -> dict:
+    """Serve ``reqs`` on a warmed-up engine: its report, the kernels'
+    launches over the run, the host wall time of its ticks by kind and,
+    with ``device_times`` (a graph engine), each tick kind's device time and
+    idle share (``tick_account``)."""
+    import torch
+
+    from repro_torch import kernels as K
+
+    torch.cuda.synchronize()
+    engine.tel.tracer.events.clear()
+    ticks_dev = tick_device_times(engine) if device_times else None
+    K.reset_launch_counts()
+    report = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = {k: K.launch_counts()[k] for k in SERVING_KERNELS}
+    assert report.drained, f"engine did not drain: pending {report.pending}"
+    assert sorted(report.finished) == list(range(BATCH))
+    assert all(len(t) == NEW_TOKENS for t in report.finished.values()), report.finished
+    ticks = {}
+    for name in ("serve.prefill_tick", "serve.decode_tick"):
+        durs = [e["dur_s"] for e in engine.tel.tracer.events if e["name"] == name]
+        ticks[name] = {"n": len(durs), "median_s": statistics.median(durs) if durs else None,
+                       "total_s": sum(durs)}
+    return {"report": report, "launches": launches, "ticks": ticks,
+            "h2d_bytes": engine.tel.registry.snapshot()["serve.h2d_bytes"]["value"],
+            "tick_device": tick_account(ticks_dev) if device_times else None}
 
 
 def phase_engine() -> dict[str, int]:
     import numpy as np
     import torch
 
-    from repro_torch import kernels as K
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -544,28 +637,39 @@ def phase_engine() -> dict[str, int]:
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    tel = obs.Telemetry()  # keeps the tick spans: host wall time per tick
-    engine = DecodeEngine(cfg, plan, "cuda", shape, params, paging=spec, own_params=True,
-                          admission="chunked", prefill_chunk=PREFILL_CHUNK, telemetry=tel)
-    engine.warmup()
+
+    def make_engine(graphs: bool):
+        # the eager engine shares the weights (own_params: no copy); each has its cache
+        t0 = time.perf_counter()
+        eng = DecodeEngine(cfg, plan, "cuda", shape, params, paging=spec, own_params=True,
+                           admission="chunked", prefill_chunk=PREFILL_CHUNK,
+                           telemetry=obs.Telemetry(), graphs=graphs)  # spans: wall per tick
+        eng.warmup()
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
     rng = np.random.default_rng(0)
     lens = rng.integers(*PROMPT_LENS, size=BATCH)
-    reqs = [Request(i, rng.integers(1, cfg.vocab_size, int(n)).tolist(), NEW_TOKENS)
-            for i, n in enumerate(lens)]
-    torch.cuda.synchronize()
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist() for n in lens]
+    reqs = lambda: [Request(i, p, NEW_TOKENS) for i, p in enumerate(prompts)]  # noqa: E731
+    engine, capture_s = make_engine(graphs=True)
+    assert engine.serve_step.graph is not None, "on CUDA the engine serves from a graph"
     torch.cuda.reset_peak_memory_stats()
-    tel.tracer.events.clear()
-    K.reset_launch_counts()
-    report = engine.run(reqs)
-    torch.cuda.synchronize()
-    launches = {k: K.launch_counts()[k] for k in SERVING_KERNELS}
-    assert report.drained, f"engine did not drain: pending {report.pending}"
-    assert sorted(report.finished) == list(range(BATCH))
-    assert all(len(t) == NEW_TOKENS for t in report.finished.values()), report.finished
+    run = serve(engine, reqs(), device_times=True)
+    report, launches = run["report"], run["launches"]
+    peak = torch.cuda.max_memory_allocated()
     for name, n in launches.items():
         assert n > 0, f"kernel {name} was not launched by the engine run"
+    assert launches["rmsnorm"] * 32 == launches["paged_attention"] * 65, launches
     cold = engine.state["cache"]["pos0"]["k_cold"]
     assert cold.device.type == "cpu" and cold.is_pinned(), "cold store must be pinned host"
+
+    eager_engine, _ = make_engine(graphs=False)
+    eager = serve(eager_engine, reqs())
+    assert eager["report"].finished == report.finished, "graph and eager engines' tokens differ"
+    assert eager["launches"] == launches, (eager["launches"], launches)
+    assert eager["h2d_bytes"] == run["h2d_bytes"], (eager["h2d_bytes"], run["h2d_bytes"])
+    del eager_engine
 
     # one teacher-forced decode step, kernels vs the plain path, on copies
     # of the served cache at positions whose attended rows reach cold pages
@@ -583,18 +687,19 @@ def phase_engine() -> dict[str, int]:
     agree = (outs[True].argmax(-1) == outs[False].argmax(-1)).float().mean().item()
     # the served cache itself (the run is over): the step writes position
     # lens + 16 - 1, which no request reached
-    account = step_account(engine.state["params"], engine.state["cache"], tokens, pos, cfg, spec)
-    ticks = {}
-    for name in ("serve.prefill_tick", "serve.decode_tick"):
-        durs = [e["dur_s"] for e in tel.tracer.events if e["name"] == name]
-        ticks[name] = {"n": len(durs), "median_s": statistics.median(durs) if durs else None,
-                       "total_s": sum(durs)}
+    account = step_account(engine, tokens, pos)
+    eager_report = eager["report"]
     emit("engine", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-         params=cfg.param_count(), init_s=init_s, paging=[spec.page_size, spec.n_pages, spec.n_hot],
+         params=cfg.param_count(), init_s=init_s, capture_s=capture_s,
+         paging=[spec.page_size, spec.n_pages, spec.n_hot],
          prompt_lens=[int(n) for n in lens], launches=launches, **report.to_dict(),
          hbm_cache_bytes=report.hbm_cache_bytes, host_cache_bytes=report.host_cache_bytes,
-         peak_device_bytes=torch.cuda.max_memory_allocated(), ticks=ticks,
-         h2d_bytes=tel.registry.snapshot()["serve.h2d_bytes"]["value"],
+         peak_device_bytes=peak, ticks=run["ticks"], h2d_bytes=run["h2d_bytes"],
+         decode_tick_median_ms=1e3 * run["ticks"]["serve.decode_tick"]["median_s"],
+         tick_device=run["tick_device"],
+         eager={"tokens_equal": True, "launches": eager["launches"], "ticks": eager["ticks"],
+                **{k: v for k, v in eager_report.to_dict().items()
+                   if k in ("wall_s", "tokens_per_s", "p50_ttft_s", "p99_ttft_s", "steps")}},
          teacher_forced={"max_abs_diff": err, "max_abs_logit": scale,
                          "tol": ENGINE_TOL * (1 + scale), "argmax_agree": agree},
          decode_step=account)
@@ -1175,11 +1280,59 @@ def profile_step(art, state, batch) -> dict:
         last = max(last, end)
     wall_ms = (span.end - span.start) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "device_ms_by_kind": by_kind,
+            "main_stream_host_reads": main_stream_host_reads(prof, span, wall_ms),
             "adam_update_span_ms": (adam_span[1] - adam_span[0]) / 1e3 if adam_span else None,
             "adam_update_ms_by_kind": in_adam if adam_span else None,
             "other_top": [{"name": n, "calls": c, "ms": ms} for n, (c, ms) in top_other],
             "device_events": len(device),
             "idle_share_at_most": 1.0 - busy / 1e3 / wall_ms if device else None}
+
+
+def main_stream_host_reads(prof, span, wall_ms: float) -> dict:
+    """What the step's host reads on the main stream cost the card. The
+    forward's weight fetches run ahead on a side stream, and the Adam
+    pipeline has streams of its own; the backward queues its copies to the
+    device (weights fetched again, swapped activations back) on the main
+    stream, where the kernels that need them wait. The main stream is the
+    one with the most GEMM time. Reported: those copies' count and time,
+    and the part of it in which no kernel ran on any stream (``idle_ms``),
+    the card's idle time that prefetching them on a side stream could at
+    most win back, also as a share of the step (``idle_share_of_step``)."""
+    import torch
+
+    results = prof.profiler.kineto_results
+    t0 = results.trace_start_ns()  # the events' time_range is relative to it, in us
+    lo, hi = t0 + span.start * 1e3, t0 + span.end * 1e3
+    gemm, copies, kernels = {}, [], []
+    for e in results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = max(e.start_ns(), lo), min(e.end_ns(), hi)
+        if end <= start:
+            continue
+        name, stream = e.name(), e.device_resource_id()
+        if "Memcpy HtoD" in name:
+            copies.append((stream, start, end))
+        elif "Memcpy" not in name and "Memset" not in name and name not in (
+                "train_step", "adam_update"):
+            kernels.append((start, end))
+            if any(x in name for x in dict(KERNEL_KINDS)["gemm"]):
+                gemm[stream] = gemm.get(stream, 0) + end - start
+    if not gemm:
+        return {"main_stream": None}
+    main = max(gemm, key=gemm.get)
+    merged = []
+    for start, end in sorted(kernels):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    mine = [(s, e) for st, s, e in copies if st == main]
+    idle = sum((e - s) - sum(max(0, min(e, k1) - max(s, k0)) for k0, k1 in merged)
+               for s, e in mine) / 1e6
+    return {"main_stream": main, "copies": len(mine),
+            "copy_ms": sum(e - s for s, e in mine) / 1e6, "idle_ms": idle,
+            "idle_share_of_step": idle / wall_ms if wall_ms else None}
 
 
 def policy_run(cfg, shape, plan, steps: int, profile: bool = False) -> dict:

@@ -47,19 +47,26 @@ def decode_paged_attention(q, k_hot, v_hot, k_cold, v_cold, sel, mask, *, n_hot:
     return ref.paged_attention_ref(q, k_hot, v_hot, k_cold, v_cold, sel, mask)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
+                    block_kv: int | None = None):
     """Attention forward with its log-sum-exp. q: (B, Sq, Hq, hd); k, v:
-    (B, Sk, Hkv, hd). Returns out (B, Sq, Hq, hd) and lse (B, Hq, Sq) fp32."""
+    (B, Sk, Hkv, hd). Returns out (B, Sq, Hq, hd) and lse (B, Hq, Sq) fp32.
+    A row with nothing attended gets the JAX references' value: the mean of
+    V over the keys padded to a multiple of ``block_kv`` (default: the
+    Pallas kernel's tile, ``min(128, Sk)``; ``_mea`` passes its own), lse
+    -1e30."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset, block_kv=block_kv)
     if _route(q, "flash_attention"):
         from repro_torch.kernels.flash_cuda import flash_attention_cuda
 
-        return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    return ref.attention_lse_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return flash_attention_cuda(q, k, v, **kw)
+    return ref.attention_lse_ref(q, k, v, **kw)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
                         q_offset: int = 0):
-    """(dq, dk, dv) of ``flash_attention`` for the cotangent ``dout``."""
+    """(dq, dk, dv) of ``flash_attention`` for the cotangent ``dout``; rows
+    with nothing attended get ``_mea_bwd``'s gradients."""
     if _route(q, "flash_attention_bwd"):
         from repro_torch.kernels.flash_cuda import flash_attention_bwd_cuda
 

@@ -10,7 +10,11 @@ the first wrapper call builds (``load_library``).
 
 Each wrapper adds one to its launch count where it launches its kernel, and
 nowhere else (``count_launch``); a caller reads the counts with
-``launch_counts`` and zeroes them with ``reset_launch_counts``.
+``launch_counts`` and zeroes them with ``reset_launch_counts``. A wrapper
+runs on the host, so while a CUDA graph is captured it counts launches the
+capture only records: the capturing code reads the counts before and after,
+puts them back (``set_launch_counts``) and adds the difference on every
+replay (``add_launches``).
 """
 from __future__ import annotations
 
@@ -50,6 +54,15 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+def set_launch_counts(counts: dict[str, int]) -> None:
+    _LAUNCHES.update(counts)
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    for name, n in counts.items():
+        _LAUNCHES[name] += n
 
 
 def _sources() -> list[pathlib.Path]:
@@ -113,8 +126,10 @@ def load_library() -> ctypes.CDLL:
         return _LIB
     lib = ctypes.CDLL(str(build_library()))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.repro_rmsnorm.argtypes = [vp, vp, vp, i64, i32, ctypes.c_float, i32, vp]
+    lib.repro_rmsnorm.argtypes = [vp, vp, vp, i64, i32, ctypes.c_float, i32, i32, vp]
     lib.repro_rmsnorm.restype = i32
+    lib.repro_empty_kernel.argtypes = [vp]
+    lib.repro_empty_kernel.restype = i32
     lib.repro_paged_attention.argtypes = [vp] * 9 + [i64] + [i32] * 8 + [vp]
     lib.repro_paged_attention.restype = i32
     llp = ctypes.POINTER(ctypes.c_longlong)

@@ -7,6 +7,13 @@ the model's (B, S, H, hd) layout through their strides (unit stride on hd,
 the others multiples of 8 elements, 16-byte aligned data), hd 64 or 128,
 and raise on anything else: the kernels package sends CPU tensors to the
 plain versions in ``ref.py`` instead.
+
+Rows with nothing attended (which follow from ``(sq, sk, q_offset,
+causal, window)`` alone: ``ref.unattended_rows``, on the host) leave the
+kernels' loops with out 0, lse -1e30 and zero gradients; a short pass over
+those rows only (``ref.fix_unattended_fwd`` / ``fix_unattended_bwd``) then
+gives them the JAX references' values. It does nothing when there are
+none, as in every causal training step.
 """
 from __future__ import annotations
 
@@ -15,7 +22,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (64, 128)
 
@@ -54,10 +61,12 @@ def _strides(*ts: torch.Tensor):
     return _dims(*(s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))))
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
+                         block_kv: int | None = None):
     """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd), bf16. Returns out (B, Sq,
     Hq, hd) bf16 and the fp32 log-sum-exp (B, Hq, Sq). A block computes two
-    query heads of a kv group when the group is even, else one."""
+    query heads of a kv group when the group is even, else one. A row with
+    nothing attended averages V over ``ref.padded_keys(sk, block_kv)`` keys."""
     b, sq, sk, hq, hkv, hd = _geometry(q, k, v)
     out = torch.empty(b, sq, hq, hd, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
@@ -70,6 +79,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0, q_off
         int(q_offset), 1.0 / math.sqrt(hd), build.stream_handle(q.device))
     build.check(lib, rc, "flash_attention launch")
     build.count_launch("flash_attention")
+    ref.fix_unattended_fwd(v, out, lse, ref.unattended_rows(sq, sk, causal, window, q_offset),
+                           ref.padded_keys(sk, block_kv))
     return out, lse
 
 
@@ -98,4 +109,6 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True, wi
         int(window), int(q_offset), 1.0 / math.sqrt(hd), build.stream_handle(q.device))
     build.check(lib, rc, "flash_attention_bwd launch")
     build.count_launch("flash_attention_bwd")
+    ref.fix_unattended_bwd(q, k, v, out, dout, dq, dk, dv,
+                           ref.unattended_rows(sq, sk, causal, window, q_offset))
     return dq, dk, dv

@@ -123,6 +123,83 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return out.reshape(b, hq, sq, hd).to(q.dtype)
 
 
+def unattended_rows(sq: int, sk: int, causal: bool, window: int,
+                    q_offset: int) -> list[tuple[int, int]]:
+    """Query rows that attend no key, from the shape alone: at most two
+    ``(start, stop)`` ranges (a causal prefix at positions below 0, a
+    windowed suffix past the last key's window). Row i, at position
+    ``i + q_offset``, attends key j < sk where ``j <= pos`` (causal) and
+    ``j > pos - window`` (window)."""
+    if sk <= 0:
+        return [(0, sq)] if sq else []
+    head = min(sq, max(0, -q_offset)) if causal else 0
+    tail = min(sq, max(0, sk + window - 1 - q_offset)) if window else sq
+    if head >= tail:
+        return [(0, sq)] if sq else []
+    return [(a, b) for a, b in ((0, head), (tail, sq)) if b > a]
+
+
+def padded_keys(sk: int, block_kv: int | None) -> int:
+    """The key length the JAX references' softmax covers: ``sk`` padded to a
+    multiple of ``block_kv`` with zero keys. ``None`` is the Pallas
+    kernel's default tile, ``min(128, sk)``; ``_mea`` pads to its own
+    ``block_kv``."""
+    block = block_kv or min(128, sk)
+    return max(1, -(-sk // block) * block) if block else 1
+
+
+def fix_unattended_fwd(v, out, lse, rows: list[tuple[int, int]], n_keys: int) -> None:
+    """Give rows with nothing attended the JAX references' values, in place.
+
+    Those references mask with a finite -1e30, so such a row's logits are
+    all -1e30, its running max stays -1e30 and every key of the padded
+    range weighs exp(0) = 1: out is the sum of V over the real keys (the
+    padded ones are zeros) over ``n_keys``, and lse = -1e30 + log(n_keys),
+    which is -1e30 in fp32. v: (B, Sk, Hkv, hd); out (B, Sq, Hq, hd); lse
+    (B, Hq, Sq). Does nothing when ``rows`` is empty.
+    """
+    if not rows:
+        return
+    g = out.shape[2] // v.shape[2]
+    mean = (v.float().sum(dim=1) / n_keys).repeat_interleave(g, dim=1).to(out.dtype)
+    lse_val = float(torch.tensor(-1e30, dtype=torch.float32) + math.log(n_keys))
+    for a, b in rows:
+        out[:, a:b] = mean[:, None]
+        lse[:, :, a:b] = lse_val
+
+
+def fix_unattended_bwd(q, k, v, out, dout, dq, dk, dv, rows: list[tuple[int, int]]) -> None:
+    """Add the gradients of rows with nothing attended, in place, as
+    ``models/layers.py::_mea_bwd`` computes them: there p = exp(logits -
+    lse) = 1 on every key, so with delta = rowsum(dout * out) in fp32 and
+    ds = (dout . v_j - delta) * scale rounded to q's dtype, dQ of the row is
+    sum_j ds_j k_j, and each key gains ds_j q (dK) and dout (dV). The
+    padded keys are zeros and add nothing. Expects dq of those rows 0 and
+    dk, dv without their share. Does nothing when ``rows`` is empty."""
+    if not rows:
+        return
+    b, _, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(hd)
+
+    def take(t):
+        t = torch.cat([t[:, a:c] for a, c in rows], dim=1)
+        return t.reshape(b, t.shape[1], hkv, g, hd).float()
+
+    qu, du, ou = take(q), take(dout), take(out)
+    delta = (du * ou).sum(dim=-1)
+    dp = torch.einsum("bukgd,bskd->bukgs", du, v.float())
+    ds = ((dp - delta[..., None]) * scale).to(q.dtype).float()
+    dq_u = torch.einsum("bukgs,bskd->bukgd", ds, k.float()).reshape(b, -1, hq, hd).to(dq.dtype)
+    dk.copy_((dk.float() + torch.einsum("bukgs,bukgd->bskd", ds, qu)).to(dk.dtype))
+    dv.copy_((dv.float() + du.sum(dim=(1, 3))[:, None]).to(dv.dtype))
+    start = 0
+    for a, c in rows:
+        dq[:, a:c] = dq_u[:, start:start + c - a]
+        start += c - a
+
+
 def _per_kv_head(q, hkv):
     """(kv head, its G query heads) for (B, S, Hq, hd) queries, so the (G,
     Sq, Sk) scores of one group are live at a time."""
@@ -130,14 +207,17 @@ def _per_kv_head(q, hkv):
     return [(h, q[:, :, h * g:(h + 1) * g]) for h in range(hkv)]
 
 
-def attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
-    """What the flash forward kernel computes, over the whole row at once.
+def attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
+                      block_kv: int | None = None):
+    """What the flash forward computes, over the whole row at once.
 
     q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd). Returns out (B, Sq, Hq, hd)
     in q's dtype and the fp32 log-sum-exp (B, Hq, Sq), with
     ``_mea_forward``'s rounding points: fp32 scores, p rounded to v's dtype
     before P.V with fp32 accumulation, out = acc / max(l, 1e-30),
-    lse = m + log(max(l, 1e-30)); masked pairs weigh exactly 0.
+    lse = m + log(max(l, 1e-30)); masked pairs weigh exactly 0. A row with
+    nothing attended gets the JAX references' value (``fix_unattended_fwd``
+    over ``padded_keys(sk, block_kv)`` keys).
     """
     b, sq, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -154,7 +234,10 @@ def attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0, q_offset
         outs.append(acc / l.permute(0, 2, 1, 3))
         lses.append((m + torch.log(l))[..., 0])
     out = torch.cat(outs, dim=2).to(q.dtype)
-    return out, torch.cat(lses, dim=1)
+    lse = torch.cat(lses, dim=1)
+    fix_unattended_fwd(v, out, lse, unattended_rows(sq, sk, causal, window, q_offset),
+                       padded_keys(sk, block_kv))
+    return out, lse
 
 
 def _tiles_live(q0: int, nq: int, k0: int, nk: int, sq: int, sk: int, causal: bool,
@@ -170,7 +253,8 @@ def _tiles_live(q0: int, nq: int, k0: int, nk: int, sq: int, sk: int, causal: bo
 
 
 def flash_attention_tiled_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                              q_offset: int = 0, key_tile: int | None = None):
+                              q_offset: int = 0, key_tile: int | None = None,
+                              block_kv: int | None = None):
     """The flash forward kernel's arithmetic in plain PyTorch, for the tests:
     the same function as ``attention_lse_ref``, computed as the kernel does.
 
@@ -182,8 +266,10 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True, window: int = 0,
     the running max, rounded to v's dtype before P.V with fp32
     accumulation, the accumulator and row sum rescaled by exp2(m_old -
     m_new). Then out = acc / max(l, 1e-30) and lse = m * ln 2 +
-    log(max(l, 1e-30)) in natural log, -1e30 + log(1e-30) for a row with
-    nothing attended (whose out is 0). Layouts as ``attention_lse_ref``.
+    log(max(l, 1e-30)) in natural log; a row with nothing attended comes
+    out of the tiles with out 0 and lse -1e30, and the wrapper's pass over
+    such rows (``fix_unattended_fwd``) gives it the JAX references' value.
+    Layouts as ``attention_lse_ref``.
     ``key_tile``: 64 or 128 keys a step; None takes the kernel's choice
     (128 when the group Hq / Hkv is even: two heads a block, else 64).
     """
@@ -224,7 +310,10 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True, window: int = 0,
         lf = l.clamp_min(1e-30)
         out[:, :, rows] = acc / lf[..., None]
         lse[:, :, rows] = torch.where(m == -1e30, m, m * math.log(2.0)) + torch.log(lf)
-    return out.transpose(1, 2).to(q.dtype), lse
+    out = out.transpose(1, 2).to(q.dtype)
+    fix_unattended_fwd(v, out, lse, unattended_rows(sq, sk, causal, window, q_offset),
+                       padded_keys(sk, block_kv))
+    return out, lse
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
@@ -234,7 +323,8 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, win
     Layouts as ``attention_lse_ref``; ``lse`` (B, Hq, Sq) fp32. p =
     exp(s - lse) in fp32, rounded to dout's dtype for dV; delta =
     rowsum(dout * out) in fp32; ds = p * (dp - delta) * scale, rounded to q's
-    dtype for dQ and dK; products accumulate in fp32.
+    dtype for dQ and dK; products accumulate in fp32. Rows with nothing
+    attended get ``_mea_bwd``'s gradients (``fix_unattended_bwd``).
     """
     b, sq, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -259,6 +349,8 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, win
     dq = torch.cat(dqs, dim=2).to(q.dtype)
     dk = torch.stack(dks, dim=2).to(k.dtype)
     dv = torch.stack(dvs, dim=2).to(v.dtype)
+    fix_unattended_bwd(q, k, v, out, dout, dq, dk, dv,
+                       unattended_rows(sq, sk, causal, window, q_offset))
     return dq, dk, dv
 
 

@@ -14,8 +14,15 @@ import torch
 from repro_torch.kernels import build, ref
 
 
-def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """``bf16(x * rsqrt(mean(x^2) + eps)) * scale`` over the last axis."""
+def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
+                 pdl: bool = True) -> torch.Tensor:
+    """``bf16(x * rsqrt(mean(x^2) + eps)) * scale`` over the last axis.
+
+    ``pdl``: programmatic dependent launch -- the kernel may be scheduled
+    while the previous kernel on the stream finishes (it touches memory only
+    after that kernel is done). Every caller keeps it on, which cut a
+    decode-shape row's graph-replay time (PERF.md); ``False`` is for
+    ``scripts/rmsnorm_chip.py``'s A/B."""
     if x.device.type != "cuda" or scale.device != x.device:
         raise ValueError(f"rmsnorm kernel needs x and scale on one CUDA device, "
                          f"got {x.device} and {scale.device}")
@@ -33,11 +40,19 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> tor
         return out
     lib = build.load_library()
     rc = lib.repro_rmsnorm(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d,
-                           float(eps), build.DTYPE_CODES[x.dtype],
+                           float(eps), build.DTYPE_CODES[x.dtype], int(pdl),
                            build.stream_handle(x.device))
     build.check(lib, rc, "rmsnorm launch")
     build.count_launch("rmsnorm")
     return out
+
+
+def empty_kernel_cuda(device: torch.device) -> None:
+    """Launch one empty block on ``device``'s current stream: the least a
+    launch costs, which a decode-shape row's time stands on. A measurement
+    aid, on no path of the model."""
+    lib = build.load_library()
+    build.check(lib, lib.repro_empty_kernel(build.stream_handle(device)), "empty kernel launch")
 
 
 class RMSNormFn(torch.autograd.Function):

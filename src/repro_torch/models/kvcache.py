@@ -10,10 +10,16 @@ package is a Python loop here.
 the cache tensors it is given and returns that same dict, where the JAX
 function returns a new tree.
 
-Positions come from the host (the engine's scheduler): ``pos`` and
-``active`` are read once per step on the host, and every index and mask the
-layers need is built once per step (``ResidentKV.prepare``) and shared by
-all layers.
+**Indices are built on the device.** ``decode_forward`` takes ``pos`` and
+``active`` as tensors on the model's device and builds every index and mask
+the layers need from them with tensor ops (``ResidentKV.prepare``: the
+RoPE positions, the fixed-shape ring write, the mask), once per step, shared
+by all layers. Nothing in it reads a value back to the host, so the step can
+be captured as a CUDA graph and replayed with new positions written into
+the same buffers (``serve.prefill.ServeStep``). What depends on the data and
+cannot live in a graph -- the paged cache's page-boundary flush to its
+host-memory cold store -- is the cache hook's ``commit``, issued after the
+step from host positions; ``decode_step`` is the two together.
 """
 from __future__ import annotations
 
@@ -61,6 +67,11 @@ def host_positions(pos) -> torch.Tensor:
     return torch.as_tensor(pos).to("cpu", torch.int64)
 
 
+def device_positions(pos, device) -> torch.Tensor:
+    """``pos`` as an int64 tensor on ``device`` (no copy if it lies there)."""
+    return torch.as_tensor(pos).to(device, torch.int64)
+
+
 def rope_positions(pos: torch.Tensor) -> torch.Tensor:
     """RoPE positions for the decoded token: (1,) for a shared scalar ``pos``,
     (B, 1) for per-slot positions (continuous batching)."""
@@ -83,37 +94,37 @@ def decode_mask(pos: torch.Tensor, s_kv: int, sliding: bool) -> torch.Tensor:
 
 @dataclasses.dataclass
 class SlotWrite:
-    """Where one step writes its token into (B, S, ...) buffers on one device.
+    """Where one step writes its token into (B, S, ...) buffers, as device
+    tensors of a fixed shape: ``index`` (B,) is the flat row ``b * S +
+    slot[b]`` of a (B * S, ...) view, kept inside row b; ``active`` (B,)
+    bool masks the rows that write (the others write back the bytes they
+    hold)."""
 
-    ``slot`` is an int for a shared position (every row writes there), else
-    ``rows``/``slots`` are device index tensors of the rows that write
-    (masked-off slots already dropped) and the slot each writes.
-    """
-
-    slot: int | None = None
-    rows: torch.Tensor | None = None
-    slots: torch.Tensor | None = None
+    index: torch.Tensor
+    active: torch.Tensor
 
     @classmethod
-    def build(cls, slot: torch.Tensor, active: torch.Tensor | None, device) -> "SlotWrite":
-        """``slot``: host () or (B,) ints; ``active``: host (B,) bool or None."""
-        if slot.ndim == 0:
-            assert active is None, "write masking requires per-slot positions"
-            return cls(slot=int(slot))
-        rows = torch.arange(slot.shape[0])
-        if active is not None:
-            rows = rows[active]
-        return cls(rows=rows.to(device), slots=slot[rows].to(device))
+    def build(cls, slot: torch.Tensor, active: torch.Tensor | None, batch: int,
+              s_kv: int) -> "SlotWrite":
+        """``slot``: () shared or (B,) per slot, on the device. A slot past
+        the buffer (an inactive slot of a chunk step beyond the cache end)
+        writes nothing, as the JAX one-hot write does."""
+        rows = torch.arange(batch, device=slot.device) * s_kv
+        inside = (slot < s_kv).expand(batch)
+        return cls(index=rows + slot.clamp(max=s_kv - 1),
+                   active=inside if active is None else active & inside)
 
 
 def write_slot(buf: torch.Tensor, val: torch.Tensor, where: SlotWrite) -> None:
-    """Write one decoded token (``val``: (B, 1, ...)) into a (B, S, ...) cache,
-    in place, at ``where``."""
-    val = val.to(buf.dtype)
-    if where.slot is not None:
-        buf[:, where.slot] = val[:, 0]
-    else:
-        buf[where.rows, where.slots] = val[where.rows, 0]
+    """Write one decoded token (``val``: (B, 1, ...)) into a contiguous
+    (B, S, ...) cache, in place, at ``where``: one row per batch row, rows of
+    inactive slots rewritten with their own bytes."""
+    b, s = buf.shape[:2]
+    flat = buf.view(b * s, *buf.shape[2:])
+    new = val[:, 0].to(buf.dtype)
+    keep = where.active.reshape((-1,) + (1,) * (new.ndim - 1))
+    new = torch.where(keep, new, flat.index_select(0, where.index))
+    flat.index_copy_(0, where.index, new)
 
 
 @dataclasses.dataclass
@@ -127,27 +138,34 @@ class ResidentKV:
     """Default decode cache I/O: the whole (B, S, kv, hd) cache lives on the
     device. ``update_and_fetch`` is the seam the paged serving subsystem
     replaces (``serve.paging.PagedKV``): write the decoded token, return the
-    key/value views attention runs over and the mask. ``entry_keys`` names
-    the cache leaves the hook consumes per attention position."""
+    key/value views attention runs over and the mask. ``layer_entry`` gives
+    the cache leaves the hook consumes for one layer of an attention
+    position."""
 
-    entry_keys = ("k", "v")
+    def layer_entry(self, pos_cache: dict, r: int) -> dict:
+        return {name: pos_cache[name][r] for name in ("k", "v")}
 
     def prepare(self, cache: dict, pos, cfg: ModelConfig, device,
                 active=None) -> ResidentStep:
-        """Everything the layers need this step, built once from host ``pos``."""
-        pos = host_positions(pos)
-        s_kv = next(iter(cache.values()))["k"].shape[2]
+        """Everything the layers need this step, built on ``device`` from
+        ``pos`` and ``active`` with tensor ops."""
+        pos = device_positions(pos, device)
+        k = next(iter(cache.values()))["k"]
+        batch, s_kv = k.shape[1], k.shape[2]
         slot = pos % s_kv if cfg.sliding_window else pos
-        act = None if active is None else torch.as_tensor(active).to("cpu", torch.bool)
+        act = None if active is None else torch.as_tensor(active).to(device, torch.bool)
         return ResidentStep(
-            rope=rope_positions(pos).to(device),
-            write=SlotWrite.build(slot, act, device),
-            mask=decode_mask(pos, s_kv, bool(cfg.sliding_window)).to(device))
+            rope=rope_positions(pos),
+            write=SlotWrite.build(slot, act, batch, s_kv),
+            mask=decode_mask(pos, s_kv, bool(cfg.sliding_window)))
 
     def update_and_fetch(self, entry: dict, k, v, step: ResidentStep):
         write_slot(entry["k"], k, step.write)
         write_slot(entry["v"], v, step.write)
         return entry["k"], entry["v"], step.mask
+
+    def commit(self, cache: dict, pos, cfg: ModelConfig, active=None) -> None:
+        """The step's host-side work: none for a resident cache."""
 
 
 RESIDENT_KV = ResidentKV()
@@ -206,26 +224,38 @@ def _layer_slice(tree: dict, r: int) -> dict:
             for k, v in tree.items()}
 
 
-def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos, cfg: ModelConfig,
-                *, kv_io=None, active=None):
-    """One decode step across the whole model. Returns (logits (B,V), cache),
-    the cache written in place.
+def decode_forward(params: dict, cache: dict, tokens: torch.Tensor, pos, cfg: ModelConfig,
+                   *, kv_io=None, active=None) -> torch.Tensor:
+    """One decode step's device work across the whole model: returns the
+    logits (B, V) and writes the cache in place. No value is read back to
+    the host, so a CUDA graph can capture it.
 
-    tokens: (B, 1) on the model's device; pos: () shared or (B,) per slot,
-    read on the host; active: (B,) bool or None -- masks cache writes per
-    slot (chunked prefill advances a subset of slots). ``kv_io`` swaps the
-    attention-cache strategy (default ``RESIDENT_KV``; the paged serving path
-    passes ``serve.paging.PagedKV``).
+    tokens: (B, 1) on the model's device; pos: () shared or (B,) per slot;
+    active: (B,) bool or None -- masks cache writes per slot (chunked
+    prefill advances a subset of slots). Both are taken to the device if
+    they lie elsewhere. ``kv_io`` swaps the attention-cache strategy
+    (default ``RESIDENT_KV``; the paged serving path passes
+    ``serve.paging.PagedKV``).
     """
     kv_io = kv_io or RESIDENT_KV
     x = embed_tokens(params, tokens, cfg)
     step = kv_io.prepare(cache, pos, cfg, x.device, active=active)
-    keys = kv_io.entry_keys
     for r in range(num_repeats(cfg)):
         for j in range(superblock_period(cfg)):
             name = f"pos{j}"
             pp = _layer_slice(params["blocks"][name], r)
-            entry = {key: cache[name][key][r] for key in keys}
-            x = decode_position(pp, x, entry, step, cfg, kv_io)
+            x = decode_position(pp, x, kv_io.layer_entry(cache[name], r), step, cfg, kv_io)
     logits = lm_head(params, x, cfg)
-    return logits[:, 0], cache
+    return logits[:, 0]
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos, cfg: ModelConfig,
+                *, kv_io=None, active=None):
+    """One decode step: ``decode_forward``, then the cache hook's host-side
+    ``commit`` (the paged cache's page-boundary flush), with ``pos`` and
+    ``active`` read on the host. Returns (logits (B, V), cache), the cache
+    written in place."""
+    kv_io = kv_io or RESIDENT_KV
+    logits = decode_forward(params, cache, tokens, pos, cfg, kv_io=kv_io, active=active)
+    kv_io.commit(cache, pos, cfg, active=active)
+    return logits, cache

@@ -233,7 +233,7 @@ class _MEA(torch.autograd.Function):
         if q.device.type == "cuda":
             b, sq, hkv, g, hd = q.shape
             out, lse = K.flash_attention(q.reshape(b, sq, hkv * g, hd), k, v, causal=causal,
-                                         window=window, q_offset=q_offset)
+                                         window=window, q_offset=q_offset, block_kv=block_kv)
             out = out.reshape(q.shape)
         else:
             out, lse = _mea_forward(q, k, v, sk, causal, window, q_offset, block_kv)

@@ -327,6 +327,8 @@ def _apply_layer(src, proxies, x, cfg, pos_j, *, act_policy: str, buffered: bool
     sites = ActSites(act_policy, io) if act_policy in SITE_POLICIES else None
     # kept weights are fetched outside the recomputed region; the others
     # inside it, so the replay fetches them again
+    if fetch_again:
+        io.will_fetch_again(src)
     kept = None if fetch_again else _weights(src, proxies, io)
 
     def one(x):
@@ -399,6 +401,7 @@ def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
     units = _units(runs)
     io = io if io is not None else HostIO(x.device)
     for i, (run, reps, prox) in enumerate(units):
+        io.begin_unit()
         if i + 1 < len(units) and units[i + 1][0].proxies is not None:
             for src in units[i + 1][1]:
                 io.prefetch(src)  # the next unit's host weights, during this one
@@ -411,6 +414,9 @@ def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
         # unbuffered host weights are fetched inside it, the rest outside
         kept = [None if px is not None and not run.buffered else _weights(src, px, io)
                 for src, px in zip(reps, prox)]
+        for src, pp in zip(reps, kept):
+            if pp is None:
+                io.will_fetch_again(src)
 
         def region(x, _items=list(zip(reps, prox, kept))):
             for src, px, pp in _items:

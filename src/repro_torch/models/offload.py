@@ -9,7 +9,12 @@ pinned memory, as ``gather_weights`` / ``fetch`` move them in
 and back (the ``save_and_offload_only_these_names`` arm of
 ``_remat_policy``, ``model.py:440-446``). Copies to the device can run ahead
 on a side stream (``prefetch``: the layer stack fetches one repeat ahead);
-copies off the device always run there. Every copy is stream-ordered: the
+copies off the device always run there. The backward's own reads (weights
+fetched again, swapped activations back) run one unit ahead there too: the
+forward records, per unit of the layer stack (``begin_unit``), what its
+backward will read, and once the backward (``begin_backward``) reaches a
+unit's first read, the next unit's reads are started on the side stream.
+Every copy is stream-ordered: the
 side stream waits for the work that produced its source, the consumer
 waits for the copy's event, and a device tensor read by the side stream is
 recorded on it so the allocator does not hand its memory out before the
@@ -67,10 +72,14 @@ class _Fetch(torch.autograd.Function):
 @dataclasses.dataclass
 class SwappedAct:
     """An activation saved in host memory; ``event`` marks the end of its
-    copy off the device (None on a CPU device)."""
+    copy off the device (None on a CPU device); ``unit`` is the layer-stack
+    unit that saved it; ``ahead``, its copy back started early (device
+    tensor, event)."""
 
     host: torch.Tensor
     event: torch.cuda.Event | None
+    unit: int = -1
+    ahead: tuple[torch.Tensor, torch.cuda.Event] | None = None
 
 
 class _Refetch:
@@ -98,10 +107,53 @@ class HostIO:
         self.swapped_in = registry.counter("train.act_swap_in_bytes")
         self.quantized = registry.counter("train.act_quantize_launches")
         self._pending: dict[int, tuple[torch.Tensor, torch.cuda.Event]] = {}
+        self.reset()
 
     def reset(self) -> None:
-        """Drop prefetched copies that were never taken."""
+        """Drop prefetched copies that were never taken, and the record of
+        what the backward reads: a new microbatch starts."""
         self._pending.clear()
+        self._unit = -1
+        self._reads: list[tuple[list, list]] = []  # per unit: (host weight trees, swaps)
+        self._host_unit: dict[int, int] = {}  # host weight data_ptr -> unit
+        self._backward = False
+        self._started: set[int] = set()
+
+    # ---- the backward's reads, one unit ahead --------------------------------------
+    def begin_unit(self) -> None:
+        """The forward enters the next unit of the layer stack."""
+        self._unit += 1
+        self._reads.append(([], []))
+
+    def will_fetch_again(self, hosts) -> None:
+        """The current unit's backward fetches the host tree ``hosts`` again."""
+        if self._unit < 0:
+            return
+        self._reads[self._unit][0].append(hosts)
+        for t in tree_leaves(hosts):
+            self._host_unit[t.data_ptr()] = self._unit
+
+    def begin_backward(self) -> None:
+        """The forward is over: start the reads of the last unit that has any."""
+        self._backward = True
+        self._start_before(len(self._reads))
+
+    def _reached(self, unit: int) -> None:
+        """The backward reads from ``unit``: start the next unit's reads."""
+        if self._backward and unit >= 0 and unit not in self._started:
+            self._started.add(unit)
+            self._start_before(unit)
+
+    def _start_before(self, unit: int) -> None:
+        for u in range(unit - 1, -1, -1):
+            weights, swaps = self._reads[u]
+            if not (weights or swaps):
+                continue
+            for tree in weights:
+                self.prefetch(tree)
+            for saved in swaps:
+                self._swap_in_ahead(saved)
+            return
 
     # ---- weights ------------------------------------------------------------
     def prefetch(self, tree) -> None:
@@ -129,6 +181,7 @@ class HostIO:
         """The device copy of the host tensor ``host``: the prefetched one
         once its copy is done, else a copy queued now."""
         self.fetched.inc(_nbytes(host))
+        self._reached(self._host_unit.get(host.data_ptr(), -1))
         hit = self._pending.pop(host.data_ptr(), None) if self.stream is not None else None
         if hit is None:
             return torch.empty(host.shape, dtype=host.dtype, device=self.device).copy_(
@@ -151,6 +204,7 @@ class HostIO:
         keeps its activations (``_remat_policy("none", buffered=False)``)."""
         # keyed by the fetched copies' own devices (``cuda:0``), which a
         # saved tensor reports whatever index ``self.device`` was given with
+        self.will_fetch_again(hosts)
         by_storage = {}
         for dev, host in zip(tree_leaves(fetched), tree_leaves(hosts)):
             by_storage[dev.device, dev.untyped_storage().data_ptr()] = _Refetch(self, host)
@@ -173,7 +227,7 @@ class HostIO:
         """Copy ``x`` to pinned host memory on the side stream."""
         self.swapped_out.inc(_nbytes(x))
         if self.stream is None:
-            return SwappedAct(x.detach().clone(), None)
+            return SwappedAct(x.detach().clone(), None, self._unit)
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
@@ -181,13 +235,35 @@ class HostIO:
             event = torch.cuda.Event()
             event.record(self.stream)
         x.record_stream(self.stream)  # x may be freed while the copy still reads it
-        return SwappedAct(host, event)
+        saved = SwappedAct(host, event, self._unit)
+        if self._unit >= 0:
+            self._reads[self._unit][1].append(saved)
+        return saved
+
+    def _swap_in_ahead(self, saved: SwappedAct) -> None:
+        """Start copying ``saved`` back to the device on the side stream."""
+        if self.stream is None or saved.event is None or saved.ahead is not None:
+            return
+        self.stream.wait_event(saved.event)
+        with torch.cuda.stream(self.stream):
+            dev = saved.host.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        saved.ahead = (dev, event)
 
     @torch.no_grad()
     def swap_in(self, saved: SwappedAct) -> torch.Tensor:
         """The swapped activation back on the device, after its copy out."""
         self.swapped_in.inc(_nbytes(saved.host))
+        self._reached(saved.unit)
         if saved.event is None:
             return saved.host.clone()
-        torch.cuda.current_stream(self.device).wait_event(saved.event)
+        cur = torch.cuda.current_stream(self.device)
+        if saved.ahead is not None:
+            dev, event = saved.ahead
+            saved.ahead = None
+            cur.wait_event(event)
+            dev.record_stream(cur)
+            return dev
+        cur.wait_event(saved.event)
         return saved.host.to(self.device, non_blocking=True)

@@ -1,11 +1,16 @@
 """Decode engine: continuous batching over a (resident or paged) decode step.
 
 Port of ``src/repro/serve/engine.py`` for one device. ``DecodeEngine`` owns
-the decode and chunked-prefill steps (``train.step_builder``), a
-``ContinuousScheduler`` and the live cache. The request API is the JAX
-engine's: ``submit`` queues work, ``run`` drives ticks until drained and
-returns an ``EngineReport``, ``stream`` yields ``TokenEvent``s, ``step_once``
-is one tick, ``warmup`` runs each step once on an all-inactive batch.
+one serving step (a ``serve.prefill.ServeStep`` bound to the engine's state,
+over the cache layout ``train.step_builder.serve_layout`` chooses), a
+``ContinuousScheduler``
+and the live cache. On CUDA the step is captured once as a CUDA graph, and
+every decode tick and every step of a prefill chunk replays it
+(``graphs``; eager steps are for the CPU and for measuring the graph
+against). The request API is the JAX engine's: ``submit`` queues work,
+``run`` drives ticks until drained and returns an ``EngineReport``,
+``stream`` yields ``TokenEvent``s, ``step_once`` is one tick, ``warmup``
+runs the step once on an all-inactive batch.
 
 Each tick the engine
 
@@ -15,8 +20,11 @@ Each tick the engine
      interleaved with decode ticks (at most ``chunk_budget`` prefill ticks in
      a row while a stream waits); ``"whole"`` runs the same chunks back to
      back; ``"replay"`` feeds the prompt one token per decode tick;
-  3. runs the step (greedy argmax on the device) and reads the sampled
-     tokens back to the host. That read synchronises the CUDA stream, so
+  3. writes the tick's tokens, positions and counts into the step's
+     buffers, runs the step once (decode) or up to ``prefill_chunk`` times
+     (prefill), the paged cache's page-boundary flush issued between steps,
+     and reads the sampled tokens (greedy argmax on the device) back to the
+     host. That read synchronises the CUDA stream, so
      when the next tick's admission zeroes rows of the pinned cold store on
      the host, no kernel or copy that touches it is still queued
      (``paging.assert_stream_idle`` checks this in the reset).
@@ -146,7 +154,9 @@ class DecodeEngine:
     cost-model choice, ``choose_prefill_chunk``, comes with the planner
     slice). ``chunk_budget`` caps consecutive prefill ticks while
     decode-ready streams wait (None = unbounded). ``device`` is where the
-    step runs: ``None`` means CUDA, and raises where there is none."""
+    step runs: ``None`` means CUDA, and raises where there is none.
+    ``graphs``: replay the step from a CUDA graph; ``None`` means yes on
+    CUDA and no on the CPU, and ``True`` on the CPU raises."""
 
     def __init__(
         self,
@@ -162,8 +172,10 @@ class DecodeEngine:
         prefill_chunk: int | None = None,
         chunk_budget: int | None = 1,
         telemetry: obs.Telemetry | None = None,
+        graphs: bool | None = None,
     ):
         from repro_torch.models import kvcache as KVC
+        from repro_torch.serve.prefill import ServeStep
         from repro_torch.train import step_builder as SB
 
         self.device = resolve_device(device)
@@ -179,19 +191,6 @@ class DecodeEngine:
         self.admission = admission
         self.chunk_budget = None if admission == "whole" else chunk_budget
 
-        self.art = SB.build_decode_step(cfg, plan, shape, paging=paging, per_slot_pos=True)
-        self.paging = paging = self.art.paging
-        # the steps write the cache in place; the engine owns its parameter
-        # copies unless ownership was handed over (own_params=True)
-        params = _tree_to(params, self.device, copy=not own_params)
-        if paging is None:
-            cache = KVC.init_cache(cfg, shape.global_batch, shape.seq_len, self.device)
-        else:
-            cache = init_paged_cache(cfg, shape.global_batch, shape.seq_len, paging,
-                                     self.device)
-        self.state = {"params": params, "cache": cache}
-        self._step = self.art.fn
-
         cache_len = KVC.cache_len(cfg, shape.seq_len)
         if admission != "replay":
             if prefill_chunk is None:
@@ -200,12 +199,24 @@ class DecodeEngine:
                     "(choose_prefill_chunk) is ported with the planner slice "
                     "(ROADMAP.md); pass prefill_chunk explicitly")
             self.prefill_chunk = max(1, min(int(prefill_chunk), cache_len))
-            prefill_art = SB.build_prefill_step(cfg, plan, shape, chunk=self.prefill_chunk,
-                                                paging=paging)
-            self._prefill, prefill_kv_io = prefill_art.fn, prefill_art.kv_io
         else:
             self.prefill_chunk = 0
-            self._prefill = prefill_kv_io = None
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        paging, self.kv_io = SB.serve_layout(cfg, plan, shape, paging)
+        self.paging = paging
+        # the step writes the cache in place; the engine owns its parameter
+        # copies unless ownership was handed over (own_params=True)
+        params = _tree_to(params, self.device, copy=not own_params)
+        if paging is None:
+            cache = KVC.init_cache(cfg, shape.global_batch, shape.seq_len, self.device)
+        else:
+            cache = init_paged_cache(cfg, shape.global_batch, shape.seq_len, paging,
+                                     self.device)
+        self.state = {"params": params, "cache": cache}
+        self.serve_step = ServeStep(params, cache, cfg, self.kv_io,
+                                    batch=shape.global_batch, chunk=max(1, self.prefill_chunk),
+                                    device=self.device, graph=graphs)
 
         page_size = paging.page_size if paging else cache_len
         n_pages_per_slot = -(-cache_len // page_size)
@@ -225,10 +236,9 @@ class DecodeEngine:
         self._c_decode_ticks = reg.counter("serve.ticks", phase="decode")
         self._c_gen = reg.counter("serve.generated_tokens")
         self._h_itl = reg.histogram("serve.itl_s")
-        # cold-store bytes attention read (the host-link bytes on CUDA), summed
-        # over the decode and prefill steps' cache hooks after every tick
+        # cold-store bytes attention read (the host-link bytes on CUDA), from
+        # the step's cache hook after every tick
         self._c_h2d = reg.counter("serve.h2d_bytes")
-        self._kv_ios = [kv for kv in (self.art.kv_io, prefill_kv_io) if hasattr(kv, "h2d_bytes")]
         self._h2d_seen = self._h2d_total()
         self._consec_prefill = 0
         self._t0: float | None = None
@@ -253,27 +263,18 @@ class DecodeEngine:
         return int(self._c_decode_ticks.value)
 
     def _h2d_total(self) -> int:
-        return sum(kv.h2d_bytes for kv in self._kv_ios)
-
-    def _tokens(self, rows) -> torch.Tensor:
-        return torch.tensor(rows, dtype=torch.int64).to(self.device)
+        return getattr(self.kv_io, "h2d_bytes", 0)
 
     # -- request API ---------------------------------------------------------
     def warmup(self) -> None:
-        """Run the decode (and prefill) step once with an all-inactive batch
-        -- the active mask suppresses every cache write, so live state is
-        untouched. On CUDA this builds and loads the kernels."""
-        bsz = self.shape.global_batch
-        z = torch.zeros((bsz,), dtype=torch.int64)
-        batch = {"tokens": self._tokens([[0]] * bsz), "pos": z,
-                 "active": torch.zeros((bsz,), dtype=torch.bool)}
-        self.state, nxt = self._step(self.state, batch)
-        nxt.cpu()  # synchronise
-        if self._prefill is not None:
-            pb = {"tokens": self._tokens([[0] * self.prefill_chunk] * bsz),
-                  "pos": z, "n_tok": z}
-            self.state, nxt = self._prefill(self.state, pb)
-            nxt.cpu()
+        """Run the step once with an all-inactive batch -- the active mask
+        suppresses every cache write, so live state is untouched. On CUDA
+        this builds and loads the kernels (the graph's capture already has)."""
+        step = self.serve_step
+        step.n_tok.zero_()
+        step.t.zero_()
+        step.replay_once()
+        step.next_tok.cpu()  # synchronise
         self._h2d_seen = self._h2d_total()  # warm-up reads are not served traffic
 
     def submit(self, requests: Iterable[Request]) -> None:
@@ -292,7 +293,7 @@ class DecodeEngine:
         admitted = sched.admit()
         if admitted:
             _zero_slots(self.state["cache"], admitted)
-        if (self._prefill is not None
+        if (self.prefill_chunk
                 and sched.should_prefill(self._consec_prefill, self.chunk_budget)):
             with self.tel.tracer.span("serve.prefill_tick"):
                 self._prefill_tick()
@@ -345,19 +346,20 @@ class DecodeEngine:
             yield from drain()
 
     # -- internal ticks -------------------------------------------------------
+    def _run_step(self, toks: list[list[int]], pos: list[int], n_tok: list[int]) -> list[int]:
+        """The step over a (B, chunk) block of tokens; the sampled tokens.
+        The read-back synchronises the stream (see the module docstring)."""
+        chunk = self.serve_step.chunk
+        self.serve_step.run([row + [0] * (chunk - len(row)) for row in toks], pos, n_tok)
+        return self.serve_step.next_tok.cpu().tolist()
+
     def _decode_tick(self) -> None:
         sched = self.scheduler
         toks, poss, active = sched.step_inputs(replay_prefill=self.admission == "replay")
         if not any(active):
             return  # every occupied slot is mid-prefill: nothing to decode
-        batch = {
-            "tokens": self._tokens([[t] for t in toks]),
-            "pos": torch.tensor(poss, dtype=torch.int64),
-            "active": torch.tensor(active, dtype=torch.bool),
-        }
-        self.state, nxt = self._step(self.state, batch)
-        # the read-back synchronises the stream (see the module docstring)
-        sched.advance(nxt.cpu().tolist(), active)
+        nxt = self._run_step([[t] for t in toks], poss, [int(a) for a in active])
+        sched.advance(nxt, active)
         self._c_decode_ticks.inc()
 
     def _prefill_tick(self) -> None:
@@ -385,13 +387,7 @@ class DecodeEngine:
             n_tok[b] = n_b
         if not any(n_tok):
             return
-        batch = {
-            "tokens": self._tokens(toks),
-            "pos": torch.tensor(pos, dtype=torch.int64),
-            "n_tok": torch.tensor(n_tok, dtype=torch.int64),
-        }
-        self.state, nxt = self._prefill(self.state, batch)
-        sched.advance_prefill(n_tok, nxt.cpu().tolist())  # synchronises the stream
+        sched.advance_prefill(n_tok, self._run_step(toks, pos, n_tok))
         self._c_prefill_ticks.inc()
 
     # -- timing ---------------------------------------------------------------
@@ -436,7 +432,7 @@ class DecodeEngine:
                 for rid in self._t_first if rid in self._t_submit}
         # the kernel path attends over hot ring + cold store in place: no
         # gathered transient exists on the device
-        transient = 0 if getattr(self.art.kv_io, "use_kernel", False) else parts["transient"]
+        transient = 0 if getattr(self.kv_io, "use_kernel", False) else parts["transient"]
         return EngineReport(
             drained=sched.idle,
             pending=pending,

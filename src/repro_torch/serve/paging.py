@@ -13,9 +13,18 @@ by two stores:
     default) a completed page is copied hot -> cold once per ``page_size``
     steps; under write-through (``flush=False``) cold receives every token.
 
-Cold-store writes are stream-ordered: the flush is a ``non_blocking`` copy
-on the current stream, so a kernel launched later on that stream sees it
-and one launched earlier is not raced. A CPU-side write to the pinned store
+The step's device work (``prepare`` and the attention hooks) builds every
+index from device positions with tensor ops, so a CUDA graph can capture
+it. Device kernels write the pinned cold store through ``device_view``, a
+CUDA tensor over the same bytes. Write-through's per-token cold write is a
+fixed-shape write like the ring's, so it stays in the step, ahead of the
+attention that reads it. The page-boundary flush depends on the data (which
+slot completes a page this step), so it is not part of the step: ``commit``
+issues it from host positions after the step, on the current stream,
+before the next step is launched. The page completed by a step is read
+from cold only once it has left the hot window, never by the step that
+completes it, so copying it after that step gives the bytes the JAX
+package's in-step ``lax.cond`` gives. A CPU-side write to the pinned store
 (the engine's slot reset) may only happen once the stream is idle
 (``assert_stream_idle``).
 
@@ -32,13 +41,15 @@ by every layer.
 ``PagedKV.h2d_bytes`` counts the cold-store bytes attention reads: on CUDA
 the cold store is pinned host memory, so these are the bytes that cross the
 host link. The kernel reads K and V of the attended cold rows only; the
-rebuild path copies each layer's whole cold store.
+rebuild path copies each layer's whole cold store. ``commit`` counts them
+from host positions with the same functions the step runs on the device.
 
 The ring-correctness invariant requires ``n_pages % n_hot == 0``.
 """
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import torch
 
@@ -122,6 +133,28 @@ def init_paged_cache(cfg: ModelConfig, batch: int, seq_len: int, spec: PagingSpe
             for pos, entry in paged_cache_specs(cfg, batch, seq_len, spec).items()}
 
 
+def device_view(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t``'s bytes as a tensor on ``device``: ``t`` itself where it lies
+    there; a pinned host tensor seen from a CUDA device is a CUDA tensor
+    over the same memory (unified addressing maps pinned host memory into
+    the device's address space at its host address), which device kernels
+    read and write in place."""
+    if t.device == device:
+        return t
+    if not (t.device.type == "cpu" and t.is_pinned() and t.is_contiguous()):
+        raise ValueError(f"a view on {device} needs a contiguous pinned host tensor, "
+                         f"got {t.device} (pinned={t.is_pinned()})")
+    raw = t.reshape(-1).view(torch.uint8)
+    # the CUDA array interface over t's bytes; the view holds it, and it holds t
+    mem = types.SimpleNamespace(owner=t, __cuda_array_interface__={
+        "shape": (raw.numel(),), "typestr": "|u1", "data": (raw.data_ptr(), False),
+        "version": 2})
+    view = torch.as_tensor(mem, device=device)
+    if view.device != device or view.data_ptr() != t.data_ptr():
+        raise RuntimeError(f"pinned memory at {t.data_ptr():#x} is not mapped on {device}")
+    return view.view(t.dtype).view(t.shape)
+
+
 def paged_to_resident(cache: dict) -> dict:
     """Resident-layout view of a paged cache: the cold store, canonical for
     every completed page (and for every row under write-through)."""
@@ -133,15 +166,13 @@ def paged_to_resident(cache: dict) -> dict:
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class PagedStep:
-    """One decode step's host decisions and device tensors, shared by all layers."""
+    """One decode step's device tensors, shared by all layers."""
 
     rope: torch.Tensor  # device RoPE positions
     hot_write: KV.SlotWrite  # ring write, slot % W
+    cold_write: KV.SlotWrite | None  # write-through's cold write, slot
     mask: torch.Tensor  # device (B, S) fp32
     sel: torch.Tensor  # device (B, S) bool: ring row canonical
-    flush_pages: list[tuple[int, int]]  # (batch row, page) copied hot -> cold
-    cold_rows: list[tuple[int, int]]  # write-through: (batch row, slot)
-    cold_reads: int  # (batch row, slot) pairs the kernel reads from cold, per layer
 
 
 class PagedKV:
@@ -156,16 +187,37 @@ class PagedKV:
     ``False`` rebuilds the cache and runs ``_masked_decode_attn``.
     """
 
-    entry_keys = ("k_hot", "v_hot", "k_cold", "v_cold")
-
     def __init__(self, spec: PagingSpec, flush: bool = True, use_kernel: bool = True):
         self.spec = spec
         self.flush = flush
         self.use_kernel = use_kernel
         self.h2d_bytes = 0  # cold-store bytes read by attention, all steps
+        self._views: dict[int, torch.Tensor] = {}  # cold leaf's data_ptr -> device view
 
-    # -- page residency (host tensors) ----------------------------------------
-    def _hot_mask(self, wp: torch.Tensor, p: int, sliding: bool) -> torch.Tensor:
+    def _device_view(self, cold: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """``device_view`` of a whole cold leaf, made once (before a CUDA
+        graph's capture, by its warm-up): the step only slices it. Made
+        outside inference mode, so that ``commit`` may write it there too."""
+        if cold.device == device:
+            return cold
+        view = self._views.get(cold.data_ptr())
+        if view is None:
+            with torch.inference_mode(False):
+                view = self._views[cold.data_ptr()] = device_view(cold, device)
+        return view
+
+    def layer_entry(self, pos_cache: dict, r: int) -> dict:
+        """Layer ``r``'s leaves of one attention position, with the cold
+        store also as a device view (``k_cold_dev``, ``v_cold_dev``) that
+        write-through writes."""
+        dev = pos_cache["k_hot"].device
+        entry = {name: pos_cache[name][r] for name in ("k_hot", "v_hot", "k_cold", "v_cold")}
+        for name in ("k", "v"):
+            entry[f"{name}_cold_dev"] = self._device_view(pos_cache[f"{name}_cold"], dev)[r]
+        return entry
+
+    # -- page residency (the JAX package's traced formulation) -----------------
+    def _hot_mask(self, wp: torch.Tensor, p, sliding: bool) -> torch.Tensor:
         """Is logical page ``p`` fully servable from the hot ring for a slot
         at write page ``wp``? Full attention: the last ``n_hot`` pages
         including the write page. Sliding rings: only the ``n_hot - 1`` most
@@ -177,87 +229,70 @@ class PagedKV:
             return (d >= 1) & (d < s.n_hot)
         return (wp >= p) & (wp - p < s.n_hot)
 
-    def _page_is_hot(self, wp: torch.Tensor, p: int, sliding: bool) -> torch.Tensor:
-        return torch.all(self._hot_mask(wp, p, sliding))
-
-    def _take_hot_rows(self, wp: torch.Tensor, slot: torch.Tensor, p: int,
+    def _take_hot_rows(self, wp: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor,
                        sliding: bool) -> torch.Tensor:
-        """Flush-mode row residency of page ``p``: True where the ring holds
-        the canonical value. Full attention: the whole hot window, write page
+        """Flush-mode row residency, (B, S): True where the ring holds the
+        canonical value. Full attention: the whole hot window, write page
         included. Sliding rings also split the write page by row: rows this
         cycle already rewrote (``row <= slot % P``) are in the ring."""
         s = self.spec
+        page = rows // s.page_size
         if not sliding:
-            return self._hot_mask(wp, p, sliding).reshape(-1, 1)
-        d = ((wp - p) % s.n_pages).reshape(-1)
+            return self._hot_mask(wp, page, sliding)
+        d = (wp - page) % s.n_pages
         full = (d >= 1) & (d < s.n_hot)
-        rows = torch.arange(s.page_size)
-        written = rows[None, :] <= (slot % s.page_size).reshape(-1, 1)
-        return full[:, None] | ((d == 0)[:, None] & written)
+        written = rows % s.page_size <= slot % s.page_size
+        return full | ((d == 0) & written)
 
-    def _row_residency(self, wp, slot, sliding: bool, batch: int) -> torch.Tensor:
-        """(B, S) host bool: True where the hot ring holds the row."""
+    def residency(self, slot: torch.Tensor, sliding: bool) -> torch.Tensor:
+        """``sel``, (B, S) bool on ``slot``'s device: True where the hot ring
+        holds the row. ``slot``: (B,) per-slot cache slot. Under
+        write-through a page comes from the ring only when it is hot for
+        every batch row (the JAX ``_page_is_hot``)."""
         s = self.spec
-        cols = []
-        for p in range(s.n_pages):
-            if self.flush:
-                take = self._take_hot_rows(wp, slot, p, sliding)
-            else:
-                take = self._page_is_hot(wp, p, sliding).reshape(1, 1)
-            cols.append(torch.broadcast_to(take, (batch, s.page_size)))
-        return torch.cat(cols, dim=1)
+        rows = torch.arange(s.cache_len, device=slot.device)[None, :]
+        col = slot[:, None]
+        wp = col // s.page_size
+        if self.flush:
+            return self._take_hot_rows(wp, col, rows, sliding)
+        hot = self._hot_mask(wp, rows // s.page_size, sliding).all(dim=0, keepdim=True)
+        return hot.expand(slot.shape[0], s.cache_len).contiguous()
 
-    # -- per-step preparation -------------------------------------------------
+    def _slots(self, pos: torch.Tensor, batch: int, sliding: bool) -> torch.Tensor:
+        slot = pos % self.spec.cache_len if sliding else pos
+        return slot.expand(batch)
+
+    # -- per-step preparation (device) ---------------------------------------------
     def prepare(self, cache: dict, pos, cfg: ModelConfig, device, active=None) -> PagedStep:
         s = self.spec
-        pos = KV.host_positions(pos)
-        act = None if active is None else torch.as_tensor(active).to("cpu", torch.bool)
+        pos = KV.device_positions(pos, device)
+        act = None if active is None else torch.as_tensor(active).to(device, torch.bool)
         batch = next(iter(cache.values()))["k_hot"].shape[1]
         sliding = bool(cfg.sliding_window)
-        slot = pos % s.cache_len if sliding else pos
-        wp = slot // s.page_size
-        per_row = slot.expand(batch) if slot.ndim == 0 else slot
-        writes = [True] * batch if act is None else act.tolist()
-        flush_pages, cold_rows = [], []
-        for b in range(batch):
-            sl = int(per_row[b])
-            if not writes[b]:
-                continue
-            if not self.flush:
-                cold_rows.append((b, sl))
-            elif (sl + 1) % s.page_size == 0:
-                flush_pages.append((b, sl // s.page_size))
+        slot = self._slots(pos, batch, sliding)
         mask = torch.broadcast_to(KV.decode_mask(pos, s.cache_len, sliding),
-                                  (batch, s.cache_len))
-        sel = self._row_residency(wp, slot, sliding, batch)
+                                  (batch, s.cache_len)).contiguous()
         return PagedStep(
-            rope=KV.rope_positions(pos).to(device),
-            hot_write=KV.SlotWrite.build(slot % s.hot_window, act, device),
-            mask=mask.contiguous().to(device),
-            sel=sel.to(device),
-            flush_pages=flush_pages,
-            cold_rows=cold_rows,
-            cold_reads=int((attended_rows(mask) & ~sel).sum()))
+            rope=KV.rope_positions(pos),
+            hot_write=KV.SlotWrite.build(slot % s.hot_window, act, batch, s.hot_window),
+            cold_write=None if self.flush else KV.SlotWrite.build(slot, act, batch, s.cache_len),
+            mask=mask,
+            sel=self.residency(slot, sliding))
 
-    # -- the per-token cache write ----------------------------------------------
+    # -- the per-token cache write and attention (device) -------------------------
     def _write(self, entry: dict, k, v, step: PagedStep) -> None:
-        """Hot-ring write, then the flush (or write-through) cold update --
-        copies on the current stream, after the ring write they read."""
-        P = self.spec.page_size
-        for name, val in (("k", k), ("v", v)):
-            hot, cold = entry[f"{name}_hot"], entry[f"{name}_cold"]
-            KV.write_slot(hot, val, step.hot_write)
-            for b, page in step.flush_pages:
-                r0 = (page % self.spec.n_hot) * P
-                cold[b, page * P:(page + 1) * P].copy_(hot[b, r0:r0 + P], non_blocking=True)
-            for b, sl in step.cold_rows:
-                cold[b, sl].copy_(val[b, 0], non_blocking=True)
+        """The ring write; under write-through also the cold write, ahead of
+        the attention that reads it."""
+        KV.write_slot(entry["k_hot"], k, step.hot_write)
+        KV.write_slot(entry["v_hot"], v, step.hot_write)
+        if step.cold_write is not None:
+            KV.write_slot(entry["k_cold_dev"], k, step.cold_write)
+            KV.write_slot(entry["v_cold_dev"], v, step.cold_write)
 
     def update_and_fetch(self, entry: dict, k, v, step: PagedStep):
         """Write, then rebuild the full (B, S, kv, hd) cache row by row:
         ring row ``s % W`` where ``sel`` is set, else cold row ``s``."""
         self._write(entry, k, v, step)
-        self.h2d_bytes += entry["k_cold"].nbytes + entry["v_cold"].nbytes
         sel = step.sel[..., None, None]
         dev = entry["k_hot"].device
         ring = torch.arange(self.spec.cache_len, device=dev) % self.spec.hot_window
@@ -274,10 +309,56 @@ class PagedKV:
             full_k, full_v, mask = self.update_and_fetch(entry, k, v, step)
             return KV._masked_decode_attn(q, full_k, full_v, mask)
         self._write(entry, k, v, step)
-        self.h2d_bytes += 2 * step.cold_reads * entry["k_cold"][0, 0].nbytes
         return decode_paged_attention(q, entry["k_hot"], entry["v_hot"], entry["k_cold"],
                                       entry["v_cold"], step.sel, step.mask,
                                       n_hot=self.spec.n_hot)
+
+    # -- after the step (host) --------------------------------------------------------
+    def flushed_pages(self, pos, batch: int, sliding: bool, active=None) -> list[tuple]:
+        """The pages the step completed, decided on the host from host
+        positions: ``(batch row, first cold row, first ring row)`` for each
+        slot that wrote its page's last row. None under write-through."""
+        s = self.spec
+        if not self.flush:
+            return []
+        slot = self._slots(KV.host_positions(pos), batch, sliding).tolist()
+        writes = [True] * batch if active is None else torch.as_tensor(active).tolist()
+        out = []
+        for b, (sl, w) in enumerate(zip(slot, writes)):
+            if w and (sl + 1) % s.page_size == 0:
+                page = sl // s.page_size
+                out.append((b, page * s.page_size, (page % s.n_hot) * s.page_size))
+        return out
+
+    def commit(self, cache: dict, pos, cfg: ModelConfig, active=None) -> None:
+        """The step's host-side work, from host ``pos`` and ``active``: count
+        the cold bytes its attention read, then copy the pages it completed
+        hot -> cold (``flushed_pages``) on the current stream, after the
+        step's device work and before any later step's: one copy per leaf
+        and page, across the layers."""
+        s = self.spec
+        pos = KV.host_positions(pos)
+        act = None if active is None else torch.as_tensor(active).to("cpu", torch.bool)
+        leaf = next(iter(cache.values()))["k_cold"]
+        batch = leaf.shape[1]
+        sliding = bool(cfg.sliding_window)
+        layers = sum(entry["k_cold"].shape[0] for entry in cache.values())
+        row_bytes = leaf[0, 0, 0].nbytes
+        if self.use_kernel:
+            mask = KV.decode_mask(pos, s.cache_len, sliding)
+            sel = self.residency(self._slots(pos, batch, sliding), sliding)
+            rows = int((attended_rows(mask.expand(batch, s.cache_len)) & ~sel).sum())
+        else:
+            rows = batch * s.cache_len  # the rebuild copies the whole cold store
+        self.h2d_bytes += layers * 2 * rows * row_bytes
+        pages = self.flushed_pages(pos, batch, sliding, act)
+        n = s.page_size
+        for entry in cache.values():
+            for name in ("k", "v"):
+                hot = entry[f"{name}_hot"]
+                cold = self._device_view(entry[f"{name}_cold"], hot.device)
+                for b, c0, h0 in pages:
+                    cold[:, b, c0:c0 + n].copy_(hot[:, b, h0:h0 + n])
 
 
 def attended_rows(mask: torch.Tensor) -> torch.Tensor:

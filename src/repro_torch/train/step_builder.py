@@ -1,10 +1,11 @@
-"""Step builders: the plan-driven training step, one decode step and one
-chunked-prefill step, on one device.
+"""Step builders: the plan-driven training step and the serving step's
+layout, on one device.
 
 Port of ``src/repro/train/step_builder.py``: ``build_train_step``
-(``:126-583``, the xla-sync branch) and the serving builders
-(``build_decode_step(per_slot_pos=True)``, ``build_prefill_step(chunk=C)``,
-``:756-923``). Each returns a ``StepArtifacts``.
+(``:126-583``, the xla-sync branch), which returns a ``StepArtifacts``, and
+the layout the serving builders (``build_decode_step(per_slot_pos=True)``,
+``build_prefill_step(chunk=C)``, ``:756-923``) choose, ``serve_layout``:
+decode and chunked prefill are one step here (``serve.prefill.ServeStep``).
 
 Training: ``fn(state, batch) -> (state, metrics)`` runs one step in place on
 ``state = {"params", "opt", "step"}``. The params keep the JAX tree,
@@ -68,8 +69,6 @@ class StepArtifacts:
     init: Callable[[torch.Generator | None], dict] | None = None  # training: a fresh state
     place_state: Callable[[dict], dict] | None = None  # training: a state around given params
     grad_fn: Callable[[dict, dict], tuple] | None = None  # training: the step's gradients
-    paging: PagingSpec | None = None  # serving: the page geometry
-    kv_io: Any = None  # serving: the cache hook the step threads through decode_step
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +216,7 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
             loss = loss_fn(params, proxies, mb_batch)
             if device.type == "cuda":
                 act_bytes.set(torch.cuda.memory_allocated(device) - before)
+            io.begin_backward()  # its host reads run one unit ahead
             grads = iter(torch.autograd.grad(loss, flat))
             return OPT.tree_map(lambda _: next(grads), params), loss.detach()
 
@@ -263,8 +263,14 @@ def to_pinned(tree):
                         .copy_(t), tree)
 
 
-def _serve_layout(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig,
-                  paging: PagingSpec | None) -> tuple[PagingSpec | None, Any]:
+def serve_layout(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig,
+                 paging: PagingSpec | None = None) -> tuple[PagingSpec | None, Any]:
+    """The serving step's cache layout: ``(paging, kv_io)``, the page
+    geometry (None for a resident cache) and the cache hook the step threads
+    through ``decode_forward``. Decode and chunked prefill are one step,
+    ``serve.prefill.ServeStep``, which the engine binds to its state. The
+    full-sequence stateless prefill (``chunk=None`` in the JAX package)
+    comes with the training slice's parallel forward."""
     if plan.n_persist != plan.n_chunks:
         raise NotImplementedError(
             f"serving plan {plan.describe()}: only an all-persistent weight placement "
@@ -273,47 +279,3 @@ def _serve_layout(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig,
         paging = paging_from_plan(cfg, shape, plan)
     kv_io = KV.RESIDENT_KV if paging is None else PagedKV(paging)
     return paging, kv_io
-
-
-def build_decode_step(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig,
-                      *, paging: PagingSpec | None = None,
-                      per_slot_pos: bool = True) -> StepArtifacts:
-    """Decode step. batch: ``tokens`` (B, 1) on the device, ``pos`` () or
-    (B,) on the host (per slot with ``per_slot_pos``), optional ``active``
-    (B,) host bool masking cache writes of slots sitting the step out."""
-    paging, kv_io = _serve_layout(cfg, plan, shape, paging)
-
-    def step_fn(state: dict, batch: dict):
-        pos = batch["pos"]
-        if per_slot_pos != (torch.as_tensor(pos).ndim == 1):
-            raise ValueError(f"pos shape {tuple(torch.as_tensor(pos).shape)} does not "
-                             f"match per_slot_pos={per_slot_pos}")
-        with torch.inference_mode():
-            logits, _ = KV.decode_step(state["params"], state["cache"], batch["tokens"],
-                                       pos, cfg, kv_io=kv_io, active=batch.get("active"))
-            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        return state, next_tok
-
-    return StepArtifacts(fn=step_fn, paging=paging, kv_io=kv_io)
-
-
-def build_prefill_step(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig,
-                       *, chunk: int, paging: PagingSpec | None = None) -> StepArtifacts:
-    """Chunked prefill (serve/prefill.py). batch: ``tokens`` (B, C) on the
-    device, ``pos`` and ``n_tok`` (B,) on the host. The full-sequence
-    stateless prefill (``chunk=None`` in the JAX package) comes with the
-    training slice's parallel forward."""
-    from repro_torch.serve.prefill import prefill_chunk
-
-    paging, kv_io = _serve_layout(cfg, plan, shape, paging)
-
-    def step_fn(state: dict, batch: dict):
-        if batch["tokens"].shape[1] != chunk:
-            raise ValueError(f"prefill block {tuple(batch['tokens'].shape)} != chunk {chunk}")
-        with torch.inference_mode():
-            last, _ = prefill_chunk(state["params"], state["cache"], batch["tokens"],
-                                    batch["pos"], batch["n_tok"], cfg, kv_io=kv_io)
-            next_tok = torch.argmax(last, dim=-1).to(torch.int32)
-        return state, next_tok
-
-    return StepArtifacts(fn=step_fn, paging=paging, kv_io=kv_io)

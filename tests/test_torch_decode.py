@@ -167,6 +167,35 @@ def test_paged_h2d_bytes_count_attended_cold_rows(sliding):
         assert kv.h2d_bytes == cfg.num_layers * 2 * rows * row, use_kernel
 
 
+@pytest.mark.parametrize("sliding", [False, True])
+def test_paged_h2d_bytes_write_through_reads_cold_unless_hot_for_every_slot(sliding):
+    """Under write-through a page comes from the ring only when it is hot for
+    every slot (the JAX ``_page_is_hot``); the step writes each token to
+    cold before attention reads it. At write pages 0 and 3 of 4, 2 of them
+    hot, no page is hot for both slots, so the kernel path reads every
+    attended row, ``pos + 1`` a slot, from cold, the slot's own new row
+    included; the rebuild path reads the whole cold store."""
+    cfg = _cfg("float32", sliding)
+    if sliding:
+        cfg = dataclasses.replace(cfg, sliding_window=32)
+    _, tp = _params(cfg)
+    spec = choose_paging(TKV.cache_len(cfg, 32), 8, 2)
+    pos = torch.tensor([5, 29])
+    row = cfg.num_kv_heads * cfg.resolved_head_dim * 4
+    toks = torch.ones((B, 1), dtype=torch.int64)
+    for use_kernel, rows in ((True, 6 + 30), (False, B * 32)):
+        kv = PagedKV(spec, flush=False, use_kernel=use_kernel)
+        cache = init_paged_cache(cfg, B, 32, spec)
+        TKV.decode_step(tp, cache, toks, pos, cfg, kv_io=kv)
+        assert kv.h2d_bytes == cfg.num_layers * 2 * rows * row, use_kernel
+        assert not kv.residency(pos, cfg.sliding_window > 0).any()
+        for name in ("k", "v"):  # the new rows are in cold, as the ring has them
+            for b, p in enumerate(pos.tolist()):
+                hot, cold = cache["pos0"][f"{name}_hot"], cache["pos0"][f"{name}_cold"]
+                assert torch.equal(cold[:, b, p], hot[:, b, p % spec.hot_window])
+                assert cold[:, b, p].abs().sum() > 0
+
+
 # ---------------------------------------------------------------------------
 # Chunked prefill
 # ---------------------------------------------------------------------------

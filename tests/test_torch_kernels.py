@@ -280,17 +280,32 @@ def test_flash_attention_bwd_plain_matches_jax_grad():
 # rounded against the running max) in plain PyTorch, against the whole-row plain version, the JAX
 # training path's _mea_forward and the Pallas kernel in interpret mode, in
 # fp32 and bf16 (TOL: 1e-4 fp32, 2e-2 bf16, as atol = rtol; the fp32 lse at
-# 1e-4 in both). The JAX versions mask additively at -1e30, so a row with no
-# attended key averages V over its masked keys there; the port gives 0 and
-# lse = -1e30, as attention_lse_ref does: such rows are held to
-# attention_lse_ref alone. The Pallas kernel has no query offset.
+# 1e-4 in both), on every row. The JAX versions mask additively at -1e30, so
+# a row with no attended key averages V over the padded key range; the port
+# matches that (ref.fix_unattended_fwd), here with the keys padded to the
+# 64-key blocks both JAX versions run with. The Pallas kernel has no query
+# offset.
 TILED_CASES = [(b, hq, hkv, s, s, hd, window, 0, True) for b, hq, hkv, s, hd, window in FLASH_SWEEP]
 TILED_CASES += [  # (b, hq, hkv, sq, sk, hd, window, q_offset, causal)
     (1, 4, 2, 200, 200, 64, 70, 0, True),    # S and the window off the 64-row tiles
     (1, 4, 2, 130, 130, 64, 0, 0, False),    # no causal mask, ragged S
     (2, 4, 1, 100, 164, 32, 0, 64, True),    # queries at 64..163 over 164 keys
     (1, 4, 2, 150, 60, 32, 40, 37, True),    # rows 62..149 attend no key
+    (1, 4, 2, 200, 100, 32, 30, 0, True),    # rows 129..199 attend no key; Pallas too
 ]
+
+
+def _jax_mea(jq, jk, jv, sk, causal, window, q_offset, block=64):
+    """_mea_forward on K / V padded to ``block``-key blocks: out in q's
+    dtype, lse (B, Hq, Sq), both fp32 numpy in the port's layouts."""
+    b, sq, hq, hd = jq.shape
+    hkv = jk.shape[2]
+    pad = -sk % block
+    kp, vp = (jnp.pad(a, ((0, 0), (0, pad), (0, 0), (0, 0))) for a in (jk, jv))
+    mea, mea_lse = JL._mea_forward(jq.reshape(b, sq, hkv, hq // hkv, hd), kp, vp, sk, causal,
+                                   window, q_offset, block)
+    mea = np.asarray(mea.astype(jq.dtype).astype(jnp.float32)).reshape(b, sq, hq, hd)
+    return mea, np.asarray(mea_lse).reshape(b, sq, hq).transpose(0, 2, 1)
 
 
 @pytest.mark.parametrize("key_tile", [64, 128])
@@ -302,32 +317,71 @@ def test_flash_tiled_model_matches_jax(b, hq, hkv, sq, sk, hd, window, q_offset,
     jq, tq = _both(rng.standard_normal((b, sq, hq, hd)).astype(np.float32), dtype)
     jk, tk = _both(rng.standard_normal((b, sk, hkv, hd)).astype(np.float32), dtype)
     jv, tv = _both(rng.standard_normal((b, sk, hkv, hd)).astype(np.float32), dtype)
-    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, block_kv=64)
     out, lse = TR.flash_attention_tiled_ref(tq, tk, tv, key_tile=key_tile, **kw)
     assert out.dtype == tq.dtype and lse.shape == (b, hq, sq)
     want, want_lse = TR.attention_lse_ref(tq, tk, tv, **kw)
     _assert_close(out, want, dtype, "attention_lse_ref")
     _assert_close(lse, want_lse, "float32", "attention_lse_ref lse")
     attended = TR._mask(sq, sk, causal, window, q_offset, "cpu").any(dim=1).numpy()
-    if not attended.all():  # rows with nothing attended: out 0, lse -1e30
-        assert not out[:, ~attended].float().any()
+    if not attended.all():  # rows with nothing attended: V averaged, lse -1e30
+        assert out[:, ~attended].float().abs().amax() > 0
         assert bool((lse[:, :, ~attended] == -1e30).all())
 
-    # _mea_forward on K / V padded to its 64-key blocks: out fp32, lse (B, Sq, Hkv, G)
-    pad = -sk % 64
-    kp, vp = (jnp.pad(a, ((0, 0), (0, pad), (0, 0), (0, 0))) for a in (jk, jv))
-    mea, mea_lse = JL._mea_forward(jq.reshape(b, sq, hkv, hq // hkv, hd), kp, vp, sk, causal,
-                                   window, q_offset, 64)
-    mea = np.asarray(mea.astype(jq.dtype).astype(jnp.float32)).reshape(b, sq, hq, hd)
-    mea_lse = np.asarray(mea_lse).reshape(b, sq, hq).transpose(0, 2, 1)
-    _assert_close(out[:, attended], mea[:, attended], dtype, "_mea_forward")
-    _assert_close(lse[:, :, attended], mea_lse[:, :, attended], "float32", "_mea_forward lse")
+    mea, mea_lse = _jax_mea(jq, jk, jv, sk, causal, window, q_offset)
+    _assert_close(out, mea, dtype, "_mea_forward")
+    _assert_close(lse, mea_lse, "float32", "_mea_forward lse")
     if q_offset == 0:
         bhsd = lambda a: jnp.swapaxes(a, 1, 2)  # noqa: E731
         pallas = j_flash(bhsd(jq), bhsd(jk), bhsd(jv), causal=causal, window=window, block_q=64,
                          block_k=64, interpret=True)
         pallas = np.asarray(bhsd(pallas).astype(jnp.float32))
-        _assert_close(out[:, attended], pallas[:, attended], dtype, "Pallas interpret")
+        _assert_close(out, pallas, dtype, "Pallas interpret")
+
+
+# Rows with nothing attended through the kernels package's CPU route (the
+# plain versions), forward and backward, against the JAX training path's
+# _mea_forward / _mea_bwd (fp32, TOL 1e-4) with keys padded to 128-key
+# blocks, on shapes whose unattended rows lie at a causal head (negative
+# positions), a windowed tail, or both.
+UNATTENDED_CASES = [  # (sq, sk, window, q_offset, causal)
+    (96, 40, 16, 0, True),     # rows 55..95 past the window of the last key
+    (64, 50, 0, -20, True),    # rows 0..19 at negative positions
+    (80, 30, 12, -10, True),   # both
+    (48, 20, 8, 0, False),     # no causal mask, windowed tail
+    (16, 8, 4, 100, True),     # every row
+]
+
+
+@pytest.mark.parametrize("sq,sk,window,q_offset,causal", UNATTENDED_CASES)
+def test_unattended_rows_match_mea_fwd_and_bwd(sq, sk, window, q_offset, causal):
+    b, hq, hkv, hd = 2, 4, 2, 32
+    rng = np.random.default_rng(sq * sk + window)
+    arrs = [rng.standard_normal(sh).astype(np.float32)
+            for sh in ((b, sq, hq, hd), (b, sk, hkv, hd), (b, sk, hkv, hd), (b, sq, hq, hd))]
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in arrs)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in arrs)
+    rows = TR.unattended_rows(sq, sk, causal, window, q_offset)
+    attended = TR._mask(sq, sk, causal, window, q_offset, "cpu").any(dim=1)
+    assert [i for a, c in rows for i in range(a, c)] == (~attended).nonzero().flatten().tolist()
+    assert rows, "the case must have rows with nothing attended"
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = K.flash_attention(tq, tk, tv, block_kv=128, **kw)
+    mea, mea_lse = _jax_mea(jq, jk, jv, sk, causal, window, q_offset, block=128)
+    _assert_close(out, mea, "float32", "_mea_forward")
+    _assert_close(lse, mea_lse, "float32", "_mea_forward lse")
+
+    g = hq // hkv
+    pad = -sk % 128
+    kp, vp = (jnp.pad(a, ((0, 0), (0, pad), (0, 0), (0, 0))) for a in (jk, jv))
+    q5 = jq.reshape(b, sq, hkv, g, hd)
+    jout, jlse = JL._mea_forward(q5, kp, vp, sk, causal, window, q_offset, 128)
+    jgrads = JL._mea_bwd(sk, causal, window, q_offset, 128, (q5, kp, vp, jout, jlse),
+                         jdo.reshape(b, sq, hkv, g, hd))
+    grads = K.flash_attention_bwd(tq, tk, tv, out, lse, tdo, **kw)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, jgrads):
+        want = np.asarray(want)[:, :sk] if name != "dq" else np.asarray(want)
+        _assert_close(got, want.reshape(got.shape), "float32", name)
 
 
 # ---------------------------------------------------------------------------
