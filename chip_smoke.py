@@ -73,6 +73,28 @@ Phases, each printing one JSON line:
      swaps and updates run on a side stream and through pinned memory,
      and change no value).
 
+  9. ``plan``: ProTrain's planner on the card. ``local_cuda_hw()`` reads
+     this card's memory, the host's memory and the host link's both-ways
+     rate (read once, before the engine phase, which also prints what
+     ``choose_prefill_chunk`` would pick for its engine). The port's
+     profiler traces one full-width mistral-7b superblock (fake tensors:
+     nothing is allocated) at seq 4096, the search runs for global batch 1
+     at 32 layers (``search(compress="off", sync="xla")``, one card), and
+     prints the plan, its modeled step and memory, the seconds it took, and
+     the reference's profile and plan beside the port's. Then 1 warm-up and
+     2 timed steps under that plan at 32 layers and full width through
+     ``train_loop`` with a ``DriftMonitor``: losses finite, launches,
+     fetched bytes and quantizer calls the plan's, pinned bytes the plan's
+     host chunks', and the measured step, peak and pinned bytes beside the
+     modeled ones; then one profiled step (device time by kind, the
+     optimizer's span). If the host cannot pin what the plan puts there, the
+     step runs at the deepest stack that fits and says so
+     (``reduced_depth``); if the card runs out of memory, the capacity the
+     search budgets against is lowered by the shortfall the card showed and
+     the search runs again (``oom_attempts``). Last, ``calibration``: the
+     ``train`` and mixed plans priced on this card's spec beside their
+     measured steps and peaks, with the full-depth run's row.
+
 The fused int8 quantize kernel (``fused_quantize_ef``) is held to its
 plain version bitwise (q, scales and the residual) in phase 5, at the
 activation shape (4096 x 4096 bf16), the gradient-wire shape (4 x
@@ -431,32 +453,18 @@ def paged_case(case: str, cold_on_host: bool, gen) -> dict:
 
 def host_link_rate() -> dict:
     """This machine's copy-engine rates over the host link, 256 MiB copies
-    between pinned memory and the device, CUDA-event timed (median of 5):
-    host to device (``gb_per_s``), device to host, and both at once on two
-    streams (each way), the rate the pinned-state Adam's pipeline can reach.
-    The paged kernel's host-cold reads are set beside them, and beside the
-    64 GB/s specification that ``paged_bound`` uses."""
-    import torch
+    between pinned memory and the device, CUDA-event timed (median of 5,
+    ``core.hardware.measure_host_link``): host to device (``gb_per_s``),
+    device to host, and both at once on two streams (each way), the rate the
+    pinned-state Adam's pipeline can reach. The paged kernel's host-cold
+    reads are set beside them, and beside the 64 GB/s specification that
+    ``paged_bound`` uses."""
+    from repro_torch.core.hardware import measure_host_link
 
     n = 256 << 20
-    src, back = (torch.empty(n, dtype=torch.uint8).pin_memory() for _ in range(2))
-    dst, out = (torch.empty(n, dtype=torch.uint8, device="cuda") for _ in range(2))
-    side = torch.cuda.Stream()
-    cur = torch.cuda.current_stream()
-
-    def both_ways():
-        side.wait_stream(cur)
-        dst.copy_(src, non_blocking=True)
-        with torch.cuda.stream(side):
-            back.copy_(out, non_blocking=True)
-        cur.wait_stream(side)
-
-    dst.copy_(src, non_blocking=True)
-    ms = _event_ms(lambda: dst.copy_(src, non_blocking=True), 5)
-    d2h_ms = _event_ms(lambda: back.copy_(out, non_blocking=True), 5)
-    both_ms = _event_ms(both_ways, 5)
-    return {"bytes": n, "ms": ms, "gb_per_s": n / ms / 1e6, "d2h_gb_per_s": n / d2h_ms / 1e6,
-            "both_ways_gb_per_s_each": n / both_ms / 1e6}
+    link = measure_host_link("cuda", n)
+    return {"bytes": n, "ms": n / link["h2d"] * 1e3, "gb_per_s": link["h2d"] / 1e9,
+            "d2h_gb_per_s": link["d2h"] / 1e9, "both_ways_gb_per_s_each": link["both_ways"] / 1e9}
 
 
 def phase_kernels() -> dict:
@@ -615,7 +623,7 @@ def serve(engine, reqs, device_times: bool = False) -> dict:
             "tick_device": tick_account(ticks_dev) if device_times else None}
 
 
-def phase_engine() -> dict[str, int]:
+def phase_engine(hw) -> dict[str, int]:
     import numpy as np
     import torch
 
@@ -703,6 +711,15 @@ def phase_engine() -> dict[str, int]:
          teacher_forced={"max_abs_diff": err, "max_abs_logit": scale,
                          "tol": ENGINE_TOL * (1 + scale), "argmax_agree": agree},
          decode_step=account)
+    # the prefill chunk the cost model would pick for this engine on this card
+    # (the engine keeps its explicit PREFILL_CHUNK, for comparable numbers)
+    from repro_torch.core.cost_model import choose_prefill_chunk
+    from repro_torch.core.hardware import ONE_CHIP
+
+    chosen = choose_prefill_chunk(cfg, shape, ONE_CHIP, hw, spec=spec, max_chunk=spec.page_size,
+                                  kernel=True)
+    emit("engine_prefill_chunk", explicit=PREFILL_CHUNK, choose_prefill_chunk=chosen,
+         hw=hw.name, host_bw=hw.host_bw, paging=[spec.page_size, spec.n_pages, spec.n_hot])
     assert err <= ENGINE_TOL * (1 + scale), (
         f"teacher-forced logits: kernels vs plain differ by {err} (max |logit| {scale})")
     assert agree == 1.0, f"teacher-forced greedy tokens differ in {1 - agree:.0%} of rows"
@@ -1194,7 +1211,8 @@ def phase_train() -> dict[str, int]:
     assert launches == expected, f"launches {launches} != the plan's {expected}"
     del res, state, art
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"case": "train", "cfg": cfg, "shape": shape, "plan": plan,
+                      "median_step_s": med, "peak_device_bytes": peak}
 
 
 def pinned_state_bytes(state) -> int:
@@ -1335,11 +1353,14 @@ def main_stream_host_reads(prof, span, wall_ms: float) -> dict:
             "idle_share_of_step": idle / wall_ms if wall_ms else None}
 
 
-def policy_run(cfg, shape, plan, steps: int, profile: bool = False) -> dict:
+def policy_run(cfg, shape, plan, steps: int, profile: bool = False, drift=None,
+               warmup: int = 0) -> dict:
     """``steps`` steps of ``plan`` through build_train_step and train_loop,
-    with the launch counts zeroed just before: losses, step times, device
-    and pinned bytes, the ``train.*`` counters and the launches; with
-    ``profile``, then one more step under the profiler."""
+    with the launch counts zeroed just before: losses, step times (the
+    median over the steps after ``warmup``), device and pinned bytes, the
+    ``train.*`` counters and the launches; ``drift``: an
+    ``obs.DriftMonitor`` the loop feeds; with ``profile``, then one more
+    step under the profiler."""
     import torch
 
     from repro_torch import kernels as K
@@ -1358,14 +1379,14 @@ def policy_run(cfg, shape, plan, steps: int, profile: bool = False) -> dict:
     t0 = time.perf_counter()
     res = train_loop(art, pipe, None, LoopConfig(total_steps=steps, log_every=1),
                      generator=torch.Generator(device="cuda").manual_seed(0),
-                     log=lambda line: print(line, flush=True))
+                     log=lambda line: print(line, flush=True), drift=drift)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: K.launch_counts()[k] for k in TRAINING_KERNELS}
     snap = {k: v["value"] for k, v in tel.registry.snapshot().items() if "value" in v}
     out = {"plan": plan.describe(), "runs": [dataclasses.asdict(r) for r in art.runs],
            "losses": res.losses, "step_times_s": res.step_times,
-           "median_step_s": statistics.median(res.step_times),
+           "median_step_s": statistics.median(res.step_times[warmup:]),
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "act_bytes": snap["train.act_bytes"],
            "pinned_state_bytes": pinned_state_bytes(res.state),
@@ -1509,7 +1530,197 @@ def phase_train_policies() -> dict[str, int]:
          tol="bitwise", seconds=time.perf_counter() - t0)
     assert cmp["losses_host"] == cmp["losses_device"], cmp
     assert cmp["master_leaves_differing"] == 0, cmp
-    return run["launches"]
+    return run["launches"], {"case": "mixed", "cfg": cfg, "shape": shape, "plan": plan,
+                             "median_step_s": run["median_step_s"],
+                             "peak_device_bytes": run["peak_device_bytes"]}
+
+
+# ---------------------------------------------------------------------------
+# The planner slice
+# ---------------------------------------------------------------------------
+# The JAX reference's profile of one mistral-7b superblock at B 1, S 4096
+# (src/repro/core/profiler.py on jax 0.9.0, the CPU; tests/test_torch_planner.py
+# holds these numbers to it), printed beside the port's own.
+REFERENCE_BLOCK_PROFILE = dict(flops_fwd=2064647659909.0, hbm_bytes_fwd=40396927736,
+                               act_residual_bytes=1636894208, boundary_bytes=33554432,
+                               peak_transient_bytes=1749032976)
+PLAN_STEPS, PLAN_WARMUP = 3, 1  # one warm-up step, then two timed ones
+PLAN_ATTEMPTS = 3  # searches at a lowered capacity after an out-of-memory
+HOST_MARGIN = 8 << 30  # host memory left to the process besides the pinned states
+
+
+def host_memory() -> dict:
+    """The host's memory: ``free -g``'s lines and /proc/meminfo's total and
+    available bytes."""
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True, timeout=60).stdout
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":")
+            info[key] = int(val.split()[0]) * 1024
+    return {"free_g": free.strip().splitlines(), "total_bytes": info["MemTotal"],
+            "available_bytes": info["MemAvailable"]}
+
+
+def plan_pinned_bytes(w, plan) -> int:
+    """Pinned host bytes the plan's host chunks take: fp32 master, m and v,
+    plus the bf16 weights under host_params."""
+    return sum(c.optim_bytes + (c.param_bytes if plan.host_params else 0)
+               for c in w.chunks if plan.chunk_placement(c.index) == "host")
+
+
+def modeled(w, plan) -> dict:
+    from repro_torch.core.cost_model import estimate_memory, estimate_runtime
+
+    rt, mem = estimate_runtime(w, plan), estimate_memory(w, plan)
+    return {"t_iteration": rt.t_iteration, "t_fwd": rt.t_fwd, "t_bwd": rt.t_bwd,
+            "t_gpu_optim": rt.t_gpu_optim, "t_cpu_optim": rt.t_cpu_optim,
+            "peak_bytes": mem.peak, "memory": {k: v for k, v in vars(mem).items()
+                                               if k != "trajectory"}}
+
+
+def calibration_row(hw, run: dict) -> dict:
+    """An earlier phase's plan priced on ``hw`` by the port's cost model,
+    beside what that phase measured."""
+    from repro_torch.core.cost_model import build_workload
+    from repro_torch.core.hardware import ONE_CHIP
+
+    w = build_workload(run["cfg"], run["shape"], ONE_CHIP, hw)
+    m = modeled(w, run["plan"])
+    return {"case": run["case"], "layers": run["cfg"].num_layers,
+            "global_batch": run["shape"].global_batch, "plan": run["plan"].describe(), **m,
+            "measured_step_s": run["median_step_s"],
+            "measured_peak_bytes": run["peak_device_bytes"],
+            "runtime_ratio": m["t_iteration"] / run["median_step_s"],
+            "memory_ratio": m["peak_bytes"] / run["peak_device_bytes"]}
+
+
+def _oom_shortfall(err: Exception, usable: int) -> int:
+    """Bytes by which an out-of-memory step outran the card, at least: the
+    allocator's bytes at the failure plus the request, less what was free."""
+    import re
+
+    import torch
+
+    m = re.search(r"Tried to allocate ([0-9.]+) (GiB|MiB|KiB|B)", str(err))
+    unit = {"GiB": 1 << 30, "MiB": 1 << 20, "KiB": 1 << 10, "B": 1}
+    asked = int(float(m.group(1)) * unit[m.group(2)]) if m else 0
+    stats = torch.cuda.memory_stats()
+    return max(stats["reserved_bytes.all.current"] + asked - usable, asked)
+
+
+def phase_plan(hw) -> dict:
+    """ProTrain's planner on the card: the port's profile of a full-depth
+    mistral-7b superblock, the search for seq 4096 and global batch 1 on
+    ``hw`` (this card's spec), and 1 + 2 steps under the searched plan at
+    32 layers and full width, each number beside the cost model's."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.autotuner import search
+    from repro_torch.core.cost_model import build_workload
+    from repro_torch.core.hardware import ONE_CHIP
+    from repro_torch.core.profiler import BlockProfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    usable, total = torch.cuda.mem_get_info()
+    host = host_memory()
+    cfg = get_config("mistral-7b")
+    shape = ShapeConfig("plan", TRAIN_SEQ, 1, "train")
+    t0 = time.perf_counter()
+    w = build_workload(cfg, shape, ONE_CHIP, hw)
+    profile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = search(w, compress="off", sync="xla")
+    search_s = time.perf_counter() - t0
+    ref_w = dataclasses.replace(w, block=BlockProfile(**REFERENCE_BLOCK_PROFILE))
+    ref_res = search(ref_w, compress="off", sync="xla")
+    emit("plan_search", arch=cfg.name, layers=cfg.num_layers, seq=TRAIN_SEQ, global_batch=1,
+         hw={k: v for k, v in dataclasses.asdict(hw).items()},
+         card_total_bytes=total, card_free_bytes_at_start=usable, host=host,
+         profile={"port": dataclasses.asdict(w.block), "reference": REFERENCE_BLOCK_PROFILE},
+         profile_s=profile_s, plan=res.plan.describe(), feasible=res.feasible,
+         evaluated=res.evaluated, search_s=search_s, search_seconds=res.search_seconds,
+         modeled=modeled(w, res.plan), pinned_bytes=plan_pinned_bytes(w, res.plan),
+         reference_profile_plan=ref_res.plan.describe(),
+         reference_profile_modeled=modeled(ref_w, ref_res.plan))
+    assert res.feasible, "the search found no plan that fits the card"
+
+    # host memory: the deepest stack whose pinned states fit
+    budget = host["available_bytes"] - HOST_MARGIN
+    layers, plan, w_run = cfg.num_layers, res.plan, w
+    while plan_pinned_bytes(w_run, plan) > budget:
+        layers -= 1
+        assert layers > 0, "no depth's pinned states fit the host"
+        w_run = build_workload(dataclasses.replace(cfg, num_layers=layers), shape, ONE_CHIP, hw)
+        plan = search(w_run, compress="off", sync="xla").plan
+    run_cfg = dataclasses.replace(cfg, num_layers=layers)
+
+    attempts = []
+    for _ in range(PLAN_ATTEMPTS):
+        drift = obs.DriftMonitor(w_run, plan, window=PLAN_STEPS - PLAN_WARMUP)
+        try:
+            run = policy_run(run_cfg, shape, plan, steps=PLAN_STEPS, drift=drift,
+                             warmup=PLAN_WARMUP, profile=True)
+            break
+        except torch.OutOfMemoryError as err:
+            # the searched plan outran the card: lower the capacity the
+            # search budgets against by the shortfall the card showed, and
+            # search again (the model, its depth and the checks stay)
+            short = _oom_shortfall(err, usable)
+            frac = w_run.hw.hbm_capacity_fraction - short / w_run.hw.hbm_bytes
+            attempts.append({"plan": plan.describe(), "error": str(err).splitlines()[0],
+                             "shortfall_bytes": short, "next_fraction": frac})
+            print(f"[plan] out of memory under {plan.describe()}: {attempts[-1]}", flush=True)
+            del err
+            gc.collect()
+            torch.cuda.empty_cache()
+            w_run = dataclasses.replace(w_run, hw=dataclasses.replace(
+                w_run.hw, hbm_capacity_fraction=frac))
+            plan = search(w_run, compress="off", sync="xla").plan
+    else:
+        raise AssertionError(f"no plan trained within {PLAN_ATTEMPTS} searches: {attempts}")
+
+    tokens = shape.global_batch * TRAIN_SEQ
+    flops = model_flops(run_cfg, tokens)
+    report = drift.report()
+    m = modeled(w_run, plan)
+    emit("plan", arch=cfg.name, layers=layers, reduced_depth=layers != cfg.num_layers,
+         seq=TRAIN_SEQ, global_batch=shape.global_batch,
+         hbm_capacity_fraction=w_run.hw.hbm_capacity_fraction, oom_attempts=attempts,
+         **run, tokens_per_s=tokens / run["median_step_s"], model_flops_per_step=flops,
+         mfu=flops / run["median_step_s"] / BF16_FLOP_PER_S, modeled=m,
+         measured_vs_modeled={"step_s": [run["median_step_s"], m["t_iteration"]],
+                              "peak_bytes": [run["peak_device_bytes"], m["peak_bytes"]],
+                              "pinned_bytes": [run["pinned_state_bytes"],
+                                               plan_pinned_bytes(w_run, plan)]},
+         drift={"runtime_ratio": report["runtime"]["ratio"],
+                "memory_ratio": report["memory"]["ratio"], "ok": report["ok"],
+                "band": report["band"]})
+    check_run("plan", run)
+    assert len(run["losses"]) == PLAN_STEPS
+    assert abs(run["losses"][0] - math.log(cfg.vocab_size)) <= FIRST_LOSS_BAND, run["losses"]
+    assert run["pinned_state_bytes"] == plan_pinned_bytes(w_run, plan), (
+        run["pinned_state_bytes"], plan_pinned_bytes(w_run, plan))
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm", "fused_adam"):
+        assert run["launches"][name] > 0, f"{name} was not launched by the full-depth run"
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": run["launches"], "row": {
+        "case": "plan", "layers": layers, "global_batch": shape.global_batch,
+        "plan": plan.describe(), **m, "measured_step_s": run["median_step_s"],
+        "measured_peak_bytes": run["peak_device_bytes"],
+        "runtime_ratio": report["runtime"]["ratio"], "memory_ratio": report["memory"]["ratio"]}}
+
+
+def phase_calibration(hw, runs: list[dict], plan_row: dict) -> None:
+    """The cost model's H100 calibration: each trained plan's modeled step
+    and peak beside the measured ones."""
+    rows = [calibration_row(hw, r) for r in runs] + [plan_row]
+    emit("calibration", hw=hw.name, host_bw=hw.host_bw, hbm_bytes=hw.hbm_bytes, rows=rows)
 
 
 def timed_phase(name: str, fn):
@@ -1530,17 +1741,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+    from repro_torch.core.hardware import local_cuda_hw
+
     t0 = time.perf_counter()
     smi = phase_card()
     timed_phase("build", phase_build)
     measured = timed_phase("kernels", phase_kernels)
-    launches = timed_phase("engine", phase_engine)
+    hw = local_cuda_hw()  # this card, its host and its host link, read now
+    launches = timed_phase("engine", lambda: phase_engine(hw))
     gc.collect()  # the engine's weights go with its phase
     torch.cuda.empty_cache()
     training = timed_phase("train_kernels", phase_train_kernels)
     timed_phase("train_compare", phase_train_compare)
-    train_launches = timed_phase("train", phase_train)
-    policy_launches = timed_phase("train_policies", phase_train_policies)
+    train_launches, train_run = timed_phase("train", phase_train)
+    policy_launches, mixed_run = timed_phase("train_policies", phase_train_policies)
+    plan_out = timed_phase("plan", lambda: phase_plan(hw))
+    phase_calibration(hw, [train_run, mixed_run], plan_out["row"])
     rms = measured["rmsnorm"][0]  # rows = batch: the decode path's shape
     main_case = next(p for p in measured["paged_attention"]
                      if p["case"] == "main" and p["cold"] == "pinned_host")

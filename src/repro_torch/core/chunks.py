@@ -1,9 +1,9 @@
 """Chunk inventory of a model in execution order (paper §3.1.1, §B.1).
 
-Copy of ``src/repro/core/chunks.py:27-92``: the embedding chunk, one chunk
-per superblock repeat, then the head. The launcher and ``chip_smoke.py``
-count chunks and model-state bytes with it. The fixed-size chunk search
-comes with the planner slice.
+Copy of ``src/repro/core/chunks.py``: the embedding chunk, one chunk per
+superblock repeat, then the head -- the planner's unit. ``chunk_size_search``
+is the paper's fixed-size chunk search (padding-waste minimization), kept
+for parity; the planner itself uses block-aligned chunks.
 """
 from __future__ import annotations
 
@@ -77,3 +77,64 @@ def total_param_count(chunks: list[ChunkInfo]) -> int:
 def model_state_bytes(chunks: list[ChunkInfo]) -> int:
     """Full mixed-precision model states: ~16 bytes/param (paper §1)."""
     return sum(c.param_bytes + c.grad_bytes + c.optim_bytes for c in chunks)
+
+
+# ---------------------------------------------------------------------------
+# §B.1 fixed-size chunk search (padding-waste minimization)
+# ---------------------------------------------------------------------------
+def pack_into_chunks(param_sizes: list[int], chunk_size: int) -> list[list[int]]:
+    """Greedy packing in execution order; params never span chunk boundaries.
+
+    Params larger than the chunk get a dedicated (oversized) chunk, as in
+    Colossal-AI's chunk manager.
+    """
+    chunks: list[list[int]] = []
+    cur: list[int] = []
+    cur_sz = 0
+    for s in param_sizes:
+        if s >= chunk_size:
+            if cur:
+                chunks.append(cur)
+                cur, cur_sz = [], 0
+            chunks.append([s])
+            continue
+        if cur_sz + s > chunk_size:
+            chunks.append(cur)
+            cur, cur_sz = [], 0
+        cur.append(s)
+        cur_sz += s
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
+def chunk_waste(param_sizes: list[int], chunk_size: int) -> int:
+    """Total padding bytes when packing params into fixed-size chunks.
+
+    Oversized (dedicated) chunks are exact-fit: ``max(chunk_size, total)``
+    equals ``total`` whenever ``total >= chunk_size``, so they contribute
+    zero padding."""
+    waste = 0
+    for chunk in pack_into_chunks(param_sizes, chunk_size):
+        total = sum(chunk)
+        waste += max(chunk_size, total) - total
+    return waste
+
+
+def chunk_size_search(
+    param_sizes: list[int],
+    candidates: list[int] | None = None,
+) -> tuple[int, int]:
+    """Grid search over chunk sizes minimizing simulated waste (§B.1).
+
+    Returns (best_chunk_size, waste_bytes). Ties prefer larger chunks
+    (better transfer efficiency).
+    """
+    if candidates is None:
+        candidates = [1 << p for p in range(20, 29)]  # 1 MiB .. 256 MiB elems
+    best, best_waste = candidates[0], None
+    for c in candidates:
+        w = chunk_waste(param_sizes, c)
+        if best_waste is None or w < best_waste or (w == best_waste and c > best):
+            best, best_waste = c, w
+    return best, int(best_waste)

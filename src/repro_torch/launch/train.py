@@ -1,20 +1,28 @@
 """End-to-end training launcher of the port.
 
+    python -m repro_torch.launch.train --arch gpt2-1b --steps 20 --batch 2 --seq 1024
     python -m repro_torch.launch.train --arch stablelm-3b --reduced \\
         --steps 4 --batch 2 --seq 64 --plan resident --device cpu
 
 The PyTorch counterpart of ``src/repro/launch/train.py``: picks the
-architecture (``--reduced``: the tiny same-family config), builds the plan
-(``resident``: every chunk persistent, no remat; ``fsdp``: every block
-checkpointed), the plan-realized step, the synthetic data pipeline and the
-fault-tolerant loop with checkpoints and auto-resume. Weights are random,
-drawn on the device from ``--seed``. Runs on CUDA unless ``--device cpu``.
-Prints one JSON summary line. ``--plan auto`` and ``--target-hw`` need the
-planner, which is not ported yet: they raise ``NotImplementedError``.
+architecture (``--reduced``: the tiny same-family config), builds the plan,
+the plan-realized step, the synthetic data pipeline and the fault-tolerant
+loop with checkpoints and auto-resume. Weights are random, drawn on the
+device from ``--seed``. Runs on CUDA unless ``--device cpu``. Prints the
+plan, then one JSON summary line.
+
+Plans: ``auto`` (the default) is ProTrain's search (``core.autotuner``)
+against ``--target-hw`` (a ``core.hardware.HARDWARE`` name) or, without
+one, this card's spec (``local_cuda_hw``; ``LOCAL_CPU_HW`` on the CPU). On
+CUDA the searched plan runs as searched: its host chunks live in pinned
+host memory. On the CPU, as the JAX launcher does, the chunks are parked on
+the device and the block policies kept. ``resident``: every chunk
+persistent, no remat; ``fsdp``: every block checkpointed.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import torch
@@ -23,16 +31,16 @@ from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.compat import resolve_device
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.autotuner import search
 from repro_torch.core.chunks import chunk_inventory, model_state_bytes
+from repro_torch.core.cost_model import build_workload
+from repro_torch.core.hardware import HARDWARE, LOCAL_CPU_HW, ONE_CHIP, local_cuda_hw
 from repro_torch.core.plan import MemoryPlan, fully_resident_plan
 from repro_torch.data.pipeline import SyntheticTokenPipeline
 from repro_torch.models.model import num_repeats
 from repro_torch.optim.adam import AdamConfig, cosine_schedule
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.step_builder import build_train_step
-
-_PLANNER_TODO = ("ROADMAP.md, port queue 1 item 5: the planner (hardware, profiler, cost model, "
-                 "autotuner)")
 
 
 def main(argv=None) -> int:
@@ -46,14 +54,13 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--reduced", action="store_true",
                     help="train the reduced (smoke-scale) variant of the arch")
-    ap.add_argument("--target-hw", default=None, help="plan against this hardware (planner)")
-    ap.add_argument("--plan", default="resident", choices=["auto", "resident", "fsdp"])
+    ap.add_argument("--target-hw", default=None, choices=[None, *HARDWARE],
+                    help="plan against this hardware spec instead of the local one")
+    ap.add_argument("--plan", default="auto", choices=["auto", "resident", "fsdp"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda (raises without it)")
     args = ap.parse_args(argv)
 
-    if args.plan == "auto" or args.target_hw is not None:
-        raise NotImplementedError(f"--plan auto / --target-hw ({_PLANNER_TODO})")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -61,7 +68,24 @@ def main(argv=None) -> int:
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     chunks = chunk_inventory(cfg)
     nc, nb = len(chunks), num_repeats(cfg)
-    if args.plan == "fsdp":  # one device: every chunk already resident; checkpoint all
+    if args.plan == "auto":
+        if args.target_hw:
+            hw = HARDWARE[args.target_hw]
+        else:
+            hw = local_cuda_hw(device) if device.type == "cuda" else LOCAL_CPU_HW
+        w = build_workload(cfg, shape, ONE_CHIP, hw)
+        # one device: check_train_plan runs only the plain reduction, so the
+        # search keeps XLA-style sync without wire compression
+        res = search(w, compress="off", sync="xla")
+        plan = res.plan
+        print(f"[train] searched plan: {plan.describe()} (modeled t_iter="
+              f"{res.runtime.t_iteration:.3f}s, peak {res.memory.peak / 1e9:.2f}GB on {hw.name}, "
+              f"feasible={res.feasible}, {res.search_seconds:.2f}s)")
+        if device.type == "cpu":
+            # the CPU is its own host: park the chunks on the device, keep
+            # the block policies and the microbatching
+            plan = dataclasses.replace(plan, n_host=0, n_persist=plan.n_chunks, n_buffer=0)
+    elif args.plan == "fsdp":  # one device: every chunk already resident; checkpoint all
         plan = MemoryPlan(n_chunks=nc, n_blocks=nb, n_persist=nc, n_checkpoint=nb)
     else:
         plan = fully_resident_plan(nc, nb)

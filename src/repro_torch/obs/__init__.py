@@ -1,7 +1,8 @@
 """Runtime telemetry of the port: metrics registry and span tracer.
 
-Port of ``src/repro/obs/__init__.py`` without the drift monitor, the memory
-watermark and the structured logger, which come with the telemetry slice.
+Port of ``src/repro/obs/__init__.py`` without the structured logger: the
+registry, the span tracer, the device-memory watermark (``obs.mem``) and the
+cost-model drift monitor (``obs.drift``).
 ``Telemetry`` bundles one registry and one tracer; ``current_telemetry()``
 returns the shared no-op ``NULL_TELEMETRY`` unless a caller installed one.
 """
@@ -9,6 +10,8 @@ from __future__ import annotations
 
 import contextlib
 
+from repro_torch.obs.drift import DriftMonitor
+from repro_torch.obs.mem import device_memory_watermark
 from repro_torch.obs.metrics import (
     DOCUMENTED_METRICS,
     NULL_REGISTRY,
@@ -62,7 +65,7 @@ def use_telemetry(tel: Telemetry):
 
 
 __all__ = [
-    "DOCUMENTED_METRICS", "MetricsRegistry", "NULL_REGISTRY", "NULL_TELEMETRY",
-    "NULL_TRACER", "Span", "Telemetry", "Tracer", "current_telemetry", "quantile",
+    "DOCUMENTED_METRICS", "DriftMonitor", "MetricsRegistry", "NULL_REGISTRY", "NULL_TELEMETRY",
+    "NULL_TRACER", "Span", "Telemetry", "Tracer", "current_telemetry", "device_memory_watermark", "quantile",
     "set_default_telemetry", "use_telemetry",
 ]

@@ -73,18 +73,37 @@ def init_opt_state(params) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32, on the leaves' device."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree)))
+    """sqrt of the sum of squares of every leaf, in fp32, on the leaves' device.
+    A leaf widened to fp32 is squared in place: one fp32 copy of it at a
+    time, not two."""
+    def sum_sq(g):
+        if g.dtype == torch.float32:
+            return torch.sum(torch.square(g))
+        return torch.sum(g.float().square_())
+
+    return torch.sqrt(sum(sum_sq(g) for g in tree_leaves(tree)))
+
+
+# elements a bf16 gradient is clipped in at a time (a 256 MB fp32 copy)
+CLIP_PIECE = 1 << 26
 
 
 def clip_by_global_norm(grads, max_norm: float, norm: torch.Tensor | None = None):
     """Scale the grads by min(1, max_norm / norm) in fp32, back to each
-    leaf's dtype (fp32 leaves are scaled in place). Returns (grads, norm)."""
+    leaf's dtype, **in place** and, for a contiguous bf16 leaf, in pieces of
+    ``CLIP_PIECE`` elements: the product is elementwise, so the values are
+    those of the whole leaf at once, without a second gradient tree or an
+    fp32 copy of a stacked leaf on the device. Returns (grads, norm)."""
     norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
 
     def clip(g):
-        return g.mul_(scale) if g.dtype == torch.float32 else (g.float() * scale).to(g.dtype)
+        if g.dtype == torch.float32:
+            return g.mul_(scale)
+        pieces = g.view(-1).split(CLIP_PIECE) if g.is_contiguous() else (g,)
+        for piece in pieces:
+            piece.copy_(piece.float() * scale)
+        return g
 
     return tree_map(clip, grads), norm
 

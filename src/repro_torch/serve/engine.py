@@ -150,9 +150,10 @@ def _tree_to(tree: dict, device: torch.device, copy: bool) -> dict:
 
 class DecodeEngine:
     """``admission``: ``"chunked"`` (default), ``"whole"`` or ``"replay"``.
-    ``prefill_chunk`` is required under chunked or whole admission (the
-    cost-model choice, ``choose_prefill_chunk``, comes with the planner
-    slice). ``chunk_budget`` caps consecutive prefill ticks while
+    ``prefill_chunk`` under chunked or whole admission: None takes the cost
+    model's choice (``core.cost_model.choose_prefill_chunk``) on ``hw``,
+    by default this card's spec (``core.hardware.local_cuda_hw``) on CUDA
+    and ``LOCAL_CPU_HW`` on the CPU. ``chunk_budget`` caps consecutive prefill ticks while
     decode-ready streams wait (None = unbounded). ``device`` is where the
     step runs: ``None`` means CUDA, and raises where there is none.
     ``graphs``: replay the step from a CUDA graph; ``None`` means yes on
@@ -171,6 +172,7 @@ class DecodeEngine:
         admission: str | None = None,
         prefill_chunk: int | None = None,
         chunk_budget: int | None = 1,
+        hw=None,
         telemetry: obs.Telemetry | None = None,
         graphs: bool | None = None,
     ):
@@ -192,19 +194,24 @@ class DecodeEngine:
         self.chunk_budget = None if admission == "whole" else chunk_budget
 
         cache_len = KVC.cache_len(cfg, shape.seq_len)
+        paging, self.kv_io = SB.serve_layout(cfg, plan, shape, paging)
+        self.paging = paging
         if admission != "replay":
             if prefill_chunk is None:
-                raise ValueError(
-                    f"admission={admission!r} needs prefill_chunk: the cost-model choice "
-                    "(choose_prefill_chunk) is ported with the planner slice "
-                    "(ROADMAP.md); pass prefill_chunk explicitly")
+                from repro_torch.core.cost_model import choose_prefill_chunk
+                from repro_torch.core.hardware import LOCAL_CPU_HW, ONE_CHIP, local_cuda_hw
+
+                on_cuda = self.device.type == "cuda"
+                if hw is None:
+                    hw = local_cuda_hw(self.device) if on_cuda else LOCAL_CPU_HW
+                prefill_chunk = choose_prefill_chunk(
+                    cfg, shape, ONE_CHIP, hw, spec=paging,
+                    max_chunk=paging.page_size if paging else cache_len, kernel=on_cuda)
             self.prefill_chunk = max(1, min(int(prefill_chunk), cache_len))
         else:
             self.prefill_chunk = 0
         if graphs is None:
             graphs = self.device.type == "cuda"
-        paging, self.kv_io = SB.serve_layout(cfg, plan, shape, paging)
-        self.paging = paging
         # the step writes the cache in place; the engine owns its parameter
         # copies unless ownership was handed over (own_params=True)
         params = _tree_to(params, self.device, copy=not own_params)

@@ -9,8 +9,9 @@ step updates the state in place, and the loop synchronises once per step,
 at the loss read-back. With ``telemetry=`` it records the ``train.*``
 metrics (step-time histogram, loss gauge, step / NaN-skip / straggler
 counters, the device-memory high-water mark on CUDA) and a ``train.step``
-span per step. The drift monitor and the structured logger are queued in
-ROADMAP.md (telemetry).
+span per step; with ``drift=`` each step's wall time and watermark go to
+the online measured-vs-modeled ``obs.DriftMonitor``. The structured logger
+is queued in ROADMAP.md (telemetry).
 """
 from __future__ import annotations
 
@@ -54,7 +55,8 @@ def train_loop(step_artifacts, pipeline: SyntheticTokenPipeline,
                ckpt: CheckpointManager | None, loop_cfg: LoopConfig, *,
                generator: torch.Generator | None = None,
                log: Callable[[str], None] = print,
-               telemetry: obs.Telemetry | None = None) -> LoopResult:
+               telemetry: obs.Telemetry | None = None,
+               drift: obs.DriftMonitor | None = None) -> LoopResult:
     """Run ``loop_cfg.total_steps`` steps of ``step_artifacts.fn``, from the
     latest checkpoint of ``ckpt`` if it has one, else from
     ``step_artifacts.init(generator)``."""
@@ -85,7 +87,7 @@ def train_loop(step_artifacts, pipeline: SyntheticTokenPipeline,
         preempted["flag"] = True
 
     old_handler = signal.signal(signal.SIGTERM, on_term)
-    on_cuda = any(t.is_cuda for t in tree_leaves(state["params"]))
+    device = tree_leaves(state["params"])[0].device
 
     losses: list[float] = []
     step_times: list[float] = []
@@ -102,8 +104,13 @@ def train_loop(step_artifacts, pipeline: SyntheticTokenPipeline,
             dt = time.perf_counter() - t0
             step_time_h.observe(dt)
             steps_c.inc()
-            if tel.enabled and on_cuda:
-                mem_g.set_max(torch.cuda.max_memory_allocated())
+            if tel.enabled or drift is not None:
+                mem_bytes, mem_src = obs.device_memory_watermark(device)
+                mem_g.set_max(mem_bytes)
+            else:
+                mem_bytes, mem_src = None, "none"
+            if drift is not None:
+                drift.observe_step(dt, mem_bytes if mem_bytes else None, mem_source=mem_src)
 
             if not math.isfinite(loss):
                 nan_skips += 1

@@ -237,10 +237,22 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         memory under host_params, fresh optimizer states are placed by plan."""
         if pin:
             params = map_host(params, weights_on_host, to_pinned)
-        opt = OPT.init_opt_state(params)
-        if pin:
-            for key in ("master", "m", "v"):
-                opt[key] = map_host(opt[key], on_host, to_pinned)
+
+        def states(sub, host: bool) -> dict:
+            """fp32 master, m and v of a subtree: a host chunk's made in
+            pinned memory leaf by leaf (made whole on the device or in
+            pageable memory first, they would need their 12 B a parameter
+            twice), the others beside their weights."""
+            if host:
+                return {"master": pinned_master(sub), "m": pinned_zeros(sub),
+                        "v": pinned_zeros(sub)}
+            return OPT.init_opt_state(sub)
+
+        parts = {k: states(v, pin and on_host[k]) for k, v in params.items() if k != "runs"}
+        runs = [states(sub, pin and f) for sub, f in zip(params["runs"], on_host["runs"])]
+        opt = {key: {**{k: st[key] for k, st in parts.items()}, "runs": [r[key] for r in runs]}
+               for key in ("master", "m", "v")}
+        opt["count"] = 0
         for p in OPT.tree_leaves(params):
             p.requires_grad_(True)
         for p in OPT.tree_leaves(host_subtrees(params, weights_on_host)):
@@ -261,6 +273,18 @@ def to_pinned(tree):
     """A copy of a tree in pinned host memory."""
     return OPT.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                         .copy_(t), tree)
+
+
+def pinned_master(tree):
+    """fp32 copies of a tree's weights, made in pinned host memory."""
+    return OPT.tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32, pin_memory=True)
+                        .copy_(t.detach()), tree)
+
+
+def pinned_zeros(tree):
+    """fp32 zeros shaped like a tree, in pinned host memory."""
+    return OPT.tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32, pin_memory=True),
+                        tree)
 
 
 def serve_layout(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig,

@@ -686,3 +686,33 @@ def test_captured_step_equals_eager_step_bitwise(layout):
                 for name in ("k", "v"):
                     assert torch.equal(entry[f"{name}_cold"][:, b, row % spec.cache_len],
                                        entry[f"{name}_hot"][:, b, row % spec.hot_window].cpu())
+
+
+# The port's profile of one mistral-7b superblock at B 1, S 4096 on the CPU
+# (tests/test_torch_planner.py holds it to the reference): the trace runs on
+# fake CPU tensors, so a machine with a card must give the same numbers.
+MISTRAL_BLOCK_PROFILE = dict(flops_fwd=2064375300608.0, hbm_bytes_fwd=40026731584,
+                             act_residual_bytes=3738207232, boundary_bytes=33554432,
+                             peak_transient_bytes=1628446720)
+
+
+@pytest.mark.cuda
+def test_local_cuda_hw_reads_the_card_and_profile_is_device_free():
+    import dataclasses
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import H100_SXM, local_cuda_hw
+    from repro_torch.core.profiler import profile_superblock
+
+    _require_card()
+    hw = local_cuda_hw()
+    props = torch.cuda.get_device_properties(0)
+    assert hw.hbm_bytes == props.total_memory
+    assert hw.host_mem_bytes == os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    assert 1e9 < hw.host_bw < 2 * H100_SXM.host_bw  # measured, not the data sheet's
+    assert (hw.peak_flops, hw.hbm_bw) == (H100_SXM.peak_flops, H100_SXM.hbm_bw)
+    before = torch.cuda.memory_allocated()
+    prof = profile_superblock(get_config("mistral-7b"), 1, 4096)
+    assert dataclasses.asdict(prof) == MISTRAL_BLOCK_PROFILE
+    assert torch.cuda.memory_allocated() == before  # fake tensors: nothing on the card

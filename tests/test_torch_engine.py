@@ -182,8 +182,24 @@ def test_engine_stream_yields_every_token(model):
 def test_engine_refuses_what_this_slice_lacks(model):
     cfg, _, tp = model
     shape = ShapeConfig("serve", S, B, "decode")
-    with pytest.raises(ValueError, match="prefill_chunk"):
-        DecodeEngine(cfg, MemoryPlan(3, 2, n_persist=3), "cpu", shape, tp)
+    # without prefill_chunk the engine takes the cost model's choice, the
+    # JAX engine's (choose_prefill_chunk on LOCAL_CPU_HW, one device); the
+    # CPU engine decodes through the plain path, which the reference prices
+    # as its lax path (decode_kernel_active() false)
+    from repro.core import cost_model as JCM
+    from repro.core.hardware import LOCAL_CPU_HW as J_CPU
+    from repro.core.hardware import MeshSpec as JMesh
+    from repro.serve.paging import choose_paging as j_paging
+
+    for paged in (False, True):
+        eng = _port_engine(cfg, tp, paged=paged, prefill_chunk=None)
+        spec = j_paging(S, 8, 2) if paged else None
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(JCM, "decode_kernel_active", lambda: False)
+            want = JCM.choose_prefill_chunk(cfg, JShape("serve", S, B, "decode"),
+                                            JMesh((1,), ("data",)), J_CPU, spec=spec,
+                                            max_chunk=spec.page_size if paged else S)
+        assert eng.prefill_chunk == want, (paged, eng.prefill_chunk, want)
     with pytest.raises(NotImplementedError, match="all-persistent"):
         DecodeEngine(cfg, MemoryPlan(3, 2, n_persist=0), "cpu", shape, tp,
                      prefill_chunk=CHUNK)

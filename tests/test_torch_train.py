@@ -314,10 +314,20 @@ def test_out_of_scope_plans_raise(name):
         build_train_step(CFG, MemoryPlan(4, 2, **OUT_OF_SCOPE[name]), "cpu", SHAPE)
 
 
-@pytest.mark.parametrize("argv", [["--plan", "auto"], ["--target-hw", "h100"]])
-def test_launcher_planner_options_raise(argv):
-    with pytest.raises(NotImplementedError, match="planner"):
-        launch_train.main(["--arch", "mistral-7b", "--reduced", "--device", "cpu", *argv])
+@pytest.mark.parametrize("argv", [["--plan", "auto"], ["--target-hw", "h100-sxm"]])
+def test_launcher_planner_options_raise(argv, capsys):
+    """The planner's options no longer raise: ``--plan auto`` (the default)
+    searches against the local spec, ``--target-hw`` against a named one,
+    and the run prints its searched plan and trains (chunks parked on the
+    CPU device, as the JAX launcher parks them)."""
+    rc = launch_train.main(["--arch", "mistral-7b", "--reduced", "--steps", "2", "--batch",
+                            "2", "--seq", "64", "--device", "cpu", *argv])
+    assert rc == 0
+    out = capsys.readouterr().out
+    hw = "h100-sxm" if "--target-hw" in argv else "cpu-host"
+    assert "[train] searched plan: persist=" in out and f" on {hw}," in out
+    summary = json.loads(out.strip().splitlines()[-1])
+    assert summary["steps"] == 2 and np.isfinite(summary["final_loss"])
 
 
 def test_train_state_params_require_grad_in_run_layout():
