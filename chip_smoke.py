@@ -95,6 +95,34 @@ Phases, each printing one JSON line:
      ``train`` and mixed plans priced on this card's spec beside their
      measured steps and peaks, with the full-depth run's row.
 
+ 10. ``moe_kernels``: the kernels at the MoE paths' shapes
+     (``qwen2-moe-a2.7b``: 16 query over 16 KV heads, hd 128, no window,
+     d 2048) against their plain versions, after the mistral phases'
+     memory is freed: flash forward and backward at S 4096, paged attention
+     ``main`` and ``long`` (pinned and device cold stores), RMSNorm at 4 and
+     4096 rows of 2048, fused Adam on one pinned expert ``w1`` (60 x 2048 x
+     1408); each line carries ``"path": "moe"``;
+ 11. ``moe_serve``: phase 4's engine and checks for ``qwen2-moe-a2.7b`` at
+     full width and all 24 layers (28.6 GB of bf16 weights). Its
+     teacher-forced step is held to ``MOE_ENGINE_TOL``, the greedy token
+     must agree in every row whose plain top-1 leads its top-2 by more than
+     that tolerance, and ``routing`` reports the share of (token, k)
+     expert choices on which the kernel and plain paths agree;
+ 12. ``moe_plan``: phase 9 for ``qwen2-moe-a2.7b``: 229 GB of training
+     state at 24 layers, more than card and host hold, so the depth is the
+     deepest whose searched plan's pinned states, as the caching host
+     allocator takes them (``pinned_alloc_bytes``: each allocation rounded
+     up to a power of two), fit the host (``depth_cuts``), after the
+     allocator's cache from earlier phases is released
+     (``moe_plan_host_cache``). Losses, the cross-entropy (``ces``) and the
+     aux losses are printed apart; ``mfu`` counts the active parameters
+     (``active_matmul_params``); the profiled step has the fp32 GEMMs of
+     the dense dispatch and combine as their own kind (``gemm_fp32``).
+
+The kernels summary line gives each kernel's launches per path
+(``launches_by_path``: each path's counts, zeroed just before it ran);
+``launches`` stays each kernel's count on the path it came with.
+
 The fused int8 quantize kernel (``fused_quantize_ef``) is held to its
 plain version bitwise (q, scales and the residual) in phase 5, at the
 activation shape (4096 x 4096 bf16), the gradient-wire shape (4 x
@@ -138,6 +166,16 @@ PAGED_TOL = 2e-2
 # Teacher-forced logits, kernels vs the plain path, bf16 through 32 layers:
 # |diff| <= ENGINE_TOL * (1 + max |logit|).
 ENGINE_TOL = 5e-2
+# The same for qwen2-moe-a2.7b through 24 layers: twice ENGINE_TOL, since an
+# MoE layer is discontinuous in its input. A
+# router logit moved by bf16 noise (about 1e-2 of logits of std 0.9) can
+# swap a token's 4th and 5th expert, or which token an expert's one
+# capacity row takes, and so move that token's layer output by a choice's
+# weighted expert output (about 0.25 x 0.6 an element), which the final
+# norm and the head (std 0.02 over 2048) carry to the logits as about 0.05
+# to 0.3. The greedy token must agree in every row whose plain top-1 leads
+# its top-2 by more than that tolerance.
+MOE_ENGINE_TOL = 1e-1
 
 # FlashAttention kernels vs plain, bf16 compared in fp32: O, dQ, dK and dV
 # within FLASH_TOL * max |plain| over each (batch, row, head) (a few bf16
@@ -225,8 +263,9 @@ def time_ms(fn, reps: int = 15, inner: int = 10) -> tuple[float, float]:
     return _event_ms(graph.replay, reps) / inner, eager_ms
 
 
-def timed(prefix: str, fn) -> dict:
-    device_ms, eager_ms = time_ms(fn)
+def timed(prefix: str, fn, **kw) -> dict:
+    """``time_ms(fn, **kw)`` as ``{prefix: device ms, prefix's eager: eager ms}``."""
+    device_ms, eager_ms = time_ms(fn, **kw)
     return {prefix: device_ms, prefix.replace("ms", "eager_ms"): eager_ms}
 
 
@@ -283,16 +322,16 @@ def phase_build() -> None:
     assert not fwd_notes, f"ptxas serialized the flash forward's wgmma: {fwd_notes}"
 
 
-def rmsnorm_case(rows: int, gen) -> dict:
-    """The kernel at ``rows`` x 4096 bf16 (rows = BATCH: the decode step's
-    shape; 4096: a training microbatch's), graph-replayed."""
+def rmsnorm_case(rows: int, gen, d: int = 4096) -> dict:
+    """The kernel at ``rows`` x ``d`` bf16 (rows = BATCH: the decode step's
+    shape; 4096: a training microbatch's; d 4096 mistral-7b's width, 2048
+    qwen2-moe-a2.7b's), graph-replayed."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_rmsnorm
     from repro_torch.kernels.ref import rmsnorm_ref
 
-    d = 4096
     x = torch.randn(rows, 1, d, device="cuda", generator=gen).bfloat16()
     s = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).bfloat16()
     out = fused_rmsnorm(x, s)
@@ -313,13 +352,14 @@ def rmsnorm_case(rows: int, gen) -> dict:
     }
 
 
-def paged_inputs(case: str, cold_on_host: bool, gen):
-    """The paged kernel's inputs at the serving shapes. ``main`` takes sel
-    and mask from ``PagedKV.prepare`` at mid-run positions of mistral-7b's
-    ring cache (past the hot window, so cold rows are attended); ``full``
-    masks by position without the ring rule; ``ring`` is a wrapped ring
-    (every row attendable) with a random 50/50 sel; ``long`` is ``full`` over
-    a cache of LONG_SEQ rows."""
+def paged_inputs(case: str, cold_on_host: bool, gen, heads=(HQ, HKV), arch="mistral-7b"):
+    """The paged kernel's inputs at the serving shapes of ``arch``, ``heads``
+    (query, KV) heads of HD. ``main`` takes sel and mask from
+    ``PagedKV.prepare`` at mid-run positions of the arch's cache (past the
+    hot window, so cold rows are attended); ``full`` masks by position
+    without the ring rule; ``ring`` is a wrapped ring (every row attendable)
+    with a random 50/50 sel; ``long`` is ``full`` over a cache of LONG_SEQ
+    rows."""
     import torch
 
     from repro_torch.configs import get_config
@@ -327,15 +367,16 @@ def paged_inputs(case: str, cold_on_host: bool, gen):
     from repro_torch.serve.paging import PagedKV, choose_paging
 
     b, w = BATCH, PAGE * N_HOT
+    hq, hkv = heads
     s = LONG_SEQ if case == "long" else SEQ_LEN
     rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
-    q, kh, vh = rnd(b, 1, HQ, HD), rnd(b, w, HKV, HD), rnd(b, w, HKV, HD)
-    kc, vc = rnd(b, s, HKV, HD), rnd(b, s, HKV, HD)
+    q, kh, vh = rnd(b, 1, hq, HD), rnd(b, w, hkv, HD), rnd(b, w, hkv, HD)
+    kc, vc = rnd(b, s, hkv, HD), rnd(b, s, hkv, HD)
     pos = torch.tensor([530, 610, 700, 815])
     if case == "main":
         spec = choose_paging(s, PAGE, N_HOT)
         cache = {"pos0": {"k_hot": kh[None]}}
-        step = PagedKV(spec).prepare(cache, pos, get_config("mistral-7b"), "cuda")
+        step = PagedKV(spec).prepare(cache, pos, get_config(arch), "cuda")
         sel, mask = step.sel, step.mask
     elif case in ("full", "long"):
         if case == "long":
@@ -357,22 +398,23 @@ def paged_bound(args, cold_on_host: bool) -> tuple[float, str, dict]:
     from repro_torch.serve.paging import attended_rows
 
     q, kh, vh, kc, vc, sel, mask = args
+    hq, hkv = q.shape[2], kh.shape[2]
     valid = attended_rows(mask)
-    row = 2 * HKV * HD * q.element_size()  # K and V of one cache row, all kv heads
+    row = 2 * hkv * HD * q.element_size()  # K and V of one cache row, all kv heads
     hot_rows = int((valid & sel).sum())
     cold_rows = int((valid & ~sel).sum())
     hbm = 2 * q.numel() * q.element_size() + sel.numel() + 4 * mask.numel() + hot_rows * row
     host = cold_rows * row if cold_on_host else 0
     if not cold_on_host:
         hbm += cold_rows * row
-    flops = (hot_rows + cold_rows) * HQ * HD * 4 + 5 * HQ * mask.numel()
+    flops = (hot_rows + cold_rows) * hq * HD * 4 + 5 * hq * mask.numel()
     times = {"bytes": max(hbm / HBM_BYTES_PER_S, host / HOST_LINK_BYTES_PER_S),
              "operations": flops / FP32_FLOP_PER_S}
     by = max(times, key=times.get)
     return times[by] * 1e3, by, {"hbm_bytes": hbm, "host_bytes": host, "flops": flops}
 
 
-def paged_library(args) -> dict:
+def paged_library(args, **kw) -> dict:
     """The library yardsticks: SDPA over the cache gathered beforehand on the
     device (``library_ms``); for a pinned cold store also the same SDPA after
     copying, inside the timed call, the attended cold rows to the device
@@ -395,7 +437,7 @@ def paged_library(args) -> dict:
     qt = q.transpose(1, 2)
     am = mask[:, None, None, :].to(q.dtype)
     lib = lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=am, enable_gqa=True)  # noqa: E731
-    out = timed("library_ms", lib)
+    out = timed("library_ms", lib, **kw)
     if kc.device.type == "cuda":
         return out
     cold = (attended_rows(mask) & ~sel).flatten().nonzero().squeeze(1)  # b * S + s
@@ -412,19 +454,22 @@ def paged_library(args) -> dict:
         vv = torch.where(s4, vh[:, rows], vd).transpose(1, 2)
         return F.scaled_dot_product_attention(qt, kk, vv, attn_mask=am, enable_gqa=True)
 
-    out.update(timed("library_with_copy_ms", copy_then_sdpa))
+    out.update(timed("library_with_copy_ms", copy_then_sdpa, **kw))
     out["library_copy_bytes"] = 2 * kp.numel() * kp.element_size()
     return out
 
 
-def paged_case(case: str, cold_on_host: bool, gen) -> dict:
+def paged_case(case: str, cold_on_host: bool, gen, heads=(HQ, HKV),
+               arch="mistral-7b", **kw) -> dict:
+    """The paged kernel against its plain version on ``paged_inputs``;
+    ``kw``: ``time_ms``'s repetitions."""
     import torch
 
     from repro_torch.kernels import decode_paged_attention
     from repro_torch.kernels.paged_attention import split_rows
     from repro_torch.kernels.ref import paged_attention_ref
 
-    args = paged_inputs(case, cold_on_host, gen)
+    args = paged_inputs(case, cold_on_host, gen, heads, arch)
     s = args[-1].shape[1]
     out = decode_paged_attention(*args, n_hot=N_HOT)
     ref = paged_attention_ref(*args)
@@ -434,16 +479,17 @@ def paged_case(case: str, cold_on_host: bool, gen) -> dict:
     assert excess <= 0, (f"paged_attention {case} host={cold_on_host}: max |diff| {err} "
                          f"beyond {PAGED_TOL} * max |plain| of its head")
     bound, by, work = paged_bound(args, cold_on_host)
-    rows, n_split = split_rows(BATCH, HKV, s, PAGE,
+    rows, n_split = split_rows(BATCH, heads[1], s, PAGE,
                                torch.cuda.get_device_properties(0).multi_processor_count)
     res = {
-        "case": case, "s": s, "cold": "pinned_host" if cold_on_host else "device",
+        "case": case, "s": s, "heads": list(heads),
+        "cold": "pinned_host" if cold_on_host else "device",
         "n_split": n_split, "rows_per_split": rows,
         "max_abs_err": err, "max_abs_plain": ref.float().abs().max().item(),
         "tol": f"{PAGED_TOL} * max |plain| per (batch, head)", "tol_min": tol.min().item(),
-        **timed("ms", lambda: decode_paged_attention(*args, n_hot=N_HOT)),
-        **timed("plain_ms", lambda: paged_attention_ref(*args)),
-        **paged_library(args), "bound_ms": bound, "bound_by": by, **work,
+        **timed("ms", lambda: decode_paged_attention(*args, n_hot=N_HOT), **kw),
+        **timed("plain_ms", lambda: paged_attention_ref(*args), **kw),
+        **paged_library(args, **kw), "bound_ms": bound, "bound_by": by, **work,
     }
     assert res.get("library_copy_bytes", 0) == res["host_bytes"], (
         f"paged_attention {case}: the copy yardstick moves {res.get('library_copy_bytes')} B, "
@@ -623,19 +669,25 @@ def serve(engine, reqs, device_times: bool = False) -> dict:
             "tick_device": tick_account(ticks_dev) if device_times else None}
 
 
-def phase_engine(hw) -> dict[str, int]:
+def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
+    """``DecodeEngine`` serving 4 requests of ``cfg`` (random bf16 weights
+    from seed 0) on the paged plan, from its CUDA graph, then from Python
+    (tokens and launches equal), a teacher-forced step through the kernels
+    against the plain path, and the captured step timed eagerly and
+    replayed. For an MoE ``cfg`` the teacher-forced check is MOE_ENGINE_TOL's
+    and the routing choices of the two paths are compared (``routing``)."""
     import numpy as np
     import torch
 
     from repro_torch import obs
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.plan import MemoryPlan
     from repro_torch.models import kvcache as KV
+    from repro_torch.models import moe as MOE
     from repro_torch.models.model import init_params, num_repeats
     from repro_torch.serve import DecodeEngine, PagedKV, Request, choose_paging
 
-    cfg = get_config("mistral-7b")
+    moe = cfg.moe is not None
     shape = ShapeConfig("smoke", SEQ_LEN, BATCH, "decode")
     spec = choose_paging(KV.cache_len(cfg, SEQ_LEN), PAGE, N_HOT)
     assert (spec.page_size, spec.n_pages, spec.n_hot) == (PAGE, SEQ_LEN // PAGE, N_HOT)
@@ -667,8 +719,11 @@ def phase_engine(hw) -> dict[str, int]:
     report, launches = run["report"], run["launches"]
     peak = torch.cuda.max_memory_allocated()
     for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched by the engine run"
-    assert launches["rmsnorm"] * 32 == launches["paged_attention"] * 65, launches
+        assert n > 0, f"kernel {name} was not launched by the {phase} run"
+    # per step: one paged attention a layer; two RMSNorms a layer and the final one
+    layers = cfg.num_layers
+    assert launches["rmsnorm"] * layers == launches["paged_attention"] * (2 * layers + 1), (
+        launches)
     cold = engine.state["cache"]["pos0"]["k_cold"]
     assert cold.device.type == "cpu" and cold.is_pinned(), "cold store must be pinned host"
 
@@ -680,24 +735,50 @@ def phase_engine(hw) -> dict[str, int]:
     del eager_engine
 
     # one teacher-forced decode step, kernels vs the plain path, on copies
-    # of the served cache at positions whose attended rows reach cold pages
+    # of the served cache at positions whose attended rows reach cold pages;
+    # an MoE's routing choices recorded layer by layer
     tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (BATCH, 1))).cuda()
     pos = torch.tensor([int(n) + NEW_TOKENS - 1 for n in lens])
-    outs = {}
+    outs, routes = {}, {}
+    gating = MOE._top_k_gating
     for use_kernel in (True, False):
-        cache = _clone_cache(engine.state["cache"])
-        with torch.inference_mode():
-            logits, _ = KV.decode_step(engine.state["params"], cache, tokens, pos, cfg,
-                                       kv_io=PagedKV(spec, use_kernel=use_kernel))
+        chosen = routes[use_kernel] = []
+
+        def recording(logits, top_k, _chosen=chosen):
+            out = gating(logits, top_k)
+            _chosen.append(out[1].clone())
+            return out
+
+        MOE._top_k_gating = recording
+        try:
+            cache = _clone_cache(engine.state["cache"])
+            with torch.inference_mode():
+                logits, _ = KV.decode_step(engine.state["params"], cache, tokens, pos, cfg,
+                                           kv_io=PagedKV(spec, use_kernel=use_kernel))
+        finally:
+            MOE._top_k_gating = gating
         outs[use_kernel] = logits.float()
     err = (outs[True] - outs[False]).abs().max().item()
     scale = outs[False].abs().max().item()
-    agree = (outs[True].argmax(-1) == outs[False].argmax(-1)).float().mean().item()
+    agree_rows = outs[True].argmax(-1) == outs[False].argmax(-1)
+    agree = agree_rows.float().mean().item()
+    tol = (MOE_ENGINE_TOL if moe else ENGINE_TOL) * (1 + scale)
+    top2 = outs[False].topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]  # the plain path's top-1 over top-2, per row
+    teacher = {"max_abs_diff": err, "max_abs_logit": scale, "tol": tol, "argmax_agree": agree}
+    if moe:
+        same = [(a == b).float().mean().item() for a, b in zip(routes[True], routes[False])]
+        teacher.update(top2_margin=margin.tolist(), rows_past_margin=int((margin > tol).sum()),
+                       routing={"layers": len(same), "choices": BATCH * cfg.moe.top_k,
+                                "agree_share": sum(same) / len(same),
+                                "layers_all_agree": sum(x == 1.0 for x in same),
+                                "first_layer_differing": next(
+                                    (i for i, x in enumerate(same) if x < 1.0), None)})
     # the served cache itself (the run is over): the step writes position
     # lens + 16 - 1, which no request reached
     account = step_account(engine, tokens, pos)
     eager_report = eager["report"]
-    emit("engine", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
          params=cfg.param_count(), init_s=init_s, capture_s=capture_s,
          paging=[spec.page_size, spec.n_pages, spec.n_hot],
          prompt_lens=[int(n) for n in lens], launches=launches, **report.to_dict(),
@@ -708,22 +789,32 @@ def phase_engine(hw) -> dict[str, int]:
          eager={"tokens_equal": True, "launches": eager["launches"], "ticks": eager["ticks"],
                 **{k: v for k, v in eager_report.to_dict().items()
                    if k in ("wall_s", "tokens_per_s", "p50_ttft_s", "p99_ttft_s", "steps")}},
-         teacher_forced={"max_abs_diff": err, "max_abs_logit": scale,
-                         "tol": ENGINE_TOL * (1 + scale), "argmax_agree": agree},
-         decode_step=account)
-    # the prefill chunk the cost model would pick for this engine on this card
-    # (the engine keeps its explicit PREFILL_CHUNK, for comparable numbers)
-    from repro_torch.core.cost_model import choose_prefill_chunk
-    from repro_torch.core.hardware import ONE_CHIP
+         teacher_forced=teacher, decode_step=account)
+    if not moe:
+        # the prefill chunk the cost model would pick for this engine on this
+        # card (the engine keeps its explicit PREFILL_CHUNK, for comparable numbers)
+        from repro_torch.core.cost_model import choose_prefill_chunk
+        from repro_torch.core.hardware import ONE_CHIP
 
-    chosen = choose_prefill_chunk(cfg, shape, ONE_CHIP, hw, spec=spec, max_chunk=spec.page_size,
-                                  kernel=True)
-    emit("engine_prefill_chunk", explicit=PREFILL_CHUNK, choose_prefill_chunk=chosen,
-         hw=hw.name, host_bw=hw.host_bw, paging=[spec.page_size, spec.n_pages, spec.n_hot])
-    assert err <= ENGINE_TOL * (1 + scale), (
+        chosen = choose_prefill_chunk(cfg, shape, ONE_CHIP, hw, spec=spec,
+                                      max_chunk=spec.page_size, kernel=True)
+        emit("engine_prefill_chunk", explicit=PREFILL_CHUNK, choose_prefill_chunk=chosen,
+             hw=hw.name, host_bw=hw.host_bw, paging=[spec.page_size, spec.n_pages, spec.n_hot])
+    assert err <= tol, (
         f"teacher-forced logits: kernels vs plain differ by {err} (max |logit| {scale})")
-    assert agree == 1.0, f"teacher-forced greedy tokens differ in {1 - agree:.0%} of rows"
+    if moe:
+        assert bool(agree_rows[margin > tol].all()), (
+            f"teacher-forced greedy tokens differ in a row past the margin: {teacher}")
+    else:
+        assert agree == 1.0, f"teacher-forced greedy tokens differ in {1 - agree:.0%} of rows"
     return launches
+
+
+def phase_engine(hw) -> dict[str, int]:
+    """``mistral-7b`` at full width and depth through ``serve_phase``."""
+    from repro_torch.configs import get_config
+
+    return serve_phase(get_config("mistral-7b"), hw, "engine")
 
 
 # ---------------------------------------------------------------------------
@@ -766,50 +857,54 @@ def row_excess(out, ref) -> tuple[float, float, float]:
     return err, excess, share
 
 
-def flash_case(s: int, gen, with_bwd: bool) -> list[dict]:
+def flash_case(s: int, gen, with_bwd: bool, heads=(HQ, HKV), window=WINDOW) -> list[dict]:
+    """Flash forward (and backward) at B 1, ``s`` rows, ``heads`` (query, KV)
+    of HD, causal, ``window`` (0: none)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch import kernels as K
     from repro_torch.kernels import ref
+    hq, hkv = heads
     rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
-    q, k, v, dout = rnd(1, s, HQ, HD), rnd(1, s, HKV, HD), rnd(1, s, HKV, HD), rnd(1, s, HQ, HD)
+    q, k, v, dout = rnd(1, s, hq, HD), rnd(1, s, hkv, HD), rnd(1, s, hkv, HD), rnd(1, s, hq, HD)
     bhsd = lambda t: t.transpose(1, 2)  # noqa: E731
-    out, lse = K.flash_attention(q, k, v, causal=True, window=WINDOW)
-    want = bhsd(ref.flash_attention_ref(bhsd(q), bhsd(k), bhsd(v), causal=True, window=WINDOW))
-    _, want_lse = ref.attention_lse_ref(q, k, v, causal=True, window=WINDOW)
+    out, lse = K.flash_attention(q, k, v, causal=True, window=window)
+    want = bhsd(ref.flash_attention_ref(bhsd(q), bhsd(k), bhsd(v), causal=True, window=window))
+    _, want_lse = ref.attention_lse_ref(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     err, excess, tol_share = row_excess(out, want)
     lse_err, lse_excess = max_excess(lse, want_lse, LSE_TOL * (1 + want_lse.abs()))
     assert excess <= 0, (f"flash forward S={s}: max |diff| {err} beyond tolerance "
                          f"({tol_share} of the tolerance)")
     assert lse_excess <= 0, f"flash forward S={s}: lse max |diff| {lse_err} beyond {LSE_TOL}"
-    pairs = attended_pairs(s, WINDOW)
+    pairs = attended_pairs(s, window)
     qt, kt, vt = bhsd(q), bhsd(k), bhsd(v)
-    if s <= WINDOW:  # the window cuts nothing: SDPA's own causal mask is ours
+    if not window or s <= window:  # the window cuts nothing: SDPA's own causal mask is ours
         sdpa_mask = dict(is_causal=True)
-    else:  # an explicit band: k <= q and k > q - WINDOW
+    else:  # an explicit band: k <= q and k > q - window
         qi = torch.arange(s, device="cuda")[:, None]
         ki = torch.arange(s, device="cuda")[None, :]
-        sdpa_mask = dict(attn_mask=(ki <= qi) & (ki > qi - WINDOW))
+        sdpa_mask = dict(attn_mask=(ki <= qi) & (ki > qi - window))
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,  # noqa: E731
                                                   **sdpa_mask)
-    flops = 4 * HD * HQ * pairs
+    flops = 4 * HD * hq * pairs
     rows = [{
-        "kernel": "flash_attention", "s": s, "window": WINDOW, "pairs": pairs,
+        "kernel": "flash_attention", "s": s, "heads": list(heads), "window": window,
+        "pairs": pairs,
         "max_abs_err": err, "max_abs_plain": want.float().abs().max().item(),
         "tol_share": tol_share, "tol": FLASH_TOL_TEXT, "lse_max_abs_err": lse_err,
         "lse_tol": f"{LSE_TOL} * (1 + |plain|)",
-        "ms": eager_ms(lambda: K.flash_attention(q, k, v, causal=True, window=WINDOW)),
+        "ms": eager_ms(lambda: K.flash_attention(q, k, v, causal=True, window=window)),
         "plain_ms": eager_ms(lambda: ref.flash_attention_ref(
-            bhsd(q), bhsd(k), bhsd(v), causal=True, window=WINDOW), reps=3, inner=1),
+            bhsd(q), bhsd(k), bhsd(v), causal=True, window=window), reps=3, inner=1),
         "library_ms": eager_ms(sdpa),
         "bound_ms": flops / BF16_FLOP_PER_S * 1e3, "bound_by": "operations", "flops": flops,
     }]
     if not with_bwd:
         return rows
-    grads = K.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=WINDOW)
-    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True, window=WINDOW)
+    grads = K.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True, window=window)
     torch.cuda.synchronize()
     errs, shares = {}, {}
     for name, got, exp in zip(("dq", "dk", "dv"), grads, wants):
@@ -823,31 +918,32 @@ def flash_case(s: int, gen, with_bwd: bool) -> list[dict]:
     dol = bhsd(dout)
     library = eager_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), dol, retain_graph=True))
     del ol
-    flops = 10 * HD * HQ * pairs
+    flops = 10 * HD * hq * pairs
     rows.append({
-        "kernel": "flash_attention_bwd", "s": s, "window": WINDOW, "pairs": pairs,
+        "kernel": "flash_attention_bwd", "s": s, "heads": list(heads), "window": window,
+        "pairs": pairs,
         "max_abs_err": max(errs.values()), **{f"{k}_max_abs_err": e for k, e in errs.items()},
         **{f"{k}_tol_share": r for k, r in shares.items()}, "tol": FLASH_TOL_TEXT,
         "ms": eager_ms(lambda: K.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
-                                                     window=WINDOW)),
+                                                     window=window)),
         "plain_ms": eager_ms(lambda: ref.flash_attention_bwd_ref(
-            q, k, v, out, lse, dout, causal=True, window=WINDOW), reps=3, inner=1),
+            q, k, v, out, lse, dout, causal=True, window=window), reps=3, inner=1),
         "library_ms": library,
         "bound_ms": flops / BF16_FLOP_PER_S * 1e3, "bound_by": "operations", "flops": flops,
     })
     return rows
 
 
-def adam_case(on_host: bool, gen) -> dict:
-    """Fused Adam on one w1 leaf of mistral-7b (4096 x 14336)."""
+def adam_case(on_host: bool, gen, shape=(4096, 14336)) -> dict:
+    """Fused Adam on one leaf: by default a w1 leaf of mistral-7b (4096 x
+    14336); (60, 2048, 1408) is one layer's expert w1 of qwen2-moe-a2.7b."""
     import torch
 
     from repro_torch import kernels as K
     from repro_torch.kernels import fused_adam, ref
     from repro_torch.optim.adam import AdamConfig, adam_scalars
 
-    shape = (4096, 14336)
-    n = shape[0] * shape[1]
+    n = math.prod(shape)
     # a leaf mid-training: weights of std 0.02, gradients of 1e-3, m and v
     # of the gradients' scale (v away from 0, where Adam's step is unbounded)
     master = 0.02 * torch.randn(*shape, device="cuda", generator=gen)
@@ -1215,6 +1311,15 @@ def phase_train() -> dict[str, int]:
                       "median_step_s": med, "peak_device_bytes": peak}
 
 
+def host_allocator_bytes() -> int | None:
+    """Bytes PyTorch's caching host allocator holds (pinned blocks in use
+    and cached), where this torch reports them."""
+    import torch
+
+    stats = getattr(torch.cuda.memory, "host_memory_stats", None)
+    return None if stats is None else stats().get("allocated_bytes.current")
+
+
 def pinned_state_bytes(state) -> int:
     from repro_torch.optim.adam import tree_leaves
 
@@ -1223,24 +1328,43 @@ def pinned_state_bytes(state) -> int:
                if t.device.type == "cpu" and t.is_pinned())
 
 
-def model_flops(cfg, tokens: int) -> int:
-    """6 x matmul parameters (the embedding is a lookup) x tokens plus the
-    attention products (x3 for the backward) of one step."""
+def active_matmul_params(cfg) -> int:
+    """Parameters a token's forward multiplies by: all but the embedding (a
+    lookup) and, in each MoE layer, the routed experts it does not choose
+    (``(E - top_k) / E`` of them). The dense dispatch and combine einsums of
+    ``models/moe.py``, and the capacity rows no token fills, are work the
+    model's FLOPs do not count."""
     from repro_torch.core.chunks import chunk_inventory, total_param_count
+    from repro_torch.models.moe import moe_defs
 
-    n_matmul = total_param_count(chunk_inventory(cfg)) - cfg.vocab_size * cfg.d_model
+    n = total_param_count(chunk_inventory(cfg)) - cfg.vocab_size * cfg.d_model
+    if cfg.moe is not None:
+        defs = moe_defs(cfg)
+        routed = sum(math.prod(defs[k].shape) for k in ("w1", "w2", "w3") if k in defs)
+        unchosen = routed * (cfg.moe.num_experts - cfg.moe.top_k) // cfg.moe.num_experts
+        n -= unchosen * sum(cfg.moe_at(i) for i in range(cfg.num_layers))
+    return n
+
+
+def model_flops(cfg, tokens: int) -> int:
+    """6 x active matmul parameters (``active_matmul_params``) x tokens plus
+    the attention products (x3 for the backward) of one step."""
+    n_matmul = active_matmul_params(cfg)
     attn = 3 * 4 * cfg.resolved_head_dim * cfg.num_heads * attended_pairs(
         TRAIN_SEQ, cfg.sliding_window) * cfg.num_layers * (tokens // TRAIN_SEQ)
     return 6 * n_matmul * tokens + attn
 
 
-KERNEL_KINDS = (  # device work of a training step, by kernel name
+KERNEL_KINDS = (  # device work of a training step, by kernel name, first match
     ("flash_forward", ("flash_fwd_",)),
     ("flash_backward", ("flash_delta_kernel", "flash_dkdv_", "flash_dq_")),
     ("fused_adam", ("fused_adam_kernel",)),
     ("fused_quantize_ef", ("quant_rows_kernel", "segment_absmax_kernel",
                            "segment_quant_kernel")),
     ("rmsnorm", ("rmsnorm_kernel",)),
+    # fp32 GEMMs outside the tensor cores: the MoE's dense dispatch and
+    # combine einsums (models/moe.py) and its fp32 router product
+    ("gemm_fp32", ("sgemm", "f32f32_f32f32", "gemv")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
     ("copy_to_device", ("Memcpy HtoD",)),
     ("copy_to_host", ("Memcpy DtoH",)),
@@ -1287,11 +1411,12 @@ def profile_step(art, state, batch) -> dict:
         by_kind[kind] += (end - start) / 1e3
         if adam_span:
             in_adam[kind] += max(0, min(end, adam_span[1]) - max(start, adam_span[0])) / 1e3
-        if kind == "other":
-            o = others.setdefault(e.name[:80], [0, 0.0])
+        if kind in ("other", "gemm", "gemm_fp32"):
+            o = others.setdefault((kind, e.name[:100]), [0, 0.0])
             o[0] += 1
             o[1] += (end - start) / 1e3
-    top_other = sorted(others.items(), key=lambda kv: -kv[1][1])[:8]
+    top = {k: sorted(((n, c, ms) for (kk, n), (c, ms) in others.items() if kk == k),
+                     key=lambda r: -r[2])[:8] for k in ("other", "gemm", "gemm_fp32")}
     busy, last = 0.0, span.start
     for start, end in sorted(intervals):
         busy += max(0.0, end - max(start, last))
@@ -1301,7 +1426,8 @@ def profile_step(art, state, batch) -> dict:
             "main_stream_host_reads": main_stream_host_reads(prof, span, wall_ms),
             "adam_update_span_ms": (adam_span[1] - adam_span[0]) / 1e3 if adam_span else None,
             "adam_update_ms_by_kind": in_adam if adam_span else None,
-            "other_top": [{"name": n, "calls": c, "ms": ms} for n, (c, ms) in top_other],
+            **{f"{k}_top": [{"name": n, "calls": c, "ms": ms} for n, c, ms in rows]
+               for k, rows in top.items()},
             "device_events": len(device),
             "idle_share_at_most": 1.0 - busy / 1e3 / wall_ms if device else None}
 
@@ -1385,11 +1511,14 @@ def policy_run(cfg, shape, plan, steps: int, profile: bool = False, drift=None,
     launches = {k: K.launch_counts()[k] for k in TRAINING_KERNELS}
     snap = {k: v["value"] for k, v in tel.registry.snapshot().items() if "value" in v}
     out = {"plan": plan.describe(), "runs": [dataclasses.asdict(r) for r in art.runs],
-           "losses": res.losses, "step_times_s": res.step_times,
+           "losses": res.losses, "ces": res.ces,
+           "aux_losses": [a - b for a, b in zip(res.losses, res.ces)],
+           "step_times_s": res.step_times,
            "median_step_s": statistics.median(res.step_times[warmup:]),
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "act_bytes": snap["train.act_bytes"],
            "pinned_state_bytes": pinned_state_bytes(res.state),
+           "host_allocator_bytes": host_allocator_bytes(),
            # swapped sites wait in pinned memory from the forward to the backward
            "pinned_act_bytes": snap["train.act_swap_out_bytes"] / (steps * plan.microbatch),
            "counters": {k: v for k, v in snap.items() if k != "train.act_bytes"},
@@ -1546,7 +1675,9 @@ REFERENCE_BLOCK_PROFILE = dict(flops_fwd=2064647659909.0, hbm_bytes_fwd=40396927
                                peak_transient_bytes=1749032976)
 PLAN_STEPS, PLAN_WARMUP = 3, 1  # one warm-up step, then two timed ones
 PLAN_ATTEMPTS = 3  # searches at a lowered capacity after an out-of-memory
-HOST_MARGIN = 8 << 30  # host memory left to the process besides the pinned states
+# host memory left to the process besides the pinned states; it also covers
+# a machine that caps a process some GiB below MemTotal
+HOST_MARGIN = 8 << 30
 
 
 def host_memory() -> dict:
@@ -1567,6 +1698,34 @@ def plan_pinned_bytes(w, plan) -> int:
     plus the bf16 weights under host_params."""
     return sum(c.optim_bytes + (c.param_bytes if plan.host_params else 0)
                for c in w.chunks if plan.chunk_placement(c.index) == "host")
+
+
+def pinned_alloc_bytes(cfg, plan) -> int:
+    """Host bytes the plan's pinned states take from PyTorch's caching host
+    allocator, which rounds each allocation up to a power of two: per leaf
+    of a host chunk (a run's leaves stacked over its layers), fp32 master,
+    m and v, and the weights under host_params, each rounded."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.train.step_builder import plan_runs
+
+    defs = M.param_defs(cfg)
+    leaves = []  # (elements, weight bytes an element)
+
+    def collect(tree, length=None):
+        L.map_defs(lambda d: leaves.append((
+            math.prod(d.shape if length is None else (length,) + d.shape[1:]),
+            L.torch_dtype(d.dtype).itemsize)), tree)
+
+    if plan.chunk_placement(0) == "host":
+        collect(defs["embed"])
+    if plan.chunk_placement(plan.n_chunks - 1) == "host":
+        collect({k: defs[k] for k in ("final_norm", "head") if k in defs})
+    for run in plan_runs(plan, M.num_repeats(cfg)):
+        if run.placement == "host":
+            collect(defs["blocks"], run.length)
+    up = lambda n: 1 << (n - 1).bit_length()  # noqa: E731
+    return sum(3 * up(4 * n) + (up(b * n) if plan.host_params else 0) for n, b in leaves)
 
 
 def modeled(w, plan) -> dict:
@@ -1609,15 +1768,17 @@ def _oom_shortfall(err: Exception, usable: int) -> int:
     return max(stats["reserved_bytes.all.current"] + asked - usable, asked)
 
 
-def phase_plan(hw) -> dict:
-    """ProTrain's planner on the card: the port's profile of a full-depth
-    mistral-7b superblock, the search for seq 4096 and global batch 1 on
+def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None) -> dict:
+    """ProTrain's planner on the card: the port's profile of a full-width
+    superblock of ``cfg``, the search for seq 4096 and global batch 1 on
     ``hw`` (this card's spec), and 1 + 2 steps under the searched plan at
-    32 layers and full width, each number beside the cost model's."""
+    full width and the deepest stack whose pinned states fit the host, each
+    number beside the cost model's; then one profiled step.
+    ``reference_profile``: the JAX reference's block profile, searched on
+    too and printed beside the port's."""
     import torch
 
     from repro_torch import obs
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.autotuner import search
     from repro_torch.core.cost_model import build_workload
@@ -1628,7 +1789,6 @@ def phase_plan(hw) -> dict:
     torch.cuda.empty_cache()
     usable, total = torch.cuda.mem_get_info()
     host = host_memory()
-    cfg = get_config("mistral-7b")
     shape = ShapeConfig("plan", TRAIN_SEQ, 1, "train")
     t0 = time.perf_counter()
     w = build_workload(cfg, shape, ONE_CHIP, hw)
@@ -1636,31 +1796,44 @@ def phase_plan(hw) -> dict:
     t0 = time.perf_counter()
     res = search(w, compress="off", sync="xla")
     search_s = time.perf_counter() - t0
-    ref_w = dataclasses.replace(w, block=BlockProfile(**REFERENCE_BLOCK_PROFILE))
-    ref_res = search(ref_w, compress="off", sync="xla")
-    emit("plan_search", arch=cfg.name, layers=cfg.num_layers, seq=TRAIN_SEQ, global_batch=1,
-         hw={k: v for k, v in dataclasses.asdict(hw).items()},
+    beside = {}
+    if reference_profile is not None:
+        ref_w = dataclasses.replace(w, block=BlockProfile(**reference_profile))
+        ref_res = search(ref_w, compress="off", sync="xla")
+        beside = {"reference_profile_plan": ref_res.plan.describe(),
+                  "reference_profile_modeled": modeled(ref_w, ref_res.plan)}
+    emit(f"{phase}_search", arch=cfg.name, layers=cfg.num_layers, seq=TRAIN_SEQ,
+         global_batch=1, hw={k: v for k, v in dataclasses.asdict(hw).items()},
          card_total_bytes=total, card_free_bytes_at_start=usable, host=host,
-         profile={"port": dataclasses.asdict(w.block), "reference": REFERENCE_BLOCK_PROFILE},
+         profile={"port": dataclasses.asdict(w.block), "reference": reference_profile},
          profile_s=profile_s, plan=res.plan.describe(), feasible=res.feasible,
          evaluated=res.evaluated, search_s=search_s, search_seconds=res.search_seconds,
-         modeled=modeled(w, res.plan), pinned_bytes=plan_pinned_bytes(w, res.plan),
-         reference_profile_plan=ref_res.plan.describe(),
-         reference_profile_modeled=modeled(ref_w, ref_res.plan))
+         modeled=modeled(w, res.plan), pinned_bytes=plan_pinned_bytes(w, res.plan), **beside)
     assert res.feasible, "the search found no plan that fits the card"
 
-    # host memory: the deepest stack whose pinned states fit
+    # host memory: the deepest stack whose pinned states fit, as the host
+    # allocator takes them (each allocation rounded up to a power of two)
     budget = host["available_bytes"] - HOST_MARGIN
-    layers, plan, w_run = cfg.num_layers, res.plan, w
-    while plan_pinned_bytes(w_run, plan) > budget:
-        layers -= 1
-        assert layers > 0, "no depth's pinned states fit the host"
-        w_run = build_workload(dataclasses.replace(cfg, num_layers=layers), shape, ONE_CHIP, hw)
-        plan = search(w_run, compress="off", sync="xla").plan
-    run_cfg = dataclasses.replace(cfg, num_layers=layers)
+    cuts = []  # (layers, the plan's pinned bytes, as allocated) of each depth that did not fit
+
+    def fit_host(layers, plan, w_run):
+        """The deepest stack from ``layers`` down whose searched plan (on
+        ``w_run``'s spec) fits the budget: (layers, plan, workload)."""
+        while pinned_alloc_bytes(dataclasses.replace(cfg, num_layers=layers), plan) > budget:
+            cuts.append((layers, plan_pinned_bytes(w_run, plan),
+                         pinned_alloc_bytes(dataclasses.replace(cfg, num_layers=layers), plan)))
+            layers -= 1
+            assert layers > 0, "no depth's pinned states fit the host"
+            w_run = build_workload(dataclasses.replace(cfg, num_layers=layers), shape,
+                                   ONE_CHIP, w_run.hw)
+            plan = search(w_run, compress="off", sync="xla").plan
+        return layers, plan, w_run
+
+    layers, plan, w_run = fit_host(cfg.num_layers, res.plan, w)
 
     attempts = []
     for _ in range(PLAN_ATTEMPTS):
+        run_cfg = dataclasses.replace(cfg, num_layers=layers)
         drift = obs.DriftMonitor(w_run, plan, window=PLAN_STEPS - PLAN_WARMUP)
         try:
             run = policy_run(run_cfg, shape, plan, steps=PLAN_STEPS, drift=drift,
@@ -1678,9 +1851,12 @@ def phase_plan(hw) -> dict:
             del err
             gc.collect()
             torch.cuda.empty_cache()
+            release_pinned_cache()  # the failed attempt's pinned states
             w_run = dataclasses.replace(w_run, hw=dataclasses.replace(
                 w_run.hw, hbm_capacity_fraction=frac))
-            plan = search(w_run, compress="off", sync="xla").plan
+            # fewer persistent chunks put more in pinned memory: fit the host again
+            layers, plan, w_run = fit_host(layers, search(w_run, compress="off", sync="xla").plan,
+                                           w_run)
     else:
         raise AssertionError(f"no plan trained within {PLAN_ATTEMPTS} searches: {attempts}")
 
@@ -1688,11 +1864,14 @@ def phase_plan(hw) -> dict:
     flops = model_flops(run_cfg, tokens)
     report = drift.report()
     m = modeled(w_run, plan)
-    emit("plan", arch=cfg.name, layers=layers, reduced_depth=layers != cfg.num_layers,
+    emit(phase, arch=cfg.name, layers=layers, reduced_depth=layers != cfg.num_layers,
+         depth_cuts={"host_budget_bytes": budget, "pinned_bytes_by_depth": cuts},
          seq=TRAIN_SEQ, global_batch=shape.global_batch,
          hbm_capacity_fraction=w_run.hw.hbm_capacity_fraction, oom_attempts=attempts,
          **run, tokens_per_s=tokens / run["median_step_s"], model_flops_per_step=flops,
+         mfu_flops="6 x active matmul parameters x tokens + attention 12 hd Hq pairs a layer",
          mfu=flops / run["median_step_s"] / BF16_FLOP_PER_S, modeled=m,
+         pinned_alloc_bytes_estimate=pinned_alloc_bytes(run_cfg, plan),
          measured_vs_modeled={"step_s": [run["median_step_s"], m["t_iteration"]],
                               "peak_bytes": [run["peak_device_bytes"], m["peak_bytes"]],
                               "pinned_bytes": [run["pinned_state_bytes"],
@@ -1700,20 +1879,29 @@ def phase_plan(hw) -> dict:
          drift={"runtime_ratio": report["runtime"]["ratio"],
                 "memory_ratio": report["memory"]["ratio"], "ok": report["ok"],
                 "band": report["band"]})
-    check_run("plan", run)
+    check_run(phase, run)
     assert len(run["losses"]) == PLAN_STEPS
-    assert abs(run["losses"][0] - math.log(cfg.vocab_size)) <= FIRST_LOSS_BAND, run["losses"]
+    # the cross-entropy: the loss less the MoE aux loss
+    assert abs(run["ces"][0] - math.log(cfg.vocab_size)) <= FIRST_LOSS_BAND, run["ces"]
     assert run["pinned_state_bytes"] == plan_pinned_bytes(w_run, plan), (
         run["pinned_state_bytes"], plan_pinned_bytes(w_run, plan))
     for name in ("flash_attention", "flash_attention_bwd", "rmsnorm", "fused_adam"):
-        assert run["launches"][name] > 0, f"{name} was not launched by the full-depth run"
+        assert run["launches"][name] > 0, f"{name} was not launched by the {phase} run"
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": run["launches"], "row": {
-        "case": "plan", "layers": layers, "global_batch": shape.global_batch,
+        "case": phase, "layers": layers, "global_batch": shape.global_batch,
         "plan": plan.describe(), **m, "measured_step_s": run["median_step_s"],
         "measured_peak_bytes": run["peak_device_bytes"],
         "runtime_ratio": report["runtime"]["ratio"], "memory_ratio": report["memory"]["ratio"]}}
+
+
+def phase_plan(hw) -> dict:
+    """``mistral-7b`` at full depth through ``plan_phase``, beside the
+    reference's profile."""
+    from repro_torch.configs import get_config
+
+    return plan_phase(get_config("mistral-7b"), hw, "plan", REFERENCE_BLOCK_PROFILE)
 
 
 def phase_calibration(hw, runs: list[dict], plan_row: dict) -> None:
@@ -1721,6 +1909,88 @@ def phase_calibration(hw, runs: list[dict], plan_row: dict) -> None:
     and peak beside the measured ones."""
     rows = [calibration_row(hw, r) for r in runs] + [plan_row]
     emit("calibration", hw=hw.name, host_bw=hw.host_bw, hbm_bytes=hw.hbm_bytes, rows=rows)
+
+
+# ---------------------------------------------------------------------------
+# The MoE family: qwen2-moe-a2.7b
+# ---------------------------------------------------------------------------
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_HEADS = (16, 16)  # query over KV heads, hd 128: group 1, no window
+MOE_D = 2048
+MOE_EXPERT_W1 = (60, 2048, 1408)  # one layer's stacked expert w1
+
+
+def release_pinned_cache() -> dict:
+    """Give the host memory that freed pinned tensors left in PyTorch's
+    caching host allocator back to the system, where this torch has a call
+    for it, so that the next phase's pinned states can take it. Returns
+    what was called and the host allocator's bytes before and after."""
+    import torch
+
+    gc.collect()
+    before = host_allocator_bytes()
+    called = None
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):  # torch 2.11, 2.13
+        fn = getattr(torch._C, name, None)
+        if fn is not None:
+            fn()
+            called = name
+            break
+    return {"called": called, "host_cache_bytes_before": before,
+            "host_cache_bytes_after": host_allocator_bytes()}
+
+
+def phase_moe_kernels() -> dict:
+    """The kernels at the MoE paths' shapes against their plain versions:
+    flash forward and backward at 16 over 16 heads, no window, S 4096;
+    paged attention at group 1 (``main`` and ``long``, pinned and device
+    cold stores); RMSNorm at 4 x 2048 and 4096 x 2048; fused Adam on one
+    pinned expert w1 (60 x 2048 x 1408)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [lambda: flash_case(TRAIN_SEQ, gen, True, heads=MOE_HEADS, window=0)]
+    # the long cache's calls take tens of ms pinned: fewer repetitions
+    cases += [lambda c=c, h=h: [{"kernel": "paged_attention", **paged_case(
+        c, h, gen, MOE_HEADS, MOE_ARCH, **(dict(reps=5, inner=2) if c == "long" else {}))}]
+              for c in ("main", "long") for h in (True, False)]
+    cases += [lambda r=r: [{"kernel": "rmsnorm", **rmsnorm_case(r, gen, MOE_D)}]
+              for r in (BATCH, TRAIN_SEQ)]
+    cases += [lambda: [adam_case(True, gen, MOE_EXPERT_W1)]]
+    rows = []
+    for case in cases:
+        for r in case():
+            emit("kernel_vs_plain", path="moe", **r)
+            rows.append(r)
+        torch.cuda.empty_cache()
+    return {k: max(r["max_abs_err"] for r in rows if r["kernel"] == k)
+            for k in {r["kernel"] for r in rows}}
+
+
+def phase_moe_serve(hw) -> dict[str, int]:
+    """``qwen2-moe-a2.7b`` at full width and all 24 layers through
+    ``serve_phase``: 28.6 GB of bf16 weights on the card."""
+    from repro_torch.configs import get_config
+
+    return serve_phase(get_config(MOE_ARCH), hw, "moe_serve")
+
+
+def phase_moe_plan(hw) -> dict:
+    """``qwen2-moe-a2.7b`` at full width through ``plan_phase``: 229 GB of
+    training state at 24 layers, more than card and host hold, so the depth
+    is the deepest whose searched plan's pinned states fit the host."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    # new device segments grow in place from here on: a step's large
+    # transient one-hots and the gradients kept for the pinned optimizer
+    # otherwise leave blocks reserved between allocations (12 GiB at the
+    # searched plan's out-of-memory on the H100)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    emit("moe_plan_host_cache", **release_pinned_cache(), host=host_memory(),
+         allocator="expandable_segments:True")
+    return plan_phase(get_config(MOE_ARCH), hw, "moe_plan")
 
 
 def timed_phase(name: str, fn):
@@ -1757,6 +2027,17 @@ def main() -> int:
     policy_launches, mixed_run = timed_phase("train_policies", phase_train_policies)
     plan_out = timed_phase("plan", lambda: phase_plan(hw))
     phase_calibration(hw, [train_run, mixed_run], plan_out["row"])
+    gc.collect()  # the mistral phases' tensors go before the MoE's
+    torch.cuda.empty_cache()
+    moe_errs = timed_phase("moe_kernels", phase_moe_kernels)
+    moe_serve_launches = timed_phase("moe_serve", lambda: phase_moe_serve(hw))
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_plan_out = timed_phase("moe_plan", lambda: phase_moe_plan(hw))
+    # each path's launches, counted from 0 just before it ran
+    by_path = {"engine": launches, "train": train_launches, "train_policies": policy_launches,
+               "plan": plan_out["launches"], "moe_serve": moe_serve_launches,
+               "moe_plan": moe_plan_out["launches"]}
     rms = measured["rmsnorm"][0]  # rows = batch: the decode path's shape
     main_case = next(p for p in measured["paged_attention"]
                      if p["case"] == "main" and p["cold"] == "pinned_host")
@@ -1783,11 +2064,16 @@ def main() -> int:
         row = training[name]
         # each kernel's launches on the path it came with: the quantizer's
         # on the mixed plan of train_policies, the others' on train
-        launches = (policy_launches if name == "fused_quantize_ef" else train_launches)[name]
+        n = (policy_launches if name == "fused_quantize_ef" else train_launches)[name]
         summary["kernels"].append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": n,
             "max_abs_err": row["max_abs_err"], **{k: row[k] for k in keys}})
+    for row in summary["kernels"]:
+        name = row["name"]
+        row["launches_by_path"] = {p: got.get(name, 0) for p, got in by_path.items()}
+        # the MoE shapes' cases (phase_moe_kernels) held to the same bounds
+        row["max_abs_err"] = max(row["max_abs_err"], moe_errs.get(name, 0.0))
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)

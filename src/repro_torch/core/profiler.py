@@ -291,7 +291,8 @@ def trace_superblock(cfg, batch: int, seq: int) -> TraceProfile:
     with FakeTensorMode():
         one = L.map_defs(lambda d: torch.empty(d.shape[1:], dtype=L.torch_dtype(d.dtype)), defs)
         x = torch.empty(batch, seq, cfg.d_model, dtype=L.torch_dtype(cfg.dtype))
-        return profile_fn(lambda p, x: M.apply_superblock(p, x, cfg), one, x, weight_args=(0,))
+        return profile_fn(lambda p, x: M.apply_superblock(p, x, cfg)[0], one, x,
+                          weight_args=(0,))
 
 
 def profile_superblock(cfg, batch: int, seq: int) -> BlockProfile:

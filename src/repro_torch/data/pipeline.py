@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 
-_FAMILIES_TODO = "ROADMAP.md, port queue 1 item 6: the other families"
+_FAMILIES_TODO = "ROADMAP.md, port queue 1 item 4: the encoder-decoder and VLM families"
 
 
 @dataclasses.dataclass

@@ -7,7 +7,8 @@ default (``--reduced`` picks the tiny same-family config):
         --seq-len 1024 --requests 4 --max-new 16 --prompt-len 520 799 \\
         --page-size 256 --hot-pages 2
 
-Weights are random, drawn on the device from ``--seed``; prompts come from
+``--arch qwen2-moe-a2.7b`` serves the MoE family the same way. Weights
+are random, drawn on the device from ``--seed``; prompts come from
 a numpy generator seeded the same way. ``--plan resident`` keeps the whole
 cache on the device; ``--plan paged`` keeps a hot ring there and the cold
 pages in pinned host memory; the default prompt lengths (520 to 799

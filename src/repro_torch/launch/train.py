@@ -3,13 +3,16 @@
     python -m repro_torch.launch.train --arch gpt2-1b --steps 20 --batch 2 --seq 1024
     python -m repro_torch.launch.train --arch stablelm-3b --reduced \\
         --steps 4 --batch 2 --seq 64 --plan resident --device cpu
+    python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --reduced \\
+        --steps 4 --batch 2 --seq 64 --device cpu
 
 The PyTorch counterpart of ``src/repro/launch/train.py``: picks the
 architecture (``--reduced``: the tiny same-family config), builds the plan,
 the plan-realized step, the synthetic data pipeline and the fault-tolerant
-loop with checkpoints and auto-resume. Weights are random, drawn on the
-device from ``--seed``. Runs on CUDA unless ``--device cpu``. Prints the
-plan, then one JSON summary line.
+loop with checkpoints and auto-resume. Dense and MoE decoders run; an
+MoE's loss is its cross-entropy plus the aux loss, and the loop logs both.
+Weights are random, drawn on the device from ``--seed``. Runs on CUDA
+unless ``--device cpu``. Prints the plan, then one JSON summary line.
 
 Plans: ``auto`` (the default) is ProTrain's search (``core.autotuner``)
 against ``--target-hw`` (a ``core.hardware.HARDWARE`` name) or, without
@@ -109,6 +112,7 @@ def main(argv=None) -> int:
         "steps": res.steps_run,
         "first_loss": res.losses[0] if res.losses else None,
         "final_loss": res.losses[-1] if res.losses else None,
+        "final_ce": res.ces[-1] if res.ces else None,
         "resumed_from": res.resumed_from,
         "straggler_events": res.straggler_events,
     }))

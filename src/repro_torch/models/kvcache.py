@@ -30,8 +30,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import apply_moe
 from repro_torch.models.model import (
-    check_dense,
+    check_family,
     embed_tokens,
     lm_head,
     num_repeats,
@@ -48,7 +49,7 @@ def cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     """``{pos<j>: {name: (shape, dtype)}}`` of the decode cache (no allocation)."""
-    check_dense(cfg)
+    check_family(cfg)
     r = num_repeats(cfg)
     hd = cfg.resolved_head_dim
     dt = L.torch_dtype(cfg.dtype)
@@ -210,10 +211,16 @@ def _decode_attention(ap: dict, h, entry: dict, step, cfg: ModelConfig, kv_io):
 
 def decode_position(pparams: dict, x, pcache: dict, step, cfg: ModelConfig, kv_io):
     """One layer, one token. x: (B,1,D); ``pcache`` is this layer's cache
-    entry (views, written in place)."""
+    entry (views, written in place). An MoE routes all B rows, inactive
+    slots of a chunked-prefill step too, which take capacity as in the JAX
+    package; its aux loss is dropped."""
     h = L.apply_norm(pparams["norm1"], x, cfg.norm)
     x = x + _decode_attention(pparams["attn"], h, pcache, step, cfg, kv_io)
-    if "mlp" in pparams:
+    if "moe" in pparams:
+        h2 = L.apply_norm(pparams["norm2"], x, cfg.norm)
+        out, _ = apply_moe(pparams["moe"], h2, cfg)
+        x = x + out
+    elif "mlp" in pparams:
         h2 = L.apply_norm(pparams["norm2"], x, cfg.norm)
         x = x + L.apply_mlp(pparams["mlp"], h2, cfg.mlp)
     return x

@@ -1,7 +1,8 @@
-"""Model assembly for the dense decoder: parameter tree, superblocks, runs,
-the training forward, embedding and LM head.
+"""Model assembly for the decoder: parameter tree, superblocks, runs, the
+training forward, embedding and LM head.
 
-Port of the dense part of ``src/repro/models/model.py``. Parameters keep the
+Port of the decoder part of ``src/repro/models/model.py``: dense and MoE
+positions (``models/moe.py``). Parameters keep the
 JAX package's tree: ``{"embed": {"tok"}, "blocks": {"pos<j>": {...}},
 "final_norm": {...}, "head": {"w"}}``, each block leaf stacked over
 superblock repeats, ``(R, ...)``; the training state splits ``blocks`` into
@@ -14,7 +15,7 @@ The layer stack runs as a list of ``Run``s (``apply_runs``). JAX scans each
 run over its stacked leaves; here a Python loop walks the leaves' first axis
 (``unbind``, so the backward stacks the per-repeat gradients in one copy).
 Each layer position tags three save sites -- norm1's output, the mixer's
-output and the MLP's output (``save_act``) -- and the run's act policy
+output and the MLP's or MoE's output (``save_act``) -- and the run's act policy
 decides what lives FWD->BWD, as ``_remat_policy`` (``model.py:414-452``)
 does: ``none`` keeps every activation; ``checkpoint`` keeps the position's
 input and recomputes the rest in the backward (``torch.utils.checkpoint``
@@ -32,8 +33,13 @@ copy FWD->BWD, else the backward fetches it again (inside the replay of a
 recomputed position, as in JAX, where the gather sits inside the remat
 region).
 
-MoE, Mamba-2 and encoder-decoder positions are queued in ROADMAP.md and raise
-``NotImplementedError`` here.
+Each position returns ``(x, aux)``: an MoE position's load-balance loss
+(``apply_moe``), 0.0 for a dense one. The aux losses are summed through
+superblocks, checkpointed regions and runs, and ``forward`` returns them
+beside the hidden states, as the JAX package does; recomputed, compressed,
+swapped and host-weight runs carry them alike. Mamba-2, hybrid,
+encoder-decoder and VLM-prefix models are queued in ROADMAP.md (port queue
+1 item 4) and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -48,12 +54,15 @@ from torch import nn
 from repro_torch import kernels as K
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.offload import HostIO
 from repro_torch.models.layers import LAYER, TP, ZERO, ParamDef
 
-_FAMILIES_TODO = "ROADMAP.md, port queue: the MoE, Mamba-2 and encoder-decoder families"
+_FAMILIES_TODO = ("ROADMAP.md, port queue 1 item 4: the Mamba-2, hybrid, encoder-decoder and "
+                  "VLM families")
 ACT_POLICIES = ("none", "checkpoint", "swap", "compress8", "compress16")
 SITE_POLICIES = ("swap", "compress8", "compress16")  # keep the three save sites
+XAux = tuple[torch.Tensor, "torch.Tensor | float"]  # hidden states, aux loss (0.0 if dense)
 
 
 def superblock_period(cfg: ModelConfig) -> int:
@@ -69,21 +78,23 @@ def num_repeats(cfg: ModelConfig) -> int:
     return cfg.num_layers // p
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise for the families this slice does not run."""
+def check_family(cfg: ModelConfig) -> None:
+    """Raise for the families the port does not run yet: it runs decoders
+    of attention positions with dense MLPs or MoE layers."""
     if cfg.kind == "encdec":
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models ({_FAMILIES_TODO})")
     if any(m != "attention" for m in cfg.mixer_pattern):
         raise NotImplementedError(f"{cfg.name}: Mamba-2 positions ({_FAMILIES_TODO})")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE positions ({_FAMILIES_TODO})")
 
 
 def _position_defs(cfg: ModelConfig, pos: int) -> dict:
     """ParamDefs for one layer position within the superblock."""
     defs: dict[str, Any] = {"norm1": L.norm_defs(cfg.d_model, cfg.norm),
                             "attn": L.attention_defs(cfg)}
-    if cfg.d_ff:
+    if cfg.moe_at(pos):
+        defs["norm2"] = L.norm_defs(cfg.d_model, cfg.norm)
+        defs["moe"] = MOE.moe_defs(cfg)
+    elif cfg.d_ff:
         defs["norm2"] = L.norm_defs(cfg.d_model, cfg.norm)
         defs["mlp"] = L.mlp_defs(cfg)
     return defs
@@ -97,8 +108,8 @@ def _stack_defs(defs, n: int):
 
 
 def param_defs(cfg: ModelConfig) -> dict:
-    """Full parameter ParamDef tree of the dense decoder."""
-    check_dense(cfg)
+    """Full parameter ParamDef tree of the decoder."""
+    check_family(cfg)
     p = superblock_period(cfg)
     r = num_repeats(cfg)
     defs: dict[str, Any] = {
@@ -144,7 +155,7 @@ def _from_module(mod: nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """The dense decoder's parameters as a module, for serving (no gradients).
+    """The decoder's parameters as a module, for serving (no gradients).
 
     ``DecoderLM(cfg, params)`` wraps an existing tree without copying;
     ``DecoderLM.init(cfg, generator, device)`` draws a random one. ``tree()``
@@ -153,7 +164,7 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        check_dense(cfg)
+        check_family(cfg)
         self.cfg = cfg
         for name, sub in params.items():
             self.add_module(name, _to_module(sub))
@@ -289,17 +300,23 @@ def save_act(x: torch.Tensor, sites: ActSites | None = None, keep: bool = True):
 
 def apply_position(pparams: dict, x: torch.Tensor, cfg: ModelConfig, pos_j: int, *,
                    positions=None, attn_impl: str = "blockwise",
-                   sites: ActSites | None = None) -> torch.Tensor:
-    """One layer (superblock position): norm, attention, residual, norm, MLP,
-    residual, with its three save sites (``save_act``); the backward reads
-    the first two (the MLP output only feeds the residual add)."""
+                   sites: ActSites | None = None) -> XAux:
+    """One layer (superblock position): norm, attention, residual, norm, MLP
+    or MoE, residual, with its three save sites (``save_act``); the backward
+    reads the first two (the MLP or MoE output only feeds the residual add).
+    Returns (x, aux): the MoE's aux loss, 0.0 without one."""
+    aux = 0.0
     h = save_act(L.apply_norm(pparams["norm1"], x, cfg.norm), sites)
     mix = L.attention_block(pparams["attn"], h, cfg, positions=positions, impl=attn_impl)
     x = x + save_act(mix, sites)
-    if "mlp" in pparams:
+    if "moe" in pparams:
+        h2 = L.apply_norm(pparams["norm2"], x, cfg.norm)
+        out, aux = MOE.apply_moe(pparams["moe"], h2, cfg)
+        x = x + save_act(out, sites, keep=False)
+    elif "mlp" in pparams:
         h2 = L.apply_norm(pparams["norm2"], x, cfg.norm)
         x = x + save_act(L.apply_mlp(pparams["mlp"], h2, cfg.mlp), sites, keep=False)
-    return x
+    return x, aux
 
 
 def _checkpointed(fn, *args):
@@ -315,8 +332,9 @@ def _weights(src: dict, proxies: dict | None, io: HostIO) -> dict:
 
 
 def _apply_layer(src, proxies, x, cfg, pos_j, *, act_policy: str, buffered: bool,
-                 io: HostIO, attn_impl: str) -> torch.Tensor:
-    """One position under its run's act policy and weight buffering."""
+                 io: HostIO, attn_impl: str) -> XAux:
+    """One position under its run's act policy and weight buffering:
+    (x, aux)."""
     fetch_again = proxies is not None and not buffered
     if act_policy == "none":
         pp = _weights(src, proxies, io)
@@ -337,24 +355,27 @@ def _apply_layer(src, proxies, x, cfg, pos_j, *, act_policy: str, buffered: bool
         pp = _weights(src, proxies, io) if fetch_again else kept
         return apply_position(pp, x, cfg, pos_j, attn_impl=attn_impl, sites=sites)
 
-    x = _checkpointed(one, x)
+    out = _checkpointed(one, x)
     if sites is not None:
         sites.seal()
-    return x
+    return out
 
 
 def apply_superblock(block_params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                      act_policy: str = "none", buffered: bool = True, proxies: dict | None = None,
-                     io: HostIO | None = None, attn_impl: str = "blockwise") -> torch.Tensor:
+                     io: HostIO | None = None, attn_impl: str = "blockwise") -> XAux:
     """block_params: {posJ: params of one repeat}, on the device or (with
     ``proxies``, the autograd stand-ins of the same tree) in host memory.
     ``act_policy`` applies per position (layer), the paper's per-block
-    granularity."""
+    granularity. Returns (x, aux), aux summed over the positions."""
+    aux = 0.0
     for j in range(superblock_period(cfg)):
         key = f"pos{j}"
-        x = _apply_layer(block_params[key], None if proxies is None else proxies[key], x, cfg,
-                         j, act_policy=act_policy, buffered=buffered, io=io, attn_impl=attn_impl)
-    return x
+        x, a = _apply_layer(block_params[key], None if proxies is None else proxies[key], x,
+                            cfg, j, act_policy=act_policy, buffered=buffered, io=io,
+                            attn_impl=attn_impl)
+        aux = aux + a
+    return x, aux
 
 
 @dataclasses.dataclass
@@ -395,20 +416,23 @@ def _units(runs: list[Run]) -> list[tuple[Run, list, list]]:
 
 
 def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
-               attn_impl: str = "blockwise", io: HostIO | None = None) -> torch.Tensor:
-    """Execute the layer stack as policy runs of superblocks. ``io``: the
-    step's host copies and counters (a fresh one on x's device if None)."""
+               attn_impl: str = "blockwise", io: HostIO | None = None) -> XAux:
+    """Execute the layer stack as policy runs of superblocks: (x, aux), the
+    aux losses summed. ``io``: the step's host copies and counters (a fresh
+    one on x's device if None)."""
     units = _units(runs)
     io = io if io is not None else HostIO(x.device)
+    aux_total = 0.0
     for i, (run, reps, prox) in enumerate(units):
         io.begin_unit()
         if i + 1 < len(units) and units[i + 1][0].proxies is not None:
             for src in units[i + 1][1]:
                 io.prefetch(src)  # the next unit's host weights, during this one
         if len(reps) == 1:
-            x = apply_superblock(reps[0], x, cfg, act_policy=run.act_policy,
-                                 buffered=run.buffered, proxies=prox[0], io=io,
-                                 attn_impl=attn_impl)
+            x, aux = apply_superblock(reps[0], x, cfg, act_policy=run.act_policy,
+                                      buffered=run.buffered, proxies=prox[0], io=io,
+                                      attn_impl=attn_impl)
+            aux_total = aux_total + aux
             continue
         # grouped remat: one checkpoint region spans the group's superblocks;
         # unbuffered host weights are fetched inside it, the rest outside
@@ -419,13 +443,16 @@ def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
                 io.will_fetch_again(src)
 
         def region(x, _items=list(zip(reps, prox, kept))):
+            aux = 0.0
             for src, px, pp in _items:
                 pp = pp if pp is not None else _weights(src, px, io)
-                x = apply_superblock(pp, x, cfg, attn_impl=attn_impl)
-            return x
+                x, a = apply_superblock(pp, x, cfg, attn_impl=attn_impl)
+                aux = aux + a
+            return x, aux
 
-        x = _checkpointed(region, x)
-    return x
+        x, aux = _checkpointed(region, x)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def default_runs(cfg: ModelConfig, params: dict) -> list[Run]:
@@ -434,12 +461,13 @@ def default_runs(cfg: ModelConfig, params: dict) -> list[Run]:
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *, runs: list[Run] | None = None,
-            attn_impl: str = "blockwise", io: HostIO | None = None) -> torch.Tensor:
+            attn_impl: str = "blockwise", io: HostIO | None = None) -> XAux:
     """Training forward. ``batch["tokens"]``: (B, S) integer. Returns the
-    hidden states (B, S, D); a dense model has no aux loss (JAX returns a
-    zero one beside them). ``io``: the host copies of runs with host weights
-    and of swapped activations."""
-    check_dense(cfg)
+    hidden states (B, S, D) and the aux loss: the MoE layers' load-balance
+    losses summed, an fp32 scalar (0.0 for a dense model, where JAX returns
+    a zero array). ``io``: the host copies of runs with host weights and of
+    swapped activations."""
+    check_family(cfg)
     x = embed_tokens(params, batch["tokens"], cfg)
     if runs is None:
         runs = default_runs(cfg, params)

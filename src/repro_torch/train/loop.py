@@ -6,7 +6,8 @@ asynchronous checkpoints with atomic publish, a final synchronous save on
 SIGTERM, a straggler count (steps slower than ``deadline_factor`` times the
 trailing median) and a NaN-loss skip. There is no jit and no donation: the
 step updates the state in place, and the loop synchronises once per step,
-at the loss read-back. With ``telemetry=`` it records the ``train.*``
+at the loss read-back; it reports the loss (cross-entropy plus the MoE aux
+loss) and the cross-entropy apart. With ``telemetry=`` it records the ``train.*``
 metrics (step-time histogram, loss gauge, step / NaN-skip / straggler
 counters, the device-memory high-water mark on CUDA) and a ``train.step``
 span per step; with ``drift=`` each step's wall time and watermark go to
@@ -43,7 +44,8 @@ class LoopConfig:
 class LoopResult:
     steps_run: int
     final_step: int
-    losses: list[float]
+    losses: list[float]  # metrics["loss"]: cross-entropy plus the MoE aux loss
+    ces: list[float]  # metrics["ce"], the cross-entropy alone, of the same steps
     resumed_from: int | None
     straggler_events: int
     nan_skips: int
@@ -90,6 +92,7 @@ def train_loop(step_artifacts, pipeline: SyntheticTokenPipeline,
     device = tree_leaves(state["params"])[0].device
 
     losses: list[float] = []
+    ces: list[float] = []
     step_times: list[float] = []
     straggler_events = 0
     nan_skips = 0
@@ -121,7 +124,9 @@ def train_loop(step_artifacts, pipeline: SyntheticTokenPipeline,
                 step += 1  # the update ran in place: keep going with it
                 continue
 
+            ce = float(metrics["ce"])
             losses.append(loss)
+            ces.append(ce)
             loss_g.set(loss)
             step_times.append(dt)
             if len(step_times) >= 5:
@@ -131,7 +136,7 @@ def train_loop(step_artifacts, pipeline: SyntheticTokenPipeline,
                     straggler_c.inc()
                     log(f"[loop] step {step}: straggler ({dt:.3f}s vs median {med:.3f}s)")
             if loop_cfg.log_every and step % loop_cfg.log_every == 0:
-                log(f"[loop] step {step} loss={loss:.4f} ({dt * 1e3:.0f} ms)")
+                log(f"[loop] step {step} loss={loss:.4f} ce={ce:.4f} ({dt * 1e3:.0f} ms)")
             step += 1
 
             if ckpt is not None and step % loop_cfg.checkpoint_every == 0:
@@ -149,6 +154,6 @@ def train_loop(step_artifacts, pipeline: SyntheticTokenPipeline,
                 ckpt.save(step, state, extra={"data_step": pipeline.step}, sync=True)
             ckpt.wait()
 
-    return LoopResult(steps_run=step - start_step, final_step=step, losses=losses,
+    return LoopResult(steps_run=step - start_step, final_step=step, losses=losses, ces=ces,
                       resumed_from=resumed_from, straggler_events=straggler_events,
                       nan_skips=nan_skips, step_times=step_times, state=state)

@@ -8,7 +8,9 @@ the layout the serving builders (``build_decode_step(per_slot_pos=True)``,
 decode and chunked prefill are one step here (``serve.prefill.ServeStep``).
 
 Training: ``fn(state, batch) -> (state, metrics)`` runs one step in place on
-``state = {"params", "opt", "step"}``. The params keep the JAX tree,
+``state = {"params", "opt", "step"}``. ``metrics["loss"]`` is the
+cross-entropy plus the MoE aux loss, ``metrics["ce"]`` the cross-entropy
+(``:377``). The params keep the JAX tree,
 ``{"embed", "runs": [...], "final_norm", "head"}`` with one ``(length, ...)``
 stacked subtree per run of the plan (``plan_runs``). The plan lowers so on
 one device: ``persist`` and ``hbm`` chunks are one placement, the device. A
@@ -129,8 +131,8 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
                      telemetry: obs.Telemetry | None = None) -> StepArtifacts:
     """The plan-driven training step on one device (CUDA unless ``device``
     says otherwise). ``batch``: ``tokens`` and ``labels``, (B, S) integer on
-    the device. ``metrics``: ``loss``, ``ce``, ``grad_norm`` (device scalars)
-    and ``lr``."""
+    the device. ``metrics``: ``loss`` (cross-entropy plus aux loss), ``ce``,
+    ``grad_norm`` (device scalars) and ``lr``."""
     device = resolve_device(device)
     adam = adam or OPT.AdamConfig()
     check_train_plan(cfg, plan, shape)
@@ -194,18 +196,21 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
             io.prefetch(params[key])
         if "embed" in host_keys:
             fparams["embed"] = io.fetch(proxies["embed"], params["embed"])
-        h = M.forward(fparams, batch, cfg, runs=make_runs(params, proxies),
-                      attn_impl=attn_impl, io=io)
+        h, aux = M.forward(fparams, batch, cfg, runs=make_runs(params, proxies),
+                           attn_impl=attn_impl, io=io)
         for key in host_keys:
             if key != "embed":
                 fparams[key] = io.fetch(proxies[key], params[key])
         h = L.apply_norm(fparams["final_norm"], h, cfg.norm)
         w = fparams["embed"]["tok"].T if cfg.tie_embeddings else fparams["head"]["w"]
-        return chunked_cross_entropy(h, w, batch["labels"], ce_chunk=ce_chunk)
+        ce = chunked_cross_entropy(h, w, batch["labels"], ce_chunk=ce_chunk)
+        return ce + aux, ce
 
     def grad_fn(state: dict, batch: dict):
-        """The step's gradients and loss: (grads tree, loss), accumulated
-        over the plan's microbatches. Every gradient lies on the device."""
+        """The step's gradients and losses: (grads tree, (2,) fp32 [loss,
+        ce]), accumulated over the plan's microbatches; the loss is the
+        cross-entropy plus the MoE aux loss. Every gradient lies on the
+        device."""
         params = state["params"]
         proxies = make_proxies(params)
         flat = OPT.tree_leaves(proxies)
@@ -213,23 +218,23 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         def micro_grad(mb_batch):
             io.reset()
             before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
-            loss = loss_fn(params, proxies, mb_batch)
+            loss, ce = loss_fn(params, proxies, mb_batch)
             if device.type == "cuda":
                 act_bytes.set(torch.cuda.memory_allocated(device) - before)
             io.begin_backward()  # its host reads run one unit ahead
             grads = iter(torch.autograd.grad(loss, flat))
-            return OPT.tree_map(lambda _: next(grads), params), loss.detach()
+            return OPT.tree_map(lambda _: next(grads), params), torch.stack([loss, ce]).detach()
 
         return accumulate_grads(micro_grad, batch, plan.microbatch)
 
     def step_fn(state: dict, batch: dict):
         params = state["params"]
-        grads, loss = grad_fn(state, batch)
+        grads, losses = grad_fn(state, batch)
         lr = lr_schedule(state["step"]) if lr_schedule else adam.lr
         gnorm = OPT.adam_update(params, grads, state["opt"], adam, lr)
         state["step"] += 1
-        # a dense model has no aux loss: the total is the cross-entropy
-        return state, {"loss": loss, "ce": loss, "grad_norm": gnorm, "lr": lr}
+        loss, ce = losses.unbind()
+        return state, {"loss": loss, "ce": ce, "grad_norm": gnorm, "lr": lr}
 
     def place_state(params: dict) -> dict:
         """``{"params", "opt", "step"}`` around ``params`` (tensors on the
@@ -260,10 +265,17 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         return {"params": params, "opt": opt, "step": 0}
 
     def init(generator: torch.Generator | None = None) -> dict:
-        """A fresh state drawn from ``generator`` (on the device; default: seed 0)."""
+        """A fresh state drawn from ``generator`` (on the device; default: seed 0).
+        On CUDA the allocator's cache is emptied after: the draw's fp32
+        temporaries and the device copies of host chunks' weights are gone,
+        and their blocks would otherwise stay reserved between the step's
+        allocations."""
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        return place_state(L.init_tree(p_defs, generator, device))
+        state = place_state(L.init_tree(p_defs, generator, device))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        return state
 
     return StepArtifacts(fn=step_fn, plan=plan, runs=runs_layout, init=init,
                          place_state=place_state, grad_fn=grad_fn)

@@ -12,12 +12,15 @@ from repro_torch.optim.adam import tree_map
 
 
 def accumulate_grads(micro_grad, batch: dict, microbatch: int):
-    """``micro_grad(mb_batch) -> (grads, loss)`` on one microbatch.
+    """``micro_grad(mb_batch) -> (grads, loss)`` on one microbatch; ``loss``
+    is a tensor (the step builder's ``[loss, ce]``).
 
     With ``microbatch == 1`` the grads come back as they are (the params'
     dtype). Otherwise each microbatch's grads are added into fp32
     accumulators, which are divided by ``microbatch`` at the end, and the
-    losses are averaged. Returns ``(grads, loss)``."""
+    losses are averaged. Returns ``(grads, loss)``. (The reference returns
+    the averaged total as its ``ce`` too when it accumulates, ``:131``; the
+    port averages each.)"""
     if microbatch == 1:
         return micro_grad(batch)
 

@@ -716,3 +716,113 @@ def test_local_cuda_hw_reads_the_card_and_profile_is_device_free():
     prof = profile_superblock(get_config("mistral-7b"), 1, 4096)
     assert dataclasses.asdict(prof) == MISTRAL_BLOCK_PROFILE
     assert torch.cuda.memory_allocated() == before  # fake tensors: nothing on the card
+
+
+# ---------------------------------------------------------------------------
+# The MoE family on the card
+# ---------------------------------------------------------------------------
+def _moe_cfg(cf=1.25, dtype="bfloat16"):
+    """Reduced qwen2-moe-a2.7b at widths the kernels take: 4 query heads over
+    4 KV heads (group 1, as the full model), hd 128, no window; 4 experts,
+    top 2, 4 shared experts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+
+    cfg = reduced(get_config("qwen2-moe-a2.7b"), head_dim=128, d_model=256, dtype=dtype)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [8.0, 1.25])
+def test_moe_layer_on_card_matches_cpu(cf):
+    """``apply_moe`` in fp32 on the card against the CPU: the same routing
+    and capacity drops, outputs and aux loss within 1e-5 (no TF32: the
+    dispatch carries x's values exactly), gradients within 1e-4 of each
+    leaf's largest."""
+    _require_card()
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import init_tree
+
+    cfg = _moe_cfg(cf, "float32")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    params = init_tree(MOE.moe_defs(cfg), torch.Generator().manual_seed(0), "cpu")
+    params = {k: v.float() for k, v in params.items()}
+    x = torch.randn(4, 64, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        xx = x.to(dev).requires_grad_()
+        out, aux = MOE.apply_moe(p, xx, cfg)
+        grads = torch.autograd.grad((out * out).sum() + aux, [xx] + [p[k] for k in sorted(p)])
+        outs[dev] = [t.detach().cpu() for t in (out, aux, *grads)]
+    for a, b in zip(outs["cuda"][:2], outs["cpu"][:2]):
+        assert ((a - b).abs() <= 1e-5 * (1 + b.abs())).all()
+    for a, b in zip(outs["cuda"][2:], outs["cpu"][2:]):
+        assert ((a - b).abs() <= 1e-4 * (1 + b.abs().max())).all()
+
+
+@pytest.mark.cuda
+def test_moe_engine_graph_tokens_and_launches_equal_eager():
+    """The MoE decode step captured in the engine's graph (sort, cumsum and
+    the fp32 dispatch einsums inside it) gives the eager engine's tokens and
+    launches, at one capacity row an expert (as the full model decodes)."""
+    _require_card()
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.models import kvcache as KV
+    from repro_torch.models.model import init_params, num_repeats
+    from repro_torch.serve import DecodeEngine, Request, choose_paging
+
+    cfg = _moe_cfg(0.5)
+    shape = ShapeConfig("serve", 256, 4, "decode")
+    spec = choose_paging(KV.cache_len(cfg, 256), 16, 2)
+    n = num_repeats(cfg) + 2
+    plan = MemoryPlan(n, num_repeats(cfg), n_persist=n, n_host=spec.n_cold)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, int(k)).tolist() for k in (40, 97, 150, 71)]
+    runs = {}
+    for graphs in (True, False):
+        eng = DecodeEngine(cfg, plan, "cuda", shape, params, paging=spec, own_params=True,
+                           admission="chunked", prefill_chunk=16, graphs=graphs)
+        eng.warmup()
+        K.reset_launch_counts()
+        rep = eng.run([Request(i, p, 6) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        assert rep.drained
+        runs[graphs] = (rep.finished, K.launch_counts())
+    assert runs[True] == runs[False]
+    assert runs[True][1]["paged_attention"] > 0 and runs[True][1]["rmsnorm"] > 0
+
+
+@pytest.mark.cuda
+def test_moe_train_step_runs_on_card():
+    """Two steps of the reduced bf16 MoE through the training kernels with
+    host weights and a checkpointed block: losses finite, the aux loss in
+    the loss, flash forward and backward and fused Adam launched (the fp32
+    router's leaf too)."""
+    _require_card()
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.train.step_builder import build_train_step
+
+    cfg = _moe_cfg()
+    shape = ShapeConfig("card", 256, 2, "train")
+    plan = MemoryPlan(4, 2, n_persist=2, n_host=2, n_checkpoint=1, microbatch=2,
+                      host_params=True, n_buffer=1)
+    art = build_train_step(cfg, plan, "cuda", shape)
+    state = art.init(torch.Generator(device="cuda").manual_seed(0))
+    router = state["opt"]["master"]["runs"][-1]["pos0"]["moe"]["router"]
+    assert router.dtype == torch.float32 and router.is_pinned()
+    pipe = SyntheticTokenPipeline(cfg, shape, device="cuda")
+    K.reset_launch_counts()
+    for _ in range(2):
+        state, metrics = art.fn(state, pipe.next_sync())
+        loss, ce = float(metrics["loss"]), float(metrics["ce"])
+        assert torch.isfinite(metrics["loss"]).item() and loss > ce
+    for name in ("flash_attention", "flash_attention_bwd", "fused_adam", "rmsnorm"):
+        assert K.launch_counts()[name] > 0, name

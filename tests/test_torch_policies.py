@@ -119,11 +119,11 @@ def _stack_grads(cfg, params, x, policy, *, kept: bool):
     if kept:
         h = xx
         for rep in TM._unstack(blocks, TM.num_repeats(cfg)):
-            h = TM.apply_position(rep["pos0"], h, cfg, 0,
-                                  sites=TM.ActSites(policy, HostIO("cpu")))
+            h, _ = TM.apply_position(rep["pos0"], h, cfg, 0,
+                                     sites=TM.ActSites(policy, HostIO("cpu")))
     else:
-        h = TM.apply_runs([TM.Run(params=blocks, n_repeats=TM.num_repeats(cfg),
-                                  act_policy=policy)], xx, cfg)
+        h, _ = TM.apply_runs([TM.Run(params=blocks, n_repeats=TM.num_repeats(cfg),
+                                     act_policy=policy)], xx, cfg)
     grads = torch.autograd.grad((h.float() ** 2).sum(), [xx] + leaves)
     return h.detach(), grads
 
@@ -169,7 +169,7 @@ def _census(cfg, rep, x, policy):
     gc.collect()
     before = _storages()
     with torch.autograd.graph.saved_tensors_hooks(lambda t: kept.append(t) or t, lambda t: t):
-        y = TM.apply_superblock(rep, x, cfg, act_policy=policy, io=io)
+        y, _ = TM.apply_superblock(rep, x, cfg, act_policy=policy, io=io)
     gc.collect()
     new = {p: n for p, n in _storages().items()
            if p not in before and p != y.untyped_storage().data_ptr()}

@@ -145,7 +145,7 @@ def test_forward_and_loss_match_jax_under_each_act_policy():
         p = _rebuild(params, iter(leaves))
         runs = [TM.Run(params=p["blocks"], n_repeats=TM.num_repeats(CFG), act_policy=pol,
                        ckpt_group=group)]
-        h = TM.forward(p, tbatch, CFG, runs=runs)
+        h, _ = TM.forward(p, tbatch, CFG, runs=runs)
         hn = TL.apply_norm(p["final_norm"], h, CFG.norm)
         loss = chunked_cross_entropy(hn, p["head"]["w"], tbatch["labels"], ce_chunk=16)
         grads = torch.autograd.grad(loss, leaves)
