@@ -90,8 +90,9 @@ Phases, each printing one JSON line:
      optimizer's span). If the host cannot pin what the plan puts there, the
      step runs at the deepest stack that fits and says so
      (``reduced_depth``); if the card runs out of memory, the capacity the
-     search budgets against is lowered by the shortfall the card showed and
-     the search runs again (``oom_attempts``). Last, ``calibration``: the
+     search budgets against is lowered by the shortfall the card showed
+     (doubled at each further attempt) and the search runs again
+     (``oom_attempts``). Last, ``calibration``: the
      ``train`` and mixed plans priced on this card's spec beside their
      measured steps and peaks, with the full-depth run's row.
 
@@ -119,6 +120,29 @@ Phases, each printing one JSON line:
      (``active_matmul_params``); the profiled step has the fp32 GEMMs of
      the dense dispatch and combine as their own kind (``gemm_fp32``).
 
+ 13. ``mamba_kernels``: the kernels at the Mamba-2 paths' shapes: RMSNorm
+     at d 768 and 1536 (mamba2-130m's norm and gated norm) in 4 and 32,768
+     rows, fused Adam on one fp32 leaf of 24 x 24 on the device, flash
+     forward and backward and paged attention at the hybrid's 8 query
+     heads over 1 KV head of 128; each line carries ``"path": "mamba"``;
+ 14. ``mamba_serve``: phase 4's engine and checks for ``mamba2-130m`` at
+     full width and all 24 layers, on the resident plan under replay
+     admission (the default without attention); the teacher-forced plain
+     path runs the plain RMSNorm too; ``mamba_state_bytes``;
+ 15. ``mamba_train_compare``: two steps of 2-layer full-width mamba2-130m
+     at S 32,768, kernels against the plain path; ``mamba_ssd_fp32``: the
+     SSD in fp32 on the card against the same code on the CPU (output,
+     state and every gradient within ``SSD_TOL``); ``mamba_ssd_timing``:
+     one block's SSD at the plan's shape, beside its chunk loop alone;
+ 16. ``mamba_plan``: phase 9 for ``mamba2-130m`` at 24 layers, S 32,768,
+     beside the reference's profile; ``block_policies`` per block; the
+     profiled step's ``ssd_chunk_loop_fwd_ms`` (device time inside the
+     chunk loop's annotation); then ``mamba_calibration``;
+ 17. ``hybrid``: reduced Jamba at hd 128 and group 8 (``hybrid_config``):
+     ``hybrid_serve`` (phase 4 on the paged plan, chunked admission) and
+     ``hybrid_train`` (two steps, kernels against the plain path, at
+     ``HYBRID_GRAD_COSINE``).
+
 The kernels summary line gives each kernel's launches per path
 (``launches_by_path``: each path's counts, zeroed just before it ran);
 ``launches`` stays each kernel's count on the path it came with.
@@ -136,6 +160,7 @@ checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -632,6 +657,8 @@ def tick_account(ticks) -> dict:
     and the card's idle share over those ticks, 1 - device / wall summed."""
     out = {}
     for kind, rows in ticks.items():
+        if not rows:  # (replay admission has no prefill ticks)
+            continue
         walls = [w for w, _ in rows]
         devs = [sum(a.elapsed_time(b) for a, b in ev) for _, ev in rows]
         out[kind] = {"n": len(rows), "wall_median_ms": statistics.median(walls),
@@ -640,9 +667,10 @@ def tick_account(ticks) -> dict:
     return out
 
 
-def serve(engine, reqs, device_times: bool = False) -> dict:
-    """Serve ``reqs`` on a warmed-up engine: its report, the kernels'
-    launches over the run, the host wall time of its ticks by kind and,
+def serve(engine, reqs, device_times: bool = False,
+          kernels: tuple[str, ...] = SERVING_KERNELS) -> dict:
+    """Serve ``reqs`` on a warmed-up engine: its report, the launches of
+    ``kernels`` over the run, the host wall time of its ticks by kind and,
     with ``device_times`` (a graph engine), each tick kind's device time and
     idle share (``tick_account``)."""
     import torch
@@ -655,7 +683,7 @@ def serve(engine, reqs, device_times: bool = False) -> dict:
     K.reset_launch_counts()
     report = engine.run(reqs)
     torch.cuda.synchronize()
-    launches = {k: K.launch_counts()[k] for k in SERVING_KERNELS}
+    launches = {k: K.launch_counts()[k] for k in kernels}
     assert report.drained, f"engine did not drain: pending {report.pending}"
     assert sorted(report.finished) == list(range(BATCH))
     assert all(len(t) == NEW_TOKENS for t in report.finished.values()), report.finished
@@ -669,13 +697,23 @@ def serve(engine, reqs, device_times: bool = False) -> dict:
             "tick_device": tick_account(ticks_dev) if device_times else None}
 
 
+def decode_norms(cfg) -> int:
+    """RMSNorm launches of one decode step: each layer's (``layer_norms``)
+    and the final norm."""
+    return 1 + sum(layer_norms(cfg, i) for i in range(cfg.num_layers))
+
+
 def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
     """``DecodeEngine`` serving 4 requests of ``cfg`` (random bf16 weights
-    from seed 0) on the paged plan, from its CUDA graph, then from Python
-    (tokens and launches equal), a teacher-forced step through the kernels
-    against the plain path, and the captured step timed eagerly and
-    replayed. For an MoE ``cfg`` the teacher-forced check is MOE_ENGINE_TOL's
-    and the routing choices of the two paths are compared (``routing``)."""
+    from seed 0), from its CUDA graph, then from Python (tokens and launches
+    equal), a teacher-forced step through the kernels against the plain
+    path, and the captured step timed eagerly and replayed. A model with
+    attention is served on the paged plan under chunked admission; an
+    attention-free one (Mamba-2) on the resident plan under replay
+    admission, the engine's default. For an MoE ``cfg`` the teacher-forced
+    check is MOE_ENGINE_TOL's and the routing choices of the two paths are
+    compared (``routing``); for a model with Mamba-2 positions the plain
+    path's RMSNorm is the plain version too (``plain_rmsnorm``)."""
     import numpy as np
     import torch
 
@@ -688,11 +726,19 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
     from repro_torch.serve import DecodeEngine, PagedKV, Request, choose_paging
 
     moe = cfg.moe is not None
+    attn = not cfg.attention_free
+    kernels = SERVING_KERNELS if attn else ("rmsnorm",)
     shape = ShapeConfig("smoke", SEQ_LEN, BATCH, "decode")
-    spec = choose_paging(KV.cache_len(cfg, SEQ_LEN), PAGE, N_HOT)
-    assert (spec.page_size, spec.n_pages, spec.n_hot) == (PAGE, SEQ_LEN // PAGE, N_HOT)
     n_chunks = num_repeats(cfg) + 2  # embedding + one per block + head
-    plan = MemoryPlan(n_chunks, num_repeats(cfg), n_persist=n_chunks, n_host=spec.n_cold)
+    if attn:
+        spec = choose_paging(KV.cache_len(cfg, SEQ_LEN), PAGE, N_HOT)
+        assert (spec.page_size, spec.n_pages, spec.n_hot) == (PAGE, SEQ_LEN // PAGE, N_HOT)
+        plan = MemoryPlan(n_chunks, num_repeats(cfg), n_persist=n_chunks, n_host=spec.n_cold)
+        admission = dict(admission="chunked", prefill_chunk=PREFILL_CHUNK)
+    else:
+        spec = None
+        plan = MemoryPlan(n_chunks, num_repeats(cfg), n_persist=n_chunks)
+        admission = dict(admission="replay")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
@@ -702,8 +748,8 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
         # the eager engine shares the weights (own_params: no copy); each has its cache
         t0 = time.perf_counter()
         eng = DecodeEngine(cfg, plan, "cuda", shape, params, paging=spec, own_params=True,
-                           admission="chunked", prefill_chunk=PREFILL_CHUNK,
-                           telemetry=obs.Telemetry(), graphs=graphs)  # spans: wall per tick
+                           **admission, telemetry=obs.Telemetry(),
+                           graphs=graphs)  # spans: wall per tick
         eng.warmup()
         torch.cuda.synchronize()
         return eng, time.perf_counter() - t0
@@ -715,20 +761,28 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
     engine, capture_s = make_engine(graphs=True)
     assert engine.serve_step.graph is not None, "on CUDA the engine serves from a graph"
     torch.cuda.reset_peak_memory_stats()
-    run = serve(engine, reqs(), device_times=True)
+    run = serve(engine, reqs(), device_times=True, kernels=kernels)
     report, launches = run["report"], run["launches"]
     peak = torch.cuda.max_memory_allocated()
     for name, n in launches.items():
         assert n > 0, f"kernel {name} was not launched by the {phase} run"
-    # per step: one paged attention a layer; two RMSNorms a layer and the final one
-    layers = cfg.num_layers
-    assert launches["rmsnorm"] * layers == launches["paged_attention"] * (2 * layers + 1), (
-        launches)
-    cold = engine.state["cache"]["pos0"]["k_cold"]
-    assert cold.device.type == "cpu" and cold.is_pinned(), "cold store must be pinned host"
+    # per step: one paged attention an attention layer; the layers' RMSNorms
+    # and the final one (``decode_norms``)
+    n_attn = sum(cfg.mixer_at(i) == "attention" for i in range(cfg.num_layers))
+    if attn:
+        assert launches["rmsnorm"] * n_attn == launches["paged_attention"] * decode_norms(
+            cfg), launches
+        cold = next(e for e in engine.state["cache"].values() if "k_cold" in e)["k_cold"]
+        assert cold.device.type == "cpu" and cold.is_pinned(), "cold store must be pinned host"
+    else:  # replay admission: one step a decode tick
+        assert launches["rmsnorm"] == report.decode_ticks * decode_norms(cfg), (
+            launches, report.decode_ticks)
+    state_bytes = sum(leaf.numel() * leaf.element_size()
+                      for e in engine.state["cache"].values() if "ssm" in e
+                      for leaf in e.values())
 
     eager_engine, _ = make_engine(graphs=False)
-    eager = serve(eager_engine, reqs())
+    eager = serve(eager_engine, reqs(), kernels=kernels)
     assert eager["report"].finished == report.finished, "graph and eager engines' tokens differ"
     assert eager["launches"] == launches, (eager["launches"], launches)
     assert eager["h2d_bytes"] == run["h2d_bytes"], (eager["h2d_bytes"], run["h2d_bytes"])
@@ -750,11 +804,13 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
             return out
 
         MOE._top_k_gating = recording
+        norm = plain_rmsnorm() if cfg.mamba2 and not use_kernel else contextlib.nullcontext()
         try:
             cache = _clone_cache(engine.state["cache"])
-            with torch.inference_mode():
+            with torch.inference_mode(), norm:
                 logits, _ = KV.decode_step(engine.state["params"], cache, tokens, pos, cfg,
-                                           kv_io=PagedKV(spec, use_kernel=use_kernel))
+                                           kv_io=PagedKV(spec, use_kernel=use_kernel)
+                                           if spec else None)
         finally:
             MOE._top_k_gating = gating
         outs[use_kernel] = logits.float()
@@ -780,7 +836,8 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
     eager_report = eager["report"]
     emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
          params=cfg.param_count(), init_s=init_s, capture_s=capture_s,
-         paging=[spec.page_size, spec.n_pages, spec.n_hot],
+         paging=[spec.page_size, spec.n_pages, spec.n_hot] if spec else None,
+         mamba_state_bytes=state_bytes,
          prompt_lens=[int(n) for n in lens], launches=launches, **report.to_dict(),
          hbm_cache_bytes=report.hbm_cache_bytes, host_cache_bytes=report.host_cache_bytes,
          peak_device_bytes=peak, ticks=run["ticks"], h2d_bytes=run["h2d_bytes"],
@@ -790,7 +847,7 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
                 **{k: v for k, v in eager_report.to_dict().items()
                    if k in ("wall_s", "tokens_per_s", "p50_ttft_s", "p99_ttft_s", "steps")}},
          teacher_forced=teacher, decode_step=account)
-    if not moe:
+    if phase == "engine":
         # the prefill chunk the cost model would pick for this engine on this
         # card (the engine keeps its explicit PREFILL_CHUNK, for comparable numbers)
         from repro_torch.core.cost_model import choose_prefill_chunk
@@ -934,9 +991,11 @@ def flash_case(s: int, gen, with_bwd: bool, heads=(HQ, HKV), window=WINDOW) -> l
     return rows
 
 
-def adam_case(on_host: bool, gen, shape=(4096, 14336)) -> dict:
+def adam_case(on_host: bool, gen, shape=(4096, 14336), fp32: bool = False) -> dict:
     """Fused Adam on one leaf: by default a w1 leaf of mistral-7b (4096 x
-    14336); (60, 2048, 1408) is one layer's expert w1 of qwen2-moe-a2.7b."""
+    14336); (60, 2048, 1408) is one layer's expert w1 of qwen2-moe-a2.7b.
+    ``fp32``: an fp32 leaf (p and its gradient fp32, as mamba2-130m's
+    ``A_log``, ``D`` and ``dt_bias``, 24 x 24 stacked over the layers)."""
     import torch
 
     from repro_torch import kernels as K
@@ -947,10 +1006,11 @@ def adam_case(on_host: bool, gen, shape=(4096, 14336)) -> dict:
     # a leaf mid-training: weights of std 0.02, gradients of 1e-3, m and v
     # of the gradients' scale (v away from 0, where Adam's step is unbounded)
     master = 0.02 * torch.randn(*shape, device="cuda", generator=gen)
-    g = (1e-3 * torch.randn(*shape, device="cuda", generator=gen)).bfloat16()
+    g = 1e-3 * torch.randn(*shape, device="cuda", generator=gen)
     m = 1e-4 * torch.randn(*shape, device="cuda", generator=gen)
     v = 1e-6 * (0.5 + torch.rand(*shape, device="cuda", generator=gen))
-    p = master.bfloat16()
+    p = master.clone() if fp32 else master.bfloat16()
+    g = g if fp32 else g.bfloat16()
     cfg = AdamConfig(lr=3e-4, weight_decay=0.1)
     scalars = adam_scalars(cfg, cfg.lr, 3, "cuda")
     lr, b1, b2, eps, wd, bc1, bc2, _ = scalars.tolist()
@@ -966,7 +1026,8 @@ def adam_case(on_host: bool, gen, shape=(4096, 14336)) -> dict:
         b = b.to(a.device)
         errs[name] = max_excess(a, b, ADAM_TOL * (b.abs() + b.abs().max()))
     master_tol = ADAM_TOL * 2 * want[1].abs().max()
-    errs["p"] = max_excess(got[0], want[0], 2.0 ** -7 * want[0].float().abs() + master_tol)
+    errs["p"] = max_excess(got[0], want[0], (0.0 if fp32 else 2.0 ** -7) * want[0].float().abs()
+                           + master_tol)
     for (name, (e, ex)), a, b in zip(errs.items(), got[1:] + got[:1], want[1:] + want[:1]):
         if ex > 0:
             i = (a.float().to(b.device) - b.float()).abs().argmax()
@@ -976,7 +1037,8 @@ def adam_case(on_host: bool, gen, shape=(4096, 14336)) -> dict:
             raise AssertionError(f"fused_adam host={on_host}: {name} max |diff| {e} beyond "
                                  f"tolerance, at {at}")
     del want
-    dev_bytes = 28 * n  # read g, master, m, v; write p, master, m, v
+    # read g, master, m, v; write p, master, m, v
+    dev_bytes = (g.element_size() + p.element_size() + 24) * n
     if on_host:
         host = 12 * n  # master, m, v each way over the link
         times = {"bytes": max(host / HOST_LINK_BYTES_PER_S, 4 * n / HBM_BYTES_PER_S)}
@@ -993,9 +1055,11 @@ def adam_case(on_host: bool, gen, shape=(4096, 14336)) -> dict:
     pc = p.clone()
     row = {
         "kernel": "fused_adam", "states": "pinned_host" if on_host else "device",
-        "shape": list(shape), "max_abs_err": max(e for e, _ in errs.values()),
+        "shape": list(shape), "p_dtype": str(p.dtype).split(".")[-1],
+        "max_abs_err": max(e for e, _ in errs.values()),
         **{f"{k}_max_abs_err": e for k, (e, _) in errs.items()},
-        "tol": f"fp32 {ADAM_TOL} * (|plain| + max |plain|); p 2^-7 * |plain| + master's",
+        "tol": f"fp32 {ADAM_TOL} * (|plain| + max |plain|); p "
+               + ("the master's" if fp32 else "2^-7 * |plain| + master's"),
         "ms": eager_ms(lambda: K.fused_adam_update(pc, g, *states, scalars)),
         "plain_ms": eager_ms(lambda: ref.fused_adam_ref(
             p, g, master, m, v, lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=wd, bc1=bc1,
@@ -1118,13 +1182,44 @@ def phase_train_kernels() -> dict:
     return {k: {**r, "max_abs_err": errs[k]} for k, r in main_rows.items()}
 
 
-def compare_step(cfg, shape, plan) -> dict:
-    """One training step of ``plan`` from one cloned state through the
-    kernels (``attn_impl="blockwise"``, ``use_fused_kernel=True``) and
-    through the plain path (``"naive"``, ``False``): losses, gradient norms
-    and each leaf's gradient cosine."""
+class plain_rmsnorm:
+    """Inside: the model's RMSNorm is its plain version on CUDA tensors too
+    (``ref.rmsnorm_ref``, differentiated by autograd), for the plain path of
+    a comparison whose kernels include RMSNorm."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        from repro_torch.models import layers as L
+
+        self.saved = L.fused_rmsnorm
+        L.fused_rmsnorm = ref.rmsnorm_ref
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+
+        L.fused_rmsnorm = self.saved
+
+
+def leaf_paths(tree, prefix: str = "") -> list[str]:
+    """The paths of a tree's leaves in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def compare_step(cfg, shape, plan, steps: int = 1, plain_norm: bool = False) -> dict:
+    """``steps`` training steps of ``plan`` from one cloned state on one
+    batch through the kernels (``attn_impl="blockwise"``,
+    ``use_fused_kernel=True``) and through the plain path (``"naive"``,
+    ``False``; with ``plain_norm`` also the plain RMSNorm): the first step's
+    losses, gradient norms and each leaf's gradient cosine, every step's
+    loss, and the kernels' launches over the kernels' steps."""
     import torch
 
+    from repro_torch import kernels as K
     from repro_torch.data.pipeline import SyntheticTokenPipeline
     from repro_torch.optim.adam import AdamConfig, tree_leaves, tree_map
     from repro_torch.train.step_builder import build_train_step
@@ -1134,25 +1229,38 @@ def compare_step(cfg, shape, plan) -> dict:
     init = None
     out = {}
     for way, impl, fused in (("kernels", "blockwise", True), ("plain", "naive", False)):
-        art = build_train_step(cfg, plan, "cuda", shape, attn_impl=impl,
-                               adam=AdamConfig(lr=3e-4, use_fused_kernel=fused))
-        if init is None:
-            init = clone(art.init(torch.Generator(device="cuda").manual_seed(0))["params"])
-        state = art.place_state(clone(init))
-        grads, _ = art.grad_fn(state, batch)
-        grads = [g.float() for g in tree_leaves(grads)]
-        state, metrics = art.fn(state, batch)
-        out[way] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-                    "grads": grads}
+        ctx = plain_rmsnorm() if plain_norm and way == "plain" else contextlib.nullcontext()
+        with ctx:
+            art = build_train_step(cfg, plan, "cuda", shape, attn_impl=impl,
+                                   adam=AdamConfig(lr=3e-4, use_fused_kernel=fused))
+            if init is None:
+                init = clone(art.init(torch.Generator(device="cuda").manual_seed(0))["params"])
+            state = art.place_state(clone(init))
+            grads, _ = art.grad_fn(state, batch)
+            paths = leaf_paths(grads)
+            grads = [g.float() for g in tree_leaves(grads)]
+            K.reset_launch_counts()
+            losses, norms = [], []
+            for _ in range(steps):
+                state, metrics = art.fn(state, batch)
+                losses.append(float(metrics["loss"]))
+                norms.append(float(metrics["grad_norm"]))
+            torch.cuda.synchronize()
+        out[way] = {"loss": losses[0], "grad_norm": norms[0], "grads": grads,
+                    "losses": losses, "launches": dict(K.launch_counts())}
         del state, art
         torch.cuda.empty_cache()
     k, p = out["kernels"], out["plain"]
     cos = [torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
            for a, b in zip(k["grads"], p["grads"])]
-    return {"loss_kernels": k["loss"], "loss_plain": p["loss"],
-            "grad_norm_kernels": k["grad_norm"], "grad_norm_plain": p["grad_norm"],
-            "grad_norm_rel_diff": abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"],
-            "min_grad_cosine": min(cos), "leaves": len(cos)}
+    res = {"loss_kernels": k["loss"], "loss_plain": p["loss"],
+           "grad_norm_kernels": k["grad_norm"], "grad_norm_plain": p["grad_norm"],
+           "grad_norm_rel_diff": abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"],
+           "min_grad_cosine": min(cos), "leaves": len(cos), "launches": k["launches"],
+           "lowest_cosines": sorted(zip(cos, paths))[:4]}
+    if steps > 1:
+        res.update(losses_kernels=k["losses"], losses_plain=p["losses"])
+    return res
 
 
 def phase_train_compare() -> None:
@@ -1197,21 +1305,42 @@ def adam_launches(state) -> int:
                for ts in zip(*trees))
 
 
+def layer_norms(cfg, layer: int) -> int:
+    """RMSNorm launches of one layer's forward: norm1, the Mamba-2 mixer's
+    gated norm, norm2 before an MLP or MoE."""
+    return (1 + (cfg.mixer_at(layer) != "attention")
+            + (cfg.moe_at(layer) or cfg.d_ff > 0))
+
+
+def layer_sites(cfg, layer: int) -> int:
+    """Save sites of one layer (``models/model.apply_position``): norm1's
+    output, the mixer's, and the MLP's or MoE's if it has one."""
+    return 2 + (cfg.moe_at(layer) or cfg.d_ff > 0)
+
+
 def expected_train_launches(cfg, art, steps: int, adam_per_step: int) -> dict[str, int]:
     """Launches the plan implies: per microbatch a forward of every layer, a
     second forward (the replay) of every layer that does not keep its
     activations (checkpoint, swap, compress8, compress16) and a backward of
-    every layer; two RMSNorms per layer forward plus the final one (their
-    backward is plain); the quantizer at the three sites of every compress8
-    layer in the forward, never in the replay; ``adam_per_step`` Adam
-    launches per step (``adam_launches``)."""
-    layers = cfg.num_layers
-    policies = [r.act_policy for r in art.runs for _ in range(r.length)]
-    recomputed = sum(p != "none" for p in policies)
+    every layer; the flash kernels in the attention layers; the RMSNorms of
+    each layer forward (``layer_norms``) plus the final one (their backward
+    is plain); the quantizer at every save site of a compress8 layer in the
+    forward, never in the replay; ``adam_per_step`` Adam launches per step
+    (``adam_launches``)."""
+    period = len(cfg.mixer_pattern) if cfg.moe is None else math.lcm(len(cfg.mixer_pattern),
+                                                                     cfg.moe.every)
+    policies = [r.act_policy for r in art.runs for _ in range(r.length * period)]  # by layer
+    layers = range(cfg.num_layers)
+    attn = [cfg.mixer_at(i) == "attention" for i in layers]
+    recomputed = [p != "none" for p in policies]
     mbs = steps * art.plan.microbatch
-    return {"flash_attention": mbs * (layers + recomputed), "flash_attention_bwd": mbs * layers,
-            "rmsnorm": mbs * (2 * layers + 1 + 2 * recomputed), "fused_adam": steps * adam_per_step,
-            "fused_quantize_ef": mbs * 3 * policies.count("compress8")}
+    return {"flash_attention": mbs * sum(a * (1 + r) for a, r in zip(attn, recomputed)),
+            "flash_attention_bwd": mbs * sum(attn),
+            "rmsnorm": mbs * (1 + sum(layer_norms(cfg, i) * (1 + r)
+                                      for i, r in zip(layers, recomputed))),
+            "fused_adam": steps * adam_per_step,
+            "fused_quantize_ef": mbs * sum(layer_sites(cfg, i) for i, p in zip(layers, policies)
+                                           if p == "compress8")}
 
 
 def expected_host_traffic(cfg, plan, shape, steps: int) -> dict[str, int]:
@@ -1219,7 +1348,8 @@ def expected_host_traffic(cfg, plan, shape, steps: int) -> dict[str, int]:
     each host-resident chunk's weights fetched once per microbatch, an
     unbuffered block's once more for its backward; two site tensors (norm1's
     output, the mixer's) swapped out and back per swap layer and microbatch;
-    the quantizer at three sites per compress8 layer and microbatch."""
+    the quantizer at each save site (``layer_sites``) of a compress8 layer,
+    per microbatch."""
     from repro_torch.core.chunks import chunk_inventory
 
     mbs = steps * plan.microbatch
@@ -1232,7 +1362,8 @@ def expected_host_traffic(cfg, plan, shape, steps: int) -> dict[str, int]:
     swapped = 2 * site * policies.count("swap")
     return {"train.weight_fetch_bytes": mbs * fetched, "train.act_swap_out_bytes": mbs * swapped,
             "train.act_swap_in_bytes": mbs * swapped,
-            "train.act_quantize_launches": mbs * 3 * policies.count("compress8")}
+            "train.act_quantize_launches": mbs * sum(
+                layer_sites(cfg, i) for i, p in enumerate(policies) if p == "compress8")}
 
 
 def phase_train() -> dict[str, int]:
@@ -1346,12 +1477,14 @@ def active_matmul_params(cfg) -> int:
     return n
 
 
-def model_flops(cfg, tokens: int) -> int:
+def model_flops(cfg, tokens: int, seq: int = TRAIN_SEQ) -> int:
     """6 x active matmul parameters (``active_matmul_params``) x tokens plus
-    the attention products (x3 for the backward) of one step."""
+    the attention products (x3 for the backward) of one step, in the
+    attention layers (a Mamba-2 layer has none)."""
     n_matmul = active_matmul_params(cfg)
+    n_attn = sum(cfg.mixer_at(i) == "attention" for i in range(cfg.num_layers))
     attn = 3 * 4 * cfg.resolved_head_dim * cfg.num_heads * attended_pairs(
-        TRAIN_SEQ, cfg.sliding_window) * cfg.num_layers * (tokens // TRAIN_SEQ)
+        seq, cfg.sliding_window) * n_attn * (tokens // seq)
     return 6 * n_matmul * tokens + attn
 
 
@@ -1363,12 +1496,40 @@ KERNEL_KINDS = (  # device work of a training step, by kernel name, first match
                            "segment_quant_kernel")),
     ("rmsnorm", ("rmsnorm_kernel",)),
     # fp32 GEMMs outside the tensor cores: the MoE's dense dispatch and
-    # combine einsums (models/moe.py) and its fp32 router product
-    ("gemm_fp32", ("sgemm", "f32f32_f32f32", "gemv")),
+    # combine einsums (models/moe.py) and its fp32 router product, the
+    # Mamba-2 SSD's einsums (models/mamba2.py)
+    ("gemm_fp32", ("sgemm", "f32f32_f32f32", "gemv", "nvjet_sss")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
     ("copy_to_device", ("Memcpy HtoD",)),
     ("copy_to_host", ("Memcpy DtoH",)),
+    # PyTorch's own elementwise, reduction, scan and concatenation kernels
+    ("elementwise", ("elementwise", "reduce_kernel", "CatArray", "scan", "Scan")),
 )
+# annotations (spans on the device track, not work): the step, the
+# optimizer's update (optim/adam.py), the SSD's chunk loop (models/mamba2.py)
+SPANS = ("train_step", "adam_update", "ssd_chunk_scan")
+
+
+def _merge(spans) -> list[list[float]]:
+    out = []
+    for start, end in sorted(spans):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], end)
+        else:
+            out.append([start, end])
+    return out
+
+
+def _inside(start: float, end: float, merged, starts) -> float:
+    """The part of [start, end] inside the merged spans."""
+    import bisect
+
+    i = max(bisect.bisect_right(starts, start) - 1, 0)
+    total = 0.0
+    while i < len(merged) and merged[i][0] < end:
+        total += max(0.0, min(end, merged[i][1]) - max(start, merged[i][0]))
+        i += 1
+    return total
 
 
 def profile_step(art, state, batch) -> dict:
@@ -1397,7 +1558,12 @@ def profile_step(art, state, batch) -> dict:
     # optimizer's shows once per stream it used: its span is their union
     adam = [e.time_range for e in on_device if e.name == "adam_update"]
     adam_span = (min(a.start for a in adam), max(a.end for a in adam)) if adam else None
-    device = [e for e in on_device if e.name not in ("train_step", "adam_update")]
+    # the SSD chunk loop's forward (its replays too): kernels inside its spans
+    scan = _merge((e.time_range.start, e.time_range.end) for e in on_device
+                  if e.name == "ssd_chunk_scan")
+    scan_starts = [a for a, _ in scan]
+    scan_ms, scan_kernels = 0.0, 0
+    device = [e for e in on_device if e.name not in SPANS]
     kinds = [k for k, _ in KERNEL_KINDS] + ["other"]
     by_kind, in_adam = dict.fromkeys(kinds, 0.0), dict.fromkeys(kinds, 0.0)
     others: dict[str, list] = {}
@@ -1409,14 +1575,19 @@ def profile_step(art, state, batch) -> dict:
         intervals.append((start, end))
         kind = next((k for k, keys in KERNEL_KINDS if any(x in e.name for x in keys)), "other")
         by_kind[kind] += (end - start) / 1e3
+        if scan:
+            part = _inside(start, end, scan, scan_starts)
+            scan_ms += part / 1e3
+            scan_kernels += part > 0
         if adam_span:
             in_adam[kind] += max(0, min(end, adam_span[1]) - max(start, adam_span[0])) / 1e3
-        if kind in ("other", "gemm", "gemm_fp32"):
+        if kind in ("other", "gemm", "gemm_fp32", "elementwise"):
             o = others.setdefault((kind, e.name[:100]), [0, 0.0])
             o[0] += 1
             o[1] += (end - start) / 1e3
     top = {k: sorted(((n, c, ms) for (kk, n), (c, ms) in others.items() if kk == k),
-                     key=lambda r: -r[2])[:8] for k in ("other", "gemm", "gemm_fp32")}
+                     key=lambda r: -r[2])[:8]
+           for k in ("other", "gemm", "gemm_fp32", "elementwise")}
     busy, last = 0.0, span.start
     for start, end in sorted(intervals):
         busy += max(0.0, end - max(start, last))
@@ -1426,6 +1597,8 @@ def profile_step(art, state, batch) -> dict:
             "main_stream_host_reads": main_stream_host_reads(prof, span, wall_ms),
             "adam_update_span_ms": (adam_span[1] - adam_span[0]) / 1e3 if adam_span else None,
             "adam_update_ms_by_kind": in_adam if adam_span else None,
+            "ssd_chunk_loop_fwd_ms": scan_ms if scan else None,
+            "ssd_chunk_loop_fwd_kernels": scan_kernels if scan else None,
             **{f"{k}_top": [{"name": n, "calls": c, "ms": ms} for n, c, ms in rows]
                for k, rows in top.items()},
             "device_events": len(device),
@@ -1457,8 +1630,7 @@ def main_stream_host_reads(prof, span, wall_ms: float) -> dict:
         name, stream = e.name(), e.device_resource_id()
         if "Memcpy HtoD" in name:
             copies.append((stream, start, end))
-        elif "Memcpy" not in name and "Memset" not in name and name not in (
-                "train_step", "adam_update"):
+        elif "Memcpy" not in name and "Memset" not in name and name not in SPANS:
             kernels.append((start, end))
             if any(x in name for x in dict(KERNEL_KINDS)["gemm"]):
                 gemm[stream] = gemm.get(stream, 0) + end - start
@@ -1674,7 +1846,7 @@ REFERENCE_BLOCK_PROFILE = dict(flops_fwd=2064647659909.0, hbm_bytes_fwd=40396927
                                act_residual_bytes=1636894208, boundary_bytes=33554432,
                                peak_transient_bytes=1749032976)
 PLAN_STEPS, PLAN_WARMUP = 3, 1  # one warm-up step, then two timed ones
-PLAN_ATTEMPTS = 3  # searches at a lowered capacity after an out-of-memory
+PLAN_ATTEMPTS = 6  # searches at a lowered capacity after an out-of-memory
 # host memory left to the process besides the pinned states; it also covers
 # a machine that caps a process some GiB below MemTotal
 HOST_MARGIN = 8 << 30
@@ -1768,9 +1940,10 @@ def _oom_shortfall(err: Exception, usable: int) -> int:
     return max(stats["reserved_bytes.all.current"] + asked - usable, asked)
 
 
-def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None) -> dict:
+def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None,
+               seq: int = TRAIN_SEQ) -> dict:
     """ProTrain's planner on the card: the port's profile of a full-width
-    superblock of ``cfg``, the search for seq 4096 and global batch 1 on
+    superblock of ``cfg``, the search for ``seq`` and global batch 1 on
     ``hw`` (this card's spec), and 1 + 2 steps under the searched plan at
     full width and the deepest stack whose pinned states fit the host, each
     number beside the cost model's; then one profiled step.
@@ -1789,7 +1962,7 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None) -> di
     torch.cuda.empty_cache()
     usable, total = torch.cuda.mem_get_info()
     host = host_memory()
-    shape = ShapeConfig("plan", TRAIN_SEQ, 1, "train")
+    shape = ShapeConfig("plan", seq, 1, "train")
     t0 = time.perf_counter()
     w = build_workload(cfg, shape, ONE_CHIP, hw)
     profile_s = time.perf_counter() - t0
@@ -1802,7 +1975,7 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None) -> di
         ref_res = search(ref_w, compress="off", sync="xla")
         beside = {"reference_profile_plan": ref_res.plan.describe(),
                   "reference_profile_modeled": modeled(ref_w, ref_res.plan)}
-    emit(f"{phase}_search", arch=cfg.name, layers=cfg.num_layers, seq=TRAIN_SEQ,
+    emit(f"{phase}_search", arch=cfg.name, layers=cfg.num_layers, seq=seq,
          global_batch=1, hw={k: v for k, v in dataclasses.asdict(hw).items()},
          card_total_bytes=total, card_free_bytes_at_start=usable, host=host,
          profile={"port": dataclasses.asdict(w.block), "reference": reference_profile},
@@ -1842,8 +2015,10 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None) -> di
         except torch.OutOfMemoryError as err:
             # the searched plan outran the card: lower the capacity the
             # search budgets against by the shortfall the card showed, and
-            # search again (the model, its depth and the checks stay)
-            short = _oom_shortfall(err, usable)
+            # search again (the model, its depth and the checks stay). The
+            # shortfall at the failing allocation bounds what the step lacks
+            # from below, so each further attempt doubles it
+            short = _oom_shortfall(err, usable) << len(attempts)
             frac = w_run.hw.hbm_capacity_fraction - short / w_run.hw.hbm_bytes
             attempts.append({"plan": plan.describe(), "error": str(err).splitlines()[0],
                              "shortfall_bytes": short, "next_fraction": frac})
@@ -1860,16 +2035,17 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None) -> di
     else:
         raise AssertionError(f"no plan trained within {PLAN_ATTEMPTS} searches: {attempts}")
 
-    tokens = shape.global_batch * TRAIN_SEQ
-    flops = model_flops(run_cfg, tokens)
+    tokens = shape.global_batch * seq
+    flops = model_flops(run_cfg, tokens, seq)
     report = drift.report()
     m = modeled(w_run, plan)
     emit(phase, arch=cfg.name, layers=layers, reduced_depth=layers != cfg.num_layers,
          depth_cuts={"host_budget_bytes": budget, "pinned_bytes_by_depth": cuts},
-         seq=TRAIN_SEQ, global_batch=shape.global_batch,
+         seq=seq, global_batch=shape.global_batch, block_policies=plan.block_policies(),
          hbm_capacity_fraction=w_run.hw.hbm_capacity_fraction, oom_attempts=attempts,
          **run, tokens_per_s=tokens / run["median_step_s"], model_flops_per_step=flops,
-         mfu_flops="6 x active matmul parameters x tokens + attention 12 hd Hq pairs a layer",
+         mfu_flops="6 x active matmul parameters x tokens + attention 12 hd Hq pairs an "
+                   "attention layer",
          mfu=flops / run["median_step_s"] / BF16_FLOP_PER_S, modeled=m,
          pinned_alloc_bytes_estimate=pinned_alloc_bytes(run_cfg, plan),
          measured_vs_modeled={"step_s": [run["median_step_s"], m["t_iteration"]],
@@ -1885,7 +2061,9 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None) -> di
     assert abs(run["ces"][0] - math.log(cfg.vocab_size)) <= FIRST_LOSS_BAND, run["ces"]
     assert run["pinned_state_bytes"] == plan_pinned_bytes(w_run, plan), (
         run["pinned_state_bytes"], plan_pinned_bytes(w_run, plan))
-    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm", "fused_adam"):
+    path = ("rmsnorm", "fused_adam") + (() if cfg.attention_free else (
+        "flash_attention", "flash_attention_bwd"))
+    for name in path:
         assert run["launches"][name] > 0, f"{name} was not launched by the {phase} run"
     gc.collect()
     torch.cuda.empty_cache()
@@ -1993,6 +2171,236 @@ def phase_moe_plan(hw) -> dict:
     return plan_phase(get_config(MOE_ARCH), hw, "moe_plan")
 
 
+# ---------------------------------------------------------------------------
+# The Mamba-2 family: mamba2-130m, and the hybrid (Jamba) at a reduced size
+# ---------------------------------------------------------------------------
+MAMBA_ARCH = "mamba2-130m"
+MAMBA_SEQ = 32768  # mamba_plan's sequence: ProTrain's memory planning at its subject
+MAMBA_WIDTHS = (768, 1536)  # d_model (norm1, final norm); d_in (the gated norm)
+MAMBA_FP32_LEAF = (24, 24)  # A_log, D or dt_bias, stacked over the 24 layers
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# reduced Jamba at its head width and group: 8 query heads over 1 KV head of
+# 128 (Jamba: 64 over 8); one 8-layer period, d 128, the rest of reduced()
+HYBRID_HEADS = (8, 1)
+HYBRID_SEQ = 2048  # its training steps' sequence (the MoE's capacity: 4,096 rows an expert)
+# its kernels-vs-plain steps: the losses and gradient norms to train_compare's
+# bounds; each leaf's gradient cosine >= 0.99, where mistral's dense layers
+# hold 0.999: four MoE layers route on logits that move with the two paths'
+# bf16 differences (MOE_ENGINE_TOL), so a choice flips and moves the leaves
+# it feeds (the first call measured 0.9945, ``lowest_cosines`` names them)
+HYBRID_GRAD_COSINE = 0.99
+# the SSD in fp32 on the card against the same code on the CPU (no TF32):
+# |cuda - cpu| <= SSD_TOL * max |cpu| of each output and gradient (fp32
+# sums of up to 256 terms in another order)
+SSD_TOL = 1e-4
+SSD_SHAPE = (1, 4096, 24, 64, 128)  # B, S, H, P, N: mamba2-130m's heads at S 4096
+# The JAX reference's profile of one mamba2-130m block at B 1, S 32,768
+# (src/repro/core/profiler.py on jax 0.9.0, the CPU; tests/test_torch_mamba.py
+# holds these numbers to it), printed beside the port's own.
+REFERENCE_MAMBA_PROFILE = dict(flops_fwd=302529487228.0, hbm_bytes_fwd=21933764987,
+                               act_residual_bytes=3510288480, boundary_bytes=50331648,
+                               peak_transient_bytes=2136214624)
+
+
+def hybrid_config():
+    """Reduced Jamba at the kernels' widths: ``reduced()`` (one 8-layer
+    period: Mamba-2 at positions 0-2 and 4-7, attention at 3, MoE every
+    second layer of 4 experts top 2; d 128, d_ff 256, vocab 512, d_state
+    16, SSD heads of 32, chunk 32) with the full model's head width, hd 128,
+    and its group, 8 query heads a KV head."""
+    from repro_torch.configs import get_config, reduced
+
+    return reduced(get_config(HYBRID_ARCH), head_dim=HD, num_heads=HYBRID_HEADS[0],
+                   num_kv_heads=HYBRID_HEADS[1])
+
+
+def phase_mamba_kernels() -> dict:
+    """The kernels at the Mamba-2 paths' shapes against their plain
+    versions: RMSNorm at mamba2-130m's widths (768, and 1536 of the gated
+    norm) in decode rows (4) and training rows (32,768); fused Adam on one
+    fp32 leaf of 24 x 24 on the device (less than one block of the kernel);
+    flash forward and backward at the hybrid's heads (8 over 1 of 128, S
+    4096, no window); paged attention ``main`` at them (pinned and device
+    cold stores)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [lambda r=r, d=d: [{"kernel": "rmsnorm", **rmsnorm_case(r, gen, d)}]
+             for d in MAMBA_WIDTHS for r in (BATCH, MAMBA_SEQ)]
+    cases += [lambda: [adam_case(False, gen, MAMBA_FP32_LEAF, fp32=True)]]
+    cases += [lambda: flash_case(TRAIN_SEQ, gen, True, heads=HYBRID_HEADS, window=0)]
+    cases += [lambda h=h: [{"kernel": "paged_attention", **paged_case(
+        "main", h, gen, HYBRID_HEADS, HYBRID_ARCH)}] for h in (True, False)]
+    rows = []
+    for case in cases:
+        for r in case():
+            emit("kernel_vs_plain", path="mamba", **r)
+            rows.append(r)
+        torch.cuda.empty_cache()
+    return {k: max(r["max_abs_err"] for r in rows if r["kernel"] == k)
+            for k in {r["kernel"] for r in rows}}
+
+
+def phase_mamba_serve(hw) -> dict[str, int]:
+    """``mamba2-130m`` at full width and all 24 layers through
+    ``serve_phase``: the resident plan (its recurrent state, 3.19 MB a layer
+    at B 4), replay admission, the RMSNorm kernel at d 768 and 1536."""
+    from repro_torch.configs import get_config
+
+    return serve_phase(get_config(MAMBA_ARCH), hw, "mamba_serve")
+
+
+def ssd_check() -> dict:
+    """``ssd_chunked`` in fp32 on the card against the same code on the CPU
+    at ``SSD_SHAPE`` with an initial state: the output, the final state and
+    the gradients of every input of <y, ct> + <state, cs>."""
+    import torch
+
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 would round the SSD's fp32 products"
+    b, s, h, p, n = SSD_SHAPE
+    gen = torch.Generator().manual_seed(4)
+    inputs = [torch.randn(b, s, h, p, generator=gen), 0.05 + torch.rand(b, s, h, generator=gen),
+              -(0.2 + torch.rand(h, generator=gen)), torch.randn(b, s, n, generator=gen),
+              torch.randn(b, s, n, generator=gen), 0.5 * torch.randn(b, h, p, n, generator=gen)]
+    ct, cs = torch.randn(b, s, h, p, generator=gen), torch.randn(b, h, p, n, generator=gen)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [t.to(dev).requires_grad_() for t in inputs]
+        y, st = ssd_chunked(*leaves[:5], 256, leaves[5])
+        grads = torch.autograd.grad((y * ct.to(dev)).sum() + (st * cs.to(dev)).sum(), leaves)
+        outs[dev] = [t.detach().cpu() for t in (y, st, *grads)]
+    names = ("y", "state", "dx", "ddt", "da", "db", "dc", "dstate0")
+    errs = {k: (a - c).abs().max().item() for k, a, c in zip(names, outs["cuda"], outs["cpu"])}
+    shares = {k: errs[k] / (SSD_TOL * c.abs().max().item()) for k, c in zip(names, outs["cpu"])}
+    return {"shape": list(SSD_SHAPE), "chunk": 256, "max_abs_err": errs,
+            "tol_share": shares, "tol": f"{SSD_TOL} * max |cpu| of each tensor",
+            "ok": all(v <= 1.0 for v in shares.values())}
+
+
+def ssd_timing() -> dict:
+    """One mamba2-130m block's SSD at the plan's shape (B 1, S 32,768, 24
+    heads of 64, N 128, chunk 256, fp32), CUDA-event timed: the whole
+    ``ssd_chunked`` forward, and forward plus backward, beside its chunk
+    loop alone (the 128-step recurrence over the chunk states, forward plus
+    backward)."""
+    import torch
+
+    from repro_torch.models.mamba2 import chunk_scan, ssd_chunked
+
+    b, s, h, p, n = 1, MAMBA_SEQ, 24, 64, 128
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)  # noqa: E731
+    x, bm, cm = rnd(b, s, h, p).bfloat16(), rnd(b, s, n).bfloat16(), rnd(b, s, n).bfloat16()
+    dt = 0.05 + torch.rand(b, s, h, device="cuda", generator=gen)
+    a = -(0.2 + torch.rand(h, device="cuda", generator=gen))
+    leaves = [t.requires_grad_() for t in (x, dt, a, bm, cm)]
+    ct = rnd(b, s, h, p).bfloat16()
+
+    def fwd():
+        with torch.no_grad():
+            ssd_chunked(*leaves, 256)
+
+    def fwd_bwd():
+        y, _ = ssd_chunked(*leaves, 256)
+        torch.autograd.grad(y, leaves, ct)
+
+    nc = s // 256
+    states = rnd(b, nc, h, p, n).requires_grad_()
+    decay = torch.rand(b, nc, h, device="cuda", generator=gen).requires_grad_()
+    ct_loop = rnd(b, nc, h, p, n)
+
+    def loop():
+        entering, _ = chunk_scan(states, decay, torch.zeros(b, h, p, n, device="cuda"))
+        torch.autograd.grad(entering, (states, decay), ct_loop)
+
+    return {"shape": [b, s, h, p, n], "chunk": 256, "ssd_fwd_ms": eager_ms(fwd),
+            "ssd_fwd_bwd_ms": eager_ms(fwd_bwd), "chunk_loop_fwd_bwd_ms": eager_ms(loop),
+            "chunk_loop_kernels_fwd": 2 * nc}
+
+
+def phase_mamba_train_compare() -> None:
+    """Two steps of full-width mamba2-130m at 2 layers, S 32,768, kernels
+    (RMSNorm, fused Adam) against the plain path (plain RMSNorm and Adam);
+    the SSD in fp32 on the card against the CPU; the SSD's time at the
+    plan's shape."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import fully_resident_plan
+
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH), num_layers=2)
+    shape = ShapeConfig("compare", MAMBA_SEQ, 1, "train")
+    plan = fully_resident_plan(4, 2)
+    t0 = time.perf_counter()
+    r = compare_step(cfg, shape, plan, steps=2, plain_norm=True)
+    emit("mamba_train_compare", case="resident", plan=plan.describe(), arch=cfg.name,
+         layers=cfg.num_layers, seq=MAMBA_SEQ, batch=1, **r,
+         tol={"loss": LOSS_TOL, "grad_norm_rel": NORM_RTOL, "cosine": GRAD_COSINE},
+         seconds=time.perf_counter() - t0)
+    for a, b in zip(r["losses_kernels"], r["losses_plain"]):
+        assert abs(a - b) <= LOSS_TOL, r
+    assert r["grad_norm_rel_diff"] <= NORM_RTOL, r
+    assert r["min_grad_cosine"] >= GRAD_COSINE, r
+    assert r["launches"]["rmsnorm"] > 0 and r["launches"]["fused_adam"] > 0, r["launches"]
+    torch.cuda.empty_cache()
+    ssd = ssd_check()
+    emit("mamba_ssd_fp32", **ssd)
+    assert ssd["ok"], ssd
+    emit("mamba_ssd_timing", **ssd_timing())
+    torch.cuda.empty_cache()
+
+
+def phase_mamba_plan(hw) -> dict:
+    """``mamba2-130m`` at full width and all 24 layers, S 32,768, B 1,
+    through ``plan_phase``, beside the reference's profile: 24 blocks of
+    3.51 GB of activations against the card's 85.0 GB."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")  # as moe_plan
+    return plan_phase(get_config(MAMBA_ARCH), hw, "mamba_plan", REFERENCE_MAMBA_PROFILE,
+                      seq=MAMBA_SEQ)
+
+
+def phase_hybrid(hw) -> dict[str, int]:
+    """The hybrid at a reduced size (``hybrid_config``): the engine on the
+    paged plan under chunked admission, graph against eager, and the
+    teacher-forced step (``serve_phase``); then two training steps, kernels
+    (flash, RMSNorm, fused Adam) against the plain path, at S 2048, B 1.
+    Returns the kernels' launches over both."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import fully_resident_plan
+
+    cfg = hybrid_config()
+    launches = serve_phase(cfg, hw, "hybrid_serve")
+    shape = ShapeConfig("hybrid", HYBRID_SEQ, 1, "train")
+    plan = fully_resident_plan(3, 1)
+    t0 = time.perf_counter()
+    r = compare_step(cfg, shape, plan, steps=2, plain_norm=True)
+    emit("hybrid_train", plan=plan.describe(), arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim],
+         reductions="reduced(): d 128, d_ff 256, vocab 512, 4 experts, d_state 16, SSD heads "
+                    "of 32, chunk 32, one 8-layer period; heads 8 over 1 of 128 kept",
+         seq=HYBRID_SEQ, batch=1, **r,
+         tol={"loss": LOSS_TOL, "grad_norm_rel": NORM_RTOL, "cosine": HYBRID_GRAD_COSINE},
+         seconds=time.perf_counter() - t0)
+    for a, b in zip(r["losses_kernels"], r["losses_plain"]):
+        assert abs(a - b) <= LOSS_TOL, r
+    assert r["grad_norm_rel_diff"] <= NORM_RTOL, r
+    assert r["min_grad_cosine"] >= HYBRID_GRAD_COSINE, r
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm", "fused_adam"):
+        assert r["launches"][name] > 0, f"{name} was not launched by the hybrid's steps"
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) + r["launches"].get(k, 0)
+            for k in set(launches) | set(TRAINING_KERNELS)}
+
+
 def timed_phase(name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -2034,10 +2442,24 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe_plan_out = timed_phase("moe_plan", lambda: phase_moe_plan(hw))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mamba_errs = timed_phase("mamba_kernels", phase_mamba_kernels)
+    mamba_serve_launches = timed_phase("mamba_serve", lambda: phase_mamba_serve(hw))
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed_phase("mamba_train_compare", phase_mamba_train_compare)
+    mamba_plan_out = timed_phase("mamba_plan", lambda: phase_mamba_plan(hw))
+    emit("mamba_calibration", hw=hw.name, host_bw=hw.host_bw, hbm_bytes=hw.hbm_bytes,
+         rows=[mamba_plan_out["row"]])
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_launches = timed_phase("hybrid", lambda: phase_hybrid(hw))
     # each path's launches, counted from 0 just before it ran
     by_path = {"engine": launches, "train": train_launches, "train_policies": policy_launches,
                "plan": plan_out["launches"], "moe_serve": moe_serve_launches,
-               "moe_plan": moe_plan_out["launches"]}
+               "moe_plan": moe_plan_out["launches"], "mamba_serve": mamba_serve_launches,
+               "mamba_plan": mamba_plan_out["launches"], "hybrid": hybrid_launches}
     rms = measured["rmsnorm"][0]  # rows = batch: the decode path's shape
     main_case = next(p for p in measured["paged_attention"]
                      if p["case"] == "main" and p["cold"] == "pinned_host")
@@ -2072,8 +2494,9 @@ def main() -> int:
     for row in summary["kernels"]:
         name = row["name"]
         row["launches_by_path"] = {p: got.get(name, 0) for p, got in by_path.items()}
-        # the MoE shapes' cases (phase_moe_kernels) held to the same bounds
-        row["max_abs_err"] = max(row["max_abs_err"], moe_errs.get(name, 0.0))
+        # the MoE and Mamba-2 shapes' cases held to the same bounds
+        row["max_abs_err"] = max(row["max_abs_err"], moe_errs.get(name, 0.0),
+                                 mamba_errs.get(name, 0.0))
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)

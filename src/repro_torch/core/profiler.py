@@ -19,8 +19,8 @@ the op that makes it to the last op that reads it. Residuals that autograd
 would save, as the reference classifies them: the inputs of matmuls and of
 the nonlinear ops (``_NONLINEAR``), each storage once, split into weights
 (the storages of the weight arguments) and activations; ``_Recorder`` says
-how the port's widening copies and norm statistics are read as the
-reference's dots.
+how the port's widening copies, norm statistics and broadcast products are
+read as the reference's dots.
 """
 from __future__ import annotations
 
@@ -115,7 +115,7 @@ class _Event:
 class _Recorder(TorchDispatchMode):
     """Records every aten op of a forward on fake tensors.
 
-    Two rules make the port's plain ops read as the reference's jaxpr:
+    Three rules make the port's plain ops read as the reference's jaxpr:
 
     * a widening copy (bf16 to fp32) feeding a matmul is how the port
       writes a dot with fp32 accumulation (``preferred_element_type``), so
@@ -123,7 +123,10 @@ class _Recorder(TorchDispatchMode):
     * a last-axis ``sum`` / ``mean`` of widened data (or of the product of
       widened tensors) is the norms' statistic, which the reference writes
       as an einsum (``layers.rmsnorm``, ``layernorm``): it is counted as
-      that contraction, ``"contraction"``, 2 FLOPs an input element.
+      that contraction, ``"contraction"``, 2 FLOPs an input element;
+    * a product ``layers.broadcast_dot`` makes (``note_dot``) is a dot the
+      reference's einsum emits with no contracted axis: a contraction of
+      2 FLOPs an output element.
     """
 
     def __init__(self, weights: set[int]):
@@ -135,6 +138,7 @@ class _Recorder(TorchDispatchMode):
         self.origin: dict[int, tuple[int, int]] = {}  # copy -> (source storage, bytes)
         self.widened: set[int] = set()
         self.products: dict[int, int] = {}  # storage of a product of widened data -> event
+        self.made: dict[int, tuple] = {}  # output storage -> (event, [(input, its storage)])
         self.keep: list = []  # fake tensors stay referenced: storage ids stay unique
 
     def _resid(self, dot: bool, t: torch.Tensor, st: int) -> None:
@@ -198,8 +202,19 @@ class _Recorder(TorchDispatchMode):
             for t, st in zip(ins, in_st):
                 self._resid(name in MATMUL_OPS, t, st)
         transient = out_b if name in _TRANSIENT else 0
+        self.made[out_st] = (len(self.events), [(t, st) for t, st in zip(ins, in_st)])
         self.events.append(_Event(name, flops, in_b, out_b, transient, in_st, new))
         return out
+
+    def note_dot(self, out: torch.Tensor) -> None:
+        """``layers.broadcast_dot`` made ``out``: count the product that made
+        it as the reference's dot with no contracted axis, a contraction of
+        2 FLOPs an output element whose inputs are dot residuals."""
+        i, ins = self.made[_storage(out)]
+        ev = self.events[i]
+        self.events[i] = dataclasses.replace(ev, name="contraction", flops=2.0 * ev.flops)
+        for t, st in ins:
+            self._resid(True, t, st)
 
 
 def _last_axis(args) -> bool:

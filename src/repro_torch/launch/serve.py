@@ -7,15 +7,19 @@ default (``--reduced`` picks the tiny same-family config):
         --seq-len 1024 --requests 4 --max-new 16 --prompt-len 520 799 \\
         --page-size 256 --hot-pages 2
 
-``--arch qwen2-moe-a2.7b`` serves the MoE family the same way. Weights
-are random, drawn on the device from ``--seed``; prompts come from
-a numpy generator seeded the same way. ``--plan resident`` keeps the whole
-cache on the device; ``--plan paged`` keeps a hot ring there and the cold
-pages in pinned host memory; the default prompt lengths (520 to 799
-tokens) reach past a 2-page hot window of 256-token pages, so attention
-reads cold rows. Runs on CUDA unless ``--device cpu``. Prints one JSON
-line: the engine report, tokens/s, TTFT, the cache bytes and the bytes
-attention read from the cold store (``h2d_bytes``).
+``--arch qwen2-moe-a2.7b`` serves the MoE family the same way,
+``--arch mamba2-130m`` the Mamba-2 family and ``--arch
+jamba-1.5-large-398b --reduced`` the hybrid. Weights are random, drawn on
+the device from ``--seed``; prompts come from a numpy generator seeded the
+same way. ``--plan resident`` keeps the whole cache on the device;
+``--plan paged`` keeps a hot ring there and the cold pages in pinned host
+memory (the default where the model has attention; a Mamba-2 position's
+state is never paged); the default prompt lengths (520 to 799 tokens) reach
+past a 2-page hot window of 256-token pages, so attention reads cold rows.
+``--admission`` defaults to the engine's choice: ``replay`` for an
+attention-free model, else ``chunked``. Runs on CUDA unless ``--device
+cpu``. Prints one JSON line: the engine report, tokens/s, TTFT, the cache
+bytes and the bytes attention read from the cold store (``h2d_bytes``).
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mistral-7b")
     ap.add_argument("--reduced", action="store_true", help="tiny same-family config")
-    ap.add_argument("--plan", choices=["resident", "paged"], default="paged")
+    ap.add_argument("--plan", choices=["resident", "paged"], default=None,
+                    help="default: paged, resident for an attention-free model")
     ap.add_argument("--seq-len", type=int, default=1024)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--batch-slots", type=int, default=4)
@@ -55,7 +60,8 @@ def main(argv=None) -> int:
                     metavar=("MIN", "MAX"))
     ap.add_argument("--page-size", type=int, default=256)
     ap.add_argument("--hot-pages", type=int, default=2)
-    ap.add_argument("--admission", default="chunked", choices=["replay", "chunked", "whole"])
+    ap.add_argument("--admission", default=None, choices=["replay", "chunked", "whole"],
+                    help="default: replay for an attention-free model, else chunked")
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda (raises without it)")
@@ -65,6 +71,8 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.plan is None:
+        args.plan = "resident" if cfg.attention_free else "paged"
     shape = ShapeConfig("serve", args.seq_len, args.batch_slots, "decode")
     n_chunks = num_repeats(cfg) + 2  # embedding + one per block + head
     paging = None
@@ -75,8 +83,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
     engine = DecodeEngine(cfg, plan, device, shape, params, paging=paging, own_params=True,
-                          admission=args.admission,
-                          prefill_chunk=None if args.admission == "replay" else args.prefill_chunk)
+                          admission=args.admission, prefill_chunk=args.prefill_chunk)
     engine.warmup()
     report = engine.run(build_requests(args.requests, cfg.vocab_size, args.max_new,
                                        *args.prompt_len, seed=args.seed))

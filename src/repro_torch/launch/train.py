@@ -5,12 +5,15 @@
         --steps 4 --batch 2 --seq 64 --plan resident --device cpu
     python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --reduced \\
         --steps 4 --batch 2 --seq 64 --device cpu
+    python -m repro_torch.launch.train --arch mamba2-130m --batch 1 --seq 32768 --steps 4
 
 The PyTorch counterpart of ``src/repro/launch/train.py``: picks the
 architecture (``--reduced``: the tiny same-family config), builds the plan,
 the plan-realized step, the synthetic data pipeline and the fault-tolerant
-loop with checkpoints and auto-resume. Dense and MoE decoders run; an
-MoE's loss is its cross-entropy plus the aux loss, and the loop logs both.
+loop with checkpoints and auto-resume. Dense, MoE, Mamba-2
+(``mamba2-130m``) and hybrid (``jamba-1.5-large-398b``, at ``--reduced``
+on one card) decoders run; an MoE's loss is its cross-entropy plus the aux
+loss, and the loop logs both.
 Weights are random, drawn on the device from ``--seed``. Runs on CUDA
 unless ``--device cpu``. Prints the plan, then one JSON summary line.
 

@@ -3,8 +3,10 @@
 Port of ``src/repro/models/kvcache.py``. Cache layout mirrors the superblock
 structure: per superblock position an attention entry holds ``k``/``v`` of
 shape (R, B, S_max, n_kv, hd), stacked over repeats (R); a sliding-window
-config allocates only a window-sized ring. The repeat scan of the JAX
-package is a Python loop here.
+config allocates only a window-sized ring. A Mamba-2 entry holds the
+recurrent state, ``conv`` (R, B, d_conv - 1, conv_dim) in the model's dtype
+and ``ssm`` (R, B, H, P, N) in fp32. The repeat scan of the JAX package is a
+Python loop here.
 
 **Cache writes are in place.** ``decode_step`` writes the decoded token into
 the cache tensors it is given and returns that same dict, where the JAX
@@ -16,7 +18,10 @@ the layers need from them with tensor ops (``ResidentKV.prepare``: the
 RoPE positions, the fixed-shape ring write, the mask), once per step, shared
 by all layers. Nothing in it reads a value back to the host, so the step can
 be captured as a CUDA graph and replayed with new positions written into
-the same buffers (``serve.prefill.ServeStep``). What depends on the data and
+the same buffers (``serve.prefill.ServeStep``). A Mamba-2 position writes
+its new state into its entry in place through the step's ``state``
+``SlotWrite`` (one row a slot, masked by ``active``, as the JAX package's
+``jnp.where`` keeps an inactive slot's state). What depends on the data and
 cannot live in a graph -- the paged cache's page-boundary flush to its
 host-memory cold store -- is the cache hook's ``commit``, issued after the
 step from host positions; ``decode_step`` is the two together.
@@ -30,6 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models.moe import apply_moe
 from repro_torch.models.model import (
     check_family,
@@ -54,7 +60,25 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     hd = cfg.resolved_head_dim
     dt = L.torch_dtype(cfg.dtype)
     kv = ((r, batch, cache_len(cfg, seq_len), cfg.num_kv_heads, hd), dt)
-    return {f"pos{j}": {"k": kv, "v": kv} for j in range(superblock_period(cfg))}
+    out = {}
+    for j in range(superblock_period(cfg)):
+        if cfg.mixer_at(j) == "attention":
+            out[f"pos{j}"] = {"k": kv, "v": kv}
+        else:
+            (conv, conv_dt), (ssm, ssm_dt) = M2.mamba2_state_defs(cfg, batch)
+            out[f"pos{j}"] = {"conv": ((r,) + conv, conv_dt), "ssm": ((r,) + ssm, ssm_dt)}
+    return out
+
+
+def attention_entries(cache: dict) -> list[dict]:
+    """The cache entries of the attention positions (the others hold
+    Mamba-2 state)."""
+    return [e for e in cache.values() if "conv" not in e]
+
+
+def batch_size(cache: dict) -> int:
+    """The cache's batch: every leaf is (R, B, ...)."""
+    return next(iter(next(iter(cache.values())).values())).shape[1]
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cpu") -> dict:
@@ -128,11 +152,24 @@ def write_slot(buf: torch.Tensor, val: torch.Tensor, where: SlotWrite) -> None:
     flat.index_copy_(0, where.index, new)
 
 
+def state_write(active: torch.Tensor | None, batch: int, device) -> SlotWrite:
+    """The Mamba-2 state's write: row b of a (B, ...) state, if slot b is
+    active."""
+    return SlotWrite.build(torch.zeros((), dtype=torch.int64, device=device), active, batch, 1)
+
+
+def write_state(buf: torch.Tensor, val: torch.Tensor, where: SlotWrite) -> None:
+    """Write a new (B, ...) recurrent state into ``buf`` in place, rows of
+    inactive slots keeping their bytes."""
+    write_slot(buf[:, None], val[:, None], where)
+
+
 @dataclasses.dataclass
 class ResidentStep:
     rope: torch.Tensor  # device RoPE positions
-    write: SlotWrite
-    mask: torch.Tensor  # device fp32 (S,) or (B, S)
+    write: SlotWrite | None  # None without an attention position
+    mask: torch.Tensor | None  # device fp32 (S,) or (B, S); None without attention
+    state: SlotWrite  # the Mamba-2 state's write
 
 
 class ResidentKV:
@@ -141,24 +178,27 @@ class ResidentKV:
     replaces (``serve.paging.PagedKV``): write the decoded token, return the
     key/value views attention runs over and the mask. ``layer_entry`` gives
     the cache leaves the hook consumes for one layer of an attention
-    position."""
+    position (or the state of a Mamba-2 position)."""
 
     def layer_entry(self, pos_cache: dict, r: int) -> dict:
-        return {name: pos_cache[name][r] for name in ("k", "v")}
+        return {name: leaf[r] for name, leaf in pos_cache.items()}
 
     def prepare(self, cache: dict, pos, cfg: ModelConfig, device,
                 active=None) -> ResidentStep:
         """Everything the layers need this step, built on ``device`` from
         ``pos`` and ``active`` with tensor ops."""
         pos = device_positions(pos, device)
-        k = next(iter(cache.values()))["k"]
-        batch, s_kv = k.shape[1], k.shape[2]
-        slot = pos % s_kv if cfg.sliding_window else pos
+        batch = batch_size(cache)
         act = None if active is None else torch.as_tensor(active).to(device, torch.bool)
-        return ResidentStep(
-            rope=rope_positions(pos),
-            write=SlotWrite.build(slot, act, batch, s_kv),
-            mask=decode_mask(pos, s_kv, bool(cfg.sliding_window)))
+        step = ResidentStep(rope=rope_positions(pos), write=None, mask=None,
+                            state=state_write(act, batch, device))
+        attn = attention_entries(cache)
+        if attn:
+            s_kv = attn[0]["k"].shape[2]
+            slot = pos % s_kv if cfg.sliding_window else pos
+            step.write = SlotWrite.build(slot, act, batch, s_kv)
+            step.mask = decode_mask(pos, s_kv, bool(cfg.sliding_window))
+        return step
 
     def update_and_fetch(self, entry: dict, k, v, step: ResidentStep):
         write_slot(entry["k"], k, step.write)
@@ -209,13 +249,26 @@ def _decode_attention(ap: dict, h, entry: dict, step, cfg: ModelConfig, kv_io):
     return out.reshape(b, 1, -1) @ ap["wo"]
 
 
+def _decode_mamba(mp: dict, h, pcache: dict, step, cfg: ModelConfig):
+    """h: (B,1,D). One step of the recurrence from the entry's state, whose
+    new value is written in place (inactive slots keep theirs)."""
+    mix, (conv, ssm) = M2.apply_mamba2(mp, h, cfg, state=(pcache["conv"], pcache["ssm"]),
+                                       return_state=True)
+    write_state(pcache["conv"], conv, step.state)
+    write_state(pcache["ssm"], ssm, step.state)
+    return mix
+
+
 def decode_position(pparams: dict, x, pcache: dict, step, cfg: ModelConfig, kv_io):
     """One layer, one token. x: (B,1,D); ``pcache`` is this layer's cache
     entry (views, written in place). An MoE routes all B rows, inactive
     slots of a chunked-prefill step too, which take capacity as in the JAX
     package; its aux loss is dropped."""
     h = L.apply_norm(pparams["norm1"], x, cfg.norm)
-    x = x + _decode_attention(pparams["attn"], h, pcache, step, cfg, kv_io)
+    if "attn" in pparams:
+        x = x + _decode_attention(pparams["attn"], h, pcache, step, cfg, kv_io)
+    else:
+        x = x + _decode_mamba(pparams["mamba"], h, pcache, step, cfg)
     if "moe" in pparams:
         h2 = L.apply_norm(pparams["norm2"], x, cfg.norm)
         out, _ = apply_moe(pparams["moe"], h2, cfg)

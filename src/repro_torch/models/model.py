@@ -1,8 +1,10 @@
 """Model assembly for the decoder: parameter tree, superblocks, runs, the
 training forward, embedding and LM head.
 
-Port of the decoder part of ``src/repro/models/model.py``: dense and MoE
-positions (``models/moe.py``). Parameters keep the
+Port of the decoder part of ``src/repro/models/model.py``: attention and
+Mamba-2 mixers (``models/mamba2.py``), dense MLPs and MoE layers
+(``models/moe.py``), in any superblock pattern (the hybrid's 8-layer
+period of Jamba). Parameters keep the
 JAX package's tree: ``{"embed": {"tok"}, "blocks": {"pos<j>": {...}},
 "final_norm": {...}, "head": {"w"}}``, each block leaf stacked over
 superblock repeats, ``(R, ...)``; the training state splits ``blocks`` into
@@ -37,9 +39,9 @@ Each position returns ``(x, aux)``: an MoE position's load-balance loss
 (``apply_moe``), 0.0 for a dense one. The aux losses are summed through
 superblocks, checkpointed regions and runs, and ``forward`` returns them
 beside the hidden states, as the JAX package does; recomputed, compressed,
-swapped and host-weight runs carry them alike. Mamba-2, hybrid,
-encoder-decoder and VLM-prefix models are queued in ROADMAP.md (port queue
-1 item 4) and raise ``NotImplementedError`` here.
+swapped and host-weight runs carry them alike. Encoder-decoder and
+VLM-prefix models are queued in ROADMAP.md (port queue 1 item 4) and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -54,12 +56,12 @@ from torch import nn
 from repro_torch import kernels as K
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models.offload import HostIO
 from repro_torch.models.layers import LAYER, TP, ZERO, ParamDef
 
-_FAMILIES_TODO = ("ROADMAP.md, port queue 1 item 4: the Mamba-2, hybrid, encoder-decoder and "
-                  "VLM families")
+_FAMILIES_TODO = "ROADMAP.md, port queue 1 item 4: the encoder-decoder and VLM families"
 ACT_POLICIES = ("none", "checkpoint", "swap", "compress8", "compress16")
 SITE_POLICIES = ("swap", "compress8", "compress16")  # keep the three save sites
 XAux = tuple[torch.Tensor, "torch.Tensor | float"]  # hidden states, aux loss (0.0 if dense)
@@ -80,17 +82,21 @@ def num_repeats(cfg: ModelConfig) -> int:
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for the families the port does not run yet: it runs decoders
-    of attention positions with dense MLPs or MoE layers."""
+    of attention and Mamba-2 positions with dense MLPs or MoE layers, not
+    encoder-decoders or models fed by a modality frontend."""
     if cfg.kind == "encdec":
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models ({_FAMILIES_TODO})")
-    if any(m != "attention" for m in cfg.mixer_pattern):
-        raise NotImplementedError(f"{cfg.name}: Mamba-2 positions ({_FAMILIES_TODO})")
+    if cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend ({_FAMILIES_TODO})")
 
 
 def _position_defs(cfg: ModelConfig, pos: int) -> dict:
     """ParamDefs for one layer position within the superblock."""
-    defs: dict[str, Any] = {"norm1": L.norm_defs(cfg.d_model, cfg.norm),
-                            "attn": L.attention_defs(cfg)}
+    defs: dict[str, Any] = {"norm1": L.norm_defs(cfg.d_model, cfg.norm)}
+    if cfg.mixer_at(pos) == "attention":
+        defs["attn"] = L.attention_defs(cfg)
+    else:
+        defs["mamba"] = M2.mamba2_defs(cfg)
     if cfg.moe_at(pos):
         defs["norm2"] = L.norm_defs(cfg.d_model, cfg.norm)
         defs["moe"] = MOE.moe_defs(cfg)
@@ -301,13 +307,17 @@ def save_act(x: torch.Tensor, sites: ActSites | None = None, keep: bool = True):
 def apply_position(pparams: dict, x: torch.Tensor, cfg: ModelConfig, pos_j: int, *,
                    positions=None, attn_impl: str = "blockwise",
                    sites: ActSites | None = None) -> XAux:
-    """One layer (superblock position): norm, attention, residual, norm, MLP
-    or MoE, residual, with its three save sites (``save_act``); the backward
-    reads the first two (the MLP or MoE output only feeds the residual add).
+    """One layer (superblock position): norm, the mixer (attention or
+    Mamba-2), residual, norm, MLP or MoE (if the position has one),
+    residual, with its three save sites (``save_act``); the backward reads
+    the first two (the MLP or MoE output only feeds the residual add).
     Returns (x, aux): the MoE's aux loss, 0.0 without one."""
     aux = 0.0
     h = save_act(L.apply_norm(pparams["norm1"], x, cfg.norm), sites)
-    mix = L.attention_block(pparams["attn"], h, cfg, positions=positions, impl=attn_impl)
+    if "attn" in pparams:
+        mix = L.attention_block(pparams["attn"], h, cfg, positions=positions, impl=attn_impl)
+    else:
+        mix = M2.apply_mamba2(pparams["mamba"], h, cfg)
     x = x + save_act(mix, sites)
     if "moe" in pparams:
         h2 = L.apply_norm(pparams["norm2"], x, cfg.norm)

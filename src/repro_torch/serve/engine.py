@@ -14,7 +14,9 @@ runs the step once on an all-inactive batch.
 
 Each tick the engine
 
-  1. admits queued requests into free batch slots, zeroing their cache rows;
+  1. admits queued requests into free batch slots, zeroing their cache rows
+     (a Mamba-2 position's conv and ssm state must start from zero: it is
+     recurrent; attention rows are masked anyway);
   2. picks prefill or decode (``scheduler.should_prefill``): ``"chunked"``
      admission ingests prompts ``prefill_chunk`` tokens per slot per call,
      interleaved with decode ticks (at most ``chunk_budget`` prefill ticks in

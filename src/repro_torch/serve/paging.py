@@ -44,6 +44,10 @@ host link. The kernel reads K and V of the attended cold rows only; the
 rebuild path copies each layer's whole cold store. ``commit`` counts them
 from host positions with the same functions the step runs on the device.
 
+A Mamba-2 position's recurrent state (``conv``, ``ssm``) is not paged: it
+stays on the device, as in the resident layout, and is written in place
+through the step's ``state`` write.
+
 The ring-correctness invariant requires ``n_pages % n_hot == 0``.
 """
 from __future__ import annotations
@@ -104,13 +108,18 @@ def choose_paging(cache_len: int, page_size: int, n_hot: int) -> PagingSpec:
 # Paged cache trees
 # ---------------------------------------------------------------------------
 def paged_cache_specs(cfg: ModelConfig, batch: int, seq_len: int, spec: PagingSpec) -> dict:
-    """``{pos<j>: {name: (shape, dtype)}}`` of the paged decode cache."""
+    """``{pos<j>: {name: (shape, dtype)}}`` of the paged decode cache:
+    attention positions split into hot ring and cold store, Mamba-2 state as
+    in the resident layout."""
     base = KV.cache_specs(cfg, batch, seq_len)
     assert spec.cache_len == KV.cache_len(cfg, seq_len), (
         f"paging spec covers {spec.cache_len} slots, cache has "
         f"{KV.cache_len(cfg, seq_len)}")
     out = {}
     for pos, entry in base.items():
+        if "k" not in entry:
+            out[pos] = dict(entry)
+            continue
         (r, b, _, n_kv, hd), dt = entry["k"]
         hot = ((r, b, spec.hot_window, n_kv, hd), dt)
         out[pos] = {"k_hot": hot, "v_hot": hot, "k_cold": entry["k"], "v_cold": entry["v"]}
@@ -157,8 +166,10 @@ def device_view(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def paged_to_resident(cache: dict) -> dict:
     """Resident-layout view of a paged cache: the cold store, canonical for
-    every completed page (and for every row under write-through)."""
-    return {pos: {"k": e["k_cold"], "v": e["v_cold"]} for pos, e in cache.items()}
+    every completed page (and for every row under write-through), and the
+    Mamba-2 state as it is."""
+    return {pos: {"k": e["k_cold"], "v": e["v_cold"]} if "k_cold" in e else dict(e)
+            for pos, e in cache.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +184,7 @@ class PagedStep:
     cold_write: KV.SlotWrite | None  # write-through's cold write, slot
     mask: torch.Tensor  # device (B, S) fp32
     sel: torch.Tensor  # device (B, S) bool: ring row canonical
+    state: KV.SlotWrite  # the Mamba-2 state's write
 
 
 class PagedKV:
@@ -209,7 +221,9 @@ class PagedKV:
     def layer_entry(self, pos_cache: dict, r: int) -> dict:
         """Layer ``r``'s leaves of one attention position, with the cold
         store also as a device view (``k_cold_dev``, ``v_cold_dev``) that
-        write-through writes."""
+        write-through writes; of a Mamba-2 position, its state."""
+        if "k_hot" not in pos_cache:
+            return {name: leaf[r] for name, leaf in pos_cache.items()}
         dev = pos_cache["k_hot"].device
         entry = {name: pos_cache[name][r] for name in ("k_hot", "v_hot", "k_cold", "v_cold")}
         for name in ("k", "v"):
@@ -267,7 +281,7 @@ class PagedKV:
         s = self.spec
         pos = KV.device_positions(pos, device)
         act = None if active is None else torch.as_tensor(active).to(device, torch.bool)
-        batch = next(iter(cache.values()))["k_hot"].shape[1]
+        batch = KV.batch_size(cache)
         sliding = bool(cfg.sliding_window)
         slot = self._slots(pos, batch, sliding)
         mask = torch.broadcast_to(KV.decode_mask(pos, s.cache_len, sliding),
@@ -277,7 +291,8 @@ class PagedKV:
             hot_write=KV.SlotWrite.build(slot % s.hot_window, act, batch, s.hot_window),
             cold_write=None if self.flush else KV.SlotWrite.build(slot, act, batch, s.cache_len),
             mask=mask,
-            sel=self.residency(slot, sliding))
+            sel=self.residency(slot, sliding),
+            state=KV.state_write(act, batch, device))
 
     # -- the per-token cache write and attention (device) -------------------------
     def _write(self, entry: dict, k, v, step: PagedStep) -> None:
@@ -337,12 +352,15 @@ class PagedKV:
         step's device work and before any later step's: one copy per leaf
         and page, across the layers."""
         s = self.spec
+        attn = KV.attention_entries(cache)
+        if not attn:
+            return
         pos = KV.host_positions(pos)
         act = None if active is None else torch.as_tensor(active).to("cpu", torch.bool)
-        leaf = next(iter(cache.values()))["k_cold"]
+        leaf = attn[0]["k_cold"]
         batch = leaf.shape[1]
         sliding = bool(cfg.sliding_window)
-        layers = sum(entry["k_cold"].shape[0] for entry in cache.values())
+        layers = sum(entry["k_cold"].shape[0] for entry in attn)
         row_bytes = leaf[0, 0, 0].nbytes
         if self.use_kernel:
             mask = KV.decode_mask(pos, s.cache_len, sliding)
@@ -353,7 +371,7 @@ class PagedKV:
         self.h2d_bytes += layers * 2 * rows * row_bytes
         pages = self.flushed_pages(pos, batch, sliding, act)
         n = s.page_size
-        for entry in cache.values():
+        for entry in attn:
             for name in ("k", "v"):
                 hot = entry[f"{name}_hot"]
                 cold = self._device_view(entry[f"{name}_cold"], hot.device)
@@ -385,18 +403,19 @@ def assert_stream_idle(cache: dict) -> None:
 # ---------------------------------------------------------------------------
 def cache_partition_bytes(cfg: ModelConfig, batch: int, seq_len: int,
                           spec: PagingSpec | None) -> dict[str, int]:
-    """Bytes of the decode cache by residence tier: ``hbm`` (hot rings, or
-    the whole resident cache), ``host`` (cold store), ``transient`` (one
-    attention position's gathered full cache -- the rebuild path's largest
-    per-layer reconstruction; the kernel path builds none)."""
+    """Bytes of the decode cache by residence tier: ``hbm`` (hot rings and
+    Mamba-2 state, or the whole resident cache), ``host`` (cold store),
+    ``transient`` (one attention position's gathered full cache -- the
+    rebuild path's largest per-layer reconstruction; the kernel path builds
+    none)."""
     base = KV.cache_specs(cfg, batch, seq_len)
     hbm = host = transient = 0
     for entry in base.values():
-        for _, (shape, dt) in entry.items():
+        for name, (shape, dt) in entry.items():
             nbytes = dt.itemsize
             for d in shape:
                 nbytes *= d
-            if spec is None:
+            if spec is None or name not in ("k", "v"):
                 hbm += nbytes
                 continue
             hbm += nbytes * spec.n_hot // spec.n_pages  # hot ring

@@ -79,7 +79,8 @@ class ServeStep:
 
     def capture(self) -> None:
         """Warm the step up on a side stream with every slot inactive (no
-        cache byte changes), then capture it in the default ("global")
+        cache byte changes), each warm-up step at step 0 (the counter stays
+        inside a chunk of one), then capture it in the default ("global")
         error mode."""
         self.n_tok.zero_()
         current = torch.cuda.current_stream(self.device)
@@ -87,8 +88,10 @@ class ServeStep:
         side.wait_stream(current)
         with torch.inference_mode(), torch.cuda.stream(side):
             for _ in range(2):
+                self.t.zero_()
                 self.step()
         current.wait_stream(side)
+        self.t.zero_()
         before = build.launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.inference_mode(), torch.cuda.graph(graph):

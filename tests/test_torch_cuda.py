@@ -64,7 +64,10 @@ RMSNORM_CASES = [(4, 4096, torch.bfloat16), (128, 4096, torch.bfloat16),
                  (4096, 4096, torch.bfloat16), (4, 4096, torch.float32),
                  (3, 16384, torch.bfloat16), (5, 18432, torch.bfloat16),
                  (4, 4100, torch.bfloat16), (6, 1000, torch.float32),
-                 (4, "unaligned", torch.bfloat16)]
+                 (4, "unaligned", torch.bfloat16),
+                 # mamba2-130m: d 768, the gated norm's 1536, decode and training rows
+                 (4, 768, torch.bfloat16), (4, 1536, torch.bfloat16),
+                 (32768, 1536, torch.bfloat16)]
 
 
 @pytest.mark.cuda
@@ -826,3 +829,114 @@ def test_moe_train_step_runs_on_card():
         assert torch.isfinite(metrics["loss"]).item() and loss > ce
     for name in ("flash_attention", "flash_attention_bwd", "fused_adam", "rmsnorm"):
         assert K.launch_counts()[name] > 0, name
+
+
+# ---------------------------------------------------------------------------
+# The Mamba-2 family on the card
+# ---------------------------------------------------------------------------
+def _mamba_cfg(arch="mamba2-130m", dtype="bfloat16"):
+    """Reduced mamba2-130m; for the hybrid, reduced Jamba at the kernels'
+    widths: 8 query heads over 1 KV head of 128 (its group)."""
+    from repro_torch.configs import get_config, reduced
+
+    if arch == "mamba2-130m":
+        return reduced(get_config(arch), dtype=dtype)
+    return reduced(get_config(arch), head_dim=128, num_heads=8, num_kv_heads=1, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [512, 300])
+def test_ssd_chunked_on_card_matches_cpu(s):
+    """``ssd_chunked`` in fp32 on the card against the CPU (no TF32): output,
+    final state and every input's gradient within 1e-4 of each tensor's
+    largest value; S a multiple of the chunk and not."""
+    _require_card()
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator().manual_seed(0)
+    b, h, p, n = 2, 4, 32, 64
+    inputs = [torch.randn(b, s, h, p, generator=gen), 0.05 + torch.rand(b, s, h, generator=gen),
+              -(0.2 + torch.rand(h, generator=gen)), torch.randn(b, s, n, generator=gen),
+              torch.randn(b, s, n, generator=gen), torch.randn(b, h, p, n, generator=gen)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [t.to(dev).requires_grad_() for t in inputs]
+        y, st = ssd_chunked(*leaves[:5], 128, leaves[5])
+        grads = torch.autograd.grad((y * y).sum() + (st * st).sum(), leaves)
+        outs[dev] = [t.detach().cpu() for t in (y, st, *grads)]
+    for a, c in zip(outs["cuda"], outs["cpu"]):
+        assert ((a - c).abs() <= 1e-4 * c.abs().max()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-1.5-large-398b"])
+def test_mamba_engine_graph_tokens_and_launches_equal_eager(arch):
+    """The decode step with Mamba-2 positions captured in the engine's graph
+    (the state written in place through its SlotWrite) gives the eager
+    engine's tokens and launches: mamba2-130m resident under replay
+    admission, the hybrid paged under chunked admission."""
+    _require_card()
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.models import kvcache as KV
+    from repro_torch.models.model import init_params, num_repeats
+    from repro_torch.serve import DecodeEngine, Request, choose_paging
+
+    cfg = _mamba_cfg(arch)
+    shape = ShapeConfig("serve", 256, 4, "decode")
+    n = num_repeats(cfg) + 2
+    if cfg.attention_free:
+        spec, plan, kw = None, MemoryPlan(n, num_repeats(cfg), n_persist=n), {}
+    else:
+        spec = choose_paging(KV.cache_len(cfg, 256), 16, 2)
+        plan = MemoryPlan(n, num_repeats(cfg), n_persist=n, n_host=spec.n_cold)
+        kw = dict(admission="chunked", prefill_chunk=16)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, int(k)).tolist() for k in (40, 97, 150, 71)]
+    runs = {}
+    for graphs in (True, False):
+        eng = DecodeEngine(cfg, plan, "cuda", shape, params, paging=spec, own_params=True,
+                           graphs=graphs, **kw)
+        eng.warmup()
+        K.reset_launch_counts()
+        rep = eng.run([Request(i, p, 6) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        assert rep.drained
+        runs[graphs] = (rep.finished, K.launch_counts())
+    assert runs[True] == runs[False]
+    assert runs[True][1]["rmsnorm"] > 0
+    assert (runs[True][1]["paged_attention"] > 0) == (not cfg.attention_free)
+
+
+@pytest.mark.cuda
+def test_mamba_train_step_runs_on_card():
+    """Two steps of reduced bf16 mamba2-130m with host weights, a
+    checkpointed block and a compress8 one: losses finite, RMSNorm (the
+    gated norm too) and fused Adam launched, the fp32 A_log's optimizer
+    state pinned."""
+    _require_card()
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.train.step_builder import build_train_step
+
+    cfg = _mamba_cfg()
+    shape = ShapeConfig("card", 256, 2, "train")
+    plan = MemoryPlan(4, 2, n_persist=2, n_host=2, microbatch=2, host_params=True,
+                      n_buffer=1, act_policies=("checkpoint", "compress8"))
+    art = build_train_step(cfg, plan, "cuda", shape)
+    state = art.init(torch.Generator(device="cuda").manual_seed(0))
+    a_log = state["opt"]["master"]["runs"][-1]["pos0"]["mamba"]["A_log"]
+    assert a_log.dtype == torch.float32 and a_log.is_pinned()
+    pipe = SyntheticTokenPipeline(cfg, shape, device="cuda")
+    K.reset_launch_counts()
+    for _ in range(2):
+        state, metrics = art.fn(state, pipe.next_sync())
+        assert torch.isfinite(metrics["loss"]).item()
+    for name in ("rmsnorm", "fused_adam", "fused_quantize_ef"):
+        assert K.launch_counts()[name] > 0, name
+    assert K.launch_counts()["flash_attention"] == 0
