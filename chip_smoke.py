@@ -712,8 +712,8 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
     attention-free one (Mamba-2) on the resident plan under replay
     admission, the engine's default. For an MoE ``cfg`` the teacher-forced
     check is MOE_ENGINE_TOL's and the routing choices of the two paths are
-    compared (``routing``); for a model with Mamba-2 positions the plain
-    path's RMSNorm is the plain version too (``plain_rmsnorm``)."""
+    compared (``routing``). The plain path's RMSNorm is the plain version
+    (``plain_rmsnorm``)."""
     import numpy as np
     import torch
 
@@ -721,7 +721,6 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.plan import MemoryPlan
     from repro_torch.models import kvcache as KV
-    from repro_torch.models import moe as MOE
     from repro_torch.models.model import init_params, num_repeats
     from repro_torch.serve import DecodeEngine, PagedKV, Request, choose_paging
 
@@ -794,25 +793,14 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
     tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (BATCH, 1))).cuda()
     pos = torch.tensor([int(n) + NEW_TOKENS - 1 for n in lens])
     outs, routes = {}, {}
-    gating = MOE._top_k_gating
     for use_kernel in (True, False):
-        chosen = routes[use_kernel] = []
-
-        def recording(logits, top_k, _chosen=chosen):
-            out = gating(logits, top_k)
-            _chosen.append(out[1].clone())
-            return out
-
-        MOE._top_k_gating = recording
-        norm = plain_rmsnorm() if cfg.mamba2 and not use_kernel else contextlib.nullcontext()
-        try:
-            cache = _clone_cache(engine.state["cache"])
-            with torch.inference_mode(), norm:
-                logits, _ = KV.decode_step(engine.state["params"], cache, tokens, pos, cfg,
-                                           kv_io=PagedKV(spec, use_kernel=use_kernel)
-                                           if spec else None)
-        finally:
-            MOE._top_k_gating = gating
+        routes[use_kernel] = []
+        norm = contextlib.nullcontext() if use_kernel else plain_rmsnorm()
+        cache = _clone_cache(engine.state["cache"])
+        with torch.inference_mode(), norm, routing_choices(routes[use_kernel]):
+            logits, _ = KV.decode_step(engine.state["params"], cache, tokens, pos, cfg,
+                                       kv_io=PagedKV(spec, use_kernel=use_kernel)
+                                       if spec else None)
         outs[use_kernel] = logits.float()
     err = (outs[True] - outs[False]).abs().max().item()
     scale = outs[False].abs().max().item()
@@ -1095,18 +1083,18 @@ def adam_case(on_host: bool, gen, shape=(4096, 14336), fp32: bool = False) -> di
 QUANT_WIRE = (4, 14_680_064)  # one w1 leaf of mistral-7b (4096 x 14336) in 4 chunks
 
 
-def quant_inputs(case: str, gen):
+def quant_inputs(case: str, gen, shape=(4096, 4096)):
     """(x, me) of a fused_quantize_ef case. ``activation``: a site tensor of
-    the training path, 4096 rows (tokens) x 4096 (d_model) bf16, rows of
-    varied scale; ``wire``: the gradient-wire chunks, fp32; ``edges`` and
+    the training path, ``shape`` (tokens x d_model; mistral-7b's 4096 x 4096
+    by default) bf16, rows of varied scale; ``wire``: the gradient-wire chunks, fp32; ``edges`` and
     ``edges_long``: a zero row, exact half-way quotients, values at the clip
     bound and a random row, at lengths that are not a multiple of 4 (one
     pass, then two)."""
     import torch
 
     if case == "activation":
-        scale = torch.exp(torch.randn(4096, 1, device="cuda", generator=gen))
-        x = (torch.randn(4096, 4096, device="cuda", generator=gen) * scale).bfloat16()
+        scale = torch.exp(torch.randn(shape[0], 1, device="cuda", generator=gen))
+        x = (torch.randn(*shape, device="cuda", generator=gen) * scale).bfloat16()
         return x, 0
     if case == "wire":
         return 1e-3 * torch.randn(*QUANT_WIRE, device="cuda", generator=gen), 2
@@ -1119,14 +1107,15 @@ def quant_inputs(case: str, gen):
     return torch.stack([torch.zeros(n, device="cuda"), ties, clip, rnd]), 1
 
 
-def quant_case(case: str, gen) -> dict:
-    """fused_quantize_ef against its plain version, bitwise."""
+def quant_case(case: str, gen, shape=(4096, 4096)) -> dict:
+    """fused_quantize_ef against its plain version, bitwise (``shape``: an
+    ``activation`` case's)."""
     import torch
 
     from repro_torch import kernels as K
     from repro_torch.kernels import ref
 
-    x, me = quant_inputs(case, gen)
+    x, me = quant_inputs(case, gen, shape)
     got = K.fused_quantize_ef(x, me)
     want = ref.fused_quantize_ef_ref(x, me)
     torch.cuda.synchronize()
@@ -1201,6 +1190,42 @@ class plain_rmsnorm:
         L.fused_rmsnorm = self.saved
 
 
+@contextlib.contextmanager
+def routing_choices(choices: list, replay: bool = False):
+    """Inside, the MoE layers' top-k gating appends its expert indices to
+    ``choices``, call by call; with ``replay`` it takes them from
+    ``choices`` instead and gates on them: the chosen experts'
+    probabilities, normalized, and the aux loss of those choices, as
+    ``models/moe._top_k_gating`` computes them from its own."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+
+    gating = MOE._top_k_gating
+    given = iter(list(choices))
+
+    def record(logits, top_k):
+        out = gating(logits, top_k)
+        choices.append(out[1].clone())
+        return out
+
+    def pinned(logits, top_k):
+        indices = next(given)
+        probs = torch.softmax(logits, dim=-1)
+        weights = probs.gather(-1, indices)
+        weights = weights / weights.sum(dim=-1, keepdim=True)
+        one_hot = MOE._one_hot(indices, logits.shape[-1])
+        aux = logits.shape[-1] * (one_hot.sum(dim=1).mean(dim=0) * probs.mean(dim=0)).sum()
+        return weights, indices, one_hot, aux
+
+    MOE._top_k_gating = pinned if replay else record
+    try:
+        yield
+    finally:
+        MOE._top_k_gating = gating
+    assert not replay or next(given, None) is None, "the replayed path made fewer MoE calls"
+
+
 def leaf_paths(tree, prefix: str = "") -> list[str]:
     """The paths of a tree's leaves in ``tree_leaves`` order."""
     if isinstance(tree, dict):
@@ -1210,13 +1235,15 @@ def leaf_paths(tree, prefix: str = "") -> list[str]:
     return [prefix]
 
 
-def compare_step(cfg, shape, plan, steps: int = 1, plain_norm: bool = False) -> dict:
+def compare_step(cfg, shape, plan, steps: int = 1, pin_routing: bool = False) -> dict:
     """``steps`` training steps of ``plan`` from one cloned state on one
     batch through the kernels (``attn_impl="blockwise"``,
     ``use_fused_kernel=True``) and through the plain path (``"naive"``,
-    ``False``; with ``plain_norm`` also the plain RMSNorm): the first step's
+    ``False``, and the plain RMSNorm): the first step's
     losses, gradient norms and each leaf's gradient cosine, every step's
-    loss, and the kernels' launches over the kernels' steps."""
+    loss, and the kernels' launches over the kernels' steps. With
+    ``pin_routing`` the plain path's MoE layers route as the kernels' did,
+    call by call (``routing_choices``)."""
     import torch
 
     from repro_torch import kernels as K
@@ -1228,9 +1255,12 @@ def compare_step(cfg, shape, plan, steps: int = 1, plain_norm: bool = False) -> 
     batch = SyntheticTokenPipeline(cfg, shape, seed=0, device="cuda").next_sync()
     init = None
     out = {}
+    choices = []  # the kernels path's routing, call by call
     for way, impl, fused in (("kernels", "blockwise", True), ("plain", "naive", False)):
-        ctx = plain_rmsnorm() if plain_norm and way == "plain" else contextlib.nullcontext()
-        with ctx:
+        norm = plain_rmsnorm() if way == "plain" else contextlib.nullcontext()
+        routing = (routing_choices(choices, replay=way == "plain") if pin_routing
+                   else contextlib.nullcontext())
+        with norm, routing:
             art = build_train_step(cfg, plan, "cuda", shape, attn_impl=impl,
                                    adam=AdamConfig(lr=3e-4, use_fused_kernel=fused))
             if init is None:
@@ -1327,9 +1357,10 @@ def expected_train_launches(cfg, art, steps: int, adam_per_step: int) -> dict[st
     is plain); the quantizer at every save site of a compress8 layer in the
     forward, never in the replay; ``adam_per_step`` Adam launches per step
     (``adam_launches``)."""
-    period = len(cfg.mixer_pattern) if cfg.moe is None else math.lcm(len(cfg.mixer_pattern),
-                                                                     cfg.moe.every)
-    policies = [r.act_policy for r in art.runs for _ in range(r.length * period)]  # by layer
+    from repro_torch.models.model import superblock_period
+
+    policies = [r.act_policy for r in art.runs
+                for _ in range(r.length * superblock_period(cfg))]  # by layer
     layers = range(cfg.num_layers)
     attn = [cfg.mixer_at(i) == "attention" for i in layers]
     recomputed = [p != "none" for p in policies]
@@ -1846,7 +1877,7 @@ REFERENCE_BLOCK_PROFILE = dict(flops_fwd=2064647659909.0, hbm_bytes_fwd=40396927
                                act_residual_bytes=1636894208, boundary_bytes=33554432,
                                peak_transient_bytes=1749032976)
 PLAN_STEPS, PLAN_WARMUP = 3, 1  # one warm-up step, then two timed ones
-PLAN_ATTEMPTS = 6  # searches at a lowered capacity after an out-of-memory
+PLAN_ATTEMPTS = 3  # searches at a lowered capacity after an out-of-memory
 # host memory left to the process besides the pinned states; it also covers
 # a machine that caps a process some GiB below MemTotal
 HOST_MARGIN = 8 << 30
@@ -1960,6 +1991,12 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None,
 
     gc.collect()
     torch.cuda.empty_cache()
+    # new device segments grow in place from here on: the transients of a
+    # step near the card's capacity and the blocks that side-stream copies
+    # hold until their stream passes otherwise leave memory reserved between
+    # allocations (8.9 GiB at mistral-7b's searched plan, 12 GiB at
+    # qwen2-moe's, each failing on the H100)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     usable, total = torch.cuda.mem_get_info()
     host = host_memory()
     shape = ShapeConfig("plan", seq, 1, "train")
@@ -1978,6 +2015,7 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None,
     emit(f"{phase}_search", arch=cfg.name, layers=cfg.num_layers, seq=seq,
          global_batch=1, hw={k: v for k, v in dataclasses.asdict(hw).items()},
          card_total_bytes=total, card_free_bytes_at_start=usable, host=host,
+         allocator="expandable_segments:True",
          profile={"port": dataclasses.asdict(w.block), "reference": reference_profile},
          profile_s=profile_s, plan=res.plan.describe(), feasible=res.feasible,
          evaluated=res.evaluated, search_s=search_s, search_seconds=res.search_seconds,
@@ -2015,10 +2053,8 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None,
         except torch.OutOfMemoryError as err:
             # the searched plan outran the card: lower the capacity the
             # search budgets against by the shortfall the card showed, and
-            # search again (the model, its depth and the checks stay). The
-            # shortfall at the failing allocation bounds what the step lacks
-            # from below, so each further attempt doubles it
-            short = _oom_shortfall(err, usable) << len(attempts)
+            # search again (the model, its depth and the checks stay)
+            short = _oom_shortfall(err, usable)
             frac = w_run.hw.hbm_capacity_fraction - short / w_run.hw.hbm_bytes
             attempts.append({"plan": plan.describe(), "error": str(err).splitlines()[0],
                              "shortfall_bytes": short, "next_fraction": frac})
@@ -2157,17 +2193,9 @@ def phase_moe_plan(hw) -> dict:
     """``qwen2-moe-a2.7b`` at full width through ``plan_phase``: 229 GB of
     training state at 24 layers, more than card and host hold, so the depth
     is the deepest whose searched plan's pinned states fit the host."""
-    import torch
-
     from repro_torch.configs import get_config
 
-    # new device segments grow in place from here on: a step's large
-    # transient one-hots and the gradients kept for the pinned optimizer
-    # otherwise leave blocks reserved between allocations (12 GiB at the
-    # searched plan's out-of-memory on the H100)
-    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
-    emit("moe_plan_host_cache", **release_pinned_cache(), host=host_memory(),
-         allocator="expandable_segments:True")
+    emit("moe_plan_host_cache", **release_pinned_cache(), host=host_memory())
     return plan_phase(get_config(MOE_ARCH), hw, "moe_plan")
 
 
@@ -2184,10 +2212,11 @@ HYBRID_ARCH = "jamba-1.5-large-398b"
 HYBRID_HEADS = (8, 1)
 HYBRID_SEQ = 2048  # its training steps' sequence (the MoE's capacity: 4,096 rows an expert)
 # its kernels-vs-plain steps: the losses and gradient norms to train_compare's
-# bounds; each leaf's gradient cosine >= 0.99, where mistral's dense layers
-# hold 0.999: four MoE layers route on logits that move with the two paths'
-# bf16 differences (MOE_ENGINE_TOL), so a choice flips and moves the leaves
-# it feeds (the first call measured 0.9945, ``lowest_cosines`` names them)
+# bounds. Each leaf's gradient cosine >= GRAD_COSINE (0.999, mistral's)
+# with the plain path's MoE layers routed as the kernels' (``routing_choices``);
+# >= 0.99 as each path routes itself: four MoE layers route on logits that
+# move with the two paths' bf16 differences (MOE_ENGINE_TOL), so a choice
+# flips and moves the gradients of every leaf upstream of it
 HYBRID_GRAD_COSINE = 0.99
 # the SSD in fp32 on the card against the same code on the CPU (no TF32):
 # |cuda - cpu| <= SSD_TOL * max |cpu| of each output and gradient (fp32
@@ -2221,7 +2250,9 @@ def phase_mamba_kernels() -> dict:
     fp32 leaf of 24 x 24 on the device (less than one block of the kernel);
     flash forward and backward at the hybrid's heads (8 over 1 of 128, S
     4096, no window); paged attention ``main`` at them (pinned and device
-    cold stores)."""
+    cold stores); the quantizer at a compress8 block's save sites, 32,768
+    rows of 768 bf16 (fewer 4-element vectors a row, 192, than a block has
+    threads)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -2231,6 +2262,7 @@ def phase_mamba_kernels() -> dict:
     cases += [lambda: flash_case(TRAIN_SEQ, gen, True, heads=HYBRID_HEADS, window=0)]
     cases += [lambda h=h: [{"kernel": "paged_attention", **paged_case(
         "main", h, gen, HYBRID_HEADS, HYBRID_ARCH)}] for h in (True, False)]
+    cases += [lambda: [quant_case("activation", gen, (MAMBA_SEQ, MAMBA_WIDTHS[0]))]]
     rows = []
     for case in cases:
         for r in case():
@@ -2335,7 +2367,7 @@ def phase_mamba_train_compare() -> None:
     shape = ShapeConfig("compare", MAMBA_SEQ, 1, "train")
     plan = fully_resident_plan(4, 2)
     t0 = time.perf_counter()
-    r = compare_step(cfg, shape, plan, steps=2, plain_norm=True)
+    r = compare_step(cfg, shape, plan, steps=2)
     emit("mamba_train_compare", case="resident", plan=plan.describe(), arch=cfg.name,
          layers=cfg.num_layers, seq=MAMBA_SEQ, batch=1, **r,
          tol={"loss": LOSS_TOL, "grad_norm_rel": NORM_RTOL, "cosine": GRAD_COSINE},
@@ -2357,11 +2389,8 @@ def phase_mamba_plan(hw) -> dict:
     """``mamba2-130m`` at full width and all 24 layers, S 32,768, B 1,
     through ``plan_phase``, beside the reference's profile: 24 blocks of
     3.51 GB of activations against the card's 85.0 GB."""
-    import torch
-
     from repro_torch.configs import get_config
 
-    torch.cuda.memory._set_allocator_settings("expandable_segments:True")  # as moe_plan
     return plan_phase(get_config(MAMBA_ARCH), hw, "mamba_plan", REFERENCE_MAMBA_PROFILE,
                       seq=MAMBA_SEQ)
 
@@ -2371,7 +2400,9 @@ def phase_hybrid(hw) -> dict[str, int]:
     paged plan under chunked admission, graph against eager, and the
     teacher-forced step (``serve_phase``); then two training steps, kernels
     (flash, RMSNorm, fused Adam) against the plain path, at S 2048, B 1.
-    Returns the kernels' launches over both."""
+    Both as each path routes itself and with the plain path routed as the
+    kernels' (``routing="pinned"``). Returns the kernels' launches over the
+    serving run and the first pair of steps."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig
@@ -2381,19 +2412,24 @@ def phase_hybrid(hw) -> dict[str, int]:
     launches = serve_phase(cfg, hw, "hybrid_serve")
     shape = ShapeConfig("hybrid", HYBRID_SEQ, 1, "train")
     plan = fully_resident_plan(3, 1)
-    t0 = time.perf_counter()
-    r = compare_step(cfg, shape, plan, steps=2, plain_norm=True)
-    emit("hybrid_train", plan=plan.describe(), arch=cfg.name, layers=cfg.num_layers,
-         d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim],
-         reductions="reduced(): d 128, d_ff 256, vocab 512, 4 experts, d_state 16, SSD heads "
-                    "of 32, chunk 32, one 8-layer period; heads 8 over 1 of 128 kept",
-         seq=HYBRID_SEQ, batch=1, **r,
-         tol={"loss": LOSS_TOL, "grad_norm_rel": NORM_RTOL, "cosine": HYBRID_GRAD_COSINE},
-         seconds=time.perf_counter() - t0)
-    for a, b in zip(r["losses_kernels"], r["losses_plain"]):
-        assert abs(a - b) <= LOSS_TOL, r
-    assert r["grad_norm_rel_diff"] <= NORM_RTOL, r
-    assert r["min_grad_cosine"] >= HYBRID_GRAD_COSINE, r
+    runs = {}
+    for routing, cosine in (("own", HYBRID_GRAD_COSINE), ("pinned", GRAD_COSINE)):
+        t0 = time.perf_counter()
+        r = runs[routing] = compare_step(cfg, shape, plan, steps=2,
+                                         pin_routing=routing == "pinned")
+        emit("hybrid_train", routing=routing, plan=plan.describe(), arch=cfg.name,
+             layers=cfg.num_layers, d_model=cfg.d_model,
+             heads=[cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim],
+             reductions="reduced(): d 128, d_ff 256, vocab 512, 4 experts, d_state 16, SSD "
+                        "heads of 32, chunk 32, one 8-layer period; heads 8 over 1 of 128 kept",
+             seq=HYBRID_SEQ, batch=1, **r,
+             tol={"loss": LOSS_TOL, "grad_norm_rel": NORM_RTOL, "cosine": cosine},
+             seconds=time.perf_counter() - t0)
+        for a, b in zip(r["losses_kernels"], r["losses_plain"]):
+            assert abs(a - b) <= LOSS_TOL, (routing, r)
+        assert r["grad_norm_rel_diff"] <= NORM_RTOL, (routing, r)
+        assert r["min_grad_cosine"] >= cosine, (routing, r)
+    r = runs["own"]
     for name in ("flash_attention", "flash_attention_bwd", "rmsnorm", "fused_adam"):
         assert r["launches"][name] > 0, f"{name} was not launched by the hybrid's steps"
     torch.cuda.empty_cache()

@@ -24,6 +24,7 @@ read as the reference's dots.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable
@@ -124,9 +125,10 @@ class _Recorder(TorchDispatchMode):
       widened tensors) is the norms' statistic, which the reference writes
       as an einsum (``layers.rmsnorm``, ``layernorm``): it is counted as
       that contraction, ``"contraction"``, 2 FLOPs an input element;
-    * a product ``layers.broadcast_dot`` makes (``note_dot``) is a dot the
-      reference's einsum emits with no contracted axis: a contraction of
-      2 FLOPs an output element.
+    * a product ``layers.broadcast_dot`` makes (``note_dot``, which
+      ``_noting_broadcast_dots`` calls while ``profile_fn`` records) is a
+      dot the reference's einsum emits with no contracted axis: a
+      contraction of 2 FLOPs an output element.
     """
 
     def __init__(self, weights: set[int]):
@@ -249,6 +251,26 @@ def _replay(events: list[_Event], live: dict[int, int], final: set[int]):
     return ops, peak, largest
 
 
+@contextlib.contextmanager
+def _noting_broadcast_dots(rec: _Recorder):
+    """While recording, ``layers.broadcast_dot`` notes each product it makes
+    with ``rec``."""
+    from repro_torch.models import layers as L
+
+    plain = L.broadcast_dot
+
+    def noted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        out = plain(a, b)
+        rec.note_dot(out)
+        return out
+
+    L.broadcast_dot = noted
+    try:
+        yield
+    finally:
+        L.broadcast_dot = plain
+
+
 def profile_fn(fn: Callable, *args, weight_args: tuple[int, ...] = ()) -> TraceProfile:
     """Trace ``fn(*args)`` -- fake tensors, under ``FakeTensorMode`` -- and
     profile its aten ops. ``weight_args``: positions of the arguments that
@@ -257,7 +279,7 @@ def profile_fn(fn: Callable, *args, weight_args: tuple[int, ...] = ()) -> TraceP
                if isinstance(t, torch.Tensor)}
     inputs = [t for t in tree_flatten(args)[0] if isinstance(t, torch.Tensor)]
     rec = _Recorder(weights)
-    with torch.no_grad(), rec:
+    with torch.no_grad(), _noting_broadcast_dots(rec), rec:
         out = fn(*args)
     final = {_storage(t) for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)}
     live = {_storage(t): t.untyped_storage().nbytes() for t in inputs}

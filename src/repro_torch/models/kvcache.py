@@ -19,10 +19,9 @@ RoPE positions, the fixed-shape ring write, the mask), once per step, shared
 by all layers. Nothing in it reads a value back to the host, so the step can
 be captured as a CUDA graph and replayed with new positions written into
 the same buffers (``serve.prefill.ServeStep``). A Mamba-2 position writes
-its new state into its entry in place through the step's ``state``
-``SlotWrite`` (one row a slot, masked by ``active``, as the JAX package's
-``jnp.where`` keeps an inactive slot's state). What depends on the data and
-cannot live in a graph -- the paged cache's page-boundary flush to its
+its new state into its entry in place, masked by the step's ``active`` (as
+the JAX package's ``jnp.where`` keeps an inactive slot's state). What
+depends on the data and cannot live in a graph -- the paged cache's page-boundary flush to its
 host-memory cold store -- is the cache hook's ``commit``, issued after the
 step from host positions; ``decode_step`` is the two together.
 """
@@ -152,16 +151,13 @@ def write_slot(buf: torch.Tensor, val: torch.Tensor, where: SlotWrite) -> None:
     flat.index_copy_(0, where.index, new)
 
 
-def state_write(active: torch.Tensor | None, batch: int, device) -> SlotWrite:
-    """The Mamba-2 state's write: row b of a (B, ...) state, if slot b is
-    active."""
-    return SlotWrite.build(torch.zeros((), dtype=torch.int64, device=device), active, batch, 1)
-
-
-def write_state(buf: torch.Tensor, val: torch.Tensor, where: SlotWrite) -> None:
+def write_state(buf: torch.Tensor, val: torch.Tensor, active: torch.Tensor | None) -> None:
     """Write a new (B, ...) recurrent state into ``buf`` in place, rows of
-    inactive slots keeping their bytes."""
-    write_slot(buf[:, None], val[:, None], where)
+    inactive slots keeping theirs (``active``: device bool (B,), or None
+    when every slot is)."""
+    if active is not None:
+        val = torch.where(active.view((-1,) + (1,) * (buf.dim() - 1)), val, buf)
+    buf.copy_(val)
 
 
 @dataclasses.dataclass
@@ -169,7 +165,7 @@ class ResidentStep:
     rope: torch.Tensor  # device RoPE positions
     write: SlotWrite | None  # None without an attention position
     mask: torch.Tensor | None  # device fp32 (S,) or (B, S); None without attention
-    state: SlotWrite  # the Mamba-2 state's write
+    active: torch.Tensor | None  # device bool (B,), None if every slot is: the state's write
 
 
 class ResidentKV:
@@ -188,15 +184,13 @@ class ResidentKV:
         """Everything the layers need this step, built on ``device`` from
         ``pos`` and ``active`` with tensor ops."""
         pos = device_positions(pos, device)
-        batch = batch_size(cache)
         act = None if active is None else torch.as_tensor(active).to(device, torch.bool)
-        step = ResidentStep(rope=rope_positions(pos), write=None, mask=None,
-                            state=state_write(act, batch, device))
+        step = ResidentStep(rope=rope_positions(pos), write=None, mask=None, active=act)
         attn = attention_entries(cache)
         if attn:
             s_kv = attn[0]["k"].shape[2]
             slot = pos % s_kv if cfg.sliding_window else pos
-            step.write = SlotWrite.build(slot, act, batch, s_kv)
+            step.write = SlotWrite.build(slot, act, batch_size(cache), s_kv)
             step.mask = decode_mask(pos, s_kv, bool(cfg.sliding_window))
         return step
 
@@ -254,8 +248,8 @@ def _decode_mamba(mp: dict, h, pcache: dict, step, cfg: ModelConfig):
     new value is written in place (inactive slots keep theirs)."""
     mix, (conv, ssm) = M2.apply_mamba2(mp, h, cfg, state=(pcache["conv"], pcache["ssm"]),
                                        return_state=True)
-    write_state(pcache["conv"], conv, step.state)
-    write_state(pcache["ssm"], ssm, step.state)
+    write_state(pcache["conv"], conv, step.active)
+    write_state(pcache["ssm"], ssm, step.active)
     return mix
 
 

@@ -16,7 +16,6 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch import kernels as K
 from repro_torch.kernels import fused_rmsnorm
@@ -61,15 +60,9 @@ class ParamDef:
 
 def broadcast_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a * b``, broadcast: a product with no contracted axis, which the
-    reference writes inside an einsum and so emits as a ``dot_general``.
-    Under the profiler's recording mode (``core/profiler.py``) the product
-    is noted, so that it counts as that dot (2 FLOPs an output element, its
-    inputs saved for the backward)."""
-    out = a * b
-    note = getattr(_get_current_dispatch_mode(), "note_dot", None)
-    if note is not None:
-        note(out)
-    return out
+    reference writes inside an einsum and so emits as a ``dot_general``
+    (``core/profiler.profile_fn`` counts it as that dot)."""
+    return a * b
 
 
 def map_defs(fn, defs):

@@ -16,6 +16,11 @@ those dots. The ``lax.scan`` over chunks is a Python loop. The depthwise
 conv stays the reference's sum of K shifted products, so its bf16 rounding
 follows the reference's order. Every shape is static, so the step traces
 on fake tensors and is captured in the serving step's CUDA graph.
+
+Autograd keeps no more than the reference's residuals: the chunk loop's
+backward is written out (``_ChunkScan``, which keeps each carry once), the
+product with the permuted x keeps x itself (``_Matmul``), C is not
+broadcast over the heads, and the skip term keeps x in bf16.
 """
 from __future__ import annotations
 
@@ -83,19 +88,62 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, seg, -torch.inf)
 
 
-def chunk_scan(states: torch.Tensor, decay: torch.Tensor, carry: torch.Tensor):
-    """The ``lax.scan`` over chunks as a loop: ``carry = carry * decay[c] +
-    states[c]``. states: (B, nc, H, P, N); decay: (B, nc, H); carry: (B, H,
-    P, N) fp32. Returns (the state entering each chunk, (B, nc, H, P, N);
-    the final state). The chunks are taken by ``unbind``, whose backward
-    stacks their gradients in one copy (indexing a chunk would add a
-    full-size zero gradient a chunk)."""
-    entering = []
-    with torch.profiler.record_function("ssd_chunk_scan"):  # a span for the step's profile
+class _ChunkScan(torch.autograd.Function):
+    """The ``lax.scan`` over chunks as a loop, ``carry = carry * decay[c] +
+    states[c]``, with its backward written out: the reverse recurrence
+    reads the states entering each chunk, which are this function's own
+    output, so the carries are kept once (autograd through the loop would
+    keep each carry again beside the stacked output)."""
+
+    @staticmethod
+    def forward(ctx, states, decay, carry):
+        entering = []
         for st, dec in zip(states.unbind(1), decay.unbind(1)):
             entering.append(carry)
             carry = carry * dec[:, :, None, None] + st
-    return torch.stack(entering, dim=1), carry
+        entering = torch.stack(entering, dim=1)
+        ctx.save_for_backward(entering, decay)
+        return entering, carry
+
+    @staticmethod
+    def backward(ctx, g_entering, g_final):
+        entering, decay = ctx.saved_tensors
+        g = torch.zeros_like(entering[:, 0]) if g_final is None else g_final
+        g_states, g_decay = [], []
+        for c in range(entering.shape[1] - 1, -1, -1):
+            g_states.append(g)
+            g_decay.append((g * entering[:, c]).sum((-2, -1)))
+            g = g * decay[:, c, :, None, None]
+            if g_entering is not None:
+                g = g + g_entering[:, c]
+        return torch.stack(g_states[::-1], dim=1), torch.stack(g_decay[::-1], dim=1), g
+
+
+def chunk_scan(states: torch.Tensor, decay: torch.Tensor, carry: torch.Tensor):
+    """The inter-chunk recurrence. states: (B, nc, H, P, N); decay: (B, nc,
+    H); carry: (B, H, P, N) fp32. Returns (the state entering each chunk,
+    (B, nc, H, P, N); the final state)."""
+    with torch.profiler.record_function("ssd_chunk_scan"):  # a span for the step's profile
+        return _ChunkScan.apply(states, decay, carry)
+
+
+class _Matmul(torch.autograd.Function):
+    """``torch.matmul`` that keeps its operands as given for the backward.
+    For a strided operand (a permuted view) autograd through ``matmul``
+    keeps the contiguous copy the batched product makes, beside the
+    operand's own tensor that another product keeps; here the copy is made
+    again in the backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return (torch.matmul(g, b.transpose(-1, -2)).sum_to_size(a.shape),
+                torch.matmul(a.transpose(-1, -2), g).sum_to_size(b.shape))
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
@@ -107,17 +155,17 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     q = min(chunk_size, s)
-    if s % q:
-        pad = q - s % q
-        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
-        b_mat = torch.nn.functional.pad(b_mat, (0, 0, 0, pad))
-        c_mat = torch.nn.functional.pad(c_mat, (0, 0, 0, pad))
-    sp = x.shape[1]
-    nc = sp // q
-
     xdt = (x * dt[..., None]).float()  # dt-scaled input
     adt = (a[None, None, :] * dt).float()  # (B, S, H) log-decay per step
+    if s % q:  # padded after the products, which then keep x itself
+        pad = q - s % q
+        xdt = torch.nn.functional.pad(xdt, (0, 0, 0, 0, 0, pad))
+        adt = torch.nn.functional.pad(adt, (0, 0, 0, pad))
+        b_mat = torch.nn.functional.pad(b_mat, (0, 0, 0, pad))
+        c_mat = torch.nn.functional.pad(c_mat, (0, 0, 0, pad))
+    sp = xdt.shape[1]
+    nc = sp // q
+
     xc = xdt.reshape(bsz, nc, q, h, p)
     ac = adt.reshape(bsz, nc, q, h)
     bc = b_mat.reshape(bsz, nc, q, n).float()
@@ -128,7 +176,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch
     l_mat = torch.exp(_segsum(ac.movedim(-1, 2)))  # (B, nc, H, Q, Q)
     g = torch.matmul(cc, bc.transpose(-1, -2))  # (B, nc, Q_i, Q_j)
     m = L.broadcast_dot(l_mat, g[:, :, None])  # (B, nc, H, Q_i, Q_j)
-    y_diag = torch.matmul(m, xc.permute(0, 1, 3, 2, 4))  # (B, nc, H, Q, P)
+    y_diag = _Matmul.apply(m, xc.permute(0, 1, 3, 2, 4))  # (B, nc, H, Q, P)
     # 2) per-chunk end states: (decay x)^T B
     decay_states = torch.exp(a_cs[:, :, -1:, :] - a_cs)  # (B, nc, Q, H)
     wx = L.broadcast_dot(decay_states[..., None], xc)  # (B, nc, Q, H, P)
@@ -141,15 +189,17 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch
     prev_states, carry = chunk_scan(states, chunk_decay, carry)
     # 4) state -> output within a chunk. The reference's einsum takes the
     # pair of fewer FLOPs first (opt_einsum's path): decay times C when
-    # N < P, else C times the states
-    state_decay = torch.exp(a_cs).movedim(-1, 2)[..., None]  # (B, nc, H, Q, 1)
+    # N < P, else C times the states; the latter as one product of C with
+    # every head's states, (B, nc, Q, N) x (B, nc, N, H P), so that C is
+    # not broadcast over the heads
+    a_exp = torch.exp(a_cs)  # (B, nc, Q, H)
     if n < p:
-        dc = L.broadcast_dot(state_decay, cc[:, :, None])  # (B, nc, H, Q, N)
-        y_off = torch.matmul(dc, prev_states.transpose(-1, -2))  # (B, nc, H, Q, P)
+        dc = L.broadcast_dot(a_exp.movedim(-1, 2)[..., None], cc[:, :, None])  # (B, nc, H, Q, N)
+        y_off = torch.matmul(dc, prev_states.transpose(-1, -2)).movedim(2, 3)  # (B, nc, Q, H, P)
     else:
-        cp = torch.matmul(cc[:, :, None], prev_states.transpose(-1, -2))  # (B, nc, H, Q, P)
-        y_off = L.broadcast_dot(state_decay, cp)
-    y = (y_diag + y_off).movedim(2, 3).reshape(bsz, sp, h, p)[:, :s]
+        cp = torch.matmul(cc, prev_states.reshape(bsz, nc, h * p, n).transpose(-1, -2))
+        y_off = L.broadcast_dot(a_exp[..., None], cp.reshape(bsz, nc, q, h, p))
+    y = (y_diag.movedim(2, 3) + y_off).reshape(bsz, sp, h, p)[:, :s]
     return y.to(x.dtype), carry
 
 
@@ -172,7 +222,9 @@ def apply_mamba2(params: dict, x: torch.Tensor, cfg, *, state=None, return_state
     a = -torch.exp(params["A_log"])  # (H,)
     ssm_state = state[1] if state is not None else None
     y, new_ssm_state = ssd_chunked(xh, dtp, a, bmat, cmat, mc.chunk_size, ssm_state)
-    y = y + xh.float() * params["D"][None, None, :, None]
+    # y + x D with x widened, x kept in bf16 for the backward (as a widened
+    # copy it would be kept again in fp32)
+    y = torch.addcmul(y, xh, params["D"][None, None, :, None])
     y = y.reshape(b, s, d_in).to(x.dtype)
     y = L.rmsnorm(y * _silu(z), params["norm_scale"])
     out = y @ params["out_proj"]

@@ -184,7 +184,7 @@ class PagedStep:
     cold_write: KV.SlotWrite | None  # write-through's cold write, slot
     mask: torch.Tensor  # device (B, S) fp32
     sel: torch.Tensor  # device (B, S) bool: ring row canonical
-    state: KV.SlotWrite  # the Mamba-2 state's write
+    active: torch.Tensor | None  # device bool (B,), None if every slot is: the state's write
 
 
 class PagedKV:
@@ -292,7 +292,7 @@ class PagedKV:
             cold_write=None if self.flush else KV.SlotWrite.build(slot, act, batch, s.cache_len),
             mask=mask,
             sel=self.residency(slot, sliding),
-            state=KV.state_write(act, batch, device))
+            active=act)
 
     # -- the per-token cache write and attention (device) -------------------------
     def _write(self, entry: dict, k, v, step: PagedStep) -> None:

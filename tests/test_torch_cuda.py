@@ -457,15 +457,17 @@ def test_train_step_runs_on_card(arch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["activation", "edges", "long_rows"])
+@pytest.mark.parametrize("case", ["activation", "narrow_activation", "edges", "long_rows"])
 def test_fused_quantize_ef_kernel_matches_plain_bitwise(case):
-    """A bf16 activation block (one pass per row), edge rows (a zero row,
-    exact half-way quotients, the clip bound, n not a multiple of 4) and
-    long fp32 rows (the two-pass path)."""
+    """A bf16 activation block (one pass per row) at d 4096 and at
+    mamba2-130m's d 768 (192 4-element vectors a row, fewer than a block's
+    threads), edge rows (a zero row, exact half-way quotients, the clip
+    bound, n not a multiple of 4) and long fp32 rows (the two-pass path)."""
     _require_card()
     g = torch.Generator(device="cuda").manual_seed(3)
-    if case == "activation":
-        x = (torch.randn(256, 4096, device="cuda", generator=g)
+    if case in ("activation", "narrow_activation"):
+        d = 4096 if case == "activation" else 768
+        x = (torch.randn(256, d, device="cuda", generator=g)
              * torch.exp(torch.randn(256, 1, device="cuda", generator=g))).bfloat16()
         me = 0
     elif case == "edges":

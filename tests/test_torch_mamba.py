@@ -498,10 +498,12 @@ def test_mamba_profile_matmul_flops_equal_reference(red, batch, seq):
         assert dots.count(2.0 * n_c * 256 * 256 * 24) == 1
         # (the gated norm's statistic, 2 x S x 1536, is the third of that size)
         assert dots.count(2.0 * seq * 24 * 64) == 3
-        # the other fields: traffic within 1 %; activation residuals 5.5 %
-        # above (the port counts the cumsums' and the mask's inputs, which
-        # the reference's opaque jit equations do not)
-        assert 0.99 <= tb.hbm_bytes_fwd / jb.hbm_bytes_fwd <= 1.01
+        # the other fields: traffic 8.7 % below (the port's SSD reads C and
+        # x where they lie: it copies neither C broadcast over the heads
+        # nor a widened x); activation residuals 5.5 % above (the port
+        # counts the cumsums' and the mask's inputs, which the reference's
+        # opaque jit equations do not)
+        assert 0.91 <= tb.hbm_bytes_fwd / jb.hbm_bytes_fwd <= 0.92
         assert 1.0 <= tb.act_residual_bytes / jb.act_residual_bytes <= 1.1
         assert jb.act_residual_bytes == 3_510_288_480  # 3.51 GB a block
         # the reference's numbers chip_smoke.py prints beside the port's
@@ -513,6 +515,27 @@ def test_mamba_profile_matmul_flops_equal_reference(red, batch, seq):
         smoke = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(smoke)
         assert dataclasses.asdict(jb) == smoke.REFERENCE_MAMBA_PROFILE
+
+
+# full width at two chunks, and at 1000 tokens (padded to four chunks)
+@pytest.mark.parametrize("seq", [512, 1000])
+def test_mamba_block_keeps_no_more_than_the_profile_models(seq):
+    """What autograd keeps for a full-width block's backward (distinct
+    saved storages, weights and input left out;
+    ``scripts/saved_bytes_census.py``) is at most the profile's activation
+    residuals, which the search budgets: more would let a searched plan run
+    out of memory (at 0.983x here; the broadcast C, a permuted and a
+    widened copy of x and a second copy of the carries once made it 1.23x)."""
+    import importlib.util
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("saved_bytes_census",
+                                                  root / "scripts" / "saved_bytes_census.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got = mod.census(get_config(ARCH), 1, seq)
+    assert got["kept_bytes"] <= got["modeled_bytes"], got
 
 
 def search_pair(arch, seq, batch, red):
