@@ -148,10 +148,18 @@ The kernels summary line gives each kernel's launches per path
 ``launches`` stays each kernel's count on the path it came with.
 
 The fused int8 quantize kernel (``fused_quantize_ef``) is held to its
-plain version bitwise (q, scales and the residual) in phase 5, at the
-activation shape (4096 x 4096 bf16), the gradient-wire shape (4 x
-14,680,064 fp32) and edge rows; ``train_compare`` runs a second case under
-a ``compress8`` / ``swap`` plan with the head's weights in host memory.
+plain version bitwise (q, scales and the residual) in phase 5 at
+``QUANT_TRAIN_CASES`` (mistral-7b's sites, 4096 x 4096 bf16; the widest
+configs' rows, d 16384 and 18432, bf16 and fp32; one row; the gradient
+wire, 4 x 14,680,064 fp32; edge rows) and in phase 13 at
+``QUANT_MAMBA_CASES`` (32,768 x 768 bf16, 257 rows, one row). Each case
+prints its bound and the kernels one call launches (the kernel nodes of a
+CUDA graph that captures it), which must be its plan's passes
+(``kernels/fused_quant.quant_plan``: one kernel for every row width the
+configs hold). The build phase fails if ptxas reports
+a spill in the quantizer's kernels or compiled one that ``KERNEL_KINDS``
+does not name. ``train_compare`` runs a second case under a ``compress8``
+/ ``swap`` plan with the head's weights in host memory.
 
 Then the kernels summary line, the card's name and power limit, and last
 the result line. Any failed check raises: the script exits non-zero and
@@ -166,6 +174,7 @@ import gc
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -329,6 +338,18 @@ def ptxas_report(log: str) -> list[str]:
     return lines
 
 
+def source_log(log: str, source: str) -> str:
+    """The part of the build log that compiled ``source``: from its ``$ nvcc``
+    command line to the next command's."""
+    parts = ("\n" + log).split("\n$ ")
+    return "\n".join(p for p in parts if source in p.split("\n", 1)[0])
+
+
+def spill_free(report_line: str) -> bool:
+    """True when a ``ptxas_report`` line shows 0 bytes of spill stores and loads."""
+    return re.search(r"\b0 bytes spill stores, 0 bytes spill loads", report_line) is not None
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
 
@@ -345,6 +366,15 @@ def phase_build() -> None:
     # ptxas overlaps them; a note on it means that was lost
     fwd_notes = [n for n in notes if "flash_fwd_wgmma_kernel" in n]
     assert not fwd_notes, f"ptxas serialized the flash forward's wgmma: {fwd_notes}"
+    # the quantizer holds its rows in registers: a spill would send them
+    # through local memory, and a kernel the profile's map does not name
+    # would leave its time unattributed
+    quant = ptxas_report(source_log(log, "fused_quant.cu"))
+    assert quant, "no ptxas report for fused_quant.cu"
+    spills = [line for line in quant if not spill_free(line)]
+    assert not spills, f"ptxas spilled in the quantizer's kernels: {spills}"
+    unnamed = [line for line in quant if not any(k in line for k in QUANT_KERNELS)]
+    assert not unnamed, f"quantizer kernels missing from KERNEL_KINDS: {unnamed}"
 
 
 def rmsnorm_case(rows: int, gen, d: int = 4096) -> dict:
@@ -1081,39 +1111,85 @@ def adam_case(on_host: bool, gen, shape=(4096, 14336), fp32: bool = False) -> di
 
 
 QUANT_WIRE = (4, 14_680_064)  # one w1 leaf of mistral-7b (4096 x 14336) in 4 chunks
+# (case, shape) of the quantizer's cases in the training kernels' phase:
+# mistral-7b's sites (4096 tokens x d 4096), llama3-405b's and
+# nemotron-4-340b's widths (d 16384, 18432) in bf16 and, at 18432, fp32
+# rows; one row (z = 1); the gradient wire; edge rows (``quant_inputs``).
+QUANT_TRAIN_CASES = (("activation", (4096, 4096)), ("activation", (4096, 16384)),
+                     ("activation", (4096, 18432)), ("activation_fp32", (1024, 18432)),
+                     ("activation", (1, 18432)), ("wire", QUANT_WIRE),
+                     ("edges", (4, 4099)), ("edges_bf16", (4, 4100)),
+                     ("edges_long", (4, 20_001)))
+QUANT_MAIN = ("activation", [4096, 4096])  # the summary line's row
+# the quantizer's kernels by name (csrc/fused_quant.cu): one pass, two passes
+QUANT_KERNELS = ("quant_rows_kernel", "segment_absmax_kernel", "segment_quant_kernel")
 
 
-def quant_inputs(case: str, gen, shape=(4096, 4096)):
-    """(x, me) of a fused_quantize_ef case. ``activation``: a site tensor of
-    the training path, ``shape`` (tokens x d_model; mistral-7b's 4096 x 4096
-    by default) bf16, rows of varied scale; ``wire``: the gradient-wire chunks, fp32; ``edges`` and
-    ``edges_long``: a zero row, exact half-way quotients, values at the clip
-    bound and a random row, at lengths that are not a multiple of 4 (one
-    pass, then two)."""
+def quant_inputs(case: str, gen, shape):
+    """(x, me) of a fused_quantize_ef case of ``shape`` (z, n).
+    ``activation``: a site tensor of the training path (tokens x d_model)
+    in bf16, rows of varied scale (``activation_fp32``: the same in fp32);
+    ``wire``: the gradient-wire chunks, fp32; ``edges``, ``edges_bf16`` and
+    ``edges_long``: a zero row, exact half-way quotients, values at the
+    clip bound and a random row, in fp32 at n 4099 (not a multiple of 4:
+    one value a load, one pass) and 20,001 (two passes), and in bf16 at n
+    4100 (n % 8 == 4: 8-byte loads)."""
     import torch
 
-    if case == "activation":
-        scale = torch.exp(torch.randn(shape[0], 1, device="cuda", generator=gen))
-        x = (torch.randn(*shape, device="cuda", generator=gen) * scale).bfloat16()
-        return x, 0
+    z, n = shape
+    if case in ("activation", "activation_fp32"):
+        scale = torch.exp(torch.randn(z, 1, device="cuda", generator=gen))
+        x = torch.randn(z, n, device="cuda", generator=gen) * scale
+        return (x if case == "activation_fp32" else x.bfloat16()), 0
     if case == "wire":
-        return 1e-3 * torch.randn(*QUANT_WIRE, device="cuda", generator=gen), 2
-    n = 4099 if case == "edges" else 20_001
+        return 1e-3 * torch.randn(z, n, device="cuda", generator=gen), 2
     ties = torch.zeros(n, device="cuda")
     ties[0] = 127.0  # the scale is exactly 1: x / scale is x
     ties[1:9] = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5])
+    ties[9] = -0.0  # q 0; the residual keeps the sign of x: -0.0 - 0.0 * scale
     clip = torch.linspace(-3.3, 3.3, n, device="cuda")
     rnd = torch.randn(n, device="cuda", generator=gen)
-    return torch.stack([torch.zeros(n, device="cuda"), ties, clip, rnd]), 1
+    x = torch.stack([torch.zeros(n, device="cuda"), ties, clip, rnd])
+    return (x.bfloat16() if case == "edges_bf16" else x), 1
 
 
-def quant_case(case: str, gen, shape=(4096, 4096)) -> dict:
-    """fused_quantize_ef against its plain version, bitwise (``shape``: an
-    ``activation`` case's)."""
+def graph_kernel_nodes(fn) -> tuple[int, int]:
+    """(kernel nodes, all nodes) of a CUDA graph that captures one call of
+    ``fn``: the kernels the call launches. Counted in the graph, not traced:
+    torch.profiler stopped seeing the library's launches in short traces
+    after a profiled step (a 32,768 x 768 call came back with no kernel)."""
+    import ctypes
+
+    import torch
+
+    fn()  # warm: the caching allocator's blocks come from outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    rt = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")  # torch's runtime
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert rt.cudaGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert rt.cudaGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    graph.reset()
+    return kinds.count(0), len(kinds)  # 0: cudaGraphNodeTypeKernel
+
+
+def quant_case(case: str, gen, shape) -> dict:
+    """fused_quantize_ef against its plain version, bitwise, at ``shape``;
+    one call must launch the plan's passes (one kernel when a row fits one
+    pass) and nothing else."""
     import torch
 
     from repro_torch import kernels as K
     from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_quant import quant_plan
 
     x, me = quant_inputs(case, gen, shape)
     got = K.fused_quantize_ef(x, me)
@@ -1124,18 +1200,23 @@ def quant_case(case: str, gen, shape=(4096, 4096)) -> dict:
                   for name, a, b in zip(("q", "scales", "err"), got, want)}
     err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
     assert not any(mismatches.values()), f"fused_quantize_ef {case}: not bitwise: {mismatches}"
-    if case == "edges":
+    if case.startswith("edges"):
         q = got[0]
         assert q[1, 1:9].tolist() == [0, 2, 2, 0, -2, -2, 126, -126], q[1, 1:9].tolist()
         assert got[1][0].item() == (torch.tensor(1e-30, dtype=torch.float32) / 127).item()
     z, n = x.shape[0], x[0].numel()
+    plan = quant_plan(z, n, x.dtype)
+    kernel = lambda: K.fused_quantize_ef(x, me)  # noqa: E731
+    plain = lambda: ref.fused_quantize_ef_ref(x, me)  # noqa: E731
+    launched = graph_kernel_nodes(kernel)
+    assert launched == (plan.passes, plan.passes), (
+        f"fused_quantize_ef {case} {shape}: one call is {launched} (kernel, all) graph "
+        f"nodes, the plan {plan.passes} pass(es)")
     # read x once; write q, the (z,) scales and one row's residual
     nbytes = x.numel() * x.element_size() + x.numel() + 4 * z + 4 * n
     flops = 5 * x.numel()  # abs, max, divide, round, clip
     times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / FP32_FLOP_PER_S}
     by = max(times, key=times.get)
-    kernel = lambda: K.fused_quantize_ef(x, me)  # noqa: E731
-    plain = lambda: ref.fused_quantize_ef_ref(x, me)  # noqa: E731
     if case == "wire":  # milliseconds: launch cost is noise, and no graph pool of copies
         t = {"ms": eager_ms(kernel), "plain_ms": eager_ms(plain)}
     else:
@@ -1144,7 +1225,9 @@ def quant_case(case: str, gen, shape=(4096, 4096)) -> dict:
             "dtype": str(x.dtype).replace("torch.", ""), "me": me, "max_abs_err": err,
             "mismatches": mismatches, "tol": "bitwise", **t, "library_ms": None,
             "library": "none: no single PyTorch call computes it",
-            "bound_ms": times[by] * 1e3, "bound_by": by, "bound_bytes": nbytes}
+            "bound_ms": times[by] * 1e3, "bound_by": by, "bound_bytes": nbytes,
+            "bound_share": times[by] * 1e3 / t["ms"], "passes": plan.passes,
+            "kernels_per_call": launched[0], "plan": dataclasses.asdict(plan)}
 
 
 def phase_train_kernels() -> dict:
@@ -1152,8 +1235,7 @@ def phase_train_kernels() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    quant = [lambda c=c: [quant_case(c, gen)]
-             for c in ("activation", "wire", "edges", "edges_long")]
+    quant = [lambda c=c, s=s: [quant_case(c, gen, s)] for c, s in QUANT_TRAIN_CASES]
     for case in [lambda: flash_case(TRAIN_SEQ, gen, True), lambda: flash_case(8192, gen, True),
                  lambda: flash_case(1000, gen, False), lambda: [adam_case(False, gen)],
                  lambda: [adam_case(True, gen)]] + quant:
@@ -1165,7 +1247,7 @@ def phase_train_kernels() -> dict:
     for r in rows:
         key = r["kernel"]
         if (r.get("s") == TRAIN_SEQ or r.get("states") == "device"
-                or r.get("case") == "activation"):
+                or (r.get("case"), r.get("shape")) == QUANT_MAIN):
             main_rows[key] = r
     errs = {k: max(r["max_abs_err"] for r in rows if r["kernel"] == k) for k in main_rows}
     return {k: {**r, "max_abs_err": errs[k]} for k, r in main_rows.items()}
@@ -1523,8 +1605,7 @@ KERNEL_KINDS = (  # device work of a training step, by kernel name, first match
     ("flash_forward", ("flash_fwd_",)),
     ("flash_backward", ("flash_delta_kernel", "flash_dkdv_", "flash_dq_")),
     ("fused_adam", ("fused_adam_kernel",)),
-    ("fused_quantize_ef", ("quant_rows_kernel", "segment_absmax_kernel",
-                           "segment_quant_kernel")),
+    ("fused_quantize_ef", QUANT_KERNELS),
     ("rmsnorm", ("rmsnorm_kernel",)),
     # fp32 GEMMs outside the tensor cores: the MoE's dense dispatch and
     # combine einsums (models/moe.py) and its fp32 router product, the
@@ -2206,6 +2287,10 @@ MAMBA_ARCH = "mamba2-130m"
 MAMBA_SEQ = 32768  # mamba_plan's sequence: ProTrain's memory planning at its subject
 MAMBA_WIDTHS = (768, 1536)  # d_model (norm1, final norm); d_in (the gated norm)
 MAMBA_FP32_LEAF = (24, 24)  # A_log, D or dt_bias, stacked over the 24 layers
+# the quantizer at mamba_plan's compress8 sites (32,768 tokens x d 768: a
+# warp a row, 8 rows a block), at 257 rows (not a whole number of blocks)
+# and at one row
+QUANT_MAMBA_CASES = tuple(("activation", (z, MAMBA_WIDTHS[0])) for z in (MAMBA_SEQ, 257, 1))
 HYBRID_ARCH = "jamba-1.5-large-398b"
 # reduced Jamba at its head width and group: 8 query heads over 1 KV head of
 # 128 (Jamba: 64 over 8); one 8-layer period, d 128, the rest of reduced()
@@ -2250,9 +2335,7 @@ def phase_mamba_kernels() -> dict:
     fp32 leaf of 24 x 24 on the device (less than one block of the kernel);
     flash forward and backward at the hybrid's heads (8 over 1 of 128, S
     4096, no window); paged attention ``main`` at them (pinned and device
-    cold stores); the quantizer at a compress8 block's save sites, 32,768
-    rows of 768 bf16 (fewer 4-element vectors a row, 192, than a block has
-    threads)."""
+    cold stores); the quantizer at ``QUANT_MAMBA_CASES``."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -2262,7 +2345,7 @@ def phase_mamba_kernels() -> dict:
     cases += [lambda: flash_case(TRAIN_SEQ, gen, True, heads=HYBRID_HEADS, window=0)]
     cases += [lambda h=h: [{"kernel": "paged_attention", **paged_case(
         "main", h, gen, HYBRID_HEADS, HYBRID_ARCH)}] for h in (True, False)]
-    cases += [lambda: [quant_case("activation", gen, (MAMBA_SEQ, MAMBA_WIDTHS[0]))]]
+    cases += [lambda c=c, s=s: [quant_case(c, gen, s)] for c, s in QUANT_MAMBA_CASES]
     rows = []
     for case in cases:
         for r in case():

@@ -11,6 +11,8 @@ named phases; its JSON phase lines are printed with the checkout's label
 
     git archive <parent> | tar -x -C build/parent
     python3 scripts/ab_chip.py --parent build/parent --change . --phases engine train
+    python3 scripts/ab_chip.py --parent build/parent --change . \
+        --phases train_policies mamba_plan    # phases that take the machine's spec
 
 Needs one CUDA card and nvcc, as ``chip_smoke.py`` does.
 """
@@ -27,14 +29,21 @@ import sys
 ORDER = "pccp"
 
 RUN = r"""
-import gc, pathlib, sys
+import gc, inspect, pathlib, sys
 root = pathlib.Path(sys.argv[1]).resolve()
 sys.path[:0] = [str(root), str(root / "src")]
 import torch
 import chip_smoke
+from repro_torch.core.hardware import local_cuda_hw
 chip_smoke.phase_build()
+hw = None
 for name in sys.argv[2:]:
-    getattr(chip_smoke, "phase_" + name)()
+    phase = getattr(chip_smoke, "phase_" + name)
+    if inspect.signature(phase).parameters:  # a phase that plans against the machine
+        hw = hw or local_cuda_hw()
+        phase(hw)
+    else:
+        phase()
     gc.collect()  # one phase's model goes before the next one's
     torch.cuda.empty_cache()
 """
@@ -57,7 +66,7 @@ def main() -> int:
     ap.add_argument("--parent", type=pathlib.Path, required=True)
     ap.add_argument("--change", type=pathlib.Path, required=True)
     ap.add_argument("--phases", nargs="+", required=True,
-                    help="chip_smoke phase names, e.g. engine train")
+                    help="chip_smoke phase names, e.g. engine train mamba_plan")
     args = ap.parse_args()
     roots = {"p": ("parent", args.parent), "c": ("change", args.change)}
     failed = 0

@@ -85,7 +85,9 @@ def build_library() -> pathlib.Path:
     nvcc = find_nvcc()
     lib_path = BUILD_DIR / f"libreprotorch_{_digest(nvcc)}.so"
     if lib_path.exists():
-        BUILD_INFO.update(lib=str(lib_path), seconds=0.0, built=False, log="")
+        saved = lib_path.with_suffix(".log")  # the build's own log, ptxas's report in it
+        BUILD_INFO.update(lib=str(lib_path), seconds=0.0, built=False,
+                          log=saved.read_text() if saved.exists() else "")
         return lib_path
     t0 = time.perf_counter()
     work = BUILD_DIR / f"tmp_{os.getpid()}"
@@ -111,10 +113,10 @@ def build_library() -> pathlib.Path:
     logs.append(f"$ {' '.join(link)}\n{res.stdout}")
     if res.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + "\n".join(logs))
+    log = "\n".join(logs)
+    lib_path.with_suffix(".log").write_text(log)  # before the library: a loader reads both
     os.replace(tmp_lib, lib_path)  # atomic: a concurrent loader sees all or nothing
     shutil.rmtree(work)
-    log = "\n".join(logs)
-    (BUILD_DIR / (lib_path.stem + ".log")).write_text(log)
     BUILD_INFO.update(lib=str(lib_path), seconds=time.perf_counter() - t0, built=True, log=log)
     return lib_path
 
@@ -141,9 +143,8 @@ def load_library() -> ctypes.CDLL:
     lib.repro_flash_attention_bwd.restype = i32
     lib.repro_fused_adam.argtypes = [vp] * 6 + [i64, i32, i32, vp]
     lib.repro_fused_adam.restype = i32
-    lib.repro_fused_quant_scratch.argtypes = [i64, i64]
-    lib.repro_fused_quant_scratch.restype = i64
-    lib.repro_fused_quantize_ef.argtypes = [vp, i32] + [vp] * 4 + [i64, i64, i64, vp]
+    lib.repro_fused_quantize_ef.argtypes = [vp, i32] + [vp] * 4 + [i64] * 3 + [i32] * 5 + [
+        i64, vp]
     lib.repro_fused_quantize_ef.restype = i32
     lib.repro_error_string.argtypes = [i32]
     lib.repro_error_string.restype = ctypes.c_char_p

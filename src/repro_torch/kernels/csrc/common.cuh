@@ -46,6 +46,29 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Programmatic dependent launch: a kernel launched with launch_pdl may be
+// scheduled while the previous kernel on the stream finishes; it calls this
+// before its first memory access, so it reads and writes nothing before that
+// kernel is complete. Without the launch attribute the wait is a no-op.
+__device__ __forceinline__ void wait_for_previous_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block, bool pdl,
+                       cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
 // Block-wide sum / max over kWarps warps. ``scratch`` holds kWarps floats.
 // Every thread reads the partials in the same order, so all get the same
 // value; the trailing barrier lets the caller reuse ``scratch`` at once.

@@ -36,10 +36,6 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kGeneralThreads = 256;
 
-__device__ __forceinline__ void wait_for_previous_grid() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
-
 // Sum over the block (any multiple of 32 threads up to 1024). Every thread
 // reads the warps' partials in the same order, so all get the same value.
 __device__ __forceinline__ float block_sum(float v, float* scratch) {
@@ -64,7 +60,7 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __restri
                int d, float eps) {
   __shared__ float scratch[kMaxThreads / 32];
   const int64_t row = blockIdx.x;
-  wait_for_previous_grid();
+  repro::wait_for_previous_grid();
   if constexpr (kVecs > 0) {
     constexpr int kPer = 16 / sizeof(T);  // elements in one 16-byte vector
     const int nvec = d / kPer;
@@ -126,17 +122,8 @@ __global__ void empty_kernel() {}
 template <typename T, int kVecs>
 cudaError_t launch(const void* x, const void* scale, void* out, long long rows, int d,
                    float eps, int threads, bool pdl, cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(rows));
-  cfg.blockDim = dim3(threads);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, rmsnorm_kernel<T, kVecs>, static_cast<const T*>(x),
-                            static_cast<const T*>(scale), static_cast<T*>(out), d, eps);
+  return repro::launch_pdl(rmsnorm_kernel<T, kVecs>, dim3(static_cast<unsigned>(rows)),
+                           dim3(threads), pdl, stream, x, scale, out, d, eps);
 }
 
 template <typename T>

@@ -456,31 +456,71 @@ def test_train_step_runs_on_card(arch):
         assert after[name] > before[name], name
 
 
+# (case, z, n, dtype) of the quantizer's card cases: bf16 activation rows at
+# d 4096 and at mamba2-130m's d 768 (a warp a row); the widest configs' rows,
+# d 16384 (llama3-405b) and 18432 (nemotron-4-340b), which must run as one
+# kernel; d 18432 in fp32; bf16 rows with n % 8 == 4 (8-byte loads); 257
+# rows (not a whole number of 8-row blocks); one row; edge rows (a zero row,
+# exact half-way quotients, the clip bound, n not a multiple of 4); long
+# fp32 rows (the two-pass path)
+QUANT_CASES = [("activation", 256, 4096, torch.bfloat16),
+               ("narrow_activation", 256, 768, torch.bfloat16),
+               ("rows_16384", 64, 16384, torch.bfloat16),
+               ("rows_18432", 64, 18432, torch.bfloat16),
+               ("fp32_activation", 64, 18432, torch.float32),
+               ("bf16_n8_4", 32, 4100, torch.bfloat16),
+               ("rows_257", 257, 768, torch.bfloat16),
+               ("single_row", 1, 18432, torch.bfloat16),
+               ("edges", 4, 131, torch.float32),
+               ("long_rows", 3, 50_001, torch.float32)]
+
+
+def _graph_kernel_nodes(fn) -> int:
+    """Kernel nodes of a CUDA graph that captures one call of ``fn`` (counted
+    in the graph: torch.profiler can miss the library's launches in short
+    traces)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    rt = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert rt.cudaGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert rt.cudaGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    kinds = [ctypes.c_int(-1) for _ in nodes]
+    for node, kind in zip(nodes, kinds):
+        assert rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+    graph.reset()
+    assert all(k.value == 0 for k in kinds), [k.value for k in kinds]  # kernel nodes only
+    return len(kinds)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["activation", "narrow_activation", "edges", "long_rows"])
-def test_fused_quantize_ef_kernel_matches_plain_bitwise(case):
-    """A bf16 activation block (one pass per row) at d 4096 and at
-    mamba2-130m's d 768 (192 4-element vectors a row, fewer than a block's
-    threads), edge rows (a zero row, exact half-way quotients, the clip
-    bound, n not a multiple of 4) and long fp32 rows (the two-pass path)."""
+@pytest.mark.parametrize("case,z,n,dtype", QUANT_CASES, ids=[c[0] for c in QUANT_CASES])
+def test_fused_quantize_ef_kernel_matches_plain_bitwise(case, z, n, dtype):
+    """The kernel's q, scales and residual bitwise equal to the plain
+    version's; at d 16384 and 18432 one call is one kernel (x read once)."""
     _require_card()
+    from repro_torch.kernels.fused_quant import quant_plan
+
     g = torch.Generator(device="cuda").manual_seed(3)
-    if case in ("activation", "narrow_activation"):
-        d = 4096 if case == "activation" else 768
-        x = (torch.randn(256, d, device="cuda", generator=g)
-             * torch.exp(torch.randn(256, 1, device="cuda", generator=g))).bfloat16()
-        me = 0
-    elif case == "edges":
-        n = 131
+    if case == "edges":
         ties = torch.zeros(n, device="cuda")
         ties[0] = 127.0
         ties[1:9] = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5])
+        ties[9] = -0.0  # the residual keeps the sign of x
         x = torch.stack([torch.zeros(n, device="cuda"), ties,
                          torch.linspace(-3.3, 3.3, n, device="cuda"),
                          torch.randn(n, device="cuda", generator=g)])
         me = 1
     else:
-        x, me = torch.randn(3, 50_001, device="cuda", generator=g), 2
+        x = (torch.randn(z, n, device="cuda", generator=g)
+             * torch.exp(torch.randn(z, 1, device="cuda", generator=g))).to(dtype)
+        me = z - 1
     got = K.fused_quantize_ef(x, me)
     want = ref.fused_quantize_ef_ref(x, me)
     torch.cuda.synchronize()
@@ -489,6 +529,9 @@ def test_fused_quantize_ef_kernel_matches_plain_bitwise(case):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     if case == "edges":
         assert got[0][1, 1:9].tolist() == [0, 2, 2, 0, -2, -2, 126, -126]
+    if case in ("rows_16384", "rows_18432", "fp32_activation"):
+        assert quant_plan(z, n, dtype).passes == 1
+        assert _graph_kernel_nodes(lambda: K.fused_quantize_ef(x, me)) == 1
 
 
 @pytest.mark.cuda

@@ -489,9 +489,10 @@ def test_rmsnorm_bwd_plain_matches_jax_grad(shape):
 # ---------------------------------------------------------------------------
 # Fused int8 quantize + error-feedback residual: bitwise against JAX
 # ---------------------------------------------------------------------------
-def _quant_both(ch: np.ndarray, me: int):
-    """(port plain, JAX oracle, Pallas interpret) results as numpy triples."""
-    port = K.fused_quantize_ef(torch.from_numpy(ch), me)
+def _quant_both(ch: np.ndarray, me: int, dtype=torch.float32):
+    """(port plain, JAX oracle, Pallas interpret) results as numpy triples;
+    the port takes ``ch`` in ``dtype`` (values ``dtype`` holds exactly)."""
+    port = K.fused_quantize_ef(torch.from_numpy(ch).to(dtype), me)
     jref = JR.fused_quantize_ef_ref(jnp.asarray(ch), me)
     pallas = j_fused_quantize_ef(jnp.asarray(ch), me, interpret=True)
     out = [tuple(t.numpy() for t in port)]
@@ -512,14 +513,14 @@ def _xla_cpu_quantize(ch: np.ndarray, me: int):
     return q, scale.astype(np.float32), err.astype(np.float32)
 
 
-def _assert_quant_bitwise(ch: np.ndarray, me: int):
+def _assert_quant_bitwise(ch: np.ndarray, me: int, dtype=torch.float32):
     """The port's plain version bitwise against the JAX oracle run op by op
     (IEEE division, the product rounded before the difference, as the CUDA
     kernel computes). The Pallas kernel in interpret mode is jitted, and
     XLA's CPU backend rewrites two of those ops (``_xla_cpu_quantize``): it
     is held bitwise against that rewrite, whose q differs from the port's
     only where the rewritten scale is an ulp away."""
-    (q, s, e), (qj, sj, ej), (qp, sp, ep) = _quant_both(ch, me)
+    (q, s, e), (qj, sj, ej), (qp, sp, ep) = _quant_both(ch, me, dtype)
     assert q.dtype == np.int8 and s.dtype == np.float32 and e.dtype == np.float32
     np.testing.assert_array_equal(q, qj, err_msg="q vs JAX ref")
     np.testing.assert_array_equal(s.view(np.int32), sj.view(np.int32), err_msg="scales vs JAX ref")
@@ -559,6 +560,58 @@ def test_fused_quantize_ef_edge_rows_match_jax_bitwise():
     assert s[0] == np.float32(1e-30) / np.float32(127) and not q[0].any()
     assert list(q[1, 1:9]) == [0, 2, 2, 0, -2, -2, 126, -126]  # half to even
     assert q[2].min() == -127 and q[2].max() == 127
+
+
+# (z, n, dtype): the widest configs' rows (d 18432 in fp32, 16384 in bf16),
+# bf16 rows with n % 8 == 4 (the kernel's 8-byte loads), 9 rows (not a
+# whole number of the kernel's 8-row blocks) and one row of d 768
+QUANT_EDGE_WIDTHS = [(1, 18432, torch.float32), (2, 16384, torch.bfloat16),
+                     (3, 4100, torch.bfloat16), (9, 12, torch.bfloat16),
+                     (1, 768, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("z,n,dtype", QUANT_EDGE_WIDTHS)
+def test_fused_quantize_ef_plain_matches_jax_bitwise_at_kernel_widths(z, n, dtype):
+    """The plain version bitwise against JAX at the widths where the CUDA
+    kernel changes its launch; a bf16 input is widened exactly, so JAX gets
+    the same values in fp32. The first row holds a half-way quotient and
+    the clip bound, every row a -0.0."""
+    rng = np.random.default_rng(n)
+    ch = rng.standard_normal((z, n)) * np.exp(rng.standard_normal((z, 1)))
+    ch[0, :3] = [127.0, 2.5, -126.5]  # scale 1: x / scale is x
+    ch[:, 3] = -0.0  # q 0; the residual keeps the sign of x
+    ch = torch.from_numpy(ch.astype(np.float32)).to(dtype).float().numpy()
+    _assert_quant_bitwise(ch, z - 1, dtype)
+    q, _, _ = K.fused_quantize_ef(torch.from_numpy(ch).to(dtype), 0)
+    assert q[0, :3].tolist() == [127, 2, -126]
+
+
+def test_quant_plan_runs_every_config_width_in_one_pass():
+    """Every d_model of the configs (768 to 18432), in bf16 and fp32, at a
+    microbatch's rows and at one row: one kernel that reads x once (the rows
+    path: 16-byte loads held in registers), within the card's limits (1024
+    threads a block, 2^31 - 1 blocks) and the kernel's instances."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.fused_quant import LOAD_SLOTS, quant_plan
+
+    widths = sorted({c.d_model for c in REGISTRY.values()})
+    assert widths[0] == 768 and widths[-1] == 18432
+    for d in widths:
+        for dtype, vec in ((torch.bfloat16, 8), (torch.float32, 4)):
+            for z in (1, 257, 32768):
+                p = quant_plan(z, d, dtype)
+                assert p.path == "rows" and p.passes == 1 and p.vec == vec, (d, dtype, p)
+                assert 32 <= p.threads_per_row <= p.threads <= 1024, (d, dtype, p)
+                assert p.threads == p.threads_per_row * p.rows, (d, dtype, p)
+                assert p.loads_per_thread in LOAD_SLOTS, (d, dtype, p)
+                assert p.threads_per_row * p.loads_per_thread * p.vec >= d, (d, dtype, p)
+                assert p.blocks * p.rows >= z and p.blocks < 2 ** 31, (d, dtype, p)
+    # two blocks of d 18432 bf16 share an SM; the gradient wire's chunks take
+    # two passes; odd widths take 8-byte loads (bf16, n % 8 == 4) or one value
+    assert quant_plan(4096, 18432, torch.bfloat16).threads == 512
+    assert quant_plan(4, 14_680_064, torch.float32).passes == 2
+    assert quant_plan(4, 4100, torch.bfloat16).vec == 4
+    assert quant_plan(4, 4099, torch.float32).vec == 1
 
 
 # ---------------------------------------------------------------------------
