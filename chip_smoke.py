@@ -126,7 +126,8 @@ Phases, each printing one JSON line:
      forward and backward and paged attention at the hybrid's 8 query
      heads over 1 KV head of 128; each line carries ``"path": "mamba"``;
  14. ``mamba_serve``: phase 4's engine and checks for ``mamba2-130m`` at
-     full width and all 24 layers, on the resident plan under replay
+     full width and 12 of its 24 layers (``MAMBA_SERVE_LAYERS``), on the
+     resident plan under replay
      admission (the default without attention); the teacher-forced plain
      path runs the plain RMSNorm too; ``mamba_state_bytes``;
  15. ``mamba_train_compare``: two steps of 2-layer full-width mamba2-130m
@@ -143,9 +144,40 @@ Phases, each printing one JSON line:
      ``hybrid_train`` (two steps, kernels against the plain path, at
      ``HYBRID_GRAD_COSINE``).
 
+ 18. ``encdec_kernels``: flash forward and backward at
+     seamless-m4t-large-v2's heads (16 over 16 of 64, B 1): causal at S
+     4096, non-causal at S 4096, non-causal 1024 query rows over 4096 key
+     rows, each beside SDPA and its bound; paged ``main`` at hd 64, group
+     1, cold store pinned and on the device; each line carries
+     ``"path": "encdec"``;
+ 19. ``encdec_serve``: phase 4's engine and checks for
+     seamless-m4t-large-v2's decoder at full width and depth (24 + 24
+     layers), prompts of 595 to 758 tokens; once the 4 requests hold their
+     slots, each slot's cross cache is primed in place
+     (``models/kvcache.prime_cross_cache``) from ``encode`` over seeded
+     frames (4, 1024, 1024), on the graph and the eager engine alike;
+     ``priming``: the captured step's logits over the primed cross cache
+     differ from those over a zeroed one (the graph reads the primed
+     bytes); no RMSNorm (LayerNorm model);
+ 20. ``encdec_train_compare``: two steps at full width, 2 encoder and 2
+     decoder layers, S 4096 frames and tokens, kernels against the plain
+     path (whole-row attention in the encoder, the decoder's self- and
+     cross-attention; plain Adam), at train_compare's bounds, the flash
+     launches the 2 + 2 layers imply; ``encdec_plan``: phase 9 for
+     seamless-m4t-large-v2 at 24 + 24 layers, S 32,768 frames and tokens,
+     B 1 (at S 16,384 if no searched plan trains, ``encdec_plan_failed``),
+     with the time to draw a batch (its fp32 frames included; outside the
+     timed steps) and where the front chunk (embedding and encoder) lies;
+ 21. ``launchers``: ``launch.train`` (mistral-7b, 32 layers, the searched
+     plan as searched; seamless-m4t-large-v2; each 2 steps of B 1 at S
+     4096) and ``launch.serve`` (mistral-7b, paged, its default stream)
+     through their ``main(argv)``, each JSON line checked (finite losses;
+     drained).
+
 The kernels summary line gives each kernel's launches per path
 (``launches_by_path``: each path's counts, zeroed just before it ran);
-``launches`` stays each kernel's count on the path it came with.
+``launches`` stays each kernel's count on the path it came with;
+``encdec_cases``: the flash and paged rows at seamless-m4t-large-v2's heads.
 
 The fused int8 quantize kernel (``fused_quantize_ef``) is held to its
 plain version bitwise (q, scales and the residual) in phase 5 at
@@ -407,9 +439,10 @@ def rmsnorm_case(rows: int, gen, d: int = 4096) -> dict:
     }
 
 
-def paged_inputs(case: str, cold_on_host: bool, gen, heads=(HQ, HKV), arch="mistral-7b"):
+def paged_inputs(case: str, cold_on_host: bool, gen, heads=(HQ, HKV), arch="mistral-7b",
+                 hd: int = HD):
     """The paged kernel's inputs at the serving shapes of ``arch``, ``heads``
-    (query, KV) heads of HD. ``main`` takes sel and mask from
+    (query, KV) heads of ``hd``. ``main`` takes sel and mask from
     ``PagedKV.prepare`` at mid-run positions of the arch's cache (past the
     hot window, so cold rows are attended); ``full`` masks by position
     without the ring rule; ``ring`` is a wrapped ring (every row attendable)
@@ -425,8 +458,8 @@ def paged_inputs(case: str, cold_on_host: bool, gen, heads=(HQ, HKV), arch="mist
     hq, hkv = heads
     s = LONG_SEQ if case == "long" else SEQ_LEN
     rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
-    q, kh, vh = rnd(b, 1, hq, HD), rnd(b, w, hkv, HD), rnd(b, w, hkv, HD)
-    kc, vc = rnd(b, s, hkv, HD), rnd(b, s, hkv, HD)
+    q, kh, vh = rnd(b, 1, hq, hd), rnd(b, w, hkv, hd), rnd(b, w, hkv, hd)
+    kc, vc = rnd(b, s, hkv, hd), rnd(b, s, hkv, hd)
     pos = torch.tensor([530, 610, 700, 815])
     if case == "main":
         spec = choose_paging(s, PAGE, N_HOT)
@@ -453,16 +486,16 @@ def paged_bound(args, cold_on_host: bool) -> tuple[float, str, dict]:
     from repro_torch.serve.paging import attended_rows
 
     q, kh, vh, kc, vc, sel, mask = args
-    hq, hkv = q.shape[2], kh.shape[2]
+    hq, hkv, hd = q.shape[2], kh.shape[2], q.shape[3]
     valid = attended_rows(mask)
-    row = 2 * hkv * HD * q.element_size()  # K and V of one cache row, all kv heads
+    row = 2 * hkv * hd * q.element_size()  # K and V of one cache row, all kv heads
     hot_rows = int((valid & sel).sum())
     cold_rows = int((valid & ~sel).sum())
     hbm = 2 * q.numel() * q.element_size() + sel.numel() + 4 * mask.numel() + hot_rows * row
     host = cold_rows * row if cold_on_host else 0
     if not cold_on_host:
         hbm += cold_rows * row
-    flops = (hot_rows + cold_rows) * hq * HD * 4 + 5 * hq * mask.numel()
+    flops = (hot_rows + cold_rows) * hq * hd * 4 + 5 * hq * mask.numel()
     times = {"bytes": max(hbm / HBM_BYTES_PER_S, host / HOST_LINK_BYTES_PER_S),
              "operations": flops / FP32_FLOP_PER_S}
     by = max(times, key=times.get)
@@ -515,7 +548,7 @@ def paged_library(args, **kw) -> dict:
 
 
 def paged_case(case: str, cold_on_host: bool, gen, heads=(HQ, HKV),
-               arch="mistral-7b", **kw) -> dict:
+               arch="mistral-7b", hd: int = HD, **kw) -> dict:
     """The paged kernel against its plain version on ``paged_inputs``;
     ``kw``: ``time_ms``'s repetitions."""
     import torch
@@ -524,7 +557,7 @@ def paged_case(case: str, cold_on_host: bool, gen, heads=(HQ, HKV),
     from repro_torch.kernels.paged_attention import split_rows
     from repro_torch.kernels.ref import paged_attention_ref
 
-    args = paged_inputs(case, cold_on_host, gen, heads, arch)
+    args = paged_inputs(case, cold_on_host, gen, heads, arch, hd)
     s = args[-1].shape[1]
     out = decode_paged_attention(*args, n_hot=N_HOT)
     ref = paged_attention_ref(*args)
@@ -537,7 +570,7 @@ def paged_case(case: str, cold_on_host: bool, gen, heads=(HQ, HKV),
     rows, n_split = split_rows(BATCH, heads[1], s, PAGE,
                                torch.cuda.get_device_properties(0).multi_processor_count)
     res = {
-        "case": case, "s": s, "heads": list(heads),
+        "case": case, "s": s, "heads": list(heads), "hd": hd,
         "cold": "pinned_host" if cold_on_host else "device",
         "n_split": n_split, "rows_per_split": rows,
         "max_abs_err": err, "max_abs_plain": ref.float().abs().max().item(),
@@ -698,11 +731,14 @@ def tick_account(ticks) -> dict:
 
 
 def serve(engine, reqs, device_times: bool = False,
-          kernels: tuple[str, ...] = SERVING_KERNELS) -> dict:
+          kernels: tuple[str, ...] = SERVING_KERNELS, prime=None) -> dict:
     """Serve ``reqs`` on a warmed-up engine: its report, the launches of
     ``kernels`` over the run, the host wall time of its ticks by kind and,
     with ``device_times`` (a graph engine), each tick kind's device time and
-    idle share (``tick_account``)."""
+    idle share (``tick_account``). ``prime(engine)``: called once every
+    request holds its slot (admitted here, before the first tick, into the
+    fresh engine's zeroed slots, so that no tick's admission zeroes what it
+    writes), before the launch counts are zeroed."""
     import torch
 
     from repro_torch import kernels as K
@@ -710,6 +746,12 @@ def serve(engine, reqs, device_times: bool = False,
     torch.cuda.synchronize()
     engine.tel.tracer.events.clear()
     ticks_dev = tick_device_times(engine) if device_times else None
+    if prime is not None:
+        engine.submit(reqs)
+        assert sorted(engine.scheduler.admit()) == list(range(BATCH)), "a request waits"
+        prime(engine)
+        torch.cuda.synchronize()
+        reqs = None
     K.reset_launch_counts()
     report = engine.run(reqs)
     torch.cuda.synchronize()
@@ -733,7 +775,7 @@ def decode_norms(cfg) -> int:
     return 1 + sum(layer_norms(cfg, i) for i in range(cfg.num_layers))
 
 
-def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
+def serve_phase(cfg, hw, phase: str, prompt_lens=PROMPT_LENS, prime=None) -> dict[str, int]:
     """``DecodeEngine`` serving 4 requests of ``cfg`` (random bf16 weights
     from seed 0), from its CUDA graph, then from Python (tokens and launches
     equal), a teacher-forced step through the kernels against the plain
@@ -743,7 +785,10 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
     admission, the engine's default. For an MoE ``cfg`` the teacher-forced
     check is MOE_ENGINE_TOL's and the routing choices of the two paths are
     compared (``routing``). The plain path's RMSNorm is the plain version
-    (``plain_rmsnorm``)."""
+    (``plain_rmsnorm``); a LayerNorm model launches no RMSNorm. ``prime``:
+    ``serve``'s hook, run on both engines (an encoder-decoder's cross
+    cache); then the graph engine's step is replayed over the primed cache
+    and over a zeroed one, whose logits must differ (``priming``)."""
     import numpy as np
     import torch
 
@@ -756,7 +801,9 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
 
     moe = cfg.moe is not None
     attn = not cfg.attention_free
-    kernels = SERVING_KERNELS if attn else ("rmsnorm",)
+    rms = cfg.norm == "rmsnorm"
+    kernels = tuple(k for k in (SERVING_KERNELS if attn else ("rmsnorm",))
+                    if k != "rmsnorm" or rms)
     shape = ShapeConfig("smoke", SEQ_LEN, BATCH, "decode")
     n_chunks = num_repeats(cfg) + 2  # embedding + one per block + head
     if attn:
@@ -784,13 +831,13 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
         return eng, time.perf_counter() - t0
 
     rng = np.random.default_rng(0)
-    lens = rng.integers(*PROMPT_LENS, size=BATCH)
+    lens = rng.integers(*prompt_lens, size=BATCH)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist() for n in lens]
     reqs = lambda: [Request(i, p, NEW_TOKENS) for i, p in enumerate(prompts)]  # noqa: E731
     engine, capture_s = make_engine(graphs=True)
     assert engine.serve_step.graph is not None, "on CUDA the engine serves from a graph"
     torch.cuda.reset_peak_memory_stats()
-    run = serve(engine, reqs(), device_times=True, kernels=kernels)
+    run = serve(engine, reqs(), device_times=True, kernels=kernels, prime=prime)
     report, launches = run["report"], run["launches"]
     peak = torch.cuda.max_memory_allocated()
     for name, n in launches.items():
@@ -798,12 +845,14 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
     # per step: one paged attention an attention layer; the layers' RMSNorms
     # and the final one (``decode_norms``)
     n_attn = sum(cfg.mixer_at(i) == "attention" for i in range(cfg.num_layers))
-    if attn:
+    if attn and rms:
         assert launches["rmsnorm"] * n_attn == launches["paged_attention"] * decode_norms(
             cfg), launches
+    if attn:
+        assert launches["paged_attention"] % n_attn == 0, launches
         cold = next(e for e in engine.state["cache"].values() if "k_cold" in e)["k_cold"]
         assert cold.device.type == "cpu" and cold.is_pinned(), "cold store must be pinned host"
-    else:  # replay admission: one step a decode tick
+    if not attn:  # replay admission: one step a decode tick
         assert launches["rmsnorm"] == report.decode_ticks * decode_norms(cfg), (
             launches, report.decode_ticks)
     state_bytes = sum(leaf.numel() * leaf.element_size()
@@ -811,7 +860,7 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
                       for leaf in e.values())
 
     eager_engine, _ = make_engine(graphs=False)
-    eager = serve(eager_engine, reqs(), kernels=kernels)
+    eager = serve(eager_engine, reqs(), kernels=kernels, prime=prime)
     assert eager["report"].finished == report.finished, "graph and eager engines' tokens differ"
     assert eager["launches"] == launches, (eager["launches"], launches)
     assert eager["h2d_bytes"] == run["h2d_bytes"], (eager["h2d_bytes"], run["h2d_bytes"])
@@ -850,6 +899,7 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
                                     (i for i, x in enumerate(same) if x < 1.0), None)})
     # the served cache itself (the run is over): the step writes position
     # lens + 16 - 1, which no request reached
+    priming = None if prime is None else priming_reaches_graph(engine, tokens, pos)
     account = step_account(engine, tokens, pos)
     eager_report = eager["report"]
     emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
@@ -864,7 +914,7 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
          eager={"tokens_equal": True, "launches": eager["launches"], "ticks": eager["ticks"],
                 **{k: v for k, v in eager_report.to_dict().items()
                    if k in ("wall_s", "tokens_per_s", "p50_ttft_s", "p99_ttft_s", "steps")}},
-         teacher_forced=teacher, decode_step=account)
+         teacher_forced=teacher, decode_step=account, priming=priming)
     if phase == "engine":
         # the prefill chunk the cost model would pick for this engine on this
         # card (the engine keeps its explicit PREFILL_CHUNK, for comparable numbers)
@@ -883,6 +933,43 @@ def serve_phase(cfg, hw, phase: str) -> dict[str, int]:
     else:
         assert agree == 1.0, f"teacher-forced greedy tokens differ in {1 - agree:.0%} of rows"
     return launches
+
+
+def priming_reaches_graph(engine, tokens, pos) -> dict:
+    """The graph engine's captured step replayed at ``pos`` over the primed
+    cross cache, then with ``xk`` / ``xv`` zeroed in place, then primed again
+    (the bytes put back): the logits of the first and last replays must be
+    equal, and differ from the zeroed cache's."""
+    import torch
+
+    step = engine.serve_step
+    step.tokens[:, 0].copy_(tokens[:, 0])
+    step.pos.copy_(pos)
+    step.n_tok.fill_(1)
+
+    def replay():
+        step.t.zero_()
+        step.last.zero_()
+        step.graph.replay()
+        return step.last.float().clone()
+
+    cross = [e[k] for e in engine.state["cache"].values() for k in ("xk", "xv")]
+    primed = replay()
+    kept = [t.clone() for t in cross]
+    for t in cross:
+        t.zero_()
+    zeroed = replay()
+    for t, k in zip(cross, kept):
+        t.copy_(k)
+    again = replay()
+    torch.cuda.synchronize()
+    out = {"max_abs_diff_primed_vs_zero": (primed - zeroed).abs().max().item(),
+           "argmax_differs_rows": int((primed.argmax(-1) != zeroed.argmax(-1)).sum()),
+           "primed_replays_equal": bool(torch.equal(primed, again)),
+           "cross_cache_abs_max": max(t.float().abs().max().item() for t in cross)}
+    assert out["primed_replays_equal"], out
+    assert out["max_abs_diff_primed_vs_zero"] > 0, f"priming did not reach the graph: {out}"
+    return out
 
 
 def phase_engine(hw) -> dict[str, int]:
@@ -932,30 +1019,38 @@ def row_excess(out, ref) -> tuple[float, float, float]:
     return err, excess, share
 
 
-def flash_case(s: int, gen, with_bwd: bool, heads=(HQ, HKV), window=WINDOW) -> list[dict]:
-    """Flash forward (and backward) at B 1, ``s`` rows, ``heads`` (query, KV)
-    of HD, causal, ``window`` (0: none)."""
+def flash_case(s: int, gen, with_bwd: bool, heads=(HQ, HKV), window=WINDOW, hd: int = HD,
+               causal: bool = True, sk: int | None = None) -> list[dict]:
+    """Flash forward (and backward) at B 1, ``s`` query rows over ``sk``
+    key rows (default ``s``), ``heads`` (query, KV) of ``hd``, causal or
+    not, ``window`` (0: none)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch import kernels as K
     from repro_torch.kernels import ref
     hq, hkv = heads
+    sk = s if sk is None else sk
+    mask = dict(causal=causal, window=window)
     rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
-    q, k, v, dout = rnd(1, s, hq, HD), rnd(1, s, hkv, HD), rnd(1, s, hkv, HD), rnd(1, s, hq, HD)
+    q, k, v, dout = rnd(1, s, hq, hd), rnd(1, sk, hkv, hd), rnd(1, sk, hkv, hd), rnd(1, s, hq, hd)
     bhsd = lambda t: t.transpose(1, 2)  # noqa: E731
-    out, lse = K.flash_attention(q, k, v, causal=True, window=window)
-    want = bhsd(ref.flash_attention_ref(bhsd(q), bhsd(k), bhsd(v), causal=True, window=window))
-    _, want_lse = ref.attention_lse_ref(q, k, v, causal=True, window=window)
+    out, lse = K.flash_attention(q, k, v, **mask)
+    want = bhsd(ref.flash_attention_ref(bhsd(q), bhsd(k), bhsd(v), **mask))
+    _, want_lse = ref.attention_lse_ref(q, k, v, **mask)
     torch.cuda.synchronize()
     err, excess, tol_share = row_excess(out, want)
     lse_err, lse_excess = max_excess(lse, want_lse, LSE_TOL * (1 + want_lse.abs()))
-    assert excess <= 0, (f"flash forward S={s}: max |diff| {err} beyond tolerance "
+    what = f"S={s} Sk={sk} hd={hd} causal={causal}"
+    assert excess <= 0, (f"flash forward {what}: max |diff| {err} beyond tolerance "
                          f"({tol_share} of the tolerance)")
-    assert lse_excess <= 0, f"flash forward S={s}: lse max |diff| {lse_err} beyond {LSE_TOL}"
-    pairs = attended_pairs(s, window)
+    assert lse_excess <= 0, f"flash forward {what}: lse max |diff| {lse_err} beyond {LSE_TOL}"
+    pairs = attended_pairs(s, window) if causal else s * sk
     qt, kt, vt = bhsd(q), bhsd(k), bhsd(v)
-    if not window or s <= window:  # the window cuts nothing: SDPA's own causal mask is ours
+    if not causal:
+        assert not window, "a window without the causal mask is not a case of the model's"
+        sdpa_mask = {}
+    elif not window or s <= window:  # the window cuts nothing: SDPA's own causal mask is ours
         sdpa_mask = dict(is_causal=True)
     else:  # an explicit band: k <= q and k > q - window
         qi = torch.arange(s, device="cuda")[:, None]
@@ -963,28 +1058,29 @@ def flash_case(s: int, gen, with_bwd: bool, heads=(HQ, HKV), window=WINDOW) -> l
         sdpa_mask = dict(attn_mask=(ki <= qi) & (ki > qi - window))
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,  # noqa: E731
                                                   **sdpa_mask)
-    flops = 4 * HD * hq * pairs
+    flops = 4 * hd * hq * pairs
+    case = {"s": s, "sk": sk, "hd": hd, "causal": causal, "heads": list(heads),
+            "window": window, "pairs": pairs}
     rows = [{
-        "kernel": "flash_attention", "s": s, "heads": list(heads), "window": window,
-        "pairs": pairs,
+        "kernel": "flash_attention", **case,
         "max_abs_err": err, "max_abs_plain": want.float().abs().max().item(),
         "tol_share": tol_share, "tol": FLASH_TOL_TEXT, "lse_max_abs_err": lse_err,
         "lse_tol": f"{LSE_TOL} * (1 + |plain|)",
-        "ms": eager_ms(lambda: K.flash_attention(q, k, v, causal=True, window=window)),
+        "ms": eager_ms(lambda: K.flash_attention(q, k, v, **mask)),
         "plain_ms": eager_ms(lambda: ref.flash_attention_ref(
-            bhsd(q), bhsd(k), bhsd(v), causal=True, window=window), reps=3, inner=1),
+            bhsd(q), bhsd(k), bhsd(v), **mask), reps=3, inner=1),
         "library_ms": eager_ms(sdpa),
         "bound_ms": flops / BF16_FLOP_PER_S * 1e3, "bound_by": "operations", "flops": flops,
     }]
     if not with_bwd:
         return rows
-    grads = K.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
-    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True, window=window)
+    grads = K.flash_attention_bwd(q, k, v, out, lse, dout, **mask)
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **mask)
     torch.cuda.synchronize()
     errs, shares = {}, {}
     for name, got, exp in zip(("dq", "dk", "dv"), grads, wants):
         e, ex, shares[name] = row_excess(got, exp)
-        assert ex <= 0, (f"flash backward S={s}: {name} max |diff| {e} beyond tolerance "
+        assert ex <= 0, (f"flash backward {what}: {name} max |diff| {e} beyond tolerance "
                          f"({shares[name]} of it)")
         errs[name] = e
     del grads, wants
@@ -993,16 +1089,14 @@ def flash_case(s: int, gen, with_bwd: bool, heads=(HQ, HKV), window=WINDOW) -> l
     dol = bhsd(dout)
     library = eager_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), dol, retain_graph=True))
     del ol
-    flops = 10 * HD * hq * pairs
+    flops = 10 * hd * hq * pairs
     rows.append({
-        "kernel": "flash_attention_bwd", "s": s, "heads": list(heads), "window": window,
-        "pairs": pairs,
+        "kernel": "flash_attention_bwd", **case,
         "max_abs_err": max(errs.values()), **{f"{k}_max_abs_err": e for k, e in errs.items()},
         **{f"{k}_tol_share": r for k, r in shares.items()}, "tol": FLASH_TOL_TEXT,
-        "ms": eager_ms(lambda: K.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
-                                                     window=window)),
+        "ms": eager_ms(lambda: K.flash_attention_bwd(q, k, v, out, lse, dout, **mask)),
         "plain_ms": eager_ms(lambda: ref.flash_attention_bwd_ref(
-            q, k, v, out, lse, dout, causal=True, window=window), reps=3, inner=1),
+            q, k, v, out, lse, dout, **mask), reps=3, inner=1),
         "library_ms": library,
         "bound_ms": flops / BF16_FLOP_PER_S * 1e3, "bound_by": "operations", "flops": flops,
     })
@@ -1419,22 +1513,32 @@ def adam_launches(state) -> int:
 
 def layer_norms(cfg, layer: int) -> int:
     """RMSNorm launches of one layer's forward: norm1, the Mamba-2 mixer's
-    gated norm, norm2 before an MLP or MoE."""
+    gated norm, norm2 before an MLP or MoE; none in a LayerNorm model."""
+    if cfg.norm != "rmsnorm":
+        return 0
     return (1 + (cfg.mixer_at(layer) != "attention")
             + (cfg.moe_at(layer) or cfg.d_ff > 0))
 
 
+def kept_sites(cfg) -> int:
+    """Save sites of a layer that the backward reads: norm1's output, the
+    mixer's and, in an encoder-decoder's decoder, the cross-attention's."""
+    return 2 + (cfg.kind == "encdec")
+
+
 def layer_sites(cfg, layer: int) -> int:
-    """Save sites of one layer (``models/model.apply_position``): norm1's
-    output, the mixer's, and the MLP's or MoE's if it has one."""
-    return 2 + (cfg.moe_at(layer) or cfg.d_ff > 0)
+    """Save sites of one layer (``models/model.apply_position``): the kept
+    ones (``kept_sites``), and the MLP's or MoE's output if it has one."""
+    return kept_sites(cfg) + (cfg.moe_at(layer) or cfg.d_ff > 0)
 
 
 def expected_train_launches(cfg, art, steps: int, adam_per_step: int) -> dict[str, int]:
     """Launches the plan implies: per microbatch a forward of every layer, a
     second forward (the replay) of every layer that does not keep its
     activations (checkpoint, swap, compress8, compress16) and a backward of
-    every layer; the flash kernels in the attention layers; the RMSNorms of
+    every layer; the flash kernels in the attention layers (an
+    encoder-decoder's decoder layer attends twice, itself and the encoder's
+    output, and each encoder layer is always recomputed); the RMSNorms of
     each layer forward (``layer_norms``) plus the final one (their backward
     is plain); the quantizer at every save site of a compress8 layer in the
     forward, never in the replay; ``adam_per_step`` Adam launches per step
@@ -1444,35 +1548,62 @@ def expected_train_launches(cfg, art, steps: int, adam_per_step: int) -> dict[st
     policies = [r.act_policy for r in art.runs
                 for _ in range(r.length * superblock_period(cfg))]  # by layer
     layers = range(cfg.num_layers)
-    attn = [cfg.mixer_at(i) == "attention" for i in layers]
+    per_layer = 1 + (cfg.kind == "encdec")  # self- and cross-attention
+    attn = [per_layer * (cfg.mixer_at(i) == "attention") for i in layers]
+    enc = cfg.encoder_layers if cfg.kind == "encdec" else 0
     recomputed = [p != "none" for p in policies]
     mbs = steps * art.plan.microbatch
-    return {"flash_attention": mbs * sum(a * (1 + r) for a, r in zip(attn, recomputed)),
-            "flash_attention_bwd": mbs * sum(attn),
-            "rmsnorm": mbs * (1 + sum(layer_norms(cfg, i) * (1 + r)
-                                      for i, r in zip(layers, recomputed))),
+    return {"flash_attention": mbs * (sum(a * (1 + r) for a, r in zip(attn, recomputed))
+                                      + 2 * enc),
+            "flash_attention_bwd": mbs * (sum(attn) + enc),
+            "rmsnorm": mbs * ((cfg.norm == "rmsnorm") + sum(
+                layer_norms(cfg, i) * (1 + r) for i, r in zip(layers, recomputed))),
             "fused_adam": steps * adam_per_step,
             "fused_quantize_ef": mbs * sum(layer_sites(cfg, i) for i, p in zip(layers, policies)
                                            if p == "compress8")}
 
 
+def bias_bytes_per_block(cfg) -> int:
+    """Bytes of one superblock's LayerNorm biases: the only weights no
+    backward reads (an add's gradient needs neither operand)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    out = []
+
+    def walk(tree, name=""):
+        if isinstance(tree, L.ParamDef):
+            if name == "bias":
+                out.append(math.prod(tree.shape[1:]) * L.torch_dtype(tree.dtype).itemsize)
+            return
+        for k, v in tree.items():
+            walk(v, k)
+
+    walk(M.param_defs(cfg)["blocks"])
+    return sum(out)
+
+
 def expected_host_traffic(cfg, plan, shape, steps: int) -> dict[str, int]:
     """The ``train.*`` counters the plan implies, from the chunk inventory:
     each host-resident chunk's weights fetched once per microbatch, an
-    unbuffered block's once more for its backward; two site tensors (norm1's
-    output, the mixer's) swapped out and back per swap layer and microbatch;
+    unbuffered block's once more for its backward (all of them for a
+    recomputed block, whose replay runs its forward again; for a block that
+    keeps its activations, those its backward reads: all but the LayerNorm
+    biases, ``bias_bytes_per_block``); the kept site tensors
+    (``kept_sites``) swapped out and back per swap layer and microbatch;
     the quantizer at each save site (``layer_sites``) of a compress8 layer,
     per microbatch."""
     from repro_torch.core.chunks import chunk_inventory
 
     mbs = steps * plan.microbatch
+    policies = plan.block_policies()
     host = [c for c in chunk_inventory(cfg)
             if plan.host_params and plan.chunk_placement(c.index) == "host"]
     fetched = sum(c.param_bytes for c in host) + sum(
-        c.param_bytes for c in host if c.is_block and not plan.chunk_buffered(c.index))
-    policies = plan.block_policies()
+        c.param_bytes - (bias_bytes_per_block(cfg) if policies[c.block_index] == "none" else 0)
+        for c in host if c.is_block and not plan.chunk_buffered(c.index))
     site = shape.global_batch // plan.microbatch * shape.seq_len * cfg.d_model * 2  # bf16
-    swapped = 2 * site * policies.count("swap")
+    swapped = kept_sites(cfg) * site * policies.count("swap")
     return {"train.weight_fetch_bytes": mbs * fetched, "train.act_swap_out_bytes": mbs * swapped,
             "train.act_swap_in_bytes": mbs * swapped,
             "train.act_quantize_launches": mbs * sum(
@@ -1593,11 +1724,16 @@ def active_matmul_params(cfg) -> int:
 def model_flops(cfg, tokens: int, seq: int = TRAIN_SEQ) -> int:
     """6 x active matmul parameters (``active_matmul_params``) x tokens plus
     the attention products (x3 for the backward) of one step, in the
-    attention layers (a Mamba-2 layer has none)."""
+    attention layers (a Mamba-2 layer has none): causal pairs in a decoder's
+    self-attention; in an encoder-decoder also S^2 pairs in each encoder
+    layer and S x S_src in each cross-attention (its frames are as many as
+    its tokens)."""
     n_matmul = active_matmul_params(cfg)
     n_attn = sum(cfg.mixer_at(i) == "attention" for i in range(cfg.num_layers))
-    attn = 3 * 4 * cfg.resolved_head_dim * cfg.num_heads * attended_pairs(
-        seq, cfg.sliding_window) * n_attn * (tokens // seq)
+    pairs = attended_pairs(seq, cfg.sliding_window) * n_attn
+    if cfg.kind == "encdec":
+        pairs += seq * seq * (cfg.encoder_layers + n_attn)
+    attn = 3 * 4 * cfg.resolved_head_dim * cfg.num_heads * pairs * (tokens // seq)
     return 6 * n_matmul * tokens + attn
 
 
@@ -2002,7 +2138,7 @@ def pinned_alloc_bytes(cfg, plan) -> int:
             L.torch_dtype(d.dtype).itemsize)), tree)
 
     if plan.chunk_placement(0) == "host":
-        collect(defs["embed"])
+        collect({k: defs[k] for k in ("embed", "encoder") if k in defs})
     if plan.chunk_placement(plan.n_chunks - 1) == "host":
         collect({k: defs[k] for k in ("final_norm", "head") if k in defs})
     for run in plan_runs(plan, M.num_repeats(cfg)):
@@ -2050,6 +2186,32 @@ def _oom_shortfall(err: Exception, usable: int) -> int:
     asked = int(float(m.group(1)) * unit[m.group(2)]) if m else 0
     stats = torch.cuda.memory_stats()
     return max(stats["reserved_bytes.all.current"] + asked - usable, asked)
+
+
+class NoPlanTrained(AssertionError):
+    """``plan_phase`` trained no plan: the search found none that fits the
+    card, or every searched plan ran out of memory."""
+
+    def __init__(self, attempts: list):
+        super().__init__(f"no plan trained within {PLAN_ATTEMPTS} searches: {attempts}")
+        self.attempts = attempts
+
+
+def batch_draw_seconds(cfg, shape) -> float:
+    """Host seconds to draw one batch of ``shape`` and place it on the card
+    (an encoder-decoder's carries its fp32 frames); the training loop draws
+    it before it starts a step's clock."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+
+    pipe = SyntheticTokenPipeline(cfg, shape, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    batch = pipe.next_sync()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del batch
+    return seconds
 
 
 def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None,
@@ -2101,7 +2263,10 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None,
          profile_s=profile_s, plan=res.plan.describe(), feasible=res.feasible,
          evaluated=res.evaluated, search_s=search_s, search_seconds=res.search_seconds,
          modeled=modeled(w, res.plan), pinned_bytes=plan_pinned_bytes(w, res.plan), **beside)
-    assert res.feasible, "the search found no plan that fits the card"
+    if not res.feasible:  # no plan to attempt: the search's pick outruns the card's model
+        raise NoPlanTrained([{"plan": res.plan.describe(), "error": "the search found no plan "
+                              "that fits the card", "modeled": modeled(w, res.plan),
+                              "capacity_bytes": w.hw.capacity_bytes()}])
 
     # host memory: the deepest stack whose pinned states fit, as the host
     # allocator takes them (each allocation rounded up to a power of two)
@@ -2150,19 +2315,26 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None,
             layers, plan, w_run = fit_host(layers, search(w_run, compress="off", sync="xla").plan,
                                            w_run)
     else:
-        raise AssertionError(f"no plan trained within {PLAN_ATTEMPTS} searches: {attempts}")
+        raise NoPlanTrained(attempts)
 
     tokens = shape.global_batch * seq
     flops = model_flops(run_cfg, tokens, seq)
     report = drift.report()
     m = modeled(w_run, plan)
-    emit(phase, arch=cfg.name, layers=layers, reduced_depth=layers != cfg.num_layers,
+    frames = {}
+    if cfg.kind == "encdec":
+        frames = {"encoder_layers": cfg.encoder_layers, "frames_per_sequence": seq,
+                  "batch_draw_s": batch_draw_seconds(run_cfg, shape),
+                  "front_chunk": plan.chunk_placement(0),
+                  "front_chunk_state_bytes": w_run.chunks[0].param_bytes
+                  + w_run.chunks[0].grad_bytes + w_run.chunks[0].optim_bytes}
+    emit(phase, arch=cfg.name, layers=layers, reduced_depth=layers != cfg.num_layers, **frames,
          depth_cuts={"host_budget_bytes": budget, "pinned_bytes_by_depth": cuts},
          seq=seq, global_batch=shape.global_batch, block_policies=plan.block_policies(),
          hbm_capacity_fraction=w_run.hw.hbm_capacity_fraction, oom_attempts=attempts,
          **run, tokens_per_s=tokens / run["median_step_s"], model_flops_per_step=flops,
          mfu_flops="6 x active matmul parameters x tokens + attention 12 hd Hq pairs an "
-                   "attention layer",
+                   "attention layer (causal self, S^2 encoder, S x S_src cross)",
          mfu=flops / run["median_step_s"] / BF16_FLOP_PER_S, modeled=m,
          pinned_alloc_bytes_estimate=pinned_alloc_bytes(run_cfg, plan),
          measured_vs_modeled={"step_s": [run["median_step_s"], m["t_iteration"]],
@@ -2178,8 +2350,8 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None,
     assert abs(run["ces"][0] - math.log(cfg.vocab_size)) <= FIRST_LOSS_BAND, run["ces"]
     assert run["pinned_state_bytes"] == plan_pinned_bytes(w_run, plan), (
         run["pinned_state_bytes"], plan_pinned_bytes(w_run, plan))
-    path = ("rmsnorm", "fused_adam") + (() if cfg.attention_free else (
-        "flash_attention", "flash_attention_bwd"))
+    path = ("fused_adam",) + (("rmsnorm",) if cfg.norm == "rmsnorm" else ()) + (
+        () if cfg.attention_free else ("flash_attention", "flash_attention_bwd"))
     for name in path:
         assert run["launches"][name] > 0, f"{name} was not launched by the {phase} run"
     gc.collect()
@@ -2213,6 +2385,11 @@ MOE_ARCH = "qwen2-moe-a2.7b"
 MOE_HEADS = (16, 16)  # query over KV heads, hd 128: group 1, no window
 MOE_D = 2048
 MOE_EXPERT_W1 = (60, 2048, 1408)  # one layer's stacked expert w1
+# mamba_serve's depth: half of mamba2-130m's 24 layers, cut so that the
+# whole run, the encoder-decoder's phases included, ends near half of its
+# time limit (24 layers through PR 20; its eager engine, a step a token,
+# takes most of the phase)
+MAMBA_SERVE_LAYERS = 12
 
 
 def release_pinned_cache() -> dict:
@@ -2357,12 +2534,14 @@ def phase_mamba_kernels() -> dict:
 
 
 def phase_mamba_serve(hw) -> dict[str, int]:
-    """``mamba2-130m`` at full width and all 24 layers through
-    ``serve_phase``: the resident plan (its recurrent state, 3.19 MB a layer
-    at B 4), replay admission, the RMSNorm kernel at d 768 and 1536."""
+    """``mamba2-130m`` at full width and ``MAMBA_SERVE_LAYERS`` of its 24
+    layers through ``serve_phase``: the resident plan (its recurrent state,
+    3.19 MB a layer at B 4), replay admission, the RMSNorm kernel at d 768
+    and 1536."""
     from repro_torch.configs import get_config
 
-    return serve_phase(get_config(MAMBA_ARCH), hw, "mamba_serve")
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH), num_layers=MAMBA_SERVE_LAYERS)
+    return serve_phase(cfg, hw, "mamba_serve")
 
 
 def ssd_check() -> dict:
@@ -2520,6 +2699,198 @@ def phase_hybrid(hw) -> dict[str, int]:
             for k in set(launches) | set(TRAINING_KERNELS)}
 
 
+# ---------------------------------------------------------------------------
+# The encoder-decoder family: seamless-m4t-large-v2 at full width and depth
+# ---------------------------------------------------------------------------
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_HEADS, ENCDEC_HD = (16, 16), 64  # 16 query over 16 KV heads of 64: group 1
+ENCDEC_FLASH_CASES = (  # (query rows, key rows, causal): decoder self, encoder self, cross
+    (TRAIN_SEQ, TRAIN_SEQ, True), (TRAIN_SEQ, TRAIN_SEQ, False), (1024, TRAIN_SEQ, False))
+ENCDEC_PROMPT_LENS = (595, 759)  # prompts of 595 to 758 tokens, past the 2-page hot window
+ENCDEC_SEQ, ENCDEC_FALLBACK_SEQ = 32768, 16384  # encdec_plan's frames and tokens
+ENCDEC_FRAMES_SEED = 11
+# the reference's block profile of seamless-m4t-large-v2 at B 1, S 32,768
+# (src/repro/core/profiler.py, profile_superblock; tests/test_torch_encdec.py
+# holds these numbers)
+REFERENCE_ENCDEC_PROFILE = dict(flops_fwd=5850971183329.0, hbm_bytes_fwd=1120896937592,
+                                act_residual_bytes=5436609280, boundary_bytes=67108864,
+                                peak_transient_bytes=5213524096)
+
+
+def phase_encdec_kernels() -> list[dict]:
+    """The kernels at seamless-m4t-large-v2's heads (16 over 16 of 64, B 1)
+    against their plain versions: flash forward and backward causal at S
+    4096 (the decoder's self-attention), non-causal at S 4096 (the
+    encoder's) and non-causal 1024 query rows over 4096 key rows (a
+    cross-attention with S != S_src), each beside SDPA and the bound; the
+    paged kernel ``main`` at hd 64, group 1, cold store pinned and on the
+    device."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [lambda s=s, sk=sk, c=c: flash_case(s, gen, True, heads=ENCDEC_HEADS, window=0,
+                                                hd=ENCDEC_HD, causal=c, sk=sk)
+             for s, sk, c in ENCDEC_FLASH_CASES]
+    cases += [lambda h=h: [{"kernel": "paged_attention", **paged_case(
+        "main", h, gen, ENCDEC_HEADS, ENCDEC_ARCH, hd=ENCDEC_HD)}] for h in (True, False)]
+    rows = []
+    for case in cases:
+        for r in case():
+            emit("kernel_vs_plain", path="encdec", **r)
+            rows.append(r)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def prime_from_frames(cfg):
+    """``serve``'s hook for an encoder-decoder: ``encode`` over seeded
+    frames (B, SEQ_LEN, D), then ``prime_cross_cache`` into the engine's
+    cache, in place."""
+    import torch
+
+    from repro_torch.models.kvcache import prime_cross_cache
+    from repro_torch.models.model import encode
+
+    def prime(engine):
+        gen = torch.Generator(device="cuda").manual_seed(ENCDEC_FRAMES_SEED)
+        frames = torch.randn(BATCH, SEQ_LEN, cfg.d_model, device="cuda",
+                             generator=gen).bfloat16()
+        params = engine.state["params"]
+        with torch.no_grad():
+            prime_cross_cache(params, encode(params, frames, cfg), engine.state["cache"], cfg)
+
+    return prime
+
+
+def phase_encdec_serve(hw) -> dict[str, int]:
+    """``seamless-m4t-large-v2``'s decoder at full width and depth (24 + 24
+    layers) through ``serve_phase`` on the paged plan, each slot's cross
+    cache primed from the encoder over seeded frames (4, 1024, 1024)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ENCDEC_ARCH)
+    return serve_phase(cfg, hw, "encdec_serve", prompt_lens=ENCDEC_PROMPT_LENS,
+                       prime=prime_from_frames(cfg))
+
+
+def phase_encdec_train_compare() -> dict[str, int]:
+    """Two steps of full-width seamless-m4t-large-v2 at 2 encoder and 2
+    decoder layers, S 4096 frames and tokens, B 1: the kernels (flash in
+    the encoder, the decoder's self- and cross-attention, fused Adam)
+    against the plain path (whole-row attention, plain Adam), to the
+    train_compare bounds. Returns the kernels' launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import fully_resident_plan
+
+    cfg = dataclasses.replace(get_config(ENCDEC_ARCH), num_layers=2, encoder_layers=2)
+    shape = ShapeConfig("compare", TRAIN_SEQ, 1, "train")
+    plan = fully_resident_plan(4, 2)
+    t0 = time.perf_counter()
+    r = compare_step(cfg, shape, plan, steps=2)
+    emit("encdec_train_compare", case="resident", plan=plan.describe(), arch=cfg.name,
+         layers=cfg.num_layers, encoder_layers=cfg.encoder_layers, seq=TRAIN_SEQ, batch=1,
+         **r, tol={"loss": LOSS_TOL, "grad_norm_rel": NORM_RTOL, "cosine": GRAD_COSINE},
+         seconds=time.perf_counter() - t0)
+    for a, b in zip(r["losses_kernels"], r["losses_plain"]):
+        assert abs(a - b) <= LOSS_TOL, r
+    assert r["grad_norm_rel_diff"] <= NORM_RTOL, r
+    assert r["min_grad_cosine"] >= GRAD_COSINE, r
+    # per step: 2 encoder layers (forward, recompute, backward) and 2 decoder
+    # layers of self- and cross-attention (forward, backward)
+    want = {"flash_attention": 2 * (2 * 2 + 2 * 2), "flash_attention_bwd": 2 * (2 + 2 * 2),
+            "rmsnorm": 0}
+    got = {k: r["launches"][k] for k in want}
+    assert got == want and r["launches"]["fused_adam"] > 0, (got, want, r["launches"])
+    torch.cuda.empty_cache()
+    return {k: r["launches"][k] for k in TRAINING_KERNELS}
+
+
+def phase_encdec_plan(hw) -> dict:
+    """``seamless-m4t-large-v2`` at full width and depth through
+    ``plan_phase`` at S 32,768 frames and tokens, B 1, beside the
+    reference's block profile; at S 16,384 if no searched plan trains at
+    32,768 (``encdec_plan_failed`` reports the attempts)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ENCDEC_ARCH)
+    emit("encdec_plan_host_cache", **release_pinned_cache(), host=host_memory())
+    try:
+        return plan_phase(cfg, hw, "encdec_plan", REFERENCE_ENCDEC_PROFILE, seq=ENCDEC_SEQ)
+    except NoPlanTrained as err:
+        emit("encdec_plan_failed", seq=ENCDEC_SEQ, attempts=err.attempts,
+             next_seq=ENCDEC_FALLBACK_SEQ)
+    gc.collect()
+    release_pinned_cache()
+    return plan_phase(cfg, hw, "encdec_plan", seq=ENCDEC_FALLBACK_SEQ)
+
+
+def run_launcher(module, argv: list[str]) -> dict:
+    """``module.main(argv)`` in this process, its standard output echoed and
+    its last line read as the launcher's JSON summary; the kernels' launch
+    counts zeroed just before."""
+    import io
+
+    import torch
+
+    from repro_torch import kernels as K
+
+    buf = io.StringIO()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    assert rc == 0, f"{module.__name__} {argv} exited {rc}"
+    summary = json.loads(out.strip().splitlines()[-1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    release_pinned_cache()
+    return {"argv": argv, "summary": summary, "launches": dict(K.launch_counts()),
+            "seconds": seconds}
+
+
+LAUNCHER_RUNS = (  # (name, launcher, argv)
+    ("train_mistral", "train", ["--arch", "mistral-7b", "--steps", "2", "--batch", "1",
+                                "--seq", str(TRAIN_SEQ)]),
+    ("serve_mistral", "serve", ["--arch", "mistral-7b", "--plan", "paged"]),
+    ("train_seamless", "train", ["--arch", ENCDEC_ARCH, "--steps", "2", "--batch", "1",
+                                 "--seq", str(TRAIN_SEQ)]),
+)
+
+
+def phase_launchers() -> dict[str, dict[str, int]]:
+    """Both launchers through their ``main(argv)`` on the card, as a user
+    runs them: ``launch.train`` on mistral-7b at full depth (the searched
+    plan, as searched) and on seamless-m4t-large-v2, each 2 steps of B 1 at
+    S 4096, with finite losses; ``launch.serve`` on mistral-7b's paged plan
+    and its default request stream, drained. Returns each run's launches."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+
+    mods = {"train": launch_train, "serve": launch_serve}
+    out = {}
+    for name, which, argv in LAUNCHER_RUNS:
+        r = run_launcher(mods[which], argv)
+        emit("launcher", name=name, **r)
+        summary = r["summary"]
+        if which == "train":
+            assert summary["steps"] == 2 and summary["device"].startswith("cuda"), summary
+            assert all(math.isfinite(summary[k]) for k in ("first_loss", "final_loss")), summary
+            for k in ("flash_attention", "flash_attention_bwd", "fused_adam"):
+                assert r["launches"][k] > 0, f"{name}: {k} was not launched"
+        else:
+            assert summary["drained"] and summary["device"].startswith("cuda"), summary
+            assert r["launches"]["paged_attention"] > 0, f"{name}: paged_attention not launched"
+        out[name] = r["launches"]
+    return out
+
+
 def timed_phase(name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -2574,11 +2945,28 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     hybrid_launches = timed_phase("hybrid", lambda: phase_hybrid(hw))
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec_rows = timed_phase("encdec_kernels", phase_encdec_kernels)
+    encdec_serve_launches = timed_phase("encdec_serve", lambda: phase_encdec_serve(hw))
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec_compare_launches = timed_phase("encdec_train_compare", phase_encdec_train_compare)
+    encdec_plan_out = timed_phase("encdec_plan", lambda: phase_encdec_plan(hw))
+    emit("encdec_calibration", hw=hw.name, host_bw=hw.host_bw, hbm_bytes=hw.hbm_bytes,
+         rows=[encdec_plan_out["row"]])
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher_launches = timed_phase("launchers", phase_launchers)
     # each path's launches, counted from 0 just before it ran
     by_path = {"engine": launches, "train": train_launches, "train_policies": policy_launches,
                "plan": plan_out["launches"], "moe_serve": moe_serve_launches,
                "moe_plan": moe_plan_out["launches"], "mamba_serve": mamba_serve_launches,
-               "mamba_plan": mamba_plan_out["launches"], "hybrid": hybrid_launches}
+               "mamba_plan": mamba_plan_out["launches"], "hybrid": hybrid_launches,
+               "encdec_serve": encdec_serve_launches,
+               "encdec_train_compare": encdec_compare_launches,
+               "encdec_plan": encdec_plan_out["launches"],
+               **{f"launch_{k}": v for k, v in launcher_launches.items()}}
     rms = measured["rmsnorm"][0]  # rows = batch: the decode path's shape
     main_case = next(p for p in measured["paged_attention"]
                      if p["case"] == "main" and p["cold"] == "pinned_host")
@@ -2610,12 +2998,18 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": n,
             "max_abs_err": row["max_abs_err"], **{k: row[k] for k in keys}})
+    case_keys = ("s", "sk", "hd", "causal", "heads", "case", "cold", "max_abs_err") + keys
     for row in summary["kernels"]:
         name = row["name"]
         row["launches_by_path"] = {p: got.get(name, 0) for p, got in by_path.items()}
-        # the MoE and Mamba-2 shapes' cases held to the same bounds
-        row["max_abs_err"] = max(row["max_abs_err"], moe_errs.get(name, 0.0),
-                                 mamba_errs.get(name, 0.0))
+        # the MoE, Mamba-2 and encoder-decoder shapes' cases held to the same bounds
+        row["max_abs_err"] = max([row["max_abs_err"], moe_errs.get(name, 0.0),
+                                  mamba_errs.get(name, 0.0)]
+                                 + [r["max_abs_err"] for r in encdec_rows if r["kernel"] == name])
+        cases = [{k: r[k] for k in case_keys if k in r} for r in encdec_rows
+                 if r["kernel"] == name]
+        if cases:  # seamless-m4t-large-v2's heads: hd 64, group 1
+            row["encdec_cases"] = cases
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)

@@ -6,11 +6,14 @@ planner's profile models (``core/profiler.profile_superblock``'s
 Runs one forward of a full-width superblock on the CPU under
 ``torch.autograd.graph.saved_tensors_hooks`` and sums the bytes of the
 distinct storages saved, leaving out the weights and the block's input.
-Prints one JSON line: the modeled and the kept bytes, their ratio, and the
-largest kept storages. Keep the sequence short: the CPU holds every saved
-tensor.
+An encoder-decoder's block runs with its cross-attention over a memory of
+``--seq`` rows (an input too, left out like the block's); the profile, as
+the reference's, traces the block without it. Prints one JSON line: the
+modeled and the kept bytes, their ratio, and the largest kept storages.
+Keep the sequence short: the CPU holds every saved tensor.
 
     PYTHONPATH=src python3 scripts/saved_bytes_census.py --arch mamba2-130m --seq 1024
+    PYTHONPATH=src python3 scripts/saved_bytes_census.py --arch seamless-m4t-large-v2 --seq 1024
 """
 from __future__ import annotations
 
@@ -37,6 +40,10 @@ def census(cfg, batch: int, seq: int, seed: int = 0) -> dict:
                         M.param_defs(cfg)["blocks"])
     x = torch.randn(batch, seq, cfg.d_model, generator=gen).to(L.torch_dtype(cfg.dtype))
     x.requires_grad_()
+    memory = None
+    if cfg.kind == "encdec":
+        memory = torch.randn(batch, seq, cfg.d_model, generator=gen).to(x.dtype)
+        memory.requires_grad_()
     kept: dict[int, tuple[int, list[int], str]] = {}
 
     def pack(t: torch.Tensor) -> torch.Tensor:
@@ -45,8 +52,9 @@ def census(cfg, batch: int, seq: int, seed: int = 0) -> dict:
         return t
 
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        M.apply_superblock(params, x, cfg)
-    own = {t.untyped_storage().data_ptr() for t in [x] + list(_leaves(params))}
+        M.apply_superblock(params, x, cfg, memory=memory)
+    inputs = [x] + ([] if memory is None else [memory])
+    own = {t.untyped_storage().data_ptr() for t in inputs + list(_leaves(params))}
     acts = sorted((v for k, v in kept.items() if k not in own), key=lambda v: -v[0])
     saved = sum(v[0] for v in acts)
     return {"arch": cfg.name, "batch": batch, "seq": seq, "modeled_bytes": modeled,

@@ -51,10 +51,13 @@ class ChunkInfo:
 
 
 def chunk_inventory(cfg: ModelConfig) -> list[ChunkInfo]:
-    """Execution-order chunks: [embed] [superblock x R] [head]."""
+    """Execution-order chunks: [embed(+encoder)] [superblock x R] [head]."""
     defs = M.param_defs(cfg)
     r = M.num_repeats(cfg)
-    cnt, nbytes = _tree_param_bytes({"embed": defs["embed"]})
+    front = {"embed": defs["embed"]}
+    if "encoder" in defs:
+        front["encoder"] = defs["encoder"]
+    cnt, nbytes = _tree_param_bytes(front)
     chunks = [ChunkInfo(0, "embed", cnt, nbytes, is_block=False)]
     # one chunk per superblock repeat; stacked defs are divided evenly by R
     cnt_all, bytes_all = _tree_param_bytes(defs["blocks"])

@@ -20,7 +20,12 @@ would save, as the reference classifies them: the inputs of matmuls and of
 the nonlinear ops (``_NONLINEAR``), each storage once, split into weights
 (the storages of the weight arguments) and activations; ``_Recorder`` says
 how the port's widening copies, norm statistics and broadcast products are
-read as the reference's dots.
+read as the reference's dots. A Python loop the reference writes as a
+``lax.scan`` (the blockwise attention's KV blocks, marked by
+``layers.scan_iteration``) adds its FLOPs and bytes every iteration but its
+residuals once, as the reference's walk of a scan body does
+(``profiler.py:113-115``): what a later iteration makes and saves stands
+for the first iteration's.
 """
 from __future__ import annotations
 
@@ -142,6 +147,8 @@ class _Recorder(TorchDispatchMode):
         self.products: dict[int, int] = {}  # storage of a product of widened data -> event
         self.made: dict[int, tuple] = {}  # output storage -> (event, [(input, its storage)])
         self.keep: list = []  # fake tensors stay referenced: storage ids stay unique
+        self.loop_iter: int | None = None  # the iteration of a scan-body loop, inside one
+        self.loop_made: set[int] = set()  # storages made inside such a loop
 
     def _resid(self, dot: bool, t: torch.Tensor, st: int) -> None:
         """Record a residual: a dot's input is its tensor before widening,
@@ -149,6 +156,8 @@ class _Recorder(TorchDispatchMode):
         nbytes = _nbytes(t)
         if dot:
             st, nbytes = self.origin.get(st, (st, nbytes))
+        if self.loop_iter and st in self.loop_made:
+            return  # a later iteration's: the body's residuals count once
         if st not in self.resid:
             self.resid[st] = ("w" if dot and st in self.weights else "a", nbytes)
 
@@ -179,6 +188,8 @@ class _Recorder(TorchDispatchMode):
             if st not in self.seen and st not in in_st:
                 new[st] = o.untyped_storage().nbytes()
         self.seen.update(new)
+        if self.loop_iter is not None:
+            self.loop_made.update(new)
         out_st = _storage(outs[0])
         if name in ("_to_copy", "clone") and len(ins) == 1:
             src, dst = ins[0], outs[0]
@@ -271,6 +282,29 @@ def _noting_broadcast_dots(rec: _Recorder):
         L.broadcast_dot = plain
 
 
+@contextlib.contextmanager
+def _counting_scan_bodies(rec: _Recorder):
+    """While recording, ``layers.scan_iteration`` tells ``rec`` which
+    iteration of a scan-body loop runs."""
+    from repro_torch.models import layers as L
+
+    plain = L.scan_iteration
+
+    @contextlib.contextmanager
+    def marked(i: int):
+        outer, rec.loop_iter = rec.loop_iter, i
+        try:
+            yield
+        finally:
+            rec.loop_iter = outer
+
+    L.scan_iteration = marked
+    try:
+        yield
+    finally:
+        L.scan_iteration = plain
+
+
 def profile_fn(fn: Callable, *args, weight_args: tuple[int, ...] = ()) -> TraceProfile:
     """Trace ``fn(*args)`` -- fake tensors, under ``FakeTensorMode`` -- and
     profile its aten ops. ``weight_args``: positions of the arguments that
@@ -279,7 +313,7 @@ def profile_fn(fn: Callable, *args, weight_args: tuple[int, ...] = ()) -> TraceP
                if isinstance(t, torch.Tensor)}
     inputs = [t for t in tree_flatten(args)[0] if isinstance(t, torch.Tensor)]
     rec = _Recorder(weights)
-    with torch.no_grad(), _noting_broadcast_dots(rec), rec:
+    with torch.no_grad(), _noting_broadcast_dots(rec), _counting_scan_bodies(rec), rec:
         out = fn(*args)
     final = {_storage(t) for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)}
     live = {_storage(t): t.untyped_storage().nbytes() for t in inputs}

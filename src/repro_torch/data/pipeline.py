@@ -3,10 +3,12 @@
 Port of ``src/repro/data/pipeline.py`` (``:30-125``). Batches are made per
 (seed, step) with the same numpy generator and arithmetic as the JAX
 pipeline, so both give the same tokens, and restoring a checkpoint at step
-N reproduces the batches the interrupted run would have seen. The host
-prefetch thread and the frames and image patches of the encoder-decoder
-and vision families are not ported: the training loop takes one batch a
-step with ``next_sync``.
+N reproduces the batches the interrupted run would have seen. An
+encoder-decoder's batch carries ``frames`` (B, S, D): fp32 standard
+normals from the same generator, drawn after the tokens, cast to the
+model's dtype on placement, as the JAX pipeline makes them. The host
+prefetch thread and the image patches of the vision family are not ported:
+the training loop takes one batch a step with ``next_sync``.
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models.layers import torch_dtype
 
-_FAMILIES_TODO = "ROADMAP.md, port queue 1 item 4: the encoder-decoder and VLM families"
+_FAMILIES_TODO = "ROADMAP.md, port queue 1: the VLM prefix"
 
 
 @dataclasses.dataclass
@@ -32,8 +35,8 @@ class SyntheticTokenPipeline:
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,
                  start_step: int = 0, device="cpu"):
-        if cfg.kind == "encdec" or cfg.frontend == "vision_patches":
-            raise NotImplementedError(f"{cfg.name}: frames / patches ({_FAMILIES_TODO})")
+        if cfg.frontend == "vision_patches":
+            raise NotImplementedError(f"{cfg.name}: image patches ({_FAMILIES_TODO})")
         self.cfg = cfg
         self.shape = shape
         self.seed = seed
@@ -52,10 +55,15 @@ class SyntheticTokenPipeline:
         tokens = ((a ** (idx % 5 + 1)) * t0 + c * idx) % v
         tokens = tokens.astype(np.int32)
         labels = np.roll(tokens, -1, axis=1)
-        return {"tokens": tokens, "labels": labels}
+        out = {"tokens": tokens, "labels": labels}
+        if self.cfg.kind == "encdec":
+            out["frames"] = rng.standard_normal((b, s, self.cfg.d_model)).astype(np.float32)
+        return out
 
     def _place(self, host: dict) -> dict:
-        return {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+        dt = torch_dtype(self.cfg.dtype)
+        return {k: torch.from_numpy(v).to(self.device) if v.dtype == np.int32
+                else torch.from_numpy(v).to(self.device, dt) for k, v in host.items()}
 
     def next_sync(self) -> dict:
         """The batch of the current step, on the device; advances the step."""

@@ -8,10 +8,15 @@ default (``--reduced`` picks the tiny same-family config):
         --page-size 256 --hot-pages 2
 
 ``--arch qwen2-moe-a2.7b`` serves the MoE family the same way,
-``--arch mamba2-130m`` the Mamba-2 family and ``--arch
-jamba-1.5-large-398b --reduced`` the hybrid. Weights are random, drawn on
-the device from ``--seed``; prompts come from a numpy generator seeded the
-same way. ``--plan resident`` keeps the whole cache on the device;
+``--arch mamba2-130m`` the Mamba-2 family, ``--arch
+jamba-1.5-large-398b --reduced`` the hybrid and ``--arch
+seamless-m4t-large-v2`` the encoder-decoder's decoder. The engine leaves
+an encoder-decoder's cross-attention cache as ``init_cache`` makes it,
+zeros, as the JAX engine does (its admission zeroes a slot's whole cache
+and nothing fills it from frames); ``models.kvcache.prime_cross_cache``
+fills it from an encoder's output where a caller has one. Weights are
+random, drawn on the device from ``--seed``; prompts come from a numpy
+generator seeded the same way. ``--plan resident`` keeps the whole cache on the device;
 ``--plan paged`` keeps a hot ring there and the cold pages in pinned host
 memory (the default where the model has attention; a Mamba-2 position's
 state is never paged); the default prompt lengths (520 to 799 tokens) reach

@@ -6,14 +6,18 @@
     python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --reduced \\
         --steps 4 --batch 2 --seq 64 --device cpu
     python -m repro_torch.launch.train --arch mamba2-130m --batch 1 --seq 32768 --steps 4
+    python -m repro_torch.launch.train --arch seamless-m4t-large-v2 --batch 1 --seq 4096 \\
+        --steps 2
 
 The PyTorch counterpart of ``src/repro/launch/train.py``: picks the
 architecture (``--reduced``: the tiny same-family config), builds the plan,
 the plan-realized step, the synthetic data pipeline and the fault-tolerant
 loop with checkpoints and auto-resume. Dense, MoE, Mamba-2
 (``mamba2-130m``) and hybrid (``jamba-1.5-large-398b``, at ``--reduced``
-on one card) decoders run; an MoE's loss is its cross-entropy plus the aux
-loss, and the loop logs both.
+on one card) decoders run, and the encoder-decoder
+(``seamless-m4t-large-v2``: its batches carry seeded frames of ``--seq``
+rows, its encoder trains in the front chunk with the embedding); an MoE's
+loss is its cross-entropy plus the aux loss, and the loop logs both.
 Weights are random, drawn on the device from ``--seed``. Runs on CUDA
 unless ``--device cpu``. Prints the plan, then one JSON summary line.
 
@@ -21,8 +25,13 @@ Plans: ``auto`` (the default) is ProTrain's search (``core.autotuner``)
 against ``--target-hw`` (a ``core.hardware.HARDWARE`` name) or, without
 one, this card's spec (``local_cuda_hw``; ``LOCAL_CPU_HW`` on the CPU). On
 CUDA the searched plan runs as searched: its host chunks live in pinned
-host memory. On the CPU, as the JAX launcher does, the chunks are parked on
-the device and the block policies kept. ``resident``: every chunk
+host memory, and the allocator grows its device segments in place
+(``expandable_segments``, set before the first allocation): a plan searched
+near the card's capacity otherwise leaves blocks reserved between
+allocations, and the searched plans of ``mistral-7b`` and
+``qwen2-moe-a2.7b`` ran out of memory without it on the H100. On the CPU,
+as the JAX launcher does, the chunks are parked on the device and the block
+policies kept. ``resident``: every chunk
 persistent, no remat; ``fsdp``: every block checkpointed.
 """
 from __future__ import annotations
@@ -68,6 +77,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)

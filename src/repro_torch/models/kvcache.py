@@ -5,8 +5,13 @@ structure: per superblock position an attention entry holds ``k``/``v`` of
 shape (R, B, S_max, n_kv, hd), stacked over repeats (R); a sliding-window
 config allocates only a window-sized ring. A Mamba-2 entry holds the
 recurrent state, ``conv`` (R, B, d_conv - 1, conv_dim) in the model's dtype
-and ``ssm`` (R, B, H, P, N) in fp32. The repeat scan of the JAX package is a
-Python loop here.
+and ``ssm`` (R, B, H, P, N) in fp32. An encoder-decoder's positions also
+hold the cross-attention's keys and values over the encoded source, ``xk``
+/ ``xv`` (R, B, S_max, n_kv, hd): decode reads them whole, with no mask, and
+never writes them; ``prime_cross_cache`` fills them in place from the
+encoder's output (no serving path does: the engine serves over the zeros
+``init_cache`` makes, as the JAX engine does). The repeat scan of the JAX
+package is a Python loop here.
 
 **Cache writes are in place.** ``decode_step`` writes the decoded token into
 the cache tensors it is given and returns that same dict, where the JAX
@@ -66,7 +71,27 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
         else:
             (conv, conv_dt), (ssm, ssm_dt) = M2.mamba2_state_defs(cfg, batch)
             out[f"pos{j}"] = {"conv": ((r,) + conv, conv_dt), "ssm": ((r,) + ssm, ssm_dt)}
+    if cfg.kind == "encdec":  # cross-attention K/V over the encoded source
+        xkv = ((r, batch, seq_len, cfg.num_kv_heads, hd), dt)
+        for entry in out.values():
+            entry.update(xk=xkv, xv=xkv)
     return out
+
+
+@torch.no_grad()
+def prime_cross_cache(params: dict, memory: torch.Tensor, cache: dict,
+                      cfg: ModelConfig) -> None:
+    """Write every position's cross-attention keys and values, ``memory @
+    wk`` and ``memory @ wv``, into the cache's ``xk`` / ``xv`` **in place**
+    (a captured serving step reads those tensors). ``memory``: the
+    encoder's output (B, S_max, D) for the cache's B slots and length."""
+    b, s, _ = memory.shape
+    hd = cfg.resolved_head_dim
+    for name, entry in cache.items():
+        ap = params["blocks"][name]["xattn"]
+        for leaf, w in (("xk", ap["wk"]), ("xv", ap["wv"])):
+            kv = torch.einsum("bsd,rdk->rbsk", memory, w)
+            entry[leaf].copy_(kv.reshape(w.shape[0], b, s, cfg.num_kv_heads, hd))
 
 
 def attention_entries(cache: dict) -> list[dict]:
@@ -243,6 +268,14 @@ def _decode_attention(ap: dict, h, entry: dict, step, cfg: ModelConfig, kv_io):
     return out.reshape(b, 1, -1) @ ap["wo"]
 
 
+def _decode_cross_attention(ap: dict, h, xk, xv, cfg: ModelConfig):
+    """h: (B,1,D) attends over the whole cross cache (B, S, n_kv, hd)."""
+    b = h.shape[0]
+    q = (h @ ap["wq"]).reshape(b, 1, cfg.num_heads, cfg.resolved_head_dim)
+    mask = torch.zeros((xk.shape[1],), dtype=torch.float32, device=h.device)
+    return _masked_decode_attn(q, xk, xv, mask).reshape(b, 1, -1) @ ap["wo"]
+
+
 def _decode_mamba(mp: dict, h, pcache: dict, step, cfg: ModelConfig):
     """h: (B,1,D). One step of the recurrence from the entry's state, whose
     new value is written in place (inactive slots keep theirs)."""
@@ -255,7 +288,8 @@ def _decode_mamba(mp: dict, h, pcache: dict, step, cfg: ModelConfig):
 
 def decode_position(pparams: dict, x, pcache: dict, step, cfg: ModelConfig, kv_io):
     """One layer, one token. x: (B,1,D); ``pcache`` is this layer's cache
-    entry (views, written in place). An MoE routes all B rows, inactive
+    entry (views, written in place; an encoder-decoder's cross cache only
+    read). An MoE routes all B rows, inactive
     slots of a chunked-prefill step too, which take capacity as in the JAX
     package; its aux loss is dropped."""
     h = L.apply_norm(pparams["norm1"], x, cfg.norm)
@@ -263,6 +297,9 @@ def decode_position(pparams: dict, x, pcache: dict, step, cfg: ModelConfig, kv_i
         x = x + _decode_attention(pparams["attn"], h, pcache, step, cfg, kv_io)
     else:
         x = x + _decode_mamba(pparams["mamba"], h, pcache, step, cfg)
+    if "xattn" in pparams:
+        hx = L.apply_norm(pparams["norm_x"], x, cfg.norm)
+        x = x + _decode_cross_attention(pparams["xattn"], hx, pcache["xk"], pcache["xv"], cfg)
     if "moe" in pparams:
         h2 = L.apply_norm(pparams["norm2"], x, cfg.norm)
         out, _ = apply_moe(pparams["moe"], h2, cfg)

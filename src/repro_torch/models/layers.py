@@ -1,6 +1,6 @@
-"""Transformer layers: norms, RoPE, attention and the MLP.
+"""Transformer layers: norms, RoPE, self- and cross-attention and the MLP.
 
-Port of ``src/repro/models/layers.py`` (``:27-329`` and ``:332-385``).
+Port of ``src/repro/models/layers.py`` (``:27-385``).
 Layers are plain functions of a parameter dict and tensors; parameter
 *definitions* (shape, init, axis tags) sit beside them. RMSNorm runs
 through the port's kernels package (the CUDA kernel on CUDA tensors, its
@@ -11,6 +11,7 @@ plain block loops of ``_mea_forward`` / ``_mea_bwd``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -63,6 +64,16 @@ def broadcast_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     reference writes inside an einsum and so emits as a ``dot_general``
     (``core/profiler.profile_fn`` counts it as that dot)."""
     return a * b
+
+
+@contextlib.contextmanager
+def scan_iteration(i: int):
+    """Iteration ``i`` of a Python loop the reference writes as one
+    ``lax.scan`` body (``_mea_forward``'s loop over KV blocks). Nothing
+    here: while ``core/profiler.profile_fn`` records, it counts the
+    residuals such a loop makes once, as the reference walks a scan body
+    once."""
+    yield
 
 
 def map_defs(fn, defs):
@@ -187,17 +198,19 @@ def _mea_forward(q, k, v, sk, causal, window, q_offset, block_kv):
     m = torch.full((b, sq, hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
     denom = torch.zeros(b, sq, hkv, g, dtype=torch.float32, device=q.device)
     for j in range(nblk):
-        kblk = k[:, j * block_kv:(j + 1) * block_kv]
-        vblk = v[:, j * block_kv:(j + 1) * block_kv]
-        logits = _mm32("bqkgd,bskd->bqkgs", q, kblk) * scale
-        bias = _attn_bias(sq, block_kv, j, sk, causal, window, q_offset, q.device)
-        logits = logits + bias[None, :, None, None, :]
-        m_new = torch.maximum(m, logits.amax(dim=-1))
-        scale_old = torch.exp(m - m_new)
-        p = torch.exp(logits - m_new[..., None])
-        denom = denom * scale_old + p.sum(dim=-1)
-        acc = acc * scale_old[..., None] + _mm32("bqkgs,bskd->bqkgd", p.to(vblk.dtype), vblk)
-        m = m_new
+        with scan_iteration(j):
+            kblk = k[:, j * block_kv:(j + 1) * block_kv]
+            vblk = v[:, j * block_kv:(j + 1) * block_kv]
+            logits = _mm32("bqkgd,bskd->bqkgs", q, kblk) * scale
+            bias = _attn_bias(sq, block_kv, j, sk, causal, window, q_offset, q.device)
+            logits = logits + bias[None, :, None, None, :]
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            scale_old = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            denom = denom * scale_old + p.sum(dim=-1)
+            acc = acc * scale_old[..., None] + _mm32("bqkgs,bskd->bqkgd", p.to(vblk.dtype),
+                                                     vblk)
+            m = m_new
     denom = denom.clamp_min(1e-30)
     return acc / denom[..., None], m + torch.log(denom)
 
@@ -305,6 +318,32 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions=None,
     return out.reshape(b, s, cfg.num_heads * hd) @ params["wo"]
 
 
+def full_attention(q, k, v, impl: str = "blockwise") -> torch.Tensor:
+    """Attention with no mask (the encoder's and the cross-attention's):
+    ``blockwise_attention`` over KV blocks of ``min(1024, Sk)``, as the
+    reference, or the whole-row plain version (``impl="naive"``: the plain
+    path the kernels are measured against)."""
+    if impl == "blockwise":
+        return blockwise_attention(q, k, v, causal=False, block_kv=min(1024, k.shape[1]))
+    if impl == "naive":
+        return naive_attention(q, k, v, causal=False)
+    raise ValueError(f"attention impl {impl!r}: 'blockwise' or 'naive'")
+
+
+def cross_attention_block(params: dict, x: torch.Tensor, memory: torch.Tensor, cfg, *,
+                          impl: str = "blockwise") -> torch.Tensor:
+    """x: (B, Sq, D) attends over the encoder's memory (B, Sk, D), with no
+    mask and no RoPE (layers.py:343-352)."""
+    b, sq, _ = x.shape
+    sk = memory.shape[1]
+    hd = cfg.resolved_head_dim
+    q = (x @ params["wq"]).reshape(b, sq, cfg.num_heads, hd)
+    k = (memory @ params["wk"]).reshape(b, sk, cfg.num_kv_heads, hd)
+    v = (memory @ params["wv"]).reshape(b, sk, cfg.num_kv_heads, hd)
+    out = full_attention(q, k, v, impl)
+    return out.reshape(b, sq, cfg.num_heads * hd) @ params["wo"]
+
+
 # ---------------------------------------------------------------------------
 # Attention and MLP parameters
 # ---------------------------------------------------------------------------
@@ -318,6 +357,9 @@ def attention_defs(cfg) -> dict:
         "wv": ParamDef((d, nkv), (ZERO, TP)),
         "wo": ParamDef((nq, d), (TP, ZERO)),
     }
+
+
+cross_attention_defs = attention_defs  # the same four projections (layers.py:332-340)
 
 
 def mlp_defs(cfg, d_ff: int | None = None) -> dict:

@@ -1,13 +1,15 @@
-"""Model assembly for the decoder: parameter tree, superblocks, runs, the
+"""Model assembly: parameter tree, superblocks, runs, the encoder, the
 training forward, embedding and LM head.
 
-Port of the decoder part of ``src/repro/models/model.py``: attention and
-Mamba-2 mixers (``models/mamba2.py``), dense MLPs and MoE layers
-(``models/moe.py``), in any superblock pattern (the hybrid's 8-layer
-period of Jamba). Parameters keep the
+Port of ``src/repro/models/model.py``: attention and Mamba-2 mixers
+(``models/mamba2.py``), dense MLPs and MoE layers (``models/moe.py``), in
+any superblock pattern (the hybrid's 8-layer period of Jamba), and the
+encoder-decoder family (``seamless-m4t-large-v2``). Parameters keep the
 JAX package's tree: ``{"embed": {"tok"}, "blocks": {"pos<j>": {...}},
-"final_norm": {...}, "head": {"w"}}``, each block leaf stacked over
-superblock repeats, ``(R, ...)``; the training state splits ``blocks`` into
+"final_norm": {...}, "head": {"w"}}`` plus, for an encoder-decoder,
+``"encoder": {"blocks": {...}, "final_norm"}``; each block leaf stacked over
+superblock repeats (the encoder's over its layers), ``(R, ...)``; the
+training state splits ``blocks`` into
 ``"runs": [...]``, one stacked subtree per run of the plan
 (``train/step_builder.py``). ``DecoderLM`` holds such a tree as an
 ``nn.Module`` whose parameter names are the tree paths joined by ``.``
@@ -17,15 +19,16 @@ The layer stack runs as a list of ``Run``s (``apply_runs``). JAX scans each
 run over its stacked leaves; here a Python loop walks the leaves' first axis
 (``unbind``, so the backward stacks the per-repeat gradients in one copy).
 Each layer position tags three save sites -- norm1's output, the mixer's
-output and the MLP's or MoE's output (``save_act``) -- and the run's act policy
+output and the MLP's or MoE's output (``save_act``), and a fourth, the
+cross-attention's output, in an encoder-decoder's decoder -- and the run's act policy
 decides what lives FWD->BWD, as ``_remat_policy`` (``model.py:414-452``)
 does: ``none`` keeps every activation; ``checkpoint`` keeps the position's
 input and recomputes the rest in the backward (``torch.utils.checkpoint``
 without reentrancy), or each region of ``ckpt_group`` superblocks;
 ``compress8`` / ``compress16`` / ``swap`` keep the input plus the sites
-the backward reads (norm1's output and the mixer's; the MLP output feeds
-only the residual add) -- as int8 rows with fp32 scales (the
-``fused_quantize_ef`` kernel, which runs at all three sites in the forward
+the backward reads (norm1's output, the mixer's and the cross-attention's;
+the MLP output feeds only the residual add) -- as int8 rows with fp32 scales
+(the ``fused_quantize_ef`` kernel, which runs at every site in the forward
 and never in the replay), as bf16, or in pinned host memory -- and the
 backward's replay takes the sites from there (``ActSites``) and recomputes
 everything else. A run whose
@@ -39,9 +42,16 @@ Each position returns ``(x, aux)``: an MoE position's load-balance loss
 (``apply_moe``), 0.0 for a dense one. The aux losses are summed through
 superblocks, checkpointed regions and runs, and ``forward`` returns them
 beside the hidden states, as the JAX package does; recomputed, compressed,
-swapped and host-weight runs carry them alike. Encoder-decoder and
-VLM-prefix models are queued in ROADMAP.md (port queue 1 item 4) and raise
-``NotImplementedError`` here.
+swapped and host-weight runs carry them alike.
+
+An encoder-decoder runs ``encode`` over ``batch["frames"]`` (B, S_src, D),
+every encoder layer recomputed in the backward (the reference's
+``_remat_policy("checkpoint", True)``), and each decoder position attends
+over its output, ``memory``, after the mixer's residual. ``memory`` enters
+every recomputed region, host-weight replay and grouped region as an
+explicit input, so its gradient reaches the encoder from every decoder
+layer. Models fed by the vision frontend are queued in ROADMAP.md (port
+queue 1, the VLM prefix) and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -61,9 +71,9 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.offload import HostIO
 from repro_torch.models.layers import LAYER, TP, ZERO, ParamDef
 
-_FAMILIES_TODO = "ROADMAP.md, port queue 1 item 4: the encoder-decoder and VLM families"
+_FAMILIES_TODO = "ROADMAP.md, port queue 1: the VLM prefix"
 ACT_POLICIES = ("none", "checkpoint", "swap", "compress8", "compress16")
-SITE_POLICIES = ("swap", "compress8", "compress16")  # keep the three save sites
+SITE_POLICIES = ("swap", "compress8", "compress16")  # keep the save sites the backward reads
 XAux = tuple[torch.Tensor, "torch.Tensor | float"]  # hidden states, aux loss (0.0 if dense)
 
 
@@ -82,21 +92,23 @@ def num_repeats(cfg: ModelConfig) -> int:
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for the families the port does not run yet: it runs decoders
-    of attention and Mamba-2 positions with dense MLPs or MoE layers, not
-    encoder-decoders or models fed by a modality frontend."""
-    if cfg.kind == "encdec":
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models ({_FAMILIES_TODO})")
-    if cfg.frontend != "none":
+    of attention and Mamba-2 positions with dense MLPs or MoE layers, and
+    encoder-decoders over precomputed frames, not models fed by the vision
+    frontend."""
+    if cfg.frontend == "vision_patches":
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend ({_FAMILIES_TODO})")
 
 
-def _position_defs(cfg: ModelConfig, pos: int) -> dict:
+def _position_defs(cfg: ModelConfig, pos: int, cross_attention: bool = False) -> dict:
     """ParamDefs for one layer position within the superblock."""
     defs: dict[str, Any] = {"norm1": L.norm_defs(cfg.d_model, cfg.norm)}
     if cfg.mixer_at(pos) == "attention":
         defs["attn"] = L.attention_defs(cfg)
     else:
         defs["mamba"] = M2.mamba2_defs(cfg)
+    if cross_attention:
+        defs["norm_x"] = L.norm_defs(cfg.d_model, cfg.norm)
+        defs["xattn"] = L.cross_attention_defs(cfg)
     if cfg.moe_at(pos):
         defs["norm2"] = L.norm_defs(cfg.d_model, cfg.norm)
         defs["moe"] = MOE.moe_defs(cfg)
@@ -114,17 +126,24 @@ def _stack_defs(defs, n: int):
 
 
 def param_defs(cfg: ModelConfig) -> dict:
-    """Full parameter ParamDef tree of the decoder."""
+    """Full parameter ParamDef tree of the model."""
     check_family(cfg)
     p = superblock_period(cfg)
     r = num_repeats(cfg)
+    encdec = cfg.kind == "encdec"
     defs: dict[str, Any] = {
         "embed": {"tok": ParamDef((cfg.vocab_size, cfg.d_model), (TP, ZERO), scale=0.02)},
-        "blocks": {f"pos{j}": _stack_defs(_position_defs(cfg, j), r) for j in range(p)},
+        "blocks": {f"pos{j}": _stack_defs(_position_defs(cfg, j, cross_attention=encdec), r)
+                   for j in range(p)},
         "final_norm": L.norm_defs(cfg.d_model, cfg.norm),
     }
     if not cfg.tie_embeddings:
         defs["head"] = {"w": ParamDef((cfg.d_model, cfg.vocab_size), (ZERO, TP), scale=0.02)}
+    if encdec:
+        defs["encoder"] = {
+            "blocks": _stack_defs(_position_defs(cfg, 0), cfg.encoder_layers),
+            "final_norm": L.norm_defs(cfg.d_model, cfg.norm),
+        }
     if cfg.dtype != "bfloat16":
         defs = L.map_defs(
             lambda d: dataclasses.replace(d, dtype=cfg.dtype) if d.dtype == "bfloat16" else d,
@@ -161,7 +180,7 @@ def _from_module(mod: nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """The decoder's parameters as a module, for serving (no gradients).
+    """The model's parameters as a module, for serving (no gradients).
 
     ``DecoderLM(cfg, params)`` wraps an existing tree without copying;
     ``DecoderLM.init(cfg, generator, device)`` draws a random one. ``tree()``
@@ -305,12 +324,13 @@ def save_act(x: torch.Tensor, sites: ActSites | None = None, keep: bool = True):
 
 
 def apply_position(pparams: dict, x: torch.Tensor, cfg: ModelConfig, pos_j: int, *,
-                   positions=None, attn_impl: str = "blockwise",
-                   sites: ActSites | None = None) -> XAux:
+                   positions=None, memory: torch.Tensor | None = None,
+                   attn_impl: str = "blockwise", sites: ActSites | None = None) -> XAux:
     """One layer (superblock position): norm, the mixer (attention or
-    Mamba-2), residual, norm, MLP or MoE (if the position has one),
-    residual, with its three save sites (``save_act``); the backward reads
-    the first two (the MLP or MoE output only feeds the residual add).
+    Mamba-2), residual, with ``memory`` norm, cross-attention over it and
+    residual, then norm, MLP or MoE (if the position has one), residual,
+    with a save site at each output (``save_act``); the backward reads all
+    but the last (the MLP or MoE output only feeds the residual add).
     Returns (x, aux): the MoE's aux loss, 0.0 without one."""
     aux = 0.0
     h = save_act(L.apply_norm(pparams["norm1"], x, cfg.norm), sites)
@@ -319,6 +339,10 @@ def apply_position(pparams: dict, x: torch.Tensor, cfg: ModelConfig, pos_j: int,
     else:
         mix = M2.apply_mamba2(pparams["mamba"], h, cfg)
     x = x + save_act(mix, sites)
+    if memory is not None and "xattn" in pparams:
+        hx = L.apply_norm(pparams["norm_x"], x, cfg.norm)
+        x = x + save_act(L.cross_attention_block(pparams["xattn"], hx, memory, cfg,
+                                                 impl=attn_impl), sites)
     if "moe" in pparams:
         h2 = L.apply_norm(pparams["norm2"], x, cfg.norm)
         out, aux = MOE.apply_moe(pparams["moe"], h2, cfg)
@@ -341,7 +365,7 @@ def _weights(src: dict, proxies: dict | None, io: HostIO) -> dict:
     return src if proxies is None else io.fetch(proxies, src)
 
 
-def _apply_layer(src, proxies, x, cfg, pos_j, *, act_policy: str, buffered: bool,
+def _apply_layer(src, proxies, x, memory, cfg, pos_j, *, act_policy: str, buffered: bool,
                  io: HostIO, attn_impl: str) -> XAux:
     """One position under its run's act policy and weight buffering:
     (x, aux)."""
@@ -349,9 +373,9 @@ def _apply_layer(src, proxies, x, cfg, pos_j, *, act_policy: str, buffered: bool
     if act_policy == "none":
         pp = _weights(src, proxies, io)
         if not fetch_again:
-            return apply_position(pp, x, cfg, pos_j, attn_impl=attn_impl)
+            return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl)
         with io.refetch_saved(pp, src):
-            return apply_position(pp, x, cfg, pos_j, attn_impl=attn_impl)
+            return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl)
     sites = ActSites(act_policy, io) if act_policy in SITE_POLICIES else None
     # kept weights are fetched outside the recomputed region; the others
     # inside it, so the replay fetches them again
@@ -359,30 +383,34 @@ def _apply_layer(src, proxies, x, cfg, pos_j, *, act_policy: str, buffered: bool
         io.will_fetch_again(src)
     kept = None if fetch_again else _weights(src, proxies, io)
 
-    def one(x):
+    def one(x, memory):
         if sites is not None:
             sites.begin()
         pp = _weights(src, proxies, io) if fetch_again else kept
-        return apply_position(pp, x, cfg, pos_j, attn_impl=attn_impl, sites=sites)
+        return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl,
+                              sites=sites)
 
-    out = _checkpointed(one, x)
+    out = _checkpointed(one, x, memory)
     if sites is not None:
         sites.seal()
     return out
 
 
 def apply_superblock(block_params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                     act_policy: str = "none", buffered: bool = True, proxies: dict | None = None,
+                     memory: torch.Tensor | None = None, act_policy: str = "none",
+                     buffered: bool = True, proxies: dict | None = None,
                      io: HostIO | None = None, attn_impl: str = "blockwise") -> XAux:
     """block_params: {posJ: params of one repeat}, on the device or (with
     ``proxies``, the autograd stand-ins of the same tree) in host memory.
     ``act_policy`` applies per position (layer), the paper's per-block
-    granularity. Returns (x, aux), aux summed over the positions."""
+    granularity; ``memory``: the encoder's output an encoder-decoder's
+    positions attend over (None: no cross-attention, as the profile traces
+    a block). Returns (x, aux), aux summed over the positions."""
     aux = 0.0
     for j in range(superblock_period(cfg)):
         key = f"pos{j}"
         x, a = _apply_layer(block_params[key], None if proxies is None else proxies[key], x,
-                            cfg, j, act_policy=act_policy, buffered=buffered, io=io,
+                            memory, cfg, j, act_policy=act_policy, buffered=buffered, io=io,
                             attn_impl=attn_impl)
         aux = aux + a
     return x, aux
@@ -426,10 +454,12 @@ def _units(runs: list[Run]) -> list[tuple[Run, list, list]]:
 
 
 def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
-               attn_impl: str = "blockwise", io: HostIO | None = None) -> XAux:
+               memory: torch.Tensor | None = None, attn_impl: str = "blockwise",
+               io: HostIO | None = None) -> XAux:
     """Execute the layer stack as policy runs of superblocks: (x, aux), the
-    aux losses summed. ``io``: the step's host copies and counters (a fresh
-    one on x's device if None)."""
+    aux losses summed. ``memory``: the encoder's output (encoder-decoders).
+    ``io``: the step's host copies and counters (a fresh one on x's device
+    if None)."""
     units = _units(runs)
     io = io if io is not None else HostIO(x.device)
     aux_total = 0.0
@@ -439,9 +469,9 @@ def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
             for src in units[i + 1][1]:
                 io.prefetch(src)  # the next unit's host weights, during this one
         if len(reps) == 1:
-            x, aux = apply_superblock(reps[0], x, cfg, act_policy=run.act_policy,
-                                      buffered=run.buffered, proxies=prox[0], io=io,
-                                      attn_impl=attn_impl)
+            x, aux = apply_superblock(reps[0], x, cfg, memory=memory,
+                                      act_policy=run.act_policy, buffered=run.buffered,
+                                      proxies=prox[0], io=io, attn_impl=attn_impl)
             aux_total = aux_total + aux
             continue
         # grouped remat: one checkpoint region spans the group's superblocks;
@@ -452,15 +482,15 @@ def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
             if pp is None:
                 io.will_fetch_again(src)
 
-        def region(x, _items=list(zip(reps, prox, kept))):
+        def region(x, memory, _items=list(zip(reps, prox, kept))):
             aux = 0.0
             for src, px, pp in _items:
                 pp = pp if pp is not None else _weights(src, px, io)
-                x, a = apply_superblock(pp, x, cfg, attn_impl=attn_impl)
+                x, a = apply_superblock(pp, x, cfg, memory=memory, attn_impl=attn_impl)
                 aux = aux + a
             return x, aux
 
-        x, aux = _checkpointed(region, x)
+        x, aux = _checkpointed(region, x, memory)
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -470,15 +500,52 @@ def default_runs(cfg: ModelConfig, params: dict) -> list[Run]:
     return [Run(params=params["blocks"], n_repeats=num_repeats(cfg))]
 
 
+def _encoder_layer(pp: dict, x: torch.Tensor, cfg: ModelConfig,
+                   attn_impl: str = "blockwise") -> torch.Tensor:
+    """One encoder layer (``encode``'s scan body, model.py:643-658): norm,
+    non-causal self-attention with RoPE, residual, norm, MLP, residual."""
+    h = L.apply_norm(pp["norm1"], x, cfg.norm)
+    b, s, _ = h.shape
+    hd = cfg.resolved_head_dim
+    q = (h @ pp["attn"]["wq"]).reshape(b, s, cfg.num_heads, hd)
+    k = (h @ pp["attn"]["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
+    v = (h @ pp["attn"]["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    pos = torch.arange(s, device=x.device)
+    q = L.apply_rope(q, pos, cfg.rope_theta)
+    k = L.apply_rope(k, pos, cfg.rope_theta)
+    o = L.full_attention(q, k, v, attn_impl)
+    x = x + o.reshape(b, s, -1) @ pp["attn"]["wo"]
+    h2 = L.apply_norm(pp["norm2"], x, cfg.norm)
+    return x + L.apply_mlp(pp["mlp"], h2, cfg.mlp)
+
+
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
+           attn_impl: str = "blockwise") -> torch.Tensor:
+    """The encoder stack over precomputed frontend embeddings (B, S_src, D)
+    (model.py:637-663): every layer keeps only its input and is recomputed
+    in the backward, then the encoder's final norm."""
+    enc = params["encoder"]
+    x = frames
+    for pp in _unstack(enc["blocks"], cfg.encoder_layers):
+        if torch.is_grad_enabled():
+            x = _checkpointed(_encoder_layer, pp, x, cfg, attn_impl)
+        else:
+            x = _encoder_layer(pp, x, cfg, attn_impl)
+    return L.apply_norm(enc["final_norm"], x, cfg.norm)
+
+
 def forward(params: dict, batch: dict, cfg: ModelConfig, *, runs: list[Run] | None = None,
             attn_impl: str = "blockwise", io: HostIO | None = None) -> XAux:
-    """Training forward. ``batch["tokens"]``: (B, S) integer. Returns the
-    hidden states (B, S, D) and the aux loss: the MoE layers' load-balance
-    losses summed, an fp32 scalar (0.0 for a dense model, where JAX returns
-    a zero array). ``io``: the host copies of runs with host weights and of
-    swapped activations."""
+    """Training forward. ``batch["tokens"]``: (B, S) integer; an
+    encoder-decoder's ``batch["frames"]``: (B, S_src, D) in the model's
+    dtype. Returns the hidden states (B, S, D) and the aux loss: the MoE
+    layers' load-balance losses summed, an fp32 scalar (0.0 for a dense
+    model, where JAX returns a zero array). ``io``: the host copies of runs
+    with host weights and of swapped activations."""
     check_family(cfg)
     x = embed_tokens(params, batch["tokens"], cfg)
+    memory = (encode(params, batch["frames"], cfg, attn_impl=attn_impl)
+              if cfg.kind == "encdec" else None)
     if runs is None:
         runs = default_runs(cfg, params)
-    return apply_runs(runs, x, cfg, attn_impl=attn_impl, io=io)
+    return apply_runs(runs, x, cfg, memory=memory, attn_impl=attn_impl, io=io)

@@ -46,7 +46,8 @@ from host positions with the same functions the step runs on the device.
 
 A Mamba-2 position's recurrent state (``conv``, ``ssm``) is not paged: it
 stays on the device, as in the resident layout, and is written in place
-through the step's ``state`` write.
+through the step's ``state`` write. Nor is an encoder-decoder's
+cross-attention cache (``xk``, ``xv``): it stays resident on the device.
 
 The ring-correctness invariant requires ``n_pages % n_hot == 0``.
 """
@@ -61,6 +62,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import decode_paged_attention
 from repro_torch.models import kvcache as KV
 from repro_torch.models.layers import NEG_INF
+
+CROSS_KEYS = ("xk", "xv")  # an encoder-decoder's cross cache: resident, never paged
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +125,8 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, seq_len: int, spec: PagingSp
             continue
         (r, b, _, n_kv, hd), dt = entry["k"]
         hot = ((r, b, spec.hot_window, n_kv, hd), dt)
-        out[pos] = {"k_hot": hot, "v_hot": hot, "k_cold": entry["k"], "v_cold": entry["v"]}
+        out[pos] = {"k_hot": hot, "v_hot": hot, "k_cold": entry["k"], "v_cold": entry["v"],
+                    **{x: entry[x] for x in CROSS_KEYS if x in entry}}
     return out
 
 
@@ -166,10 +170,10 @@ def device_view(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def paged_to_resident(cache: dict) -> dict:
     """Resident-layout view of a paged cache: the cold store, canonical for
-    every completed page (and for every row under write-through), and the
-    Mamba-2 state as it is."""
-    return {pos: {"k": e["k_cold"], "v": e["v_cold"]} if "k_cold" in e else dict(e)
-            for pos, e in cache.items()}
+    every completed page (and for every row under write-through), the
+    cross-attention cache and the Mamba-2 state as they are."""
+    return {pos: {"k": e["k_cold"], "v": e["v_cold"], **{x: e[x] for x in CROSS_KEYS if x in e}}
+            if "k_cold" in e else dict(e) for pos, e in cache.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -221,11 +225,13 @@ class PagedKV:
     def layer_entry(self, pos_cache: dict, r: int) -> dict:
         """Layer ``r``'s leaves of one attention position, with the cold
         store also as a device view (``k_cold_dev``, ``v_cold_dev``) that
-        write-through writes; of a Mamba-2 position, its state."""
+        write-through writes, and its cross cache if it has one; of a
+        Mamba-2 position, its state."""
         if "k_hot" not in pos_cache:
             return {name: leaf[r] for name, leaf in pos_cache.items()}
         dev = pos_cache["k_hot"].device
-        entry = {name: pos_cache[name][r] for name in ("k_hot", "v_hot", "k_cold", "v_cold")}
+        entry = {name: pos_cache[name][r] for name in ("k_hot", "v_hot", "k_cold", "v_cold")
+                 + CROSS_KEYS if name in pos_cache}
         for name in ("k", "v"):
             entry[f"{name}_cold_dev"] = self._device_view(pos_cache[f"{name}_cold"], dev)[r]
         return entry

@@ -60,7 +60,9 @@ from repro_torch.serve.paging import PagedKV, PagingSpec
 from repro_torch.train.losses import chunked_cross_entropy
 from repro_torch.train.sync import accumulate_grads
 
-_SYNC_TODO = "ROADMAP.md, port queue 1 item 7: distributed sync"
+_SYNC_TODO = "ROADMAP.md, port queue 1: distributed sync"
+FRONT_KEYS = ("embed", "encoder")  # the front chunk's subtrees, fetched before the layers
+NON_RUN_KEYS = FRONT_KEYS + ("final_norm", "head")
 
 
 @dataclasses.dataclass
@@ -145,9 +147,13 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
     }
     if "head" in defs:
         p_defs["head"] = defs["head"]
+    if "encoder" in defs:  # the front chunk's, with the embedding
+        p_defs["encoder"] = defs["encoder"]
     head_host = plan.chunk_placement(plan.n_chunks - 1) == "host"
+    front_host = plan.chunk_placement(0) == "host"
     on_host = {  # subtrees of host chunks
-        "embed": plan.chunk_placement(0) == "host",
+        "embed": front_host,
+        "encoder": front_host,
         "final_norm": head_host,
         "head": head_host,
         "runs": [r.placement == "host" for r in runs_layout],
@@ -167,7 +173,7 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
     def host_subtrees(tree, flags):
         """The subtrees of ``tree`` (embed, final_norm, head, runs[i]) whose
         flag is set."""
-        subs = [tree[k] for k in ("embed", "final_norm", "head") if k in tree and flags[k]]
+        subs = [tree[k] for k in NON_RUN_KEYS if k in tree and flags[k]]
         return subs + [sub for sub, f in zip(tree["runs"], flags["runs"]) if f]
 
     def map_host(tree, flags, fn) -> dict:
@@ -190,16 +196,16 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
 
     def loss_fn(params, proxies, batch):
         fparams = dict(params)
-        host_keys = [k for k in ("embed", "final_norm", "head")
-                     if k in params and weights_on_host[k]]
+        host_keys = [k for k in NON_RUN_KEYS if k in params and weights_on_host[k]]
         for key in host_keys:  # in flight from the start: the head's during the layers
             io.prefetch(params[key])
-        if "embed" in host_keys:
-            fparams["embed"] = io.fetch(proxies["embed"], params["embed"])
+        for key in FRONT_KEYS:
+            if key in host_keys:
+                fparams[key] = io.fetch(proxies[key], params[key])
         h, aux = M.forward(fparams, batch, cfg, runs=make_runs(params, proxies),
                            attn_impl=attn_impl, io=io)
         for key in host_keys:
-            if key != "embed":
+            if key not in FRONT_KEYS:
                 fparams[key] = io.fetch(proxies[key], params[key])
         h = L.apply_norm(fparams["final_norm"], h, cfg.norm)
         w = fparams["embed"]["tok"].T if cfg.tie_embeddings else fparams["head"]["w"]

@@ -427,11 +427,62 @@ def test_fused_adam_kernel_refuses_pageable_states():
         K.fused_adam_update(p, dev, torch.zeros(8), dev, dev, scalars)
 
 
+# query rows, key rows, heads (query, KV), hd: seamless-m4t-large-v2's
+# group 1 at hd 64, non-causal (the encoder's self-attention and the
+# decoder's cross-attention), query and key rows apart and off the tiles
+FLASH_FULL_CASES = [(256, 256, 16, 16, 64), (300, 1000, 16, 16, 64), (1000, 300, 16, 16, 64),
+                    (77, 513, 4, 4, 64), (1024, 4096, 16, 16, 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["mistral-7b", "gpt2-1b"])
+@pytest.mark.parametrize("sq,sk,hq,hkv,hd", FLASH_FULL_CASES)
+def test_flash_attention_kernel_unmasked_rows_apart_match_plain(sq, sk, hq, hkv, hd):
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
+    q, k, v, dout = rnd(1, sq, hq, hd), rnd(1, sk, hkv, hd), rnd(1, sk, hkv, hd), rnd(1, sq, hq, hd)
+    out, lse = K.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=False).transpose(1, 2)
+    _, want_lse = ref.attention_lse_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert _close_per_row(out, want)
+    assert bool(((lse - want_lse).abs() <= 1e-4 * (1 + want_lse.abs())).all())
+    grads = K.flash_attention_bwd(q, k, v, out, lse, dout, causal=False)
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=False)
+    torch.cuda.synchronize()
+    for got, exp in zip(grads, wants):
+        assert got.shape == exp.shape and _close_per_row(got, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cold_on_host", [False, True])
+def test_paged_attention_kernel_seamless_heads_match_plain(cold_on_host):
+    """seamless-m4t-large-v2's decoder: 16 query over 16 KV heads of 64."""
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    b, h, hd, s, w = 4, 16, 64, 1024, 512
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
+    q = rnd(b, 1, h, hd)
+    kh, vh, kc, vc = rnd(b, w, h, hd), rnd(b, w, h, hd), rnd(b, s, h, hd), rnd(b, s, h, hd)
+    sel = torch.rand(b, s, device="cuda", generator=gen) < 0.5
+    pos = torch.tensor([595, 640, 700, 773], device="cuda")[:, None]
+    mask = torch.where(torch.arange(s, device="cuda")[None] <= pos, 0.0, -1e30)
+    if cold_on_host:
+        kc, vc = kc.cpu().pin_memory(), vc.cpu().pin_memory()
+    out = K.decode_paged_attention(q, kh, vh, kc, vc, sel, mask, n_hot=2)
+    want = ref.paged_attention_ref(q, kh, vh, kc, vc, sel, mask)
+    torch.cuda.synchronize()
+    assert _close_to_head_max(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mistral-7b", "gpt2-1b", "seamless-m4t-large-v2"])
 def test_train_step_runs_on_card(arch):
     """Two steps of a small bf16 model through the training kernels (gpt2:
-    tied embeddings, LayerNorm, MHA), with a host chunk's states pinned."""
+    tied embeddings, LayerNorm, MHA; seamless: an encoder over frames and
+    the decoder's cross-attention, hd 64), with a host chunk's states
+    pinned."""
     _require_card()
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import ShapeConfig
@@ -740,7 +791,7 @@ def test_captured_step_equals_eager_step_bitwise(layout):
 # (tests/test_torch_planner.py holds it to the reference): the trace runs on
 # fake CPU tensors, so a machine with a card must give the same numbers.
 MISTRAL_BLOCK_PROFILE = dict(flops_fwd=2064375300608.0, hbm_bytes_fwd=40026731584,
-                             act_residual_bytes=3738207232, boundary_bytes=33554432,
+                             act_residual_bytes=1317569536, boundary_bytes=33554432,
                              peak_transient_bytes=1628446720)
 
 
@@ -985,3 +1036,42 @@ def test_mamba_train_step_runs_on_card():
     for name in ("rmsnorm", "fused_adam", "fused_quantize_ef"):
         assert K.launch_counts()[name] > 0, name
     assert K.launch_counts()["flash_attention"] == 0
+
+
+# (launcher, argv): the launchers as a user runs them, at full depth
+LAUNCHER_CASES = [
+    ("train", ["--arch", "mistral-7b", "--steps", "2", "--batch", "1", "--seq", "4096"]),
+    ("serve", ["--arch", "mistral-7b", "--plan", "paged"]),
+    ("train", ["--arch", "seamless-m4t-large-v2", "--steps", "2", "--batch", "1", "--seq",
+               "4096"]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,argv", LAUNCHER_CASES,
+                         ids=["train_mistral", "serve_mistral", "train_seamless"])
+def test_launchers_on_card(which, argv, capsys):
+    """``launch.train`` runs its searched plan as searched (host chunks
+    pinned, the allocator's segments expandable) to finite losses;
+    ``launch.serve`` drains its default request stream on the paged plan."""
+    _require_card()
+    import json
+    import math
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+
+    before = K.launch_counts()
+    rc = {"train": launch_train, "serve": launch_serve}[which].main(argv)
+    assert rc == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    after = K.launch_counts()
+    assert summary["device"].startswith("cuda")
+    if which == "train":
+        assert summary["steps"] == 2
+        assert math.isfinite(summary["first_loss"]) and math.isfinite(summary["final_loss"])
+        for name in ("flash_attention", "flash_attention_bwd", "fused_adam"):
+            assert after[name] > before[name], name
+    else:
+        assert summary["drained"]
+        assert after["paged_attention"] > before["paged_attention"]

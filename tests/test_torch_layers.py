@@ -110,10 +110,25 @@ def test_decoder_module_names_are_tree_paths():
                        tree["blocks"]["pos0"]["attn"]["wk"])
 
 
-@pytest.mark.parametrize("name", ["llava-next-34b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("name", ["llava-next-34b"])
 def test_other_families_raise_with_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.param_defs(reduced(get_config(name)))
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2"])
+def test_encoder_decoder_family_builds(name):
+    """The encoder-decoder family, which raised until the port ran it: its
+    tree has the reference's encoder and cross-attention leaves, and the
+    module wraps it."""
+    cfg = reduced(get_config(name))
+    defs, jdefs = TM.param_defs(cfg), JM.param_defs(cfg)
+    assert sorted(defs) == sorted(jdefs) == ["blocks", "embed", "encoder", "final_norm", "head"]
+    assert sorted(defs["blocks"]["pos0"]) == sorted(jdefs["blocks"]["pos0"])
+    assert "xattn" in defs["blocks"]["pos0"] and "norm_x" in defs["blocks"]["pos0"]
+    model = TM.DecoderLM.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    names = dict(model.named_parameters())
+    assert names["encoder.blocks.attn.wq"].shape[0] == cfg.encoder_layers
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
