@@ -109,9 +109,10 @@ Phases, each printing one JSON line:
      must agree in every row whose plain top-1 leads its top-2 by more than
      that tolerance, and ``routing`` reports the share of (token, k)
      expert choices on which the kernel and plain paths agree;
- 12. ``moe_plan``: phase 9 for ``qwen2-moe-a2.7b``: 229 GB of training
+ 12. ``moe_plan``: phase 9 for ``qwen2-moe-a2.7b`` at ``MOE_PLAN_LAYERS``
+     (8) of its 24 layers, a cut for the run's time: 229 GB of training
      state at 24 layers, more than card and host hold, so the depth is the
-     deepest whose searched plan's pinned states, as the caching host
+     deepest up to that whose searched plan's pinned states, as the caching host
      allocator takes them (``pinned_alloc_bytes``: each allocation rounded
      up to a power of two), fit the host (``depth_cuts``), after the
      allocator's cache from earlier phases is released
@@ -151,8 +152,9 @@ Phases, each printing one JSON line:
      1, cold store pinned and on the device; each line carries
      ``"path": "encdec"``;
  19. ``encdec_serve``: phase 4's engine and checks for
-     seamless-m4t-large-v2's decoder at full width and depth (24 + 24
-     layers), prompts of 595 to 758 tokens; once the 4 requests hold their
+     seamless-m4t-large-v2's decoder at full width and ``ENCDEC_LAYERS``
+     + ``ENCDEC_LAYERS`` (12 + 12) of its 24 + 24 layers, a cut for the
+     run's time, prompts of 595 to 758 tokens; once the 4 requests hold their
      slots, each slot's cross cache is primed in place
      (``models/kvcache.prime_cross_cache``) from ``encode`` over seeded
      frames (4, 1024, 1024), on the graph and the eager engine alike;
@@ -164,11 +166,36 @@ Phases, each printing one JSON line:
      path (whole-row attention in the encoder, the decoder's self- and
      cross-attention; plain Adam), at train_compare's bounds, the flash
      launches the 2 + 2 layers imply; ``encdec_plan``: phase 9 for
-     seamless-m4t-large-v2 at 24 + 24 layers, S 32,768 frames and tokens,
+     seamless-m4t-large-v2 at 12 + 12 layers, S 32,768 frames and tokens,
      B 1 (at S 16,384 if no searched plan trains, ``encdec_plan_failed``),
      with the time to draw a batch (its fp32 frames included; outside the
      timed steps) and where the front chunk (embedding and encoder) lies;
- 21. ``launchers``: ``launch.train`` (mistral-7b, 32 layers, the searched
+ 21. ``vlm_kernels``: the kernels at llava-next-34b's shapes: flash
+     forward and backward at 56 over 8 heads of 128 (group 7), causal S
+     5,120 (1,024 patches and 4,096 tokens); paged ``main`` at group 7 and,
+     in the same call, mistral-7b's group 4, cold store pinned and on the
+     device; RMSNorm at 4 and 5,120 rows of 7,168; fused Adam on one w1
+     (7168 x 20480), states on the device and pinned; the quantizer at
+     5,120 x 7,168 bf16; each line carries ``"path": "vlm"``;
+ 22. ``vlm_serve``: phase 4's engine and checks for llava-next-34b at full
+     width and all 60 layers (68.8 GB of bf16 weights, ``vlm_init``),
+     prompts of 595 to 758 tokens, 60 paged launches a step; the engine
+     serves tokens, as the JAX engine does;
+ 23. ``vlm_prefill``: ``build_prefill_step(chunk=None)`` on the served
+     weights, B 4, 1,024 seeded patches ahead of 1,024 tokens: through the
+     kernels against the plain path (whole-row attention, plain RMSNorm, a
+     row at a time; ``greedy_check``), against zeroed patches (the logits
+     must move), and without patches over each served prompt against the
+     engine's first token; its device time and launches (60 flash, 121
+     RMSNorm);
+ 24. ``vlm_train_compare``: two steps at full width, 2 layers, S 4096
+     tokens after 1,024 patches, kernels against the plain path, at
+     train_compare's bounds; ``vlm_plan``: phase 9 for llava-next-34b at S
+     4096 after 1,024 patches, B 1, at the deepest stack whose pinned
+     states fit the host (``depth_cuts``); the block profile counts S
+     positions, so a searched plan may run out of memory first
+     (``oom_attempts``);
+ 25. ``launchers``: ``launch.train`` (mistral-7b, 32 layers, the searched
      plan as searched; seamless-m4t-large-v2; each 2 steps of B 1 at S
      4096) and ``launch.serve`` (mistral-7b, paged, its default stream)
      through their ``main(argv)``, each JSON line checked (finite losses;
@@ -177,7 +204,8 @@ Phases, each printing one JSON line:
 The kernels summary line gives each kernel's launches per path
 (``launches_by_path``: each path's counts, zeroed just before it ran);
 ``launches`` stays each kernel's count on the path it came with;
-``encdec_cases``: the flash and paged rows at seamless-m4t-large-v2's heads.
+``encdec_cases``: the flash and paged rows at seamless-m4t-large-v2's heads;
+``vlm_cases``: every kernel's rows at llava-next-34b's shapes.
 
 The fused int8 quantize kernel (``fused_quantize_ef``) is held to its
 plain version bitwise (q, scales and the residual) in phase 5 at
@@ -775,7 +803,8 @@ def decode_norms(cfg) -> int:
     return 1 + sum(layer_norms(cfg, i) for i in range(cfg.num_layers))
 
 
-def serve_phase(cfg, hw, phase: str, prompt_lens=PROMPT_LENS, prime=None) -> dict[str, int]:
+def serve_phase(cfg, hw, phase: str, prompt_lens=PROMPT_LENS, prime=None, params=None,
+                record: dict | None = None) -> dict[str, int]:
     """``DecodeEngine`` serving 4 requests of ``cfg`` (random bf16 weights
     from seed 0), from its CUDA graph, then from Python (tokens and launches
     equal), a teacher-forced step through the kernels against the plain
@@ -788,7 +817,9 @@ def serve_phase(cfg, hw, phase: str, prompt_lens=PROMPT_LENS, prime=None) -> dic
     (``plain_rmsnorm``); a LayerNorm model launches no RMSNorm. ``prime``:
     ``serve``'s hook, run on both engines (an encoder-decoder's cross
     cache); then the graph engine's step is replayed over the primed cache
-    and over a zeroed one, whose logits must differ (``priming``)."""
+    and over a zeroed one, whose logits must differ (``priming``).
+    ``params``: the weights to serve (default: drawn here); ``record``: a
+    dict given the prompts and the graph engine's tokens."""
     import numpy as np
     import torch
 
@@ -816,7 +847,8 @@ def serve_phase(cfg, hw, phase: str, prompt_lens=PROMPT_LENS, prime=None) -> dic
         plan = MemoryPlan(n_chunks, num_repeats(cfg), n_persist=n_chunks)
         admission = dict(admission="replay")
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    if params is None:
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
 
@@ -840,6 +872,8 @@ def serve_phase(cfg, hw, phase: str, prompt_lens=PROMPT_LENS, prime=None) -> dic
     run = serve(engine, reqs(), device_times=True, kernels=kernels, prime=prime)
     report, launches = run["report"], run["launches"]
     peak = torch.cuda.max_memory_allocated()
+    if record is not None:
+        record.update(prompts=prompts, finished=report.finished)
     for name, n in launches.items():
         assert n > 0, f"kernel {name} was not launched by the {phase} run"
     # per step: one paged attention an attention layer; the layers' RMSNorms
@@ -1444,7 +1478,7 @@ def compare_step(cfg, shape, plan, steps: int = 1, pin_routing: bool = False) ->
             state = art.place_state(clone(init))
             grads, _ = art.grad_fn(state, batch)
             paths = leaf_paths(grads)
-            grads = [g.float() for g in tree_leaves(grads)]
+            grads = tree_leaves(grads)  # widened leaf by leaf for the cosines
             K.reset_launch_counts()
             losses, norms = [], []
             for _ in range(steps):
@@ -1457,7 +1491,8 @@ def compare_step(cfg, shape, plan, steps: int = 1, pin_routing: bool = False) ->
         del state, art
         torch.cuda.empty_cache()
     k, p = out["kernels"], out["plain"]
-    cos = [torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+    cos = [torch.nn.functional.cosine_similarity(a.flatten().float(), b.flatten().float(),
+                                                 dim=0).item()
            for a, b in zip(k["grads"], p["grads"])]
     res = {"loss_kernels": k["loss"], "loss_plain": p["loss"],
            "grad_norm_kernels": k["grad_norm"], "grad_norm_plain": p["grad_norm"],
@@ -1592,7 +1627,8 @@ def expected_host_traffic(cfg, plan, shape, steps: int) -> dict[str, int]:
     biases, ``bias_bytes_per_block``); the kept site tensors
     (``kept_sites``) swapped out and back per swap layer and microbatch;
     the quantizer at each save site (``layer_sites``) of a compress8 layer,
-    per microbatch."""
+    per microbatch. A site holds every position: the tokens and, before
+    them, a vision-language model's patches."""
     from repro_torch.core.chunks import chunk_inventory
 
     mbs = steps * plan.microbatch
@@ -1602,7 +1638,8 @@ def expected_host_traffic(cfg, plan, shape, steps: int) -> dict[str, int]:
     fetched = sum(c.param_bytes for c in host) + sum(
         c.param_bytes - (bias_bytes_per_block(cfg) if policies[c.block_index] == "none" else 0)
         for c in host if c.is_block and not plan.chunk_buffered(c.index))
-    site = shape.global_batch // plan.microbatch * shape.seq_len * cfg.d_model * 2  # bf16
+    positions = shape.seq_len + patch_count(cfg, shape.seq_len)
+    site = shape.global_batch // plan.microbatch * positions * cfg.d_model * 2  # bf16
     swapped = kept_sites(cfg) * site * policies.count("swap")
     return {"train.weight_fetch_bytes": mbs * fetched, "train.act_swap_out_bytes": mbs * swapped,
             "train.act_swap_in_bytes": mbs * swapped,
@@ -1721,20 +1758,31 @@ def active_matmul_params(cfg) -> int:
     return n
 
 
+def patch_count(cfg, seq: int) -> int:
+    """Image patches a sequence of ``seq`` tokens carries (the pipeline's
+    ``min(1024, S)`` for the vision frontend, else none)."""
+    return min(1024, seq) if cfg.frontend == "vision_patches" else 0
+
+
 def model_flops(cfg, tokens: int, seq: int = TRAIN_SEQ) -> int:
     """6 x active matmul parameters (``active_matmul_params``) x tokens plus
     the attention products (x3 for the backward) of one step, in the
     attention layers (a Mamba-2 layer has none): causal pairs in a decoder's
     self-attention; in an encoder-decoder also S^2 pairs in each encoder
     layer and S x S_src in each cross-attention (its frames are as many as
-    its tokens)."""
+    its tokens). A vision-language model's patches are P more positions
+    through every layer and its attention (S + P causal pairs), and none
+    through the head."""
+    rows = tokens // seq
     n_matmul = active_matmul_params(cfg)
+    n_head = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    pos = seq + patch_count(cfg, seq)
     n_attn = sum(cfg.mixer_at(i) == "attention" for i in range(cfg.num_layers))
-    pairs = attended_pairs(seq, cfg.sliding_window) * n_attn
+    pairs = attended_pairs(pos, cfg.sliding_window) * n_attn
     if cfg.kind == "encdec":
         pairs += seq * seq * (cfg.encoder_layers + n_attn)
-    attn = 3 * 4 * cfg.resolved_head_dim * cfg.num_heads * pairs * (tokens // seq)
-    return 6 * n_matmul * tokens + attn
+    attn = 3 * 4 * cfg.resolved_head_dim * cfg.num_heads * pairs * rows
+    return 6 * ((n_matmul - n_head) * pos + n_head * seq) * rows + attn
 
 
 KERNEL_KINDS = (  # device work of a training step, by kernel name, first match
@@ -2199,8 +2247,9 @@ class NoPlanTrained(AssertionError):
 
 def batch_draw_seconds(cfg, shape) -> float:
     """Host seconds to draw one batch of ``shape`` and place it on the card
-    (an encoder-decoder's carries its fp32 frames); the training loop draws
-    it before it starts a step's clock."""
+    (an encoder-decoder's carries its fp32 frames, a vision-language
+    model's its patches); the training loop draws it before it starts a
+    step's clock."""
     import torch
 
     from repro_torch.data.pipeline import SyntheticTokenPipeline
@@ -2228,9 +2277,11 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None,
     from repro_torch import obs
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.autotuner import search
+    from repro_torch.core.chunks import chunk_inventory
     from repro_torch.core.cost_model import build_workload
     from repro_torch.core.hardware import ONE_CHIP
     from repro_torch.core.profiler import BlockProfile
+    from repro_torch.models.model import superblock_period
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2272,19 +2323,34 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None,
     # allocator takes them (each allocation rounded up to a power of two)
     budget = host["available_bytes"] - HOST_MARGIN
     cuts = []  # (layers, the plan's pinned bytes, as allocated) of each depth that did not fit
+    period = superblock_period(cfg)
+
+    def pinned_fits(layers, plan, w_run) -> bool:
+        got = pinned_alloc_bytes(dataclasses.replace(cfg, num_layers=layers), plan)
+        if got > budget:
+            cuts.append((layers, plan_pinned_bytes(w_run, plan), got))
+        return got <= budget
 
     def fit_host(layers, plan, w_run):
         """The deepest stack from ``layers`` down whose searched plan (on
-        ``w_run``'s spec) fits the budget: (layers, plan, workload)."""
-        while pinned_alloc_bytes(dataclasses.replace(cfg, num_layers=layers), plan) > budget:
-            cuts.append((layers, plan_pinned_bytes(w_run, plan),
-                         pinned_alloc_bytes(dataclasses.replace(cfg, num_layers=layers), plan)))
-            layers -= 1
-            assert layers > 0, "no depth's pinned states fit the host"
-            w_run = build_workload(dataclasses.replace(cfg, num_layers=layers), shape,
-                                   ONE_CHIP, w_run.hw)
-            plan = search(w_run, compress="off", sync="xla").plan
-        return layers, plan, w_run
+        ``w_run``'s spec) fits the budget: (layers, plan, workload). Depths
+        are bisected in whole superblocks; a shallower stack has the same
+        block profile, so only its chunk inventory and its search are made
+        anew."""
+        if pinned_fits(layers, plan, w_run):
+            return layers, plan, w_run
+        lo, hi, best = 0, layers // period, None  # hi repeats do not fit
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            mid_cfg = dataclasses.replace(cfg, num_layers=mid * period)
+            w_mid = dataclasses.replace(w_run, cfg=mid_cfg, chunks=chunk_inventory(mid_cfg))
+            plan_mid = search(w_mid, compress="off", sync="xla").plan
+            if pinned_fits(mid * period, plan_mid, w_mid):
+                lo, best = mid, (mid * period, plan_mid, w_mid)
+            else:
+                hi = mid
+        assert best is not None, "no depth's pinned states fit the host"
+        return best
 
     layers, plan, w_run = fit_host(cfg.num_layers, res.plan, w)
 
@@ -2328,6 +2394,11 @@ def plan_phase(cfg, hw, phase: str, reference_profile: dict | None = None,
                   "front_chunk": plan.chunk_placement(0),
                   "front_chunk_state_bytes": w_run.chunks[0].param_bytes
                   + w_run.chunks[0].grad_bytes + w_run.chunks[0].optim_bytes}
+    if cfg.frontend == "vision_patches":
+        frames = {"patches_per_sequence": patch_count(cfg, seq),
+                  "profiled_positions": w_run.shape.seq_len,
+                  "block_positions": seq + patch_count(cfg, seq),
+                  "batch_draw_s": batch_draw_seconds(run_cfg, shape)}
     emit(phase, arch=cfg.name, layers=layers, reduced_depth=layers != cfg.num_layers, **frames,
          depth_cuts={"host_budget_bytes": budget, "pinned_bytes_by_depth": cuts},
          seq=seq, global_batch=shape.global_batch, block_policies=plan.block_policies(),
@@ -2390,6 +2461,10 @@ MOE_EXPERT_W1 = (60, 2048, 1408)  # one layer's stacked expert w1
 # time limit (24 layers through PR 20; its eager engine, a step a token,
 # takes most of the phase)
 MAMBA_SERVE_LAYERS = 12
+# moe_plan's depth, cut for the run's time once the VLM's phases came (the
+# deepest the host can pin is 15 of 24 layers; the pinned states'
+# allocation and the host optimizer take most of the phase)
+MOE_PLAN_LAYERS = 8
 
 
 def release_pinned_cache() -> dict:
@@ -2448,13 +2523,15 @@ def phase_moe_serve(hw) -> dict[str, int]:
 
 
 def phase_moe_plan(hw) -> dict:
-    """``qwen2-moe-a2.7b`` at full width through ``plan_phase``: 229 GB of
-    training state at 24 layers, more than card and host hold, so the depth
-    is the deepest whose searched plan's pinned states fit the host."""
+    """``qwen2-moe-a2.7b`` at full width through ``plan_phase`` at
+    ``MOE_PLAN_LAYERS`` layers: 229 GB of training state at 24 layers, more
+    than card and host hold (the host pins 15 at most), so the depth is the
+    deepest up to that whose searched plan's pinned states fit the host."""
     from repro_torch.configs import get_config
 
     emit("moe_plan_host_cache", **release_pinned_cache(), host=host_memory())
-    return plan_phase(get_config(MOE_ARCH), hw, "moe_plan")
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_PLAN_LAYERS)
+    return plan_phase(cfg, hw, "moe_plan")
 
 
 # ---------------------------------------------------------------------------
@@ -2708,6 +2785,9 @@ ENCDEC_FLASH_CASES = (  # (query rows, key rows, causal): decoder self, encoder 
     (TRAIN_SEQ, TRAIN_SEQ, True), (TRAIN_SEQ, TRAIN_SEQ, False), (1024, TRAIN_SEQ, False))
 ENCDEC_PROMPT_LENS = (595, 759)  # prompts of 595 to 758 tokens, past the 2-page hot window
 ENCDEC_SEQ, ENCDEC_FALLBACK_SEQ = 32768, 16384  # encdec_plan's frames and tokens
+# encdec_serve's and encdec_plan's depth: 12 encoder and 12 decoder layers
+# of 24 + 24, cut for the run's time once the VLM's phases came
+ENCDEC_LAYERS = 12
 ENCDEC_FRAMES_SEED = 11
 # the reference's block profile of seamless-m4t-large-v2 at B 1, S 32,768
 # (src/repro/core/profiler.py, profile_superblock; tests/test_torch_encdec.py
@@ -2762,13 +2842,21 @@ def prime_from_frames(cfg):
     return prime
 
 
-def phase_encdec_serve(hw) -> dict[str, int]:
-    """``seamless-m4t-large-v2``'s decoder at full width and depth (24 + 24
-    layers) through ``serve_phase`` on the paged plan, each slot's cross
-    cache primed from the encoder over seeded frames (4, 1024, 1024)."""
+def encdec_cut():
+    """seamless-m4t-large-v2 at full width, ``ENCDEC_LAYERS`` encoder and
+    decoder layers."""
     from repro_torch.configs import get_config
 
-    cfg = get_config(ENCDEC_ARCH)
+    return dataclasses.replace(get_config(ENCDEC_ARCH), num_layers=ENCDEC_LAYERS,
+                               encoder_layers=ENCDEC_LAYERS)
+
+
+def phase_encdec_serve(hw) -> dict[str, int]:
+    """``seamless-m4t-large-v2``'s decoder at full width, ``ENCDEC_LAYERS``
+    + ``ENCDEC_LAYERS`` layers, through ``serve_phase`` on the paged plan,
+    each slot's cross cache primed from the encoder over seeded frames (4,
+    1024, 1024)."""
+    cfg = encdec_cut()
     return serve_phase(cfg, hw, "encdec_serve", prompt_lens=ENCDEC_PROMPT_LENS,
                        prime=prime_from_frames(cfg))
 
@@ -2809,13 +2897,12 @@ def phase_encdec_train_compare() -> dict[str, int]:
 
 
 def phase_encdec_plan(hw) -> dict:
-    """``seamless-m4t-large-v2`` at full width and depth through
-    ``plan_phase`` at S 32,768 frames and tokens, B 1, beside the
-    reference's block profile; at S 16,384 if no searched plan trains at
-    32,768 (``encdec_plan_failed`` reports the attempts)."""
-    from repro_torch.configs import get_config
-
-    cfg = get_config(ENCDEC_ARCH)
+    """``seamless-m4t-large-v2`` at full width, ``ENCDEC_LAYERS`` +
+    ``ENCDEC_LAYERS`` layers, through ``plan_phase`` at S 32,768 frames and
+    tokens, B 1, beside the reference's block profile; at S 16,384 if no
+    searched plan trains at 32,768 (``encdec_plan_failed`` reports the
+    attempts)."""
+    cfg = encdec_cut()
     emit("encdec_plan_host_cache", **release_pinned_cache(), host=host_memory())
     try:
         return plan_phase(cfg, hw, "encdec_plan", REFERENCE_ENCDEC_PROFILE, seq=ENCDEC_SEQ)
@@ -2825,6 +2912,231 @@ def phase_encdec_plan(hw) -> dict:
     gc.collect()
     release_pinned_cache()
     return plan_phase(cfg, hw, "encdec_plan", seq=ENCDEC_FALLBACK_SEQ)
+
+
+# ---------------------------------------------------------------------------
+# The vision-language family: llava-next-34b at full width
+# ---------------------------------------------------------------------------
+VLM_ARCH = "llava-next-34b"
+VLM_HEADS = (56, 8)  # 56 query over 8 KV heads of 128: group 7
+VLM_D, VLM_FF = 7168, 20480
+VLM_PATCHES = 1024  # the pipeline's min(1024, S) from S 1024 on
+VLM_SEQ = TRAIN_SEQ + VLM_PATCHES  # positions through the blocks in training: 5,120
+VLM_PREFILL_TOKENS = 1024  # vlm_prefill: 1024 patches, then 1024 tokens, B 4
+VLM_PATCHES_SEED = 13
+
+
+def phase_vlm_kernels() -> list[dict]:
+    """The kernels at llava-next-34b's shapes against their plain versions:
+    flash forward and backward at 56 over 8 heads of 128, causal over S
+    5,120 (1,024 patches and 4,096 tokens), B 1; the paged kernel ``main``
+    at group 7, and mistral-7b's group 4 in the same call, cold store
+    pinned and on the device; RMSNorm at 4 x 7168 (decode) and 5,120 x
+    7,168; fused Adam on one w1 (7168 x 20480) with its states on the
+    device and pinned; the quantizer at 5,120 x 7,168 bf16 (a compressed
+    site of a training step), bitwise."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [lambda: flash_case(VLM_SEQ, gen, True, heads=VLM_HEADS, window=0)]
+    cases += [lambda h=h, heads=heads, arch=arch: [{"kernel": "paged_attention", **paged_case(
+        "main", h, gen, heads, arch)}] for heads, arch in ((VLM_HEADS, VLM_ARCH),
+                                                             ((HQ, HKV), "mistral-7b"))
+              for h in (True, False)]
+    cases += [lambda r=r: [{"kernel": "rmsnorm", **rmsnorm_case(r, gen, VLM_D)}]
+              for r in (BATCH, VLM_SEQ)]
+    cases += [lambda h=h: [adam_case(h, gen, (VLM_D, VLM_FF))] for h in (False, True)]
+    cases += [lambda: [quant_case("activation", gen, (VLM_SEQ, VLM_D))]]
+    rows = []
+    for case in cases:
+        for r in case():
+            emit("kernel_vs_plain", path="vlm", **r)
+            rows.append(r)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_vlm_serve(hw) -> tuple[dict[str, int], dict]:
+    """llava-next-34b at full width and all 60 layers (68.8 GB of bf16
+    weights) through ``serve_phase`` on the paged plan, chunked admission,
+    prompts of 595 to 758 tokens: the engine serves its tokens, as the JAX
+    engine does (patches enter only through ``forward``). Returns the
+    launches and a record of the weights, prompts and tokens."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    emit("vlm_init", arch=cfg.name, layers=cfg.num_layers, params=cfg.param_count(),
+         weight_bytes=torch.cuda.memory_allocated(), seconds=time.perf_counter() - t0,
+         card_total_bytes=torch.cuda.mem_get_info()[1])
+    record = {"params": params}
+    launches = serve_phase(cfg, hw, "vlm_serve", prompt_lens=ENCDEC_PROMPT_LENS, params=params,
+                           record=record)
+    n = launches["paged_attention"]
+    assert n % cfg.num_layers == 0 and n > 0, f"vlm_serve: {n} paged launches, not 60 a step"
+    return launches, record
+
+
+def greedy_check(got, plain, what: str) -> dict:
+    """(B, V) logits against the plain path's: max |diff| within ENGINE_TOL
+    * (1 + max |logit|), and the greedy token equal in every row whose plain
+    top-1 leads its top-2 by more than that tolerance (a row inside it may
+    flip on bf16 noise alone); the share of rows that agree reported."""
+    got, plain = got.float(), plain.float()
+    err = (got - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    tol = ENGINE_TOL * (1 + scale)
+    top2 = plain.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    agree = got.argmax(-1) == plain.argmax(-1)
+    out = {"max_abs_diff": err, "max_abs_logit": scale, "tol": tol,
+           "argmax_agree": agree.float().mean().item(), "top2_margin": margin.tolist(),
+           "rows_past_margin": int((margin > tol).sum())}
+    assert err <= tol, f"{what}: logits differ by {err} (max |logit| {scale}, bound {tol})"
+    assert bool(agree[margin > tol].all()), f"{what}: a greedy token past the margin differs: {out}"
+    return out
+
+
+def phase_vlm_prefill(record: dict) -> dict[str, int]:
+    """``build_prefill_step(chunk=None)`` for llava-next-34b at all 60 layers
+    on the served weights, B 4, 1,024 seeded patches ahead of 1,024 tokens:
+    through the kernels against the plain path (whole-row attention, plain
+    RMSNorm; a row at a time) at ENGINE_TOL; with the patches against
+    zeroed patches (the logits must move); without patches, over each
+    served prompt, against the engine's first token for it; its device
+    time. Returns the kernels' launches of one call."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.models.model import num_repeats
+    from repro_torch.train.step_builder import build_prefill_step
+
+    gc.collect()  # the engines' caches and graphs
+    torch.cuda.empty_cache()
+    cfg = get_config(VLM_ARCH)
+    params = record["params"]
+    n = num_repeats(cfg) + 2
+    plan = MemoryPlan(n, num_repeats(cfg), n_persist=n)
+    gen = torch.Generator(device="cuda").manual_seed(VLM_PATCHES_SEED)
+    tokens = torch.randint(1, cfg.vocab_size, (BATCH, VLM_PREFILL_TOKENS), device="cuda",
+                           generator=gen)
+    patches = torch.randn(BATCH, VLM_PATCHES, cfg.d_model, device="cuda",
+                          generator=gen).bfloat16()
+    step = build_prefill_step(cfg, plan, "cuda",
+                              ShapeConfig("vlm_prefill", VLM_PREFILL_TOKENS, BATCH, "prefill"))
+    batch = {"tokens": tokens, "patches": patches}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    logits = step.fn(params, batch)
+    torch.cuda.synchronize()
+    launches = {k: K.launch_counts()[k] for k in ("flash_attention", "rmsnorm")}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": cfg.num_layers, "rmsnorm": decode_norms(cfg)}
+    assert launches == want, f"vlm_prefill: launches {launches}, one call makes {want}"
+    device_ms = eager_ms(lambda: step.fn(params, batch), reps=3, inner=1)
+    zeroed = step.fn(params, {"tokens": tokens, "patches": torch.zeros_like(patches)}).float()
+    moved = {"max_abs_diff_patches_vs_zero": (logits.float() - zeroed).abs().max().item(),
+             "argmax_differs_rows": int((logits.argmax(-1) != zeroed.argmax(-1)).sum())}
+    assert moved["max_abs_diff_patches_vs_zero"] > 0, f"the patches did not move the logits: {moved}"
+    del zeroed
+    one = build_prefill_step(cfg, plan, "cuda", ShapeConfig("row", VLM_PREFILL_TOKENS, 1,
+                                                              "prefill"), attn_impl="naive")
+    with plain_rmsnorm():
+        plain = torch.cat([one.fn(params, {"tokens": tokens[i:i + 1],
+                                           "patches": patches[i:i + 1]}) for i in range(BATCH)])
+    vs_plain = greedy_check(logits, plain, "vlm_prefill kernels vs plain")
+    # without patches, over each served prompt: the stateless prefill's
+    # greedy token against the engine's first (chunked prefill, paged kernel)
+    firsts = []
+    for prompt in record["prompts"]:
+        p_step = build_prefill_step(cfg, plan, "cuda", ShapeConfig("prompt", len(prompt), 1,
+                                                                   "prefill"))
+        firsts.append(p_step.fn(params, {"tokens": torch.tensor([prompt], device="cuda")}))
+    firsts = torch.cat(firsts).float()
+    engine = torch.tensor([record["finished"][i][0] for i in range(BATCH)], device="cuda")
+    top2 = firsts.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    tol = ENGINE_TOL * (1 + firsts.abs().max().item())
+    same = firsts.argmax(-1) == engine
+    vs_engine = {"stateless_tokens": firsts.argmax(-1).tolist(), "engine_tokens": engine.tolist(),
+                 "agree": same.float().mean().item(), "top2_margin": margin.tolist(),
+                 "tol": tol, "prompt_lens": [len(p) for p in record["prompts"]]}
+    # 2 x the block matmul parameters at every position, the head at the
+    # last one, and the causal attention products of every layer
+    pos, head = VLM_PATCHES + VLM_PREFILL_TOKENS, cfg.vocab_size * cfg.d_model
+    flops = BATCH * (2 * (active_matmul_params(cfg) - head) * pos + 2 * head + 4
+                     * cfg.resolved_head_dim * cfg.num_heads * cfg.num_layers
+                     * attended_pairs(pos, 0))
+    emit("vlm_prefill", arch=cfg.name, layers=cfg.num_layers, batch=BATCH,
+         patches=VLM_PATCHES, tokens=VLM_PREFILL_TOKENS, launches=launches,
+         device_ms=device_ms, peak_device_bytes=peak, model_flops=flops,
+         mfu=flops / (device_ms / 1e3) / BF16_FLOP_PER_S,
+         kernels_vs_plain=vs_plain, patches_moved=moved, no_patches_vs_engine=vs_engine)
+    assert bool(same[margin > tol].all()), (
+        f"the stateless prefill's greedy token differs from the engine's past the margin: "
+        f"{vs_engine}")
+    return launches
+
+
+def phase_vlm_train_compare() -> dict[str, int]:
+    """Two steps of full-width llava-next-34b at 2 layers, S 4096 tokens
+    after 1,024 patches, B 1, both layers recomputed in the backward: the
+    kernels against the plain path (whole-row attention, plain RMSNorm and
+    Adam), to the train_compare bounds. The plain path's attention keeps
+    8.8 GB a layer at S 5,120 (fp32 probabilities and their bf16 copy)
+    beside 32.6 GB of resident training state, so both layers are
+    recomputed to leave the card room. Returns the kernels' launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=2)
+    shape = ShapeConfig("compare", TRAIN_SEQ, 1, "train")
+    plan = MemoryPlan(4, 2, n_persist=4, n_checkpoint=2)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    r = compare_step(cfg, shape, plan, steps=2)
+    emit("vlm_train_compare", case="checkpoint", plan=plan.describe(), arch=cfg.name,
+         layers=cfg.num_layers, seq=TRAIN_SEQ, patches=VLM_PATCHES, batch=1, **r,
+         tol={"loss": LOSS_TOL, "grad_norm_rel": NORM_RTOL, "cosine": GRAD_COSINE},
+         peak_device_bytes=torch.cuda.max_memory_allocated(),
+         seconds=time.perf_counter() - t0)
+    for a, b in zip(r["losses_kernels"], r["losses_plain"]):
+        assert abs(a - b) <= LOSS_TOL, r
+    assert r["grad_norm_rel_diff"] <= NORM_RTOL, r
+    assert r["min_grad_cosine"] >= GRAD_COSINE, r
+    # per step: each layer's flash forward twice (the forward and its
+    # replay) and backward once, its two RMSNorms twice and the final one
+    want = {"flash_attention": 2 * 2 * 2, "flash_attention_bwd": 2 * 2,
+            "rmsnorm": 2 * (2 * 2 * 2 + 1)}
+    got = {k: r["launches"][k] for k in want}
+    assert got == want and r["launches"]["fused_adam"] > 0, (got, want, r["launches"])
+    torch.cuda.empty_cache()
+    return {k: r["launches"][k] for k in TRAINING_KERNELS}
+
+
+def phase_vlm_plan(hw) -> dict:
+    """llava-next-34b at full width through ``plan_phase`` at S 4096 tokens
+    after 1,024 patches, B 1: 550.2 GB of training state at 60 layers, more
+    than card and host hold, so the depth is the deepest whose searched
+    plan's pinned states fit the host (``depth_cuts``). The block profile,
+    the reference's, counts S positions where the blocks run S + 1,024, so
+    the first searched plan may run out of memory (``oom_attempts``)."""
+    from repro_torch.configs import get_config
+
+    emit("vlm_plan_host_cache", **release_pinned_cache(), host=host_memory())
+    return plan_phase(get_config(VLM_ARCH), hw, "vlm_plan")
 
 
 def run_launcher(module, argv: list[str]) -> dict:
@@ -2874,6 +3186,8 @@ def phase_launchers() -> dict[str, dict[str, int]]:
     from repro_torch.launch import train as launch_train
 
     mods = {"train": launch_train, "serve": launch_serve}
+    # what the plan phases' pinned states left in the caching host allocator
+    emit("launchers_host_cache", **release_pinned_cache(), host=host_memory())
     out = {}
     for name, which, argv in LAUNCHER_RUNS:
         r = run_launcher(mods[which], argv)
@@ -2957,6 +3271,18 @@ def main() -> int:
          rows=[encdec_plan_out["row"]])
     gc.collect()
     torch.cuda.empty_cache()
+    vlm_rows = timed_phase("vlm_kernels", phase_vlm_kernels)
+    vlm_serve_launches, vlm_record = timed_phase("vlm_serve", lambda: phase_vlm_serve(hw))
+    vlm_prefill_launches = timed_phase("vlm_prefill", lambda: phase_vlm_prefill(vlm_record))
+    del vlm_record  # the served weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm_compare_launches = timed_phase("vlm_train_compare", phase_vlm_train_compare)
+    vlm_plan_out = timed_phase("vlm_plan", lambda: phase_vlm_plan(hw))
+    emit("vlm_calibration", hw=hw.name, host_bw=hw.host_bw, hbm_bytes=hw.hbm_bytes,
+         rows=[vlm_plan_out["row"]])
+    gc.collect()
+    torch.cuda.empty_cache()
     launcher_launches = timed_phase("launchers", phase_launchers)
     # each path's launches, counted from 0 just before it ran
     by_path = {"engine": launches, "train": train_launches, "train_policies": policy_launches,
@@ -2966,6 +3292,8 @@ def main() -> int:
                "encdec_serve": encdec_serve_launches,
                "encdec_train_compare": encdec_compare_launches,
                "encdec_plan": encdec_plan_out["launches"],
+               "vlm_serve": vlm_serve_launches, "vlm_prefill": vlm_prefill_launches,
+               "vlm_train_compare": vlm_compare_launches, "vlm_plan": vlm_plan_out["launches"],
                **{f"launch_{k}": v for k, v in launcher_launches.items()}}
     rms = measured["rmsnorm"][0]  # rows = batch: the decode path's shape
     main_case = next(p for p in measured["paged_attention"]
@@ -2998,18 +3326,22 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": n,
             "max_abs_err": row["max_abs_err"], **{k: row[k] for k in keys}})
-    case_keys = ("s", "sk", "hd", "causal", "heads", "case", "cold", "max_abs_err") + keys
+    case_keys = ("s", "sk", "hd", "causal", "heads", "case", "cold", "rows", "d", "states",
+                 "shape", "max_abs_err") + keys
     for row in summary["kernels"]:
         name = row["name"]
         row["launches_by_path"] = {p: got.get(name, 0) for p, got in by_path.items()}
-        # the MoE, Mamba-2 and encoder-decoder shapes' cases held to the same bounds
+        # the MoE, Mamba-2, encoder-decoder and VLM shapes' cases held to the same bounds
         row["max_abs_err"] = max([row["max_abs_err"], moe_errs.get(name, 0.0),
                                   mamba_errs.get(name, 0.0)]
-                                 + [r["max_abs_err"] for r in encdec_rows if r["kernel"] == name])
-        cases = [{k: r[k] for k in case_keys if k in r} for r in encdec_rows
-                 if r["kernel"] == name]
-        if cases:  # seamless-m4t-large-v2's heads: hd 64, group 1
-            row["encdec_cases"] = cases
+                                 + [r["max_abs_err"] for r in encdec_rows + vlm_rows
+                                    if r["kernel"] == name])
+        for key, rows in (("encdec_cases", encdec_rows), ("vlm_cases", vlm_rows)):
+            # seamless-m4t-large-v2's heads (hd 64, group 1); llava-next-34b's
+            # shapes (group 7, d 7168), with mistral-7b's paged group 4 beside
+            cases = [{k: r[k] for k in case_keys if k in r} for r in rows if r["kernel"] == name]
+            if cases:
+                row[key] = cases
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)

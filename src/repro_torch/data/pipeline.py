@@ -4,11 +4,11 @@ Port of ``src/repro/data/pipeline.py`` (``:30-125``). Batches are made per
 (seed, step) with the same numpy generator and arithmetic as the JAX
 pipeline, so both give the same tokens, and restoring a checkpoint at step
 N reproduces the batches the interrupted run would have seen. An
-encoder-decoder's batch carries ``frames`` (B, S, D): fp32 standard
-normals from the same generator, drawn after the tokens, cast to the
-model's dtype on placement, as the JAX pipeline makes them. The host
-prefetch thread and the image patches of the vision family are not ported:
-the training loop takes one batch a step with ``next_sync``.
+encoder-decoder's batch carries ``frames`` (B, S, D), a vision-language
+model's ``patches`` (B, min(1024, S), D): fp32 standard normals from the
+same generator, drawn after the tokens, cast to the model's dtype on
+placement, as the JAX pipeline makes them. The host prefetch thread is not
+ported: the training loop takes one batch a step with ``next_sync``.
 """
 from __future__ import annotations
 
@@ -19,8 +19,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.layers import torch_dtype
-
-_FAMILIES_TODO = "ROADMAP.md, port queue 1: the VLM prefix"
 
 
 @dataclasses.dataclass
@@ -35,8 +33,6 @@ class SyntheticTokenPipeline:
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,
                  start_step: int = 0, device="cpu"):
-        if cfg.frontend == "vision_patches":
-            raise NotImplementedError(f"{cfg.name}: image patches ({_FAMILIES_TODO})")
         self.cfg = cfg
         self.shape = shape
         self.seed = seed
@@ -58,6 +54,9 @@ class SyntheticTokenPipeline:
         out = {"tokens": tokens, "labels": labels}
         if self.cfg.kind == "encdec":
             out["frames"] = rng.standard_normal((b, s, self.cfg.d_model)).astype(np.float32)
+        if self.cfg.frontend == "vision_patches":
+            n_patch = min(1024, s)
+            out["patches"] = rng.standard_normal((b, n_patch, self.cfg.d_model)).astype(np.float32)
         return out
 
     def _place(self, host: dict) -> dict:

@@ -340,6 +340,7 @@ int dispatch_groups(int g, const Args& a, cudaStream_t st) {
     case 1: return launch<T, 1, HD>(a, st);
     case 2: return launch<T, 2, HD>(a, st);
     case 4: return launch<T, 4, HD>(a, st);
+    case 7: return launch<T, 7, HD>(a, st);
     case 8: return launch<T, 8, HD>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -20,6 +20,9 @@ from repro_torch.kernels import build
 
 BLOCKS_PER_SM = 2  # 4-warp blocks (registers: ptxas in the build log): 2 an SM, one wave
 MIN_SPLIT_ROWS = 64  # below this a block's fixed cost outweighs its rows
+# query heads a KV head, as csrc/paged_attention.cu's dispatch_groups builds
+# them: the configs' groups (7: llava-next-34b's 56 over 8)
+GROUPS = (1, 2, 4, 7, 8)
 
 
 def split_rows(batch: int, hkv: int, s_kv: int, page: int, sm_count: int) -> tuple[int, int]:
@@ -81,8 +84,8 @@ def paged_attention_cuda(q, k_hot, v_hot, k_cold, v_cold, sel, mask, *, n_hot: i
     if q.dtype not in build.DTYPE_CODES:
         raise TypeError(f"paged-attention kernel takes bf16 or fp32, got {q.dtype}")
     g = hq // hkv
-    if g not in (1, 2, 4, 8) or hd not in (64, 128):
-        raise ValueError(f"paged-attention kernel is built for G in (1, 2, 4, 8) and "
+    if g not in GROUPS or hd not in (64, 128):
+        raise ValueError(f"paged-attention kernel is built for G in {GROUPS} and "
                          f"hd in (64, 128), got G={g}, hd={hd}")
     if w % n_hot or s_kv % (w // n_hot):
         raise ValueError(f"hot window {w} / n_hot {n_hot} does not tile {s_kv} slots")

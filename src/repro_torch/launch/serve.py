@@ -9,8 +9,12 @@ default (``--reduced`` picks the tiny same-family config):
 
 ``--arch qwen2-moe-a2.7b`` serves the MoE family the same way,
 ``--arch mamba2-130m`` the Mamba-2 family, ``--arch
-jamba-1.5-large-398b --reduced`` the hybrid and ``--arch
-seamless-m4t-large-v2`` the encoder-decoder's decoder. The engine leaves
+jamba-1.5-large-398b --reduced`` the hybrid, ``--arch
+seamless-m4t-large-v2`` the encoder-decoder's decoder and ``--arch
+llava-next-34b`` the vision-language model's decoder, on its tokens alone
+(image patches enter only through ``models.model.forward``, in training and
+``train.step_builder.build_prefill_step``, as in the JAX package; its 68.8
+GB of bf16 weights fill most of one 80 GB card). The engine leaves
 an encoder-decoder's cross-attention cache as ``init_cache`` makes it,
 zeros, as the JAX engine does (its admission zeroes a slot's whole cache
 and nothing fills it from frames); ``models.kvcache.prime_cross_cache``

@@ -8,6 +8,8 @@
     python -m repro_torch.launch.train --arch mamba2-130m --batch 1 --seq 32768 --steps 4
     python -m repro_torch.launch.train --arch seamless-m4t-large-v2 --batch 1 --seq 4096 \\
         --steps 2
+    python -m repro_torch.launch.train --arch llava-next-34b --reduced --steps 2 \\
+        --batch 2 --seq 64 --device cpu
 
 The PyTorch counterpart of ``src/repro/launch/train.py``: picks the
 architecture (``--reduced``: the tiny same-family config), builds the plan,
@@ -16,7 +18,12 @@ loop with checkpoints and auto-resume. Dense, MoE, Mamba-2
 (``mamba2-130m``) and hybrid (``jamba-1.5-large-398b``, at ``--reduced``
 on one card) decoders run, and the encoder-decoder
 (``seamless-m4t-large-v2``: its batches carry seeded frames of ``--seq``
-rows, its encoder trains in the front chunk with the embedding); an MoE's
+rows, its encoder trains in the front chunk with the embedding) and the
+vision-language model (``llava-next-34b``: its batches carry min(1024,
+``--seq``) seeded patches, which run ahead of the tokens through every
+layer; at full width its 550 GB of training state outgrow one card and
+its host, which ``chip_smoke.py``'s ``vlm_plan`` meets by cutting the
+depth); an MoE's
 loss is its cross-entropy plus the aux loss, and the loop logs both.
 Weights are random, drawn on the device from ``--seed``. Runs on CUDA
 unless ``--device cpu``. Prints the plan, then one JSON summary line.

@@ -36,6 +36,13 @@ def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+# Largest fp32 draw of one leaf: llava-next-34b's stacked MLP leaves (60 x
+# 7168 x 20480, 35.2 GB in fp32) are drawn a layer at a time, so its 68.8 GB
+# of bf16 weights are drawn on an 80 GB card; every smaller leaf (17.2 GB
+# and under, qwen2-moe-a2.7b's expert stacks among them) in one draw.
+MAX_FP32_DRAW_BYTES = 16 << 30
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
@@ -55,8 +62,16 @@ class ParamDef:
             return torch.ones(self.shape, dtype=dt, device=device)
         fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
         std = self.scale if self.scale is not None else 1.0 / math.sqrt(fan_in)
-        x = torch.randn(self.shape, generator=generator, dtype=torch.float32, device=device)
-        return x.mul_(std).to(dt)
+        if 4 * math.prod(self.shape) <= MAX_FP32_DRAW_BYTES or dt == torch.float32:
+            x = torch.randn(self.shape, generator=generator, dtype=torch.float32, device=device)
+            return x.mul_(std).to(dt)
+        # a leaf whose fp32 draw outgrows the bound: drawn slice by slice of
+        # its first (stacked) axis into the weights' own dtype
+        out = torch.empty(self.shape, dtype=dt, device=device)
+        for part in out:
+            x = torch.randn(part.shape, generator=generator, dtype=torch.float32, device=device)
+            part.copy_(x.mul_(std))
+        return out
 
 
 def broadcast_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,10 @@ training forward, embedding and LM head.
 
 Port of ``src/repro/models/model.py``: attention and Mamba-2 mixers
 (``models/mamba2.py``), dense MLPs and MoE layers (``models/moe.py``), in
-any superblock pattern (the hybrid's 8-layer period of Jamba), and the
-encoder-decoder family (``seamless-m4t-large-v2``). Parameters keep the
+any superblock pattern (the hybrid's 8-layer period of Jamba), the
+encoder-decoder family (``seamless-m4t-large-v2``) and the vision-language
+family (``llava-next-34b``: a decoder whose image patches enter ahead of
+the tokens). Parameters keep the
 JAX package's tree: ``{"embed": {"tok"}, "blocks": {"pos<j>": {...}},
 "final_norm": {...}, "head": {"w"}}`` plus, for an encoder-decoder,
 ``"encoder": {"blocks": {...}, "final_norm"}``; each block leaf stacked over
@@ -50,8 +52,15 @@ every encoder layer recomputed in the backward (the reference's
 over its output, ``memory``, after the mixer's residual. ``memory`` enters
 every recomputed region, host-weight replay and grouped region as an
 explicit input, so its gradient reaches the encoder from every decoder
-layer. Models fed by the vision frontend are queued in ROADMAP.md (port
-queue 1, the VLM prefix) and raise ``NotImplementedError`` here.
+layer.
+
+A model fed by the vision frontend takes ``batch["patches"]`` (B, P, D),
+precomputed patch embeddings: ``forward`` casts them to the model's dtype,
+puts them ahead of the embedded tokens and slices their P positions off
+the hidden states after the layer stack (``model.py:678-687``). The prefix
+is P more positions to every layer -- its act policy, save sites, recomputed
+regions and host-weight runs alike -- and RoPE runs over positions 0 ... P
++ S - 1. Patches are an input: nothing differentiates them.
 """
 from __future__ import annotations
 
@@ -71,7 +80,6 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.offload import HostIO
 from repro_torch.models.layers import LAYER, TP, ZERO, ParamDef
 
-_FAMILIES_TODO = "ROADMAP.md, port queue 1: the VLM prefix"
 ACT_POLICIES = ("none", "checkpoint", "swap", "compress8", "compress16")
 SITE_POLICIES = ("swap", "compress8", "compress16")  # keep the save sites the backward reads
 XAux = tuple[torch.Tensor, "torch.Tensor | float"]  # hidden states, aux loss (0.0 if dense)
@@ -90,13 +98,18 @@ def num_repeats(cfg: ModelConfig) -> int:
     return cfg.num_layers // p
 
 
+# the model kind each frontend feeds: frames an encoder, patches a decoder's prefix
+FRONTEND_KINDS = {"none": ("decoder", "encdec"), "audio_frames": ("encdec",),
+                  "vision_patches": ("decoder",)}
+
+
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for the families the port does not run yet: it runs decoders
-    of attention and Mamba-2 positions with dense MLPs or MoE layers, and
-    encoder-decoders over precomputed frames, not models fed by the vision
-    frontend."""
-    if cfg.frontend == "vision_patches":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend ({_FAMILIES_TODO})")
+    """Raise ``ValueError`` for a frontend the model's kind has no input
+    for: the port runs decoders of attention and Mamba-2 positions with
+    dense MLPs or MoE layers, a decoder after image patches, and
+    encoder-decoders over precomputed frames."""
+    if cfg.kind not in FRONTEND_KINDS[cfg.frontend]:
+        raise ValueError(f"{cfg.name}: the {cfg.frontend} frontend feeds no {cfg.kind}")
 
 
 def _position_defs(cfg: ModelConfig, pos: int, cross_attention: bool = False) -> dict:
@@ -536,16 +549,24 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *, runs: list[Run] | None = None,
             attn_impl: str = "blockwise", io: HostIO | None = None) -> XAux:
-    """Training forward. ``batch["tokens"]``: (B, S) integer; an
+    """Training and prefill forward. ``batch["tokens"]``: (B, S) integer; an
     encoder-decoder's ``batch["frames"]``: (B, S_src, D) in the model's
-    dtype. Returns the hidden states (B, S, D) and the aux loss: the MoE
-    layers' load-balance losses summed, an fp32 scalar (0.0 for a dense
-    model, where JAX returns a zero array). ``io``: the host copies of runs
-    with host weights and of swapped activations."""
+    dtype; a vision-language model's ``batch["patches"]`` (B, P, D), if
+    present, run ahead of the tokens. Returns the hidden states of the
+    tokens (B, S, D) and the aux loss: the MoE layers' load-balance losses
+    summed, an fp32 scalar (0.0 for a dense model, where JAX returns a zero
+    array). ``io``: the host copies of runs with host weights and of
+    swapped activations."""
     check_family(cfg)
     x = embed_tokens(params, batch["tokens"], cfg)
+    patches = batch.get("patches") if cfg.frontend == "vision_patches" else None
+    if patches is not None:
+        x = torch.cat([patches.detach().to(x.dtype), x], dim=1)
     memory = (encode(params, batch["frames"], cfg, attn_impl=attn_impl)
               if cfg.kind == "encdec" else None)
     if runs is None:
         runs = default_runs(cfg, params)
-    return apply_runs(runs, x, cfg, memory=memory, attn_impl=attn_impl, io=io)
+    x, aux = apply_runs(runs, x, cfg, memory=memory, attn_impl=attn_impl, io=io)
+    if patches is not None:
+        x = x[:, patches.shape[1]:].contiguous()  # the kernels take whole rows
+    return x, aux

@@ -2,10 +2,12 @@
 layout, on one device.
 
 Port of ``src/repro/train/step_builder.py``: ``build_train_step``
-(``:126-583``, the xla-sync branch), which returns a ``StepArtifacts``, and
-the layout the serving builders (``build_decode_step(per_slot_pos=True)``,
-``build_prefill_step(chunk=C)``, ``:756-923``) choose, ``serve_layout``:
-decode and chunked prefill are one step here (``serve.prefill.ServeStep``).
+(``:126-583``, the xla-sync branch), which returns a ``StepArtifacts``; the
+stateless full-sequence prefill, ``build_prefill_step`` with ``chunk=None``
+(``:816-870``); and the layout the serving builders
+(``build_decode_step(per_slot_pos=True)``, ``build_prefill_step(chunk=C)``,
+``:756-923``) choose, ``serve_layout``: decode and chunked prefill are one
+step here (``serve.prefill.ServeStep``).
 
 Training: ``fn(state, batch) -> (state, metrics)`` runs one step in place on
 ``state = {"params", "opt", "step"}``. ``metrics["loss"]`` is the
@@ -34,10 +36,15 @@ accumulation of ``train/sync.accumulate_grads``. With ``telemetry`` the
 step records ``train.act_bytes`` (on CUDA: the device bytes a microbatch's
 forward leaves allocated for its backward) and ``HostIO``'s counters.
 
+A vision-language model's batch carries ``patches`` (B, min(1024, S), D)
+beside its tokens (``:255-259``): they run ahead of the tokens through
+every layer, and the loss runs over the S token positions.
+
 Serving: ``fn(state, batch)`` runs the step under ``torch.inference_mode``
 and returns ``(state, next_tok)``, the greedy argmax taken on the device.
 ``state`` is ``{"params", "cache"}``; the cache is written in place; the
-step runs where the state's tensors lie.
+step runs where the state's tensors lie. The stateless prefill's
+``fn(params, batch)`` returns the next-token logits and touches no cache.
 """
 from __future__ import annotations
 
@@ -133,8 +140,9 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
                      telemetry: obs.Telemetry | None = None) -> StepArtifacts:
     """The plan-driven training step on one device (CUDA unless ``device``
     says otherwise). ``batch``: ``tokens`` and ``labels``, (B, S) integer on
-    the device. ``metrics``: ``loss`` (cross-entropy plus aux loss), ``ce``,
-    ``grad_norm`` (device scalars) and ``lr``."""
+    the device, and an encoder-decoder's ``frames`` or a vision-language
+    model's ``patches``. ``metrics``: ``loss`` (cross-entropy plus aux
+    loss), ``ce``, ``grad_norm`` (device scalars) and ``lr``."""
     device = resolve_device(device)
     adam = adam or OPT.AdamConfig()
     check_train_plan(cfg, plan, shape)
@@ -305,18 +313,51 @@ def pinned_zeros(tree):
                         tree)
 
 
+def check_serve_plan(plan: MemoryPlan) -> None:
+    if plan.n_persist != plan.n_chunks:
+        raise NotImplementedError(
+            f"serving plan {plan.describe()}: only an all-persistent weight placement "
+            "runs on one device (ROADMAP.md, the planner and distributed slices)")
+
+
+def build_prefill_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeConfig, *,
+                       chunk: int | None = None, attn_impl: str = "blockwise") -> StepArtifacts:
+    """The stateless full-sequence prefill (``chunk=None`` in the JAX
+    package, ``step_builder.py:816-870``): one parallel forward of every
+    layer with nothing kept for a backward, the final norm at the last
+    position and the head. ``fn(params, batch)`` takes the parameter tree
+    on ``device`` (CUDA unless told otherwise) and ``batch["tokens"]`` (B,
+    S), with an encoder-decoder's ``frames`` or a vision-language model's
+    ``patches`` (B, min(1024, S), D), and returns the (B, V) next-token
+    logits under ``torch.inference_mode``; it touches no decode cache.
+    Chunked prefill, which ingests a cache, is ``serve.prefill.ServeStep``."""
+    if chunk is not None:
+        raise ValueError(f"chunk={chunk}: chunked prefill into a decode cache is "
+                         "serve.prefill.ServeStep (through serve.DecodeEngine)")
+    device = resolve_device(device)
+    check_serve_plan(plan)
+    want = (shape.global_batch, shape.seq_len)
+
+    def step_fn(params: dict, batch: dict) -> torch.Tensor:
+        if tuple(batch["tokens"].shape) != want or batch["tokens"].device.type != device.type:
+            raise ValueError(f"tokens {tuple(batch['tokens'].shape)} on "
+                             f"{batch['tokens'].device}, want {want} on {device}")
+        with torch.inference_mode():
+            runs = [M.Run(params=params["blocks"], n_repeats=M.num_repeats(cfg))]
+            h, _ = M.forward(params, batch, cfg, runs=runs, attn_impl=attn_impl)
+            return M.lm_head(params, h[:, -1:].contiguous(), cfg)[:, 0]
+
+    return StepArtifacts(fn=step_fn, plan=plan, runs=plan_runs(plan, M.num_repeats(cfg)))
+
+
 def serve_layout(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig,
                  paging: PagingSpec | None = None) -> tuple[PagingSpec | None, Any]:
     """The serving step's cache layout: ``(paging, kv_io)``, the page
     geometry (None for a resident cache) and the cache hook the step threads
     through ``decode_forward``. Decode and chunked prefill are one step,
-    ``serve.prefill.ServeStep``, which the engine binds to its state. The
-    full-sequence stateless prefill (``chunk=None`` in the JAX package)
-    comes with the training slice's parallel forward."""
-    if plan.n_persist != plan.n_chunks:
-        raise NotImplementedError(
-            f"serving plan {plan.describe()}: only an all-persistent weight placement "
-            "runs on one device (ROADMAP.md, the planner and distributed slices)")
+    ``serve.prefill.ServeStep``, which the engine binds to its state; the
+    stateless full-sequence prefill is ``build_prefill_step``."""
+    check_serve_plan(plan)
     if paging is None:
         paging = paging_from_plan(cfg, shape, plan)
     kv_io = KV.RESIDENT_KV if paging is None else PagedKV(paging)

@@ -232,6 +232,9 @@ FLASH_CASES = [  # (b, s, hq, hkv, hd, causal, window)
     (2, 333, 16, 2, 128, True, 77),
     (1, 96, 8, 1, 64, True, 0),
     (1, 70, 8, 1, 128, False, 0),
+    # group 7 (llava-next-34b: 56 over 8 heads of 128)
+    (1, 517, 14, 2, 128, True, 0),
+    (2, 200, 7, 1, 128, False, 0),
 ]
 
 
@@ -465,6 +468,28 @@ def test_paged_attention_kernel_seamless_heads_match_plain(cold_on_host):
     rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
     q = rnd(b, 1, h, hd)
     kh, vh, kc, vc = rnd(b, w, h, hd), rnd(b, w, h, hd), rnd(b, s, h, hd), rnd(b, s, h, hd)
+    sel = torch.rand(b, s, device="cuda", generator=gen) < 0.5
+    pos = torch.tensor([595, 640, 700, 773], device="cuda")[:, None]
+    mask = torch.where(torch.arange(s, device="cuda")[None] <= pos, 0.0, -1e30)
+    if cold_on_host:
+        kc, vc = kc.cpu().pin_memory(), vc.cpu().pin_memory()
+    out = K.decode_paged_attention(q, kh, vh, kc, vc, sel, mask, n_hot=2)
+    want = ref.paged_attention_ref(q, kh, vh, kc, vc, sel, mask)
+    torch.cuda.synchronize()
+    assert _close_to_head_max(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cold_on_host", [False, True])
+def test_paged_attention_kernel_llava_group_matches_plain(cold_on_host):
+    """llava-next-34b's decode: 56 query over 8 KV heads of 128 (group 7),
+    B 4 over a 1024-row cache, at mid-run positions past the hot window."""
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, hq, hkv, hd, s, w = 4, 56, 8, 128, 1024, 512
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).bfloat16()  # noqa: E731
+    q = rnd(b, 1, hq, hd)
+    kh, vh, kc, vc = rnd(b, w, hkv, hd), rnd(b, w, hkv, hd), rnd(b, s, hkv, hd), rnd(b, s, hkv, hd)
     sel = torch.rand(b, s, device="cuda", generator=gen) < 0.5
     pos = torch.tensor([595, 640, 700, 773], device="cuda")[:, None]
     mask = torch.where(torch.arange(s, device="cuda")[None] <= pos, 0.0, -1e30)

@@ -111,9 +111,21 @@ def test_decoder_module_names_are_tree_paths():
 
 
 @pytest.mark.parametrize("name", ["llava-next-34b"])
-def test_other_families_raise_with_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.param_defs(reduced(get_config(name)))
+def test_vision_family_builds(name):
+    """The vision-language family, which raised until the port ran it: its
+    tree is the reference's (a decoder's: the patches are an input, not a
+    weight), and the module wraps it."""
+    cfg = reduced(get_config(name))
+    defs, jdefs = TM.param_defs(cfg), JM.param_defs(cfg)
+    assert sorted(defs) == sorted(jdefs) == ["blocks", "embed", "final_norm", "head"]
+    assert sorted(defs["blocks"]["pos0"]) == sorted(jdefs["blocks"]["pos0"])
+    assert _shapes(TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")) == \
+        jax.tree.map(lambda s: (tuple(s.shape), TL.torch_dtype(str(s.dtype))),
+                     jax.eval_shape(lambda: JM.init_params(cfg, jax.random.PRNGKey(0))))
+    model = TM.DecoderLM.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    names = dict(model.named_parameters())
+    assert names["blocks.pos0.attn.wq"].shape == (cfg.num_layers, cfg.d_model,
+                                                  cfg.num_heads * cfg.resolved_head_dim)
 
 
 @pytest.mark.parametrize("name", ["seamless-m4t-large-v2"])
