@@ -153,7 +153,7 @@ Phases, each printing one JSON line:
      ``"path": "encdec"``;
  19. ``encdec_serve``: phase 4's engine and checks for
      seamless-m4t-large-v2's decoder at full width and ``ENCDEC_LAYERS``
-     + ``ENCDEC_LAYERS`` (12 + 12) of its 24 + 24 layers, a cut for the
+     + ``ENCDEC_LAYERS`` (8 + 8) of its 24 + 24 layers, a cut for the
      run's time, prompts of 595 to 758 tokens; once the 4 requests hold their
      slots, each slot's cross cache is primed in place
      (``models/kvcache.prime_cross_cache``) from ``encode`` over seeded
@@ -166,7 +166,7 @@ Phases, each printing one JSON line:
      path (whole-row attention in the encoder, the decoder's self- and
      cross-attention; plain Adam), at train_compare's bounds, the flash
      launches the 2 + 2 layers imply; ``encdec_plan``: phase 9 for
-     seamless-m4t-large-v2 at 12 + 12 layers, S 32,768 frames and tokens,
+     seamless-m4t-large-v2 at 8 + 8 layers, S 32,768 frames and tokens,
      B 1 (at S 16,384 if no searched plan trains, ``encdec_plan_failed``),
      with the time to draw a batch (its fp32 frames included; outside the
      timed steps) and where the front chunk (embedding and encoder) lies;
@@ -195,7 +195,24 @@ Phases, each printing one JSON line:
      states fit the host (``depth_cuts``); the block profile counts S
      positions, so a searched plan may run out of memory first
      (``oom_attempts``);
- 25. ``launchers``: ``launch.train`` (mistral-7b, 32 layers, the searched
+ 25. ``dist_sync``: the gradient sync (``train/sync.py``) on mistral-7b at
+     full width, 4 layers, B 2, S 4096, 3 timed steps a case from one
+     init: the xla path with none, bf16 and int8 + EF through
+     ``make_strategy`` on one rank, then ``ManualSync`` built directly at
+     world one over a one-rank NCCL group for ddp, zero2 and zero3 (int8 +
+     EF; zero3's last two layers buffered, gathered one layer ahead): each
+     step's time, peak, ``ef_norm``, one profiled step (device time by kind,
+     ``collective`` the NCCL kernels), the quantizer's launches (the plan's:
+     one a sharded leaf a microbatch, none for ddp) and every manual kind's
+     losses and fp32 masters against ``xla_int8_ef``'s (ddp and zero2
+     bitwise, zero3 within ``DIST_ZERO3_RTOL`` and
+     ``DIST_ZERO3_UPDATE_GAP``); then the quantizer
+     against its plain version, bitwise, at the sync's chunks
+     (``DIST_QUANT_CASES``: w1 / w3 / w2 and wq at z = 1, w1 at z = 4);
+ 26. ``dist_ranks``: one NCCL rank per visible card, each a process of its
+     own (spawned), mistral-7b at 2 layers, one row a rank: the manual
+     kinds, 3 steps each; on one card a world of one, which it says;
+ 27. ``launchers``: ``launch.train`` (mistral-7b, 32 layers, the searched
      plan as searched; seamless-m4t-large-v2; each 2 steps of B 1 at S
      4096) and ``launch.serve`` (mistral-7b, paged, its default stream)
      through their ``main(argv)``, each JSON line checked (finite losses;
@@ -205,7 +222,8 @@ The kernels summary line gives each kernel's launches per path
 (``launches_by_path``: each path's counts, zeroed just before it ran);
 ``launches`` stays each kernel's count on the path it came with;
 ``encdec_cases``: the flash and paged rows at seamless-m4t-large-v2's heads;
-``vlm_cases``: every kernel's rows at llava-next-34b's shapes.
+``vlm_cases``: every kernel's rows at llava-next-34b's shapes;
+``dist_cases``: the quantizer's rows at the gradient sync's chunks.
 
 The fused int8 quantize kernel (``fused_quantize_ef``) is held to its
 plain version bitwise (q, scales and the residual) in phase 5 at
@@ -235,6 +253,7 @@ import json
 import math
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1257,7 +1276,8 @@ def quant_inputs(case: str, gen, shape):
     """(x, me) of a fused_quantize_ef case of ``shape`` (z, n).
     ``activation``: a site tensor of the training path (tokens x d_model)
     in bf16, rows of varied scale (``activation_fp32``: the same in fp32);
-    ``wire``: the gradient-wire chunks, fp32; ``edges``, ``edges_bf16`` and
+    ``wire``: the gradient-wire chunks, fp32 (``wire_own``: a rank's own
+    chunk, z = 1, me 0); ``edges``, ``edges_bf16`` and
     ``edges_long``: a zero row, exact half-way quotients, values at the
     clip bound and a random row, in fp32 at n 4099 (not a multiple of 4:
     one value a load, one pass) and 20,001 (two passes), and in bf16 at n
@@ -1269,8 +1289,8 @@ def quant_inputs(case: str, gen, shape):
         scale = torch.exp(torch.randn(z, 1, device="cuda", generator=gen))
         x = torch.randn(z, n, device="cuda", generator=gen) * scale
         return (x if case == "activation_fp32" else x.bfloat16()), 0
-    if case == "wire":
-        return 1e-3 * torch.randn(z, n, device="cuda", generator=gen), 2
+    if case in ("wire", "wire_own"):  # wire_own: the rank's own chunk is chunk 0 (z = 1)
+        return 1e-3 * torch.randn(z, n, device="cuda", generator=gen), 0 if z == 1 else 2
     ties = torch.zeros(n, device="cuda")
     ties[0] = 127.0  # the scale is exactly 1: x / scale is x
     ties[1:9] = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5])
@@ -1345,7 +1365,7 @@ def quant_case(case: str, gen, shape) -> dict:
     flops = 5 * x.numel()  # abs, max, divide, round, clip
     times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / FP32_FLOP_PER_S}
     by = max(times, key=times.get)
-    if case == "wire":  # milliseconds: launch cost is noise, and no graph pool of copies
+    if case.startswith("wire"):  # milliseconds: launch cost is noise, no graph pool of copies
         t = {"ms": eager_ms(kernel), "plain_ms": eager_ms(plain)}
     else:
         t = {**timed("ms", kernel), **timed("plain_ms", plain)}
@@ -1791,6 +1811,7 @@ KERNEL_KINDS = (  # device work of a training step, by kernel name, first match
     ("fused_adam", ("fused_adam_kernel",)),
     ("fused_quantize_ef", QUANT_KERNELS),
     ("rmsnorm", ("rmsnorm_kernel",)),
+    ("collective", ("nccl",)),  # the gradient sync's collectives (dist_sync)
     # fp32 GEMMs outside the tensor cores: the MoE's dense dispatch and
     # combine einsums (models/moe.py) and its fp32 router product, the
     # Mamba-2 SSD's einsums (models/mamba2.py)
@@ -2785,9 +2806,10 @@ ENCDEC_FLASH_CASES = (  # (query rows, key rows, causal): decoder self, encoder 
     (TRAIN_SEQ, TRAIN_SEQ, True), (TRAIN_SEQ, TRAIN_SEQ, False), (1024, TRAIN_SEQ, False))
 ENCDEC_PROMPT_LENS = (595, 759)  # prompts of 595 to 758 tokens, past the 2-page hot window
 ENCDEC_SEQ, ENCDEC_FALLBACK_SEQ = 32768, 16384  # encdec_plan's frames and tokens
-# encdec_serve's and encdec_plan's depth: 12 encoder and 12 decoder layers
-# of 24 + 24, cut for the run's time once the VLM's phases came
-ENCDEC_LAYERS = 12
+# encdec_serve's and encdec_plan's depth: 8 encoder and 8 decoder layers
+# of 24 + 24, cut for the run's time (12 + 12 once the VLM's phases came,
+# 8 + 8 once the distributed ones did: 76 s of an 854 s run at 12 + 12)
+ENCDEC_LAYERS = 8
 ENCDEC_FRAMES_SEED = 11
 # the reference's block profile of seamless-m4t-large-v2 at B 1, S 32,768
 # (src/repro/core/profiler.py, profile_superblock; tests/test_torch_encdec.py
@@ -3139,6 +3161,335 @@ def phase_vlm_plan(hw) -> dict:
     return plan_phase(get_config(VLM_ARCH), hw, "vlm_plan")
 
 
+# ---------------------------------------------------------------------------
+# Distributed gradient sync (train/sync.py, dist/collectives.py)
+# ---------------------------------------------------------------------------
+DIST_LAYERS, DIST_BATCH, DIST_STEPS = 4, 2, 3
+# Each manual kind against xla_int8_ef at world one, where no value crosses
+# a wire: ddp and zero2 do the same arithmetic (one per-tensor scale, which
+# the quantizer's one chunk at z = 1 computes bitwise), so their losses and
+# fp32 masters must equal its bitwise. zero3 quantizes each layer's slice of
+# a stacked run apart (a scale a repeat), so it is held by bounds: its
+# losses within DIST_ZERO3_RTOL relative, and its masters' gap to
+# xla_int8_ef's within DIST_ZERO3_UPDATE_GAP of xla_int8_ef's own update
+# ||master - init||, which a sync that lost or zeroed the gradients (no
+# update: a gap of 1) fails. Measured on an H100 at 700 W: losses 5.0e-5
+# apart, a gap of 0.184; the bounds are 4x and 1.6x those.
+DIST_ZERO3_RTOL = 2e-4
+DIST_ZERO3_UPDATE_GAP = 0.3
+# the sync's quantizer chunks: mistral-7b's w1 / w3 / w2 (4096 x 14336 values)
+# and wq (4096 x 4096) at z = 1, the card's one rank (its own chunk, me 0),
+# and w1 at z = 4 (QUANT_WIRE)
+DIST_QUANT_CASES = (("wire_own", (1, 4096 * 14336)), ("wire_own", (1, 4096 * 4096)),
+                    ("wire", QUANT_WIRE))
+DIST_RANKS_LAYERS, DIST_RANKS_STEPS = 2, 3  # the first step of a fresh process warms up
+DIST_KINDS = ("ddp", "zero2", "zero3")
+
+
+def dist_plans(nc: int, nb: int) -> dict:
+    """The dist phases' plans: the xla path with each wire format, every
+    chunk persistent; the manual kinds with int8 + EF: ddp (every chunk
+    persistent), zero2 and zero3 (every chunk ZeRO-sharded; zero3 buffers
+    its last 3 chunks, so its last two layers form a buffered run gathered
+    one layer ahead, its first two are gathered again for the backward)."""
+    from repro_torch.core.plan import MemoryPlan
+
+    out = {f"xla_{c}": MemoryPlan(nc, nb, n_persist=nc, grad_compress=c)
+           for c in ("none", "bf16", "int8_ef")}
+    manual = dict(sync_mode="manual", grad_compress="int8_ef")
+    out["ddp"] = MemoryPlan(nc, nb, n_persist=nc, **manual)
+    out["zero2"] = MemoryPlan(nc, nb, n_persist=0, zero_stage=2, **manual)
+    out["zero3"] = MemoryPlan(nc, nb, n_persist=0, n_buffer=3, **manual)
+    return out
+
+
+def expected_quant_launches(art, state, kind: str, steps: int) -> int:
+    """The sync's fused_quantize_ef calls: one a sharded leaf a microbatch
+    (zero3: one a sharded leaf of each repeat, gathered per repeat); none
+    for replicated leaves, which the plain per-tensor quantizer syncs."""
+    from repro_torch.optim.adam import tree_leaves
+
+    run_leaves = {id(t) for t in tree_leaves(state["params"]["runs"])}
+    n = sum((p.shape[0] if kind == "zero3" and id(p) in run_leaves else 1)
+            for p, ls in zip(tree_leaves(state["params"]), art.leaf_syncs)
+            if ls.dim is not None)
+    return n * steps * art.plan.microbatch
+
+
+def _paths(tree, prefix: str = "") -> list:
+    """(path, leaf) of a nested dict in sorted key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _paths(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def stacked_masters(state) -> dict:
+    """The fp32 masters by leaf path, a run layout's ``runs`` stacked back
+    into ``blocks`` (at world one a shard is its full leaf)."""
+    import torch
+
+    master = state["opt"]["master"]
+    out = dict(_paths({k: v for k, v in master.items() if k != "runs"}))
+    runs = [dict(_paths(r)) for r in master["runs"]]
+    for p in runs[0]:
+        out["/blocks" + p] = torch.cat([r[p] for r in runs]) if len(runs) > 1 else runs[0][p]
+    return out
+
+
+def master_gap(got: dict, ref: dict, init: dict) -> dict:
+    """How far the masters ``got`` lie from ``ref`` (both after the same
+    steps from the parameters ``init``): elements that differ, the largest
+    difference, ``update_gap`` = ||got - ref|| / ||ref - init|| and
+    ``update_ratio`` = ||got - init|| / ||ref - init|| (fp32 norms)."""
+    n_diff, max_abs, gap, upd, own = 0, 0.0, 0.0, 0.0, 0.0
+    for p, r in ref.items():
+        g, i = got[p], init[p].float()
+        n_diff += int((g != r).sum())
+        max_abs = max(max_abs, float((g - r).abs().max()))
+        gap += float((g - r).norm()) ** 2
+        upd += float((r - i).norm()) ** 2
+        own += float((g - i).norm()) ** 2
+    return {"elements": sum(r.numel() for r in ref.values()), "differ": n_diff,
+            "max_abs_diff": max_abs, "update_norm": math.sqrt(upd),
+            "update_gap": math.sqrt(gap / upd), "update_ratio": math.sqrt(own / upd)}
+
+
+def dist_run(cfg, shape, plan, params, steps: int, mesh, kind: str | None = None,
+             warmup: int = 0, profile: bool = False, ref_masters: dict | None = None,
+             keep_masters: bool = False) -> dict:
+    """``steps`` timed steps of ``plan`` from ``params`` (stacked ``blocks``)
+    with the launch counts zeroed just before: losses, each step's time
+    (the median over the steps after ``warmup``), peak device bytes,
+    ``ef_norm``, launches; with ``profile``, then one more step under the
+    profiler (``profile_step``). ``kind``: build the manual
+    kind's ``ManualSync`` directly (a world of one, where ``make_strategy``
+    routes a manual plan to ``XlaSync``). The fp32 masters after the timed
+    steps, before the profiled one: with ``ref_masters`` their
+    ``master_gap`` to those (``"masters"``); with ``keep_masters`` they
+    are returned (``"_masters"``, on the device)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch import obs
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train.step_builder import build_train_step
+    from repro_torch.train.sync import ManualSync
+
+    tel = obs.Telemetry(trace=False)
+    strategy = ManualSync(plan, mesh, kind) if kind is not None else None
+    art = build_train_step(cfg, plan, mesh.device, shape, mesh=mesh, strategy=strategy,
+                           adam=AdamConfig(lr=3e-4), telemetry=tel)
+    state = art.place_state(_relayout(params, art.runs))
+    pipe = SyntheticTokenPipeline(cfg, shape, seed=0, device=mesh.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times, ef_norms = [], [], []
+    for _ in range(steps):
+        batch = pipe.next_sync()
+        t0 = time.perf_counter()
+        state, m = art.fn(state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t0)
+        if "ef_norm" in m:
+            ef_norms.append(float(m["ef_norm"]))
+    torch.cuda.synchronize()
+    launches = dict(K.launch_counts())
+    snap = {k: v["value"] for k, v in tel.registry.snapshot().items() if "value" in v}
+    masters = stacked_masters(state) if ref_masters is not None or keep_masters else None
+    gap = (master_gap(masters, ref_masters, dict(_paths(params)))
+           if ref_masters is not None else None)
+    # a copy to keep: a one-run layout's masters are the state's, which the
+    # profiled step updates
+    masters = {p: t.clone() for p, t in masters.items()} if keep_masters else None
+    out = {"plan": plan.describe(), "strategy": art.strategy.kind,
+           "sharded_leaves": sum(ls.dim is not None for ls in art.leaf_syncs),
+           "leaves": len(art.leaf_syncs), "losses": losses, "step_times_s": times,
+           "median_step_s": statistics.median(times[warmup:]), "ef_norms": ef_norms,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+           "expected_quant_launches": expected_quant_launches(
+               art, state, art.strategy.kind, steps),
+           "sync": {k: v for k, v in snap.items() if k.startswith("sync.")}}
+    if gap is not None:
+        out["masters"] = gap
+    if profile:
+        out["profile"] = profile_step(art, state, pipe.next_sync())
+    if masters is not None:
+        out["_masters"] = masters
+    del state, art
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_dist_run(name: str, run: dict, reference: dict | None) -> None:
+    """Finite losses, every training kernel launched, the quantizer's
+    launches the plan's, residuals above zero under int8 + EF; with
+    ``reference`` (xla_int8_ef's run at world one) the manual kind held to
+    it as ``DIST_ZERO3_RTOL`` says: ddp and zero2 bitwise, zero3 by bounds."""
+    assert all(math.isfinite(x) for x in run["losses"]), (name, run["losses"])
+    kernels = ("flash_attention", "flash_attention_bwd", "rmsnorm", "fused_adam")
+    for k in kernels:
+        assert run["launches"].get(k, 0) > 0, f"{name}: {k} was not launched"
+    quant = run["launches"].get("fused_quantize_ef", 0)
+    assert quant == run["expected_quant_launches"], (name, quant, run["expected_quant_launches"])
+    if run["strategy"] in ("zero2", "zero3"):
+        assert quant > 0, f"{name}: the sync never launched fused_quantize_ef"
+    if "int8_ef" in run["plan"]:
+        assert run["ef_norms"] and min(run["ef_norms"]) > 0, (name, run["ef_norms"])
+    if reference is None:
+        return
+    got, want, gap = run["losses"], reference["losses"], run["masters"]
+    assert gap["update_norm"] > 0, (name, gap)  # the reference itself moved
+    if run["strategy"] in ("ddp", "zero2"):
+        assert got == want, (name, got, want)
+        assert gap["differ"] == 0, (name, gap)
+    else:
+        for a, b in zip(got, want):
+            assert abs(a - b) <= DIST_ZERO3_RTOL * abs(b), (name, got, want)
+        assert gap["update_gap"] <= DIST_ZERO3_UPDATE_GAP, (name, gap)
+
+
+def phase_dist_sync() -> tuple[dict[str, int], list[dict]]:
+    """mistral-7b at full width, ``DIST_LAYERS`` layers, B 2, S 4096: the
+    xla path's wire formats (none, bf16, int8 + EF) through
+    ``make_strategy`` on one rank, then the manual ddp / zero2 / zero3 with
+    int8 + EF built directly at world one over a one-rank NCCL group, 3
+    timed steps each from one init; every manual kind's losses and fp32
+    masters against ``xla_int8_ef``'s (``check_dist_run``). Then the quantizer against its plain
+    version, bitwise, at the sync's chunk shapes (``DIST_QUANT_CASES``).
+    Returns the manual kinds' launches, summed, and the quantizer's rows."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import LocalMesh, make_local_mesh
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=DIST_LAYERS)
+    shape = ShapeConfig("dist", TRAIN_SEQ, DIST_BATCH, "train")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    plans = dist_plans(DIST_LAYERS + 2, DIST_LAYERS)
+    runs = {}
+    for name in ("xla_none", "xla_bf16", "xla_int8_ef"):
+        runs[name] = dist_run(cfg, shape, plans[name], params, DIST_STEPS,
+                              LocalMesh(0, 1, None, torch.device("cuda", 0)), profile=True,
+                              keep_masters=name == "xla_int8_ef")
+        assert runs[name]["strategy"] == "xla", runs[name]["strategy"]
+        check_dist_run(name, runs[name], None)
+        emit("dist_sync", case=name, layers=DIST_LAYERS, batch=DIST_BATCH, seq=TRAIN_SEQ,
+             **{k: v for k, v in runs[name].items() if k != "_masters"})
+    ref = runs["xla_int8_ef"]
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    launches: dict[str, int] = {}
+    try:
+        mesh = make_local_mesh("cuda:0")
+        for kind in DIST_KINDS:
+            r = dist_run(cfg, shape, plans[kind], params, DIST_STEPS, mesh=mesh, kind=kind,
+                         profile=True, ref_masters=ref["_masters"])
+            assert r["strategy"] == kind, r["strategy"]
+            emit("dist_sync", case=kind, layers=DIST_LAYERS, batch=DIST_BATCH, seq=TRAIN_SEQ,
+                 world=1, process_group="nccl, one rank (ManualSync built directly)",
+                 against="xla_int8_ef", bitwise=kind != "zero3",
+                 loss_rtol=None if kind != "zero3" else DIST_ZERO3_RTOL,
+                 update_gap_bound=None if kind != "zero3" else DIST_ZERO3_UPDATE_GAP, **r)
+            check_dist_run(kind, r, ref)
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    del params, ref, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for case, shp in DIST_QUANT_CASES:
+        r = quant_case(case, gen, shp)
+        emit("kernel_vs_plain", path="dist_sync", **r)
+        rows.append(r)
+        torch.cuda.empty_cache()
+    return launches, rows
+
+
+def _dist_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of ``phase_dist_ranks``, in a process of its own on
+    ``cuda:rank``: the manual kinds, 3 steps each (rank 0 writes them)."""
+    sys.path.insert(0, str(HERE / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
+                            world_size=world, device_id=device)
+    try:
+        mesh = make_local_mesh(device)
+        cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=DIST_RANKS_LAYERS)
+        shape = ShapeConfig("dist_ranks", TRAIN_SEQ, world, "train")  # one row a rank
+        params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+        plans = dist_plans(DIST_RANKS_LAYERS + 2, DIST_RANKS_LAYERS)
+        res = {}
+        for kind in DIST_KINDS:
+            # one rank: make_strategy would route the plan to XlaSync
+            r = dist_run(cfg, shape, plans[kind], params, DIST_RANKS_STEPS, mesh=mesh,
+                         kind=kind if world == 1 else None, warmup=1)
+            assert r["strategy"] == kind, r["strategy"]
+            check_dist_run(kind, r, None)
+            res[kind] = r
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist_ranks() -> dict[str, int]:
+    """One NCCL rank per visible card, each its own process (the launcher's
+    spawn), mistral-7b at full width, 2 layers, one row of S 4096 a rank,
+    the three manual kinds 3 steps each (the median over the last 2: a
+    fresh process's first step warms up). On a one-card machine this is a
+    world of one, and says so. Returns rank 0's launches, summed."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    d = tempfile.mkdtemp()
+    out = f"{d}/ranks.json"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        mp.start_processes(_dist_rank, args=(world, f"{d}/store", out), nprocs=world,
+                           join=True, start_method="spawn")
+        with open(out) as f:
+            res = json.load(f)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    launches: dict[str, int] = {}
+    for kind, r in res.items():
+        emit("dist_ranks", case=kind, world=world, layers=DIST_RANKS_LAYERS,
+             batch_per_rank=1, seq=TRAIN_SEQ, **r)
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    note = ("ran at world 1: one card is visible; multi-card numbers wait for a machine "
+            "with several cards") if world == 1 else f"ran at world {world}"
+    emit("dist_ranks_world", world=world, note=note, seconds=time.perf_counter() - t0)
+    return launches
+
+
 def run_launcher(module, argv: list[str]) -> dict:
     """``module.main(argv)`` in this process, its standard output echoed and
     its last line read as the launcher's JSON summary; the kernels' launch
@@ -3283,6 +3634,8 @@ def main() -> int:
          rows=[vlm_plan_out["row"]])
     gc.collect()
     torch.cuda.empty_cache()
+    dist_sync_launches, dist_rows = timed_phase("dist_sync", phase_dist_sync)
+    dist_ranks_launches = timed_phase("dist_ranks", phase_dist_ranks)
     launcher_launches = timed_phase("launchers", phase_launchers)
     # each path's launches, counted from 0 just before it ran
     by_path = {"engine": launches, "train": train_launches, "train_policies": policy_launches,
@@ -3294,6 +3647,7 @@ def main() -> int:
                "encdec_plan": encdec_plan_out["launches"],
                "vlm_serve": vlm_serve_launches, "vlm_prefill": vlm_prefill_launches,
                "vlm_train_compare": vlm_compare_launches, "vlm_plan": vlm_plan_out["launches"],
+               "dist_sync": dist_sync_launches, "dist_ranks": dist_ranks_launches,
                **{f"launch_{k}": v for k, v in launcher_launches.items()}}
     rms = measured["rmsnorm"][0]  # rows = batch: the decode path's shape
     main_case = next(p for p in measured["paged_attention"]
@@ -3334,9 +3688,10 @@ def main() -> int:
         # the MoE, Mamba-2, encoder-decoder and VLM shapes' cases held to the same bounds
         row["max_abs_err"] = max([row["max_abs_err"], moe_errs.get(name, 0.0),
                                   mamba_errs.get(name, 0.0)]
-                                 + [r["max_abs_err"] for r in encdec_rows + vlm_rows
+                                 + [r["max_abs_err"] for r in encdec_rows + vlm_rows + dist_rows
                                     if r["kernel"] == name])
-        for key, rows in (("encdec_cases", encdec_rows), ("vlm_cases", vlm_rows)):
+        for key, rows in (("encdec_cases", encdec_rows), ("vlm_cases", vlm_rows),
+                          ("dist_cases", dist_rows)):
             # seamless-m4t-large-v2's heads (hd 64, group 1); llava-next-34b's
             # shapes (group 7, d 7168), with mistral-7b's paged group 4 beside
             cases = [{k: r[k] for k in case_keys if k in r} for r in rows if r["kernel"] == name]

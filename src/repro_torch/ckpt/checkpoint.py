@@ -1,12 +1,20 @@
 """Atomic, asynchronous checkpoints of the training state.
 
-Port of ``src/repro/ckpt/checkpoint.py`` for one process: ``save`` takes
-CPU copies of the state tree now and writes them with ``torch.save`` on a
-background thread into ``step_N.tmp/``, renamed to ``step_N/`` once the
-file is flushed, so a crashed save is never mistaken for a checkpoint.
-``restore`` copies a checkpoint into the tensors of a target state of the
-same tree, in place: each leaf keeps its device, dtype and pinnedness, so
-optimizer states that live in pinned host memory are restored there.
+Port of ``src/repro/ckpt/checkpoint.py``: ``save`` takes CPU copies of the
+state tree now and writes them with ``torch.save`` on a background thread
+into ``step_N/``, as a ``.tmp`` file renamed to its name once it is flushed,
+so a crashed save is never mistaken for a checkpoint. ``restore`` copies a
+checkpoint into the tensors of a target state of the same tree, in place:
+each leaf keeps its device, dtype and pinnedness, so optimizer states that
+live in pinned host memory are restored there.
+
+Each rank of ``world`` (one, unless the gradient sync is manual) saves and
+restores its own file, ``state_rank{r}_of{world}.pt``:
+its shards of the sharded leaves, with their optimizer states and
+shard-sized residuals, and its row of each replicated leaf's residual. A
+step counts only once every rank's file is in it, so a crash between two
+ranks' saves leaves every rank resuming from the same earlier step. A
+checkpoint saved at another world size is refused, not resharded.
 
 The fused-Adam kernel writes pinned host states asynchronously, so a save
 reads them only when the CUDA stream is idle, and raises otherwise; the
@@ -16,13 +24,14 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import re
 import shutil
 import threading
 from typing import Any
 
 import torch
 
-STATE_FILE = "state.pt"
+STATE_FILE = re.compile(r"state_rank(\d+)_of(\d+)\.pt")  # rank, world
 
 
 def _leaves(tree) -> list:
@@ -78,31 +87,39 @@ def _copy_into(target, saved, path="state"):
 class CheckpointManager:
     directory: str
     keep: int = 3
+    rank: int = 0
+    world: int = 1
 
     def __post_init__(self):
         os.makedirs(self.directory, exist_ok=True)
         self._thread: threading.Thread | None = None
 
+    @property
+    def state_file(self) -> str:
+        """This rank's file in a step's directory."""
+        return f"state_rank{self.rank}_of{self.world}.pt"
+
     # --- save ----------------------------------------------------------------
     def save(self, step: int, state: Any, extra: dict | None = None, *, sync: bool = False):
         """Snapshot to host memory now; write to disk in the background."""
         assert_stream_idle(state)
-        payload = {"step": step, "state": _to_cpu(state), "extra": dict(extra or {})}
+        payload = {"step": step, "state": _to_cpu(state), "extra": dict(extra or {}),
+                   "rank": self.rank, "world": self.world}
         if self._thread is not None:
             self._thread.join()  # one in-flight save at a time
 
         def write():
-            tmp = os.path.join(self.directory, f"step_{step}.tmp")
-            final = os.path.join(self.directory, f"step_{step}")
-            shutil.rmtree(tmp, ignore_errors=True)
-            os.makedirs(tmp)
-            with open(os.path.join(tmp, STATE_FILE), "wb") as f:
+            final_dir = os.path.join(self.directory, f"step_{step}")
+            os.makedirs(final_dir, exist_ok=True)
+            final = os.path.join(final_dir, self.state_file)
+            tmp = final + ".tmp"
+            with open(tmp, "wb") as f:
                 torch.save(payload, f)
                 f.flush()
                 os.fsync(f.fileno())
-            shutil.rmtree(final, ignore_errors=True)
-            os.rename(tmp, final)  # atomic publish
-            self._gc()
+            os.replace(tmp, final)  # atomic publish
+            if self.rank == 0:
+                self._gc()
 
         self._thread = threading.Thread(target=write, daemon=False)
         self._thread.start()
@@ -114,17 +131,36 @@ class CheckpointManager:
             self._thread.join()
 
     def _gc(self):
-        for s in self.steps()[: -self.keep]:
-            shutil.rmtree(os.path.join(self.directory, f"step_{s}"), ignore_errors=True)
+        """Remove every step older than the ``keep`` newest complete ones,
+        incomplete ones too: each rank publishes its steps in order, so
+        below a complete step a step lacking a rank's file was left by a
+        crash and will not be completed."""
+        done = self.steps()
+        if len(done) <= self.keep:
+            return
+        for s in self._step_dirs():
+            if s < done[-self.keep]:
+                shutil.rmtree(os.path.join(self.directory, f"step_{s}"), ignore_errors=True)
+
+    def _step_dirs(self) -> list[int]:
+        return sorted(int(name.split("_")[1]) for name in os.listdir(self.directory)
+                      if name.startswith("step_") and not name.endswith(".tmp"))
 
     # --- restore ---------------------------------------------------------------
     def steps(self) -> list[int]:
+        """Complete steps: those that hold the file of every rank of
+        ``world``. Raises if a step was saved at another world size."""
+        want = {f"state_rank{r}_of{self.world}.pt" for r in range(self.world)}
         out = []
-        for name in os.listdir(self.directory):
-            if name.startswith("step_") and not name.endswith(".tmp"):
-                if os.path.exists(os.path.join(self.directory, name, STATE_FILE)):
-                    out.append(int(name.split("_")[1]))
-        return sorted(out)
+        for s in self._step_dirs():
+            files = set(os.listdir(os.path.join(self.directory, f"step_{s}")))
+            worlds = {int(m.group(2)) for m in map(STATE_FILE.fullmatch, files) if m}
+            if worlds - {self.world}:
+                raise ValueError(f"step_{s} was saved at world size {sorted(worlds)}; this run "
+                                 f"has {self.world} rank(s): a checkpoint is not resharded")
+            if want <= files:
+                out.append(s)
+        return out
 
     def latest_step(self) -> int | None:
         steps = self.steps()
@@ -133,8 +169,12 @@ class CheckpointManager:
     def restore(self, step: int, target: Any) -> tuple[Any, dict]:
         """Load checkpoint ``step`` into ``target`` (a state of the same tree,
         e.g. a fresh ``StepArtifacts.init``), in place. Returns (state, extra)."""
-        path = os.path.join(self.directory, f"step_{step}", STATE_FILE)
+        path = os.path.join(self.directory, f"step_{step}", self.state_file)
         payload = torch.load(path, map_location="cpu", weights_only=True)
+        saved = (payload.get("rank", 0), payload.get("world", 1))
+        if saved != (self.rank, self.world):
+            raise ValueError(f"{path} holds rank {saved[0]} of {saved[1]}, want rank "
+                             f"{self.rank} of {self.world}")
         return _copy_into(target, payload["state"]), payload["extra"]
 
     def restore_latest(self, target: Any):

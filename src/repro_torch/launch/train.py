@@ -10,6 +10,10 @@
         --steps 2
     python -m repro_torch.launch.train --arch llava-next-34b --reduced --steps 2 \\
         --batch 2 --seq 64 --device cpu
+    python -m repro_torch.launch.train --arch llama3-405b --reduced --nproc 4 \\
+        --steps 4 --batch 16 --seq 32 --device cpu        # 4 gloo ranks, spawned
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch mistral-7b \\
+        --nproc 4 --plan zero3 --batch 4 --seq 4096        # 4 NCCL ranks
 
 The PyTorch counterpart of ``src/repro/launch/train.py``: picks the
 architecture (``--reduced``: the tiny same-family config), builds the plan,
@@ -40,12 +44,27 @@ allocations, and the searched plans of ``mistral-7b`` and
 as the JAX launcher does, the chunks are parked on the device and the block
 policies kept. ``resident``: every chunk
 persistent, no remat; ``fsdp``: every block checkpointed.
+
+Data parallelism: ``--nproc N`` trains on N ranks under the manual
+gradient sync (``train/sync.ManualSync``), each rank on its rows of the
+global batch. Under ``torchrun`` (``WORLD_SIZE`` set) the process is one
+rank; otherwise it spawns the N ranks itself, joined through a ``file://``
+store in a temporary directory. Rank r runs on ``cuda:r`` (NCCL) or, with
+``--device cpu``, on the CPU (gloo). ``auto`` then searches with
+``sync="manual"`` on ``MeshSpec((N,), ("data",))`` (the plan runs as
+searched, on the CPU too); ``ddp``, ``zero2`` and ``zero3`` name the
+manual kinds (int8 + EF on the wire). Rank 0 prints the plan and the JSON
+line, with the sync strategy's kind and the world size; each rank keeps
+its own checkpoint file. The xla path on several ranks raises
+(ROADMAP.md).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
+import tempfile
 
 import torch
 
@@ -56,20 +75,28 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.autotuner import search
 from repro_torch.core.chunks import chunk_inventory, model_state_bytes
 from repro_torch.core.cost_model import build_workload
-from repro_torch.core.hardware import HARDWARE, LOCAL_CPU_HW, ONE_CHIP, local_cuda_hw
+from repro_torch.core.hardware import HARDWARE, LOCAL_CPU_HW, ONE_CHIP, MeshSpec, local_cuda_hw
 from repro_torch.core.plan import MemoryPlan, fully_resident_plan
 from repro_torch.data.pipeline import SyntheticTokenPipeline
+from repro_torch.launch.mesh import init_distributed
 from repro_torch.models.model import num_repeats
 from repro_torch.optim.adam import AdamConfig, cosine_schedule
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.step_builder import build_train_step
 
 
-def main(argv=None) -> int:
+MANUAL_PLANS = {  # --plan: the manual kinds, int8 + EF on the wire
+    "ddp": lambda nc: dict(n_persist=nc),
+    "zero2": lambda nc: dict(n_persist=0, zero_stage=2),
+    "zero3": lambda nc: dict(n_persist=0),
+}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=8, help="global batch, over every rank")
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None)
@@ -78,14 +105,72 @@ def main(argv=None) -> int:
                     help="train the reduced (smoke-scale) variant of the arch")
     ap.add_argument("--target-hw", default=None, choices=[None, *HARDWARE],
                     help="plan against this hardware spec instead of the local one")
-    ap.add_argument("--plan", default="auto", choices=["auto", "resident", "fsdp"])
+    ap.add_argument("--plan", default="auto",
+                    choices=["auto", "resident", "fsdp", *MANUAL_PLANS])
+    ap.add_argument("--nproc", type=int, default=1,
+                    help="data-parallel ranks (manual sync); spawned unless under torchrun")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda (raises without it)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.nproc > 1 and "WORLD_SIZE" not in os.environ:
+        return spawn(args, argv)
+    summary = run(args)
+    if summary is not None:
+        print(json.dumps(summary))
+    return 0
+
+
+def spawn(args, argv) -> int:
+    """Run ``args.nproc`` ranks of this launcher as processes of their own,
+    then print rank 0's JSON line."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_rank, args=(args.nproc, argv, tmp), nprocs=args.nproc, join=True,
+                           start_method="spawn")
+        with open(os.path.join(tmp, "summary.json")) as f:
+            print(f.read().strip())
+    return 0
+
+
+def _rank(rank: int, world: int, argv, tmp: str) -> None:
+    args = parse_args(argv)
+    summary = run(args, rank=rank, world=world, init_method=f"file://{tmp}/store")
+    if summary is not None:
+        with open(os.path.join(tmp, "summary.json"), "w") as f:
+            f.write(json.dumps(summary))
+
+
+def run(args, *, rank: int | None = None, world: int | None = None,
+        init_method: str | None = None) -> dict | None:
+    """Train as one rank (of ``world``; default: ``RANK`` / ``WORLD_SIZE``);
+    returns rank 0's summary (None on the other ranks)."""
+    device, mesh = resolve_device(args.device), None
+    if args.nproc > 1:
+        if device.type == "cpu":  # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.nproc))
+        mesh = init_distributed(device, init_method=init_method, rank=rank, world=world)
+        if mesh.world != args.nproc:
+            raise ValueError(f"--nproc {args.nproc}, but the process group has {mesh.world} "
+                             "ranks")
+        device = mesh.device
+    try:
+        return _train(args, device, mesh)
+    finally:
+        if mesh is not None and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device, mesh) -> dict | None:
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     if device.type == "cuda":
         torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    world = 1 if mesh is None else mesh.world
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -97,37 +182,45 @@ def main(argv=None) -> int:
             hw = HARDWARE[args.target_hw]
         else:
             hw = local_cuda_hw(device) if device.type == "cuda" else LOCAL_CPU_HW
-        w = build_workload(cfg, shape, ONE_CHIP, hw)
-        # one device: check_train_plan runs only the plain reduction, so the
-        # search keeps XLA-style sync without wire compression
-        res = search(w, compress="off", sync="xla")
+        if world == 1:
+            # one device: the plain reduction; compression buys nothing there
+            res = search(build_workload(cfg, shape, ONE_CHIP, hw), compress="off", sync="xla")
+        else:
+            res = search(build_workload(cfg, shape, MeshSpec((world,), ("data",)), hw),
+                         sync="manual")
         plan = res.plan
-        print(f"[train] searched plan: {plan.describe()} (modeled t_iter="
-              f"{res.runtime.t_iteration:.3f}s, peak {res.memory.peak / 1e9:.2f}GB on {hw.name}, "
-              f"feasible={res.feasible}, {res.search_seconds:.2f}s)")
-        if device.type == "cpu":
+        say(f"[train] searched plan: {plan.describe()} (modeled t_iter="
+            f"{res.runtime.t_iteration:.3f}s, peak {res.memory.peak / 1e9:.2f}GB on {hw.name}, "
+            f"feasible={res.feasible}, {res.search_seconds:.2f}s)")
+        if device.type == "cpu" and world == 1:
             # the CPU is its own host: park the chunks on the device, keep
             # the block policies and the microbatching
             plan = dataclasses.replace(plan, n_host=0, n_persist=plan.n_chunks, n_buffer=0)
+    elif args.plan in MANUAL_PLANS:
+        plan = MemoryPlan(n_chunks=nc, n_blocks=nb, sync_mode="manual",
+                          grad_compress="int8_ef", **MANUAL_PLANS[args.plan](nc))
     elif args.plan == "fsdp":  # one device: every chunk already resident; checkpoint all
         plan = MemoryPlan(n_chunks=nc, n_blocks=nb, n_persist=nc, n_checkpoint=nb)
     else:
         plan = fully_resident_plan(nc, nb)
-    print(f"[train] arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
-          f"state={model_state_bytes(chunks) / 1e9:.2f}GB device={device} "
-          f"plan={plan.describe()}")
+    say(f"[train] arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
+        f"state={model_state_bytes(chunks) / 1e9:.2f}GB device={device} world={world} "
+        f"plan={plan.describe()}")
 
     art = build_train_step(
-        cfg, plan, device, shape, adam=AdamConfig(lr=args.lr),
+        cfg, plan, device, shape, mesh=mesh, adam=AdamConfig(lr=args.lr),
         lr_schedule=cosine_schedule(args.lr, warmup=min(20, args.steps // 10 + 1),
                                     total=args.steps))
     pipe = SyntheticTokenPipeline(cfg, shape, seed=args.seed, device=device)
-    mgr = CheckpointManager(args.ckpt_dir, keep=2) if args.ckpt_dir else None
+    mgr = (CheckpointManager(args.ckpt_dir, keep=2, rank=0 if mesh is None else mesh.rank,
+                             world=world) if args.ckpt_dir else None)
     res = train_loop(art, pipe, mgr,
                      LoopConfig(total_steps=args.steps, checkpoint_every=args.ckpt_every,
                                 log_every=max(1, args.steps // 20)),
-                     generator=torch.Generator(device=device).manual_seed(args.seed))
-    print(json.dumps({
+                     generator=torch.Generator(device=device).manual_seed(args.seed), log=say)
+    if not lead:
+        return None
+    return {
         "arch": cfg.name,
         "device": str(device),
         "steps": res.steps_run,
@@ -136,8 +229,9 @@ def main(argv=None) -> int:
         "final_ce": res.ces[-1] if res.ces else None,
         "resumed_from": res.resumed_from,
         "straggler_events": res.straggler_events,
-    }))
-    return 0
+        "strategy": art.strategy.kind,
+        "world": world,
+    }
 
 
 if __name__ == "__main__":

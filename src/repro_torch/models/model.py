@@ -38,7 +38,12 @@ weights live in host memory (``Run.proxies``) fetches them per repeat, one
 repeat ahead, through ``offload.HostIO``; ``buffered`` keeps the fetched
 copy FWD->BWD, else the backward fetches it again (inside the replay of a
 recomputed position, as in JAX, where the gather sits inside the remat
-region).
+region). A ZeRO-3 run of the manual sync (``Run.io``: the step's
+``dist.collectives.LazyGather``, ``Run.proxies``: its shards) gathers its
+weights the same way, per repeat (``Run.lazy_gather`` / ``prefetch`` in
+``model.py:342-370, 470-510``): buffered, the gathered copy lives FWD->BWD;
+unbuffered, the backward gathers it again (``_save_acts_not_lazy_gathers``,
+``:392-430``); the backward of each gather is the reduce-scatter.
 
 Each position returns ``(x, aux)``: an MoE position's load-balance loss
 (``apply_moe``), 0.0 for a dense one. The aux losses are summed through
@@ -379,27 +384,28 @@ def _weights(src: dict, proxies: dict | None, io: HostIO) -> dict:
 
 
 def _apply_layer(src, proxies, x, memory, cfg, pos_j, *, act_policy: str, buffered: bool,
-                 io: HostIO, attn_impl: str) -> XAux:
+                 io: HostIO, attn_impl: str, wio=None) -> XAux:
     """One position under its run's act policy and weight buffering:
-    (x, aux)."""
+    (x, aux). ``wio``: where the weights come from (default ``io``)."""
+    wio = wio if wio is not None else io
     fetch_again = proxies is not None and not buffered
     if act_policy == "none":
-        pp = _weights(src, proxies, io)
+        pp = _weights(src, proxies, wio)
         if not fetch_again:
             return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl)
-        with io.refetch_saved(pp, src):
+        with wio.refetch_saved(pp, src):
             return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl)
     sites = ActSites(act_policy, io) if act_policy in SITE_POLICIES else None
     # kept weights are fetched outside the recomputed region; the others
     # inside it, so the replay fetches them again
     if fetch_again:
-        io.will_fetch_again(src)
-    kept = None if fetch_again else _weights(src, proxies, io)
+        wio.will_fetch_again(src)
+    kept = None if fetch_again else _weights(src, proxies, wio)
 
     def one(x, memory):
         if sites is not None:
             sites.begin()
-        pp = _weights(src, proxies, io) if fetch_again else kept
+        pp = _weights(src, proxies, wio) if fetch_again else kept
         return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl,
                               sites=sites)
 
@@ -412,19 +418,22 @@ def _apply_layer(src, proxies, x, memory, cfg, pos_j, *, act_policy: str, buffer
 def apply_superblock(block_params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                      memory: torch.Tensor | None = None, act_policy: str = "none",
                      buffered: bool = True, proxies: dict | None = None,
-                     io: HostIO | None = None, attn_impl: str = "blockwise") -> XAux:
+                     io: HostIO | None = None, attn_impl: str = "blockwise",
+                     wio=None) -> XAux:
     """block_params: {posJ: params of one repeat}, on the device or (with
     ``proxies``, the autograd stand-ins of the same tree) in host memory.
     ``act_policy`` applies per position (layer), the paper's per-block
     granularity; ``memory``: the encoder's output an encoder-decoder's
     positions attend over (None: no cross-attention, as the profile traces
-    a block). Returns (x, aux), aux summed over the positions."""
+    a block). ``wio``: the weights' source when it is not ``io`` (a ZeRO-3
+    run's ``dist.collectives.LazyGather``). Returns (x, aux), aux summed
+    over the positions."""
     aux = 0.0
     for j in range(superblock_period(cfg)):
         key = f"pos{j}"
         x, a = _apply_layer(block_params[key], None if proxies is None else proxies[key], x,
                             memory, cfg, j, act_policy=act_policy, buffered=buffered, io=io,
-                            attn_impl=attn_impl)
+                            attn_impl=attn_impl, wio=wio)
         aux = aux + a
     return x, aux
 
@@ -437,8 +446,15 @@ class Run:
     n_repeats: int
     act_policy: str = "none"  # none | checkpoint | swap | compress8 | compress16
     ckpt_group: int = 1  # remat region size in superblock repeats (checkpoint only)
-    buffered: bool = True  # fetched host weights kept FWD->BWD (else fetched again)
-    proxies: dict | None = None  # host weights: their device autograd stand-ins, stacked
+    buffered: bool = True  # fetched weights kept FWD->BWD (else fetched again)
+    proxies: dict | None = None  # fetched weights: their autograd stand-ins, stacked
+    # where fetched weights come from when not the step's HostIO: a ZeRO-3
+    # run's LazyGather (dist/collectives.py), with ``proxies`` its shards
+    io: Any = None
+    # fetch the next unit's weights during this one: always for host
+    # weights; for a ZeRO-3 run when both units' runs set it (a buffered
+    # ``none`` run under an overlapped plan, gather_prefetch_depth == 2)
+    prefetch: bool = False
 
 
 def _unstack(tree, n: int) -> list:
@@ -478,27 +494,30 @@ def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
     aux_total = 0.0
     for i, (run, reps, prox) in enumerate(units):
         io.begin_unit()
-        if i + 1 < len(units) and units[i + 1][0].proxies is not None:
-            for src in units[i + 1][1]:
-                io.prefetch(src)  # the next unit's host weights, during this one
+        wio = run.io if run.io is not None else io
+        nxt = units[i + 1][0] if i + 1 < len(units) else None
+        if nxt is not None and nxt.proxies is not None and (
+                nxt.io is None or (run.prefetch and nxt.prefetch)):
+            for src in units[i + 1][1]:  # the next unit's weights, during this one
+                (nxt.io if nxt.io is not None else io).prefetch(src)
         if len(reps) == 1:
             x, aux = apply_superblock(reps[0], x, cfg, memory=memory,
                                       act_policy=run.act_policy, buffered=run.buffered,
-                                      proxies=prox[0], io=io, attn_impl=attn_impl)
+                                      proxies=prox[0], io=io, attn_impl=attn_impl, wio=wio)
             aux_total = aux_total + aux
             continue
         # grouped remat: one checkpoint region spans the group's superblocks;
-        # unbuffered host weights are fetched inside it, the rest outside
-        kept = [None if px is not None and not run.buffered else _weights(src, px, io)
+        # unbuffered fetched weights are fetched inside it, the rest outside
+        kept = [None if px is not None and not run.buffered else _weights(src, px, wio)
                 for src, px in zip(reps, prox)]
         for src, pp in zip(reps, kept):
             if pp is None:
-                io.will_fetch_again(src)
+                wio.will_fetch_again(src)
 
         def region(x, memory, _items=list(zip(reps, prox, kept))):
             aux = 0.0
             for src, px, pp in _items:
-                pp = pp if pp is not None else _weights(src, px, io)
+                pp = pp if pp is not None else _weights(src, px, wio)
                 x, a = apply_superblock(pp, x, cfg, memory=memory, attn_impl=attn_impl)
                 aux = aux + a
             return x, aux

@@ -248,4 +248,8 @@ DOCUMENTED_METRICS = (
     "serve.pagepool_free",
     "serve.pagepool_occupancy",
     "serve.itl_s",
+    "sync.wire_bytes_per_step",
+    "sync.wire_payload",
+    "sync.param_gathers",
+    "sync.param_gather_bytes",
 )

@@ -1,8 +1,8 @@
 """Step builders: the plan-driven training step and the serving step's
-layout, on one device.
+layout.
 
 Port of ``src/repro/train/step_builder.py``: ``build_train_step``
-(``:126-583``, the xla-sync branch), which returns a ``StepArtifacts``; the
+(``:126-583``), which returns a ``StepArtifacts``; the
 stateless full-sequence prefill, ``build_prefill_step`` with ``chunk=None``
 (``:816-870``); and the layout the serving builders
 (``build_decode_step(per_slot_pos=True)``, ``build_prefill_step(chunk=C)``,
@@ -40,6 +40,21 @@ A vision-language model's batch carries ``patches`` (B, min(1024, S), D)
 beside its tokens (``:255-259``): they run ahead of the tokens through
 every layer, and the loss runs over the S token positions.
 
+Gradient sync (``train/sync.py``, ``make_strategy``): on one rank the
+xla path's wire numerics (``grad_compress`` int8 + EF, with its residuals
+as ``state["ef"]``, or bf16) apply to the accumulated gradients. A manual
+plan over a ``launch.mesh.LocalMesh`` of several ranks (``:382-500``) runs
+``ManualSync``: each rank takes its rows of the global batch and keeps its
+shards of the ZeRO-sharded leaves (``dist/sharding.py``) with their fp32
+master, m and v and shard-sized residuals; "ddp" and "zero2" differentiate
+full leaves (zero2 gathers its shards once a step) and sync each
+microbatch's gradients after the backward; "zero3" gathers each chunk at
+its point of use (``make_lazy_loss_fn``: the embedding, final norm and
+head at the start, each run's repeats through ``dist.collectives.
+LazyGather``), whose backward reduce-scatters. The losses are averaged
+over the ranks and the clip's norm sums the shards' squares with one
+all-reduce. The xla path on several ranks raises (ROADMAP.md).
+
 Serving: ``fn(state, batch)`` runs the step under ``torch.inference_mode``
 and returns ``(state, next_tok)``, the greedy argmax taken on the device.
 ``state`` is ``{"params", "cache"}``; the cache is written in place; the
@@ -58,16 +73,19 @@ from repro_torch.compat import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.plan import MemoryPlan
 from repro_torch.core.serve_plan import paging_from_plan
+from repro_torch.dist import collectives as COLL
+from repro_torch.dist import sharding as SH
+from repro_torch.launch.mesh import LocalMesh
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.offload import HostIO, proxy_like
 from repro_torch.optim import adam as OPT
 from repro_torch.serve.paging import PagedKV, PagingSpec
+from repro_torch.train import sync as SYNC
 from repro_torch.train.losses import chunked_cross_entropy
 from repro_torch.train.sync import accumulate_grads
 
-_SYNC_TODO = "ROADMAP.md, port queue 1: distributed sync"
 FRONT_KEYS = ("embed", "encoder")  # the front chunk's subtrees, fetched before the layers
 NON_RUN_KEYS = FRONT_KEYS + ("final_norm", "head")
 
@@ -80,6 +98,8 @@ class StepArtifacts:
     init: Callable[[torch.Generator | None], dict] | None = None  # training: a fresh state
     place_state: Callable[[dict], dict] | None = None  # training: a state around given params
     grad_fn: Callable[[dict, dict], tuple] | None = None  # training: the step's gradients
+    strategy: Any = None  # training: the gradient sync (train/sync.py)
+    leaf_syncs: list | None = None  # training: each param leaf's LeafSync, tree_leaves order
 
 
 # ---------------------------------------------------------------------------
@@ -116,36 +136,42 @@ def _slice_run_defs(block_defs, length: int):
                       block_defs)
 
 
-def check_train_plan(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig) -> None:
-    """Raise ``NotImplementedError`` (naming the ROADMAP item) for what this
-    slice does not run, and ``ValueError`` for a plan that does not fit the
-    model or the batch."""
-    if plan.sync_mode != "xla" or plan.grad_compress != "none":
-        raise NotImplementedError(
-            f"sync_mode={plan.sync_mode!r}, grad_compress={plan.grad_compress!r}: one device "
-            f"runs the plain reduction only ({_SYNC_TODO})")
+def check_train_plan(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig,
+                     world: int = 1) -> None:
+    """Raise ``ValueError`` for a plan that does not fit the model, or a
+    batch that does not split over ``world`` ranks and the plan's
+    microbatches (what the strategy refuses, ``train/sync.make_strategy``,
+    it raises itself)."""
     n_rep = M.num_repeats(cfg)
     if plan.n_chunks != n_rep + 2 or plan.n_blocks != n_rep:
         raise ValueError(f"plan {plan.describe()} does not fit {cfg.name}: it has "
                          f"{n_rep + 2} chunks and {n_rep} blocks")
-    if shape.global_batch % plan.microbatch:
-        raise ValueError(f"global batch {shape.global_batch} does not split into "
-                         f"{plan.microbatch} microbatches")
+    if shape.global_batch % world or (shape.global_batch // world) % plan.microbatch:
+        raise ValueError(f"global batch {shape.global_batch} does not split over {world} "
+                         f"rank(s) and {plan.microbatch} microbatches")
 
 
 def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeConfig, *,
+                     mesh: LocalMesh | None = None, strategy=None,
                      adam: OPT.AdamConfig | None = None, attn_impl: str = "blockwise",
                      ce_chunk: int = 2048,
                      lr_schedule: Callable[[int], float] | None = None,
                      telemetry: obs.Telemetry | None = None) -> StepArtifacts:
-    """The plan-driven training step on one device (CUDA unless ``device``
-    says otherwise). ``batch``: ``tokens`` and ``labels``, (B, S) integer on
-    the device, and an encoder-decoder's ``frames`` or a vision-language
-    model's ``patches``. ``metrics``: ``loss`` (cross-entropy plus aux
-    loss), ``ce``, ``grad_norm`` (device scalars) and ``lr``."""
+    """The plan-driven training step on ``device`` (CUDA unless told
+    otherwise), this rank of ``mesh`` (default: a world of one).
+    ``batch``: ``tokens`` and ``labels``, (B, S) integer on the device --
+    the global batch, of which a rank of a manual sync takes its rows --
+    and an encoder-decoder's ``frames`` or a vision-language model's
+    ``patches``. ``metrics``: ``loss`` (cross-entropy plus aux loss, the
+    mean over the ranks), ``ce``, ``grad_norm`` (device scalars), ``lr``
+    and, under int8_ef, ``ef_norm``. ``strategy`` replaces
+    ``train/sync.make_strategy``'s choice (a ``ManualSync`` on one rank)."""
     device = resolve_device(device)
     adam = adam or OPT.AdamConfig()
-    check_train_plan(cfg, plan, shape)
+    mesh = mesh if mesh is not None else LocalMesh(0, 1, None, device)
+    check_train_plan(cfg, plan, shape, mesh.world)
+    strategy = strategy if strategy is not None else SYNC.make_strategy(plan, mesh)
+    manual = strategy.manual_active
     runs_layout = plan_runs(plan, M.num_repeats(cfg))
     defs = M.param_defs(cfg)
     p_defs: dict[str, Any] = {
@@ -177,6 +203,20 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
     tel = telemetry if telemetry is not None else obs.NULL_TELEMETRY
     act_bytes = tel.registry.gauge("train.act_bytes")
     io = HostIO(device, tel.registry)
+    # each leaf (tree_leaves order): its chunk's placement, and its chunk's
+    # label with whether the leaf stacks a run's repeats
+    chunk_of = {"embed": plan.chunk_placement(0), "encoder": plan.chunk_placement(0),
+                "final_norm": plan.chunk_placement(plan.n_chunks - 1),
+                "head": plan.chunk_placement(plan.n_chunks - 1)}
+    placements, leaf_chunks = [], []
+    for key in sorted(p_defs):
+        subs = enumerate(p_defs["runs"]) if key == "runs" else [(None, p_defs[key])]
+        for i, sub in subs:
+            n = len(SH.def_leaves(sub))
+            placements += [chunk_of[key] if i is None else runs_layout[i].placement] * n
+            leaf_chunks += [(key, False) if i is None else (f"runs[{i}]", True)] * n
+    leafs = SYNC.leaf_sync_tree(p_defs, placements, mesh.world)
+    SYNC.record_sync_inventory(strategy, p_defs, leafs, plan.microbatch, tel.registry)
 
     def host_subtrees(tree, flags):
         """The subtrees of ``tree`` (embed, final_norm, head, runs[i]) whose
@@ -196,21 +236,37 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         return map_host(params, weights_on_host,
                         lambda sub: OPT.tree_map(lambda t: proxy_like(t, device), sub))
 
-    def make_runs(params, proxies) -> list[M.Run]:
-        return [M.Run(params=params["runs"][i], n_repeats=r.length, act_policy=r.act_policy,
-                      ckpt_group=plan.ckpt_group, buffered=r.buffered,
-                      proxies=proxies["runs"][i] if weights_on_host["runs"][i] else None)
-                for i, r in enumerate(runs_layout)]
+    def make_runs(params, proxies, gather=None) -> list[M.Run]:
+        runs = []
+        for i, r in enumerate(runs_layout):
+            kw = dict(params=params["runs"][i], n_repeats=r.length, act_policy=r.act_policy,
+                      ckpt_group=plan.ckpt_group, buffered=r.buffered)
+            if gather is not None and r.placement != "persist":  # ZeRO-3: gathered per repeat
+                runs.append(M.Run(**kw, proxies=params["runs"][i], io=gather,
+                                  prefetch=(plan.gather_prefetch_depth >= 2 and r.buffered
+                                            and r.act_policy == "none")))
+            else:
+                runs.append(M.Run(**kw, proxies=(proxies["runs"][i] if weights_on_host["runs"][i]
+                                                 else None)))
+        return runs
 
-    def loss_fn(params, proxies, batch):
+    def loss_fn(params, proxies, batch, gather=None):
+        """(loss, ce) of one microbatch. ``gather``: a ZeRO-3 step's
+        ``LazyGather``; the embedding, final norm and head are gathered at
+        the start, each run's repeats as the layers reach them
+        (``make_lazy_loss_fn``, ``step_builder.py:382-455``)."""
         fparams = dict(params)
+        if gather is not None:
+            for key in NON_RUN_KEYS:
+                if key in params:
+                    fparams[key] = gather.fetch(params[key], params[key])
         host_keys = [k for k in NON_RUN_KEYS if k in params and weights_on_host[k]]
         for key in host_keys:  # in flight from the start: the head's during the layers
             io.prefetch(params[key])
         for key in FRONT_KEYS:
             if key in host_keys:
                 fparams[key] = io.fetch(proxies[key], params[key])
-        h, aux = M.forward(fparams, batch, cfg, runs=make_runs(params, proxies),
+        h, aux = M.forward(fparams, batch, cfg, runs=make_runs(params, proxies, gather),
                            attn_impl=attn_impl, io=io)
         for key in host_keys:
             if key not in FRONT_KEYS:
@@ -241,19 +297,56 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
 
         return accumulate_grads(micro_grad, batch, plan.microbatch)
 
+    def manual_grad_fn(state: dict, batch: dict):
+        """The manual sync's gradients (this rank's shards of the sharded
+        leaves) over this rank's rows of ``batch``, and the losses averaged
+        over the ranks."""
+        params, ef = state["params"], state.get("ef")
+        local = {k: SH.manual_batch_split(v, mesh.rank, mesh.world) for k, v in batch.items()}
+        lazy_loss = None
+        if strategy.kind == "zero3":
+            gather = COLL.LazyGather(mesh.group, plan.grad_compress, tel.registry)
+            errs = strategy.local_ef(ef, leafs)
+            with torch.no_grad():  # a run's shards gather per repeat: dim - 1
+                for p, e, ls, (label, stacked) in zip(OPT.tree_leaves(params), errs, leafs,
+                                                      leaf_chunks):
+                    if ls.dim is None:
+                        continue
+                    if not stacked:
+                        gather.register(p, ls.dim, e, label)
+                        continue
+                    for r in range(p.shape[0]):
+                        gather.register(p[r], ls.dim - 1, None if e is None else e[r], label)
+            lazy_loss = lambda p, mb: loss_fn(p, p, mb, gather)  # noqa: E731
+        micro = strategy.micro_grad(params, ef, leafs, loss=lambda p, mb: loss_fn(p, p, mb),
+                                    lazy_loss=lazy_loss)
+        grads, losses = accumulate_grads(micro, local, plan.microbatch, overlap=plan.overlap)
+        return grads, strategy.mean(losses)
+
     def step_fn(state: dict, batch: dict):
         params = state["params"]
-        grads, losses = grad_fn(state, batch)
+        grads, losses = (manual_grad_fn if manual else grad_fn)(state, batch)
+        if manual:
+            metrics = ({"ef_norm": strategy.ef_norm(state["ef"], leafs)}
+                       if plan.grad_compress == "int8_ef" else {})
+            norm = strategy.grad_norm(grads, leafs)
+        else:
+            grads, metrics = strategy.finalize_grads(grads, state.get("ef"))
+            norm = None
         lr = lr_schedule(state["step"]) if lr_schedule else adam.lr
-        gnorm = OPT.adam_update(params, grads, state["opt"], adam, lr)
+        gnorm = OPT.adam_update(params, grads, state["opt"], adam, lr, grad_norm=norm)
         state["step"] += 1
         loss, ce = losses.unbind()
-        return state, {"loss": loss, "ce": ce, "grad_norm": gnorm, "lr": lr}
+        return state, {"loss": loss, "ce": ce, "grad_norm": gnorm, "lr": lr, **metrics}
 
     def place_state(params: dict) -> dict:
-        """``{"params", "opt", "step"}`` around ``params`` (tensors on the
-        device, in the tree above): a host chunk's weights move to pinned
-        memory under host_params, fresh optimizer states are placed by plan."""
+        """``{"params", "opt", "step"}`` (and ``"ef"`` under int8_ef) around
+        the full ``params`` (tensors on the device, in the tree above): a
+        host chunk's weights move to pinned memory under host_params, a
+        manual sync keeps this rank's shards, fresh optimizer states (and
+        zero residuals) are placed by plan."""
+        if manual:
+            params = strategy.shard_params(params, leafs)
         if pin:
             params = map_host(params, weights_on_host, to_pinned)
 
@@ -276,7 +369,11 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
             p.requires_grad_(True)
         for p in OPT.tree_leaves(host_subtrees(params, weights_on_host)):
             p.requires_grad_(False)  # their proxies take the gradients
-        return {"params": params, "opt": opt, "step": 0}
+        state = {"params": params, "opt": opt, "step": 0}
+        ef = strategy.ef_state(params, leafs) if manual else strategy.ef_state(params, device)
+        if ef is not None:
+            state["ef"] = ef
+        return state
 
     def init(generator: torch.Generator | None = None) -> dict:
         """A fresh state drawn from ``generator`` (on the device; default: seed 0).
@@ -292,7 +389,9 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         return state
 
     return StepArtifacts(fn=step_fn, plan=plan, runs=runs_layout, init=init,
-                         place_state=place_state, grad_fn=grad_fn)
+                         place_state=place_state,
+                         grad_fn=manual_grad_fn if manual else grad_fn, strategy=strategy,
+                         leaf_syncs=leafs)
 
 
 def to_pinned(tree):

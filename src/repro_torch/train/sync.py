@@ -1,41 +1,355 @@
-"""Microbatch gradient accumulation on one device.
+"""Gradient-sync strategies: who owns the reduction, and how it runs.
 
-Port of the non-overlapped branch of ``src/repro/train/sync.py::
-accumulate_grads`` (``:68-131``). On one device with ``grad_compress=
-"none"`` finalising the grads is the identity (``XlaSync.finalize_grads``,
-``:228-242``), so no sync strategy is ported; multi-device sync is queued in
-ROADMAP.md.
+Port of ``src/repro/train/sync.py``. A strategy object owns one
+``(sync_mode, layout kind)`` pipeline:
+
+  * ``XlaSync``: ``sync_mode="xla"`` on one rank (and the one-rank fallback
+    of a manually eligible plan, ``make_strategy``): the reduction is the
+    local math, and ``finalize_grads`` applies the wire numerics (int8 + EF
+    or bf16) to the accumulated gradients. Several ranks under the xla path
+    (GSPMD's implied ZeRO layouts with host chunks, swap and the model
+    axis) are queued in ROADMAP.md.
+  * ``ManualSync``: ``sync_mode="manual"`` over the data-parallel ranks of a
+    ``launch.mesh.LocalMesh``; ``dist/collectives.py`` owns the wire. Per
+    leaf (``leaf_sync_tree``): a *replicated* leaf (every leaf of a "ddp"
+    plan; persistent chunks, norms and dims the world does not divide of a
+    ZeRO plan) syncs DDP-style with the int8 all-gather, its residual per
+    rank, stored ``(1, *shape)``: this rank's row of the reference's
+    stacked ``(n_sync, *shape)`` residual. A *ZeRO-sharded* leaf
+    reduce-scatters to shard owners, its residual shard-sized; its fp32
+    master, m and v are this rank's shard, updated by the fused Adam kernel.
+    "zero2" all-gathers the sharded bf16 leaves once a step, up front, and
+    reduce-scatters their gradients after the backward; "zero3" gathers each
+    chunk at its point of use through ``collectives.LazyGather``, whose
+    backward is the reduce-scatter, so sharded gradients come out of the
+    backward shard-sized. In every kind each microbatch's sync collapses the
+    gradients to shard size before they are accumulated.
+
+``accumulate_grads`` is the microbatch loop of both; with ``overlap`` it
+folds microbatch m-1's synced gradients after microbatch m's backward, so
+m-1's collectives (started ``async_op=True``) run under it.
 """
 from __future__ import annotations
 
-from repro_torch.optim.adam import tree_map
+import dataclasses
+import math
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.dist import collectives as COLL
+from repro_torch.dist import sharding as SH
+from repro_torch.optim.adam import global_norm, tree_leaves, tree_map
 
 
-def accumulate_grads(micro_grad, batch: dict, microbatch: int):
-    """``micro_grad(mb_batch) -> (grads, loss)`` on one microbatch; ``loss``
-    is a tensor (the step builder's ``[loss, ce]``).
+class Deferred:
+    """A microbatch's gradient tree whose sync may still run: ``wait()``
+    returns it."""
+
+    def __init__(self, like, parts: list):
+        self.like, self.parts = like, parts
+
+    def wait(self):
+        done = iter([p.wait() if isinstance(p, COLL.Pending) else p for p in self.parts])
+        return tree_map(lambda _: next(done), self.like)
+
+
+def _ready(g):
+    return g.wait() if isinstance(g, Deferred) else g
+
+
+def accumulate_grads(micro_grad, batch: dict, microbatch: int, overlap: bool = False):
+    """``micro_grad(mb_batch) -> (grads, loss)`` on one microbatch; ``grads``
+    may be a ``Deferred``; ``loss`` is a tensor (the step's ``[loss, ce]``).
 
     With ``microbatch == 1`` the grads come back as they are (the params'
     dtype). Otherwise each microbatch's grads are added into fp32
     accumulators, which are divided by ``microbatch`` at the end, and the
-    losses are averaged. Returns ``(grads, loss)``. (The reference returns
-    the averaged total as its ``ce`` too when it accumulates, ``:131``; the
-    port averages each.)"""
+    losses are averaged. ``overlap`` defers each fold by one microbatch
+    (``sync.py:68-131``): the adds are the same, in the same order, so the
+    result is bitwise the serial one. Returns ``(grads, loss)``."""
     if microbatch == 1:
-        return micro_grad(batch)
+        g, loss = micro_grad(batch)
+        return _ready(g), loss
 
     def split(x):
         return x.reshape(microbatch, x.shape[0] // microbatch, *x.shape[1:]).unbind(0)
 
     micro = {k: split(v) for k, v in batch.items()}
-    grads = loss = None
+    acc = {"grads": None}
+    loss = None
+
+    def fold(g):
+        g = _ready(g)
+        if acc["grads"] is None:  # fp32 grads are fresh tensors of ours: accumulate in them
+            acc["grads"] = tree_map(lambda t: t.float(), g)
+        else:
+            tree_map(lambda a, b: a.add_(b), acc["grads"], g)
+
+    pending = None
     for i in range(microbatch):
         g, mb_loss = micro_grad({k: v[i] for k, v in micro.items()})
-        if grads is None:  # fp32 grads are fresh tensors of ours: accumulate in them
-            grads, loss = tree_map(lambda t: t.float(), g), mb_loss
-        else:
-            tree_map(lambda a, b: a.add_(b), grads, g)
-            loss = loss + mb_loss
+        loss = mb_loss if loss is None else loss + mb_loss
+        if overlap:
+            g, pending = pending, g
+            if g is None:
+                continue
+        fold(g)
         del g
-    grads = tree_map(lambda t: t.div_(microbatch), grads)
+    if pending is not None:
+        fold(pending)
+    grads = tree_map(lambda t: t.div_(microbatch), acc["grads"])
     return grads, loss / microbatch
+
+
+# ---------------------------------------------------------------------------
+# Per-leaf sync descriptors (sync.py:138-193)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class LeafSync:
+    """How the manual path syncs one gradient leaf: ``dim`` is its
+    ZeRO-sharded dim (reduce-scatter to shard owners) or None (replicated:
+    the DDP-style gather sync)."""
+
+    dim: int | None
+
+
+def leaf_sync_tree(defs, placements: list[str], world: int) -> list[LeafSync]:
+    """LeafSync descriptors of a ParamDef tree's leaves (``tree_leaves``
+    order), each under its chunk's placement."""
+    return [LeafSync(SH.leaf_sync_dim(d, world, pl))
+            for d, pl in zip(SH.def_leaves(defs), placements)]
+
+
+def manual_tree_sync(grads: list, errs: list, group, compress: str,
+                     leaf_syncs: list[LeafSync], *, async_op: bool = False) -> list:
+    """Leaf-wise manual sync of one microbatch's local gradients (flat
+    lists): the int8 all-gather (replicated leaves) or the reduce-scatter
+    (sharded ones). Residuals are overwritten in place with the new ones.
+    With ``async_op`` a replicated leaf's mean may be a ``Pending``."""
+    out = []
+    for g, e, ls in zip(grads, errs, leaf_syncs):
+        if ls.dim is not None:
+            s, new = COLL.sync_reduce_scatter(g, e, group, ls.dim, compress, async_op=async_op)
+        elif compress == "int8_ef":
+            s, new = COLL.manual_int8_ef_sync(g, e, group, async_op=async_op)
+        else:
+            s, new = (COLL.manual_bf16_mean if compress == "bf16"
+                      else COLL.manual_mean)(g, group), e
+        if compress == "int8_ef":
+            e.copy_(new)
+        out.append(s)
+    return out
+
+
+def _local_sq(tensors: list) -> torch.Tensor:
+    """The fp32 sum of squares of ``tensors`` (0 for none)."""
+    return sum((torch.sum(torch.square(t.float())) for t in tensors), torch.zeros(()))
+
+
+# ---------------------------------------------------------------------------
+# Strategies (sync.py:206-477)
+# ---------------------------------------------------------------------------
+class XlaSync:
+    """One rank: the reduction is the local math, and compression is the
+    wire numerics applied to the accumulated gradients."""
+
+    manual_active = False
+    kind = "xla"
+
+    def __init__(self, plan, mesh):
+        self.plan, self.mesh = plan, mesh
+        self.compress = plan.grad_compress
+
+    def ef_state(self, params, device):
+        """The residuals (fp32, param-shaped, on the gradients' ``device``),
+        or None without int8_ef."""
+        if self.compress != "int8_ef":
+            return None
+        return COLL.init_error_feedback(params, device)
+
+    def finalize_grads(self, grads, ef):
+        """Post-accumulation wire numerics, the residuals updated in place.
+        Returns (grads, metrics)."""
+        metrics = {}
+        if self.compress == "int8_ef":
+            grads, new_ef = COLL.compressed_tree_all_reduce(grads, ef)
+            tree_map(lambda e, n: e.copy_(n), ef, new_ef)
+            metrics["ef_norm"] = global_norm(ef)
+        elif self.compress == "bf16":
+            grads = COLL.bf16_tree_all_reduce(grads)
+        return grads, metrics
+
+
+class ManualSync:
+    """The step over the data-parallel ranks; ``dist/collectives`` own the
+    wire. ``kind`` is ``MemoryPlan.manual_sync_kind``'s ("ddp" | "zero2" |
+    "zero3"); a "ddp" plan has no sharded leaves, so its gather is the
+    identity and every leaf takes the all-gather sync."""
+
+    manual_active = True
+
+    def __init__(self, plan, mesh, kind: str):
+        self.plan, self.mesh, self.kind = plan, mesh, kind
+        self.compress = plan.grad_compress
+        self.n_sync = mesh.world
+        self.group = mesh.group
+
+    # -- state layout ---------------------------------------------------------
+    def shard_params(self, params, leafs: list[LeafSync]):
+        """This rank's shards of a full parameter tree."""
+        it = iter(leafs)
+        return tree_map(lambda t: SH.shard(t, next(it).dim, self.mesh.rank, self.n_sync),
+                        params)
+
+    def ef_state(self, params, leafs: list[LeafSync]):
+        """The residuals of this rank's (sharded) params: shard-sized for a
+        sharded leaf, ``(1, *shape)`` for a replicated one; None without
+        int8_ef."""
+        if self.compress != "int8_ef":
+            return None
+        it = iter(leafs)
+
+        def one(p):
+            shape = p.shape if next(it).dim is not None else (1,) + tuple(p.shape)
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+        return tree_map(one, params)
+
+    def local_ef(self, ef, leafs: list[LeafSync]) -> list:
+        """This rank's residual of each leaf (flat): the shard, or the
+        replicated leaf's row."""
+        if ef is None:
+            return [None] * len(leafs)
+        return [e if ls.dim is not None else e[0] for e, ls in zip(tree_leaves(ef), leafs)]
+
+    def gather_full(self, params, leafs: list[LeafSync]) -> list:
+        """The up-front all-gather of every sharded leaf ("zero2"; the
+        identity for "ddp"): the full leaves autograd differentiates."""
+        return [p if ls.dim is None else
+                COLL.tiled_all_gather(p.detach(), self.group, ls.dim).requires_grad_()
+                for p, ls in zip(tree_leaves(params), leafs)]
+
+    # -- the step --------------------------------------------------------------
+    def grad_norm(self, grads, leafs: list[LeafSync]) -> torch.Tensor:
+        """Global gradient norm: sharded leaves' squared sums add across
+        ranks (one all-reduce); replicated leaves, equal on every rank, count
+        once."""
+        flat = tree_leaves(grads)
+        sq = _local_sq([g for g, ls in zip(flat, leafs) if ls.dim is not None])
+        rep = _local_sq([g for g, ls in zip(flat, leafs) if ls.dim is None])
+        dev = flat[0].device
+        sq, rep = sq.to(dev), rep.to(dev)
+        if any(ls.dim is not None for ls in leafs) and dist.is_initialized():
+            dist.all_reduce(sq, group=self.group)
+        return torch.sqrt(sq + rep)
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the ranks of a per-rank value (losses)."""
+        return COLL.manual_mean(x, self.group)
+
+    def ef_norm(self, ef, leafs: list[LeafSync]) -> torch.Tensor:
+        """The global residual norm: per-rank values differ, so the squared
+        sums are reduced."""
+        sq = _local_sq(self.local_ef(ef, leafs))
+        sq = sq.to(tree_leaves(ef)[0].device)
+        if dist.is_initialized():
+            dist.all_reduce(sq, group=self.group)
+        return torch.sqrt(sq)
+
+    def micro_grad(self, params, ef, leafs: list[LeafSync], *, loss, lazy_loss=None):
+        """``micro_grad(mb_batch) -> (grads, [loss, ce])`` for
+        ``accumulate_grads``: one microbatch's gradients, synced (shard-sized
+        for sharded leaves) and, under overlap, ``Deferred``. ``loss(full
+        params tree, batch)`` takes full leaves ("ddp" / "zero2");
+        ``lazy_loss(params, batch)`` gathers each chunk at its point of use
+        ("zero3"), and its backward reduce-scatters the sharded leaves."""
+        errs = self.local_ef(ef, leafs)
+        overlap = self.plan.overlap
+        if self.kind == "zero3":
+            wrt = tree_leaves(params)
+            # sharded leaves were reduce-scattered in the backward
+            todo = [i for i, ls in enumerate(leafs) if ls.dim is None]
+            run_loss = lambda mb: lazy_loss(params, mb)  # noqa: E731
+        else:
+            wrt = self.gather_full(params, leafs)
+            todo = list(range(len(leafs)))
+            full_tree = tree_map_flat(params, wrt)
+            run_loss = lambda mb: loss(full_tree, mb)  # noqa: E731
+
+        def micro(mb):
+            total, ce = run_loss(mb)
+            synced = list(torch.autograd.grad(total, wrt))
+            out = manual_tree_sync([synced[i] for i in todo], [errs[i] for i in todo],
+                                   self.group, self.compress, [leafs[i] for i in todo],
+                                   async_op=overlap)
+            for i, s in zip(todo, out):
+                synced[i] = s
+            losses = torch.stack([total, ce]).detach()
+            if overlap:
+                return Deferred(params, synced), losses
+            return tree_map_flat(params, synced), losses
+
+        return micro
+
+
+def tree_map_flat(like, flat: list):
+    """A tree shaped like ``like`` with the leaves of ``flat`` in order."""
+    it = iter(flat)
+    return tree_map(lambda _: next(it), like)
+
+
+def make_strategy(plan, mesh, tp_degree: int = 1) -> XlaSync | ManualSync:
+    """The sync strategy of a plan on a mesh. Raises the reference's
+    ``ValueError`` for a manual plan no kind lowers, at every world size;
+    a manual plan on one rank falls back to ``XlaSync`` (the local math is
+    the collective); the xla path on several ranks raises
+    ``NotImplementedError``."""
+    if plan.sync_mode == "manual":
+        kind = plan.manual_sync_kind(tp_degree)
+        if kind is None:
+            raise ValueError(
+                "sync_mode='manual' requires a layout the manual step can "
+                "lower: no swap blocks, no host-resident chunks, no "
+                "zero1_persistent, and tp_degree == 1. Got "
+                f"{plan.describe()} on tp_degree={tp_degree}. "
+                "See MemoryPlan.manual_sync_kind.")
+        if mesh.world == 1:
+            return XlaSync(plan, mesh)
+        return ManualSync(plan, mesh, kind)
+    if mesh.world > 1:
+        raise NotImplementedError(
+            f"sync_mode='xla' on {mesh.world} ranks: GSPMD's implied ZeRO layouts with host "
+            "chunks, swap and the model axis are not ported (ROADMAP.md, port queue 1: the "
+            "xla path on several ranks); use sync_mode='manual'")
+    return XlaSync(plan, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Telemetry: static per-step wire-byte inventory (sync.py:480-530)
+# ---------------------------------------------------------------------------
+def record_sync_inventory(strategy, defs, leafs: list[LeafSync], microbatch: int,
+                          registry) -> dict[str, int]:
+    """Record the step's logical collective payload as gauges, from the
+    parameter defs: ``sync.wire_bytes_per_step{strategy, op=grad_sync}``
+    (every leaf at the payload width: 1 B int8_ef, 2 B bf16, 4 B fp32),
+    ``{op=param_gather}`` (bf16 gathers of sharded leaves: once a step for
+    zero2, once a microbatch for zero3, before re-gathers) and
+    ``sync.wire_payload{strategy}``. Logical payload bytes, not per-link
+    ring traffic."""
+    kind = getattr(strategy, "kind", "xla")
+    itemsize = {"int8_ef": 1, "bf16": 2}.get(strategy.compress, 4)
+    grad_bytes = gather_bytes = 0
+    for d, ls in zip(SH.def_leaves(defs), leafs):
+        n = math.prod(d.shape)
+        grad_bytes += n * itemsize
+        if kind in ("zero2", "zero3") and ls.dim is not None:
+            gather_bytes += n * 2
+    if kind == "zero3":
+        gather_bytes *= microbatch
+    registry.gauge("sync.wire_bytes_per_step", strategy=kind, op="grad_sync").set(grad_bytes)
+    registry.gauge("sync.wire_bytes_per_step", strategy=kind, op="param_gather").set(
+        gather_bytes)
+    registry.gauge("sync.wire_payload", strategy=kind).set(itemsize)
+    return {"grad_sync": grad_bytes, "param_gather": gather_bytes,
+            "payload_itemsize": itemsize}

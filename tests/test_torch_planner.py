@@ -292,7 +292,8 @@ def test_cost_models_equal_reference_on_shared_profile(arch, red, seq, batch, me
 
 
 @pytest.mark.parametrize("n_chunks,n_buffer,microbatch", [(6, 0, 1), (6, 2, 2), (9, 4, 1),
-                                                          (4, 4, 3)])
+                                                          (4, 4, 3)] + [
+    (n, b, mb) for n in (1, 2, 8) for b in sorted({0, n // 2, n}) for mb in (1, 3)])
 def test_zero3_prefetch_schedule_equals_reference(n_chunks, n_buffer, microbatch):
     for depth in (None, 1, 2):
         assert TCM.zero3_prefetch_schedule(n_chunks, n_buffer, microbatch, depth) == \

@@ -1,0 +1,271 @@
+"""What each of the 4 gloo ranks of the distributed tests runs.
+
+``tests/test_torch_dist.py`` and ``tests/test_torch_dist_train.py`` spawn
+4 CPU ranks once a module (``spawn_ranks``); every rank joins a gloo
+process group through a ``file://`` store in the test's temporary
+directory (no fixed port: the suite runs in parallel workers), runs the
+module's scenarios and saves its results with ``torch.save`` for the test
+process to hold against the JAX package. Imports torch and the port only.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+WORLD = 4
+TIMEOUT = datetime.timedelta(seconds=120)
+
+
+def spawn_ranks(scenarios: str, directory: str, *extra) -> list[dict]:
+    """Run ``scenarios`` (a function of this module) on ``WORLD`` ranks;
+    returns each rank's results."""
+    store = os.path.join(directory, "store")
+    mp.start_processes(_rank_main, args=(scenarios, store, directory, *extra), nprocs=WORLD,
+                       join=True, start_method="spawn")
+    return [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False)
+            for r in range(WORLD)]
+
+
+def _rank_main(rank: int, scenarios: str, store: str, directory: str, *extra) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=WORLD, timeout=TIMEOUT)
+    try:
+        out = globals()[scenarios](rank, directory, *extra)
+        torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Primitives (tests/test_torch_dist.py)
+# ---------------------------------------------------------------------------
+# (name, shape, sharded dim): even and uneven (padded) dims
+RS_CASES = (("even", (8, 12), 1), ("even_dim0", (8, 3), 0), ("uneven_dim1", (6, 7), 1),
+            ("uneven_dim0", (10, 3), 0))
+SEED = 100
+
+
+def prim_inputs(rank: int, shape, seed: int = SEED):
+    """(x, err) of a rank: seeded numpy, fp32, varied scale."""
+    rng = np.random.default_rng(seed + rank)
+    x = (rng.standard_normal(shape) * np.exp(rng.standard_normal())).astype(np.float32)
+    err = (rng.standard_normal(shape) * 1e-2).astype(np.float32)
+    return x, err
+
+
+def shard_err(rank: int, shape, dim: int):
+    """A rank's shard-sized residual for a reduce-scatter along ``dim``
+    (the padded shard)."""
+    z = WORLD
+    shard = list(shape)
+    shard[dim] = -(-shape[dim] // z)
+    rng = np.random.default_rng(SEED + 50 + rank)
+    return (rng.standard_normal(shard) * 1e-2).astype(np.float32)
+
+
+def primitives(rank: int, directory: str) -> dict:
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import sharding as SH
+
+    out = {}
+    x, err = prim_inputs(rank, (9, 13))
+    tx, terr = torch.from_numpy(x), torch.from_numpy(err)
+    q, s = C._quantize_int8(tx)
+    out["quantize"] = (q.numpy(), s.numpy())
+    mean, new_err = C.manual_int8_ef_sync(tx, terr.clone())
+    out["int8_sync"] = (mean.numpy(), new_err.numpy())
+    pend, new_err2 = C.manual_int8_ef_sync(tx, terr.clone(), async_op=True)
+    out["int8_sync_async"] = (pend.wait().numpy(), new_err2.numpy())
+    avg, new = C.compressed_all_reduce(tx, terr.clone(), group=dist.group.WORLD)
+    out["compressed_all_reduce"] = (avg.numpy(), new.numpy())
+    out["bf16_all_reduce"] = C.bf16_all_reduce(tx, group=dist.group.WORLD).numpy()
+    out["mean"] = C.manual_mean(tx).numpy()
+    out["bf16_mean"] = C.manual_bf16_mean(tx).numpy()
+    for name, shape, dim in RS_CASES:
+        x, _ = prim_inputs(rank, shape, SEED + 7)
+        e = shard_err(rank, shape, dim)
+        tx = torch.from_numpy(x.copy())
+        g, ne = C.manual_int8_ef_reduce_scatter(tx, torch.from_numpy(e), None, dim)
+        unchanged = bool(np.array_equal(tx.numpy(), x))  # the caller's gradient
+        ch = C._chunk(tx, dim, WORLD)
+        ch[rank] += torch.from_numpy(e)
+        q, sc, _ = C.K.fused_quantize_ef(ch, rank)
+        out[f"rs_{name}"] = {"mean": g.numpy(), "err": ne.numpy(), "q": q.numpy(),
+                             "scale": sc.numpy(), "input_unchanged": unchanged}
+        out[f"rs_none_{name}"] = C.manual_reduce_scatter(tx, None, dim).numpy()
+        out[f"rs_bf16_{name}"] = C.manual_bf16_reduce_scatter(tx, None, dim).numpy()
+    # the lazy gather: forward is the full leaf, backward the reduce-scatter
+    # with the residual written in place, as the direct call computes them
+    full = torch.from_numpy(prim_inputs(0, (8, 12), SEED + 9)[0])
+    w = SH.shard(full, 1, rank, WORLD).requires_grad_()
+    e0 = torch.from_numpy(shard_err(rank, (8, 12), 1))
+    ct = torch.from_numpy(prim_inputs(rank, (8, 12), SEED + 11)[0])
+    lazy_err = e0.clone()
+    g_full = C.gather_param_lazy(w, lazy_err, None, 1, "int8_ef")
+    (g_w,) = torch.autograd.grad(g_full, w, ct)
+    want_g, want_err = C.manual_int8_ef_reduce_scatter(ct, e0.clone(), None, 1)
+    out["lazy"] = {"forward_equal": bool(torch.equal(g_full.detach(), full)),
+                   "grad_equal": bool(torch.equal(g_w, want_g)),
+                   "err_equal": bool(torch.equal(lazy_err, want_err)),
+                   "unshard_equal": bool(torch.equal(SH.unshard(w.detach(), 1, WORLD), full))}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training steps (tests/test_torch_dist_train.py)
+# ---------------------------------------------------------------------------
+LR = 3e-3
+STEPS = 5
+
+
+def train_setup():
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+
+    cfg = reduced(get_config("llama3-405b"), dtype="float32")
+    return cfg, ShapeConfig("tiny", 32, 16, "train")
+
+
+def relayout(blocks_params: dict, runs) -> dict:
+    """A copy of a ``blocks`` tree as the state tree of a run layout."""
+    def sl(tree, start=0, length=None):
+        if isinstance(tree, torch.Tensor):
+            return (tree if length is None else tree[start:start + length]).clone()
+        return {k: sl(v, start, length) for k, v in tree.items()}
+
+    out = {k: sl(v) for k, v in blocks_params.items() if k != "blocks"}
+    out["runs"] = [sl(blocks_params["blocks"], r.start, r.length) for r in runs]
+    return out
+
+
+def unshard_tree(tree, leaf_syncs) -> list[np.ndarray]:
+    """Every leaf of a rank's tree made whole (tree_leaves order)."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.optim.adam import tree_leaves
+
+    return [SH.unshard(t.detach(), ls.dim, WORLD).numpy().copy()
+            for t, ls in zip(tree_leaves(tree), leaf_syncs)]
+
+
+def run_plan(plan, params, steps: int, telemetry=None) -> dict:
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim.adam import AdamConfig, tree_leaves
+    from repro_torch.train.step_builder import build_train_step
+
+    cfg, shape = train_setup()
+    art = build_train_step(cfg, plan, "cpu", shape, mesh=make_local_mesh("cpu"),
+                           adam=AdamConfig(lr=LR), telemetry=telemetry)
+    state = art.place_state(relayout(params, art.runs))
+    pipe = SyntheticTokenPipeline(cfg, shape, seed=0)
+    losses, norms, ef_norms = [], [], []
+    master3 = None
+    for step in range(steps):
+        state, m = art.fn(state, pipe.next_sync())
+        if step == 2:  # tests/test_torch_train.py holds the masters after 3 steps
+            master3 = unshard_tree(state["opt"]["master"], art.leaf_syncs)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if "ef_norm" in m:
+            ef_norms.append(float(m["ef_norm"]))
+    ls = art.leaf_syncs
+    res = {"kind": art.strategy.kind, "losses": losses, "norms": norms, "ef_norms": ef_norms,
+           "dims": [x.dim for x in ls],
+           "master": unshard_tree(state["opt"]["master"], ls), "master3": master3,
+           "params": [t.detach().numpy().copy() for t in tree_leaves(state["params"])]}
+    if "ef" in state:
+        res["ef"] = [e.numpy().copy() for e in tree_leaves(state["ef"])]
+    return res
+
+
+def plan_of(kind: str, compress: str, **kw):
+    from repro_torch.core.plan import MemoryPlan
+
+    layout = {"ddp": dict(n_persist=4), "zero2": dict(n_persist=0, zero_stage=2),
+              "zero3": dict(n_persist=0)}[kind]
+    return MemoryPlan(4, 2, sync_mode="manual", grad_compress=compress, **{**layout, **kw})
+
+
+def gather_counts(tel) -> dict[str, float]:
+    snap = tel.registry.snapshot()
+    return {k: v["value"] for k, v in snap.items() if k.startswith("sync.param_gathers")}
+
+
+def train_steps(rank: int, directory: str, params_file: str) -> dict:
+    from repro_torch import obs
+
+    params = torch.load(params_file, weights_only=True)
+    out = {}
+    for kind in ("ddp", "zero2", "zero3"):
+        for compress in ("int8_ef", "none"):
+            out[f"{kind}_{compress}"] = run_plan(plan_of(kind, compress), params, STEPS)
+    # ZeRO-3 buffering and overlap: 2 steps of 2 microbatches. Buffered:
+    # both repeats in one buffered run (prefetch one repeat ahead under
+    # overlap); unbuffered: every chunk; checkpointed and unbuffered.
+    for name, kw in (("buffered", dict(n_buffer=3)), ("unbuffered", dict(n_buffer=0)),
+                     ("unbuffered_ckpt", dict(n_buffer=0, n_checkpoint=2))):
+        for overlap in (True, False):
+            tel = obs.Telemetry(trace=False)
+            r = run_plan(plan_of("zero3", "int8_ef", microbatch=2, overlap=overlap, **kw),
+                         params, 2, telemetry=tel)
+            r["gathers"] = gather_counts(tel)
+            out[f"zero3_{name}_overlap_{overlap}"] = r
+    out["checkpoint"] = checkpoint_resume(rank, directory)
+    return out
+
+
+def checkpoint_resume(rank: int, directory: str) -> dict:
+    """4 steps straight against 2, a checkpoint, and 2 more from it, under
+    ZeRO-3 with int8_ef (2 microbatches): every rank's state bitwise."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim.adam import AdamConfig, tree_leaves
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.step_builder import build_train_step
+
+    cfg, shape = train_setup()
+    plan = plan_of("zero3", "int8_ef", microbatch=2, n_buffer=2)
+    ck = os.path.join(directory, "ckpt")
+
+    def loop(steps, mgr):
+        art = build_train_step(cfg, plan, "cpu", shape, mesh=make_local_mesh("cpu"),
+                               adam=AdamConfig(lr=LR))
+        return train_loop(art, SyntheticTokenPipeline(cfg, shape, seed=0), mgr,
+                          LoopConfig(total_steps=steps, checkpoint_every=2, log_every=0),
+                          generator=torch.Generator().manual_seed(0), log=lambda s: None)
+
+    straight = loop(4, None)
+    first = loop(2, CheckpointManager(ck, keep=2, rank=rank, world=WORLD))
+    mgr = CheckpointManager(ck, keep=2, rank=rank, world=WORLD)
+    saved = mgr.steps()
+    fresh = build_train_step(cfg, plan, "cpu", shape, mesh=make_local_mesh("cpu"),
+                             adam=AdamConfig(lr=LR)).init(torch.Generator().manual_seed(5))
+    restored, _ = mgr.restore(2, fresh)
+    second = loop(4, CheckpointManager(ck, keep=2, rank=rank, world=WORLD))
+    other_world = None
+    try:
+        CheckpointManager(ck, keep=2, rank=0, world=2).steps()
+    except ValueError as e:
+        other_world = str(e)
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(tensors(a), tensors(b)))  # noqa: E731
+    return {"saved": saved, "resumed_from": second.resumed_from,
+            "restored_equal": same(restored, first.state) and restored["step"] == 2,
+            "losses": first.losses + second.losses, "straight_losses": straight.losses,
+            "state_equal": same(second.state, straight.state),
+            "ef_leaves": len(tree_leaves(second.state["ef"])),
+            "other_world_error": other_world}
+
+
+def tensors(state) -> list:
+    """Every tensor of a training state: params, residuals, master, m, v."""
+    from repro_torch.optim.adam import tree_leaves
+
+    return tree_leaves([state["params"], state["ef"],
+                        [state["opt"][k] for k in ("master", "m", "v")]])
