@@ -178,21 +178,24 @@ Phases, each printing one JSON line:
      (7168 x 20480), states on the device and pinned; the quantizer at
      5,120 x 7,168 bf16; each line carries ``"path": "vlm"``;
  22. ``vlm_serve``: phase 4's engine and checks for llava-next-34b at full
-     width and all 60 layers (68.8 GB of bf16 weights, ``vlm_init``),
-     prompts of 595 to 758 tokens, 60 paged launches a step; the engine
-     serves tokens, as the JAX engine does;
+     width and ``VLM_SERVE_LAYERS`` (30) of its 60 layers (34.9 GB of bf16
+     weights, ``vlm_init``; a cut for the run's time, from all 60),
+     prompts of 595 to 758 tokens, one paged launch a layer a step; the
+     engine serves tokens, as the JAX engine does;
  23. ``vlm_prefill``: ``build_prefill_step(chunk=None)`` on the served
      weights, B 4, 1,024 seeded patches ahead of 1,024 tokens: through the
      kernels against the plain path (whole-row attention, plain RMSNorm, a
      row at a time; ``greedy_check``), against zeroed patches (the logits
      must move), and without patches over each served prompt against the
-     engine's first token; its device time and launches (60 flash, 121
-     RMSNorm);
+     engine's first token; its device time and launches (a flash launch a
+     layer, two RMSNorm launches a layer and one more);
  24. ``vlm_train_compare``: two steps at full width, 2 layers, S 4096
      tokens after 1,024 patches, kernels against the plain path, at
      train_compare's bounds; ``vlm_plan``: phase 9 for llava-next-34b at S
-     4096 after 1,024 patches, B 1, at the deepest stack whose pinned
-     states fit the host (``depth_cuts``); the block profile counts S
+     4096 after 1,024 patches, B 1, at ``VLM_PLAN_LAYERS`` (8) layers or
+     the deepest stack below whose pinned states fit the host
+     (``depth_cuts``; a cut for the run's time: 13 layers fit the host);
+     the block profile counts S
      positions, so a searched plan may run out of memory first
      (``oom_attempts``);
  25. ``dist_sync``: the gradient sync (``train/sync.py``) on mistral-7b at
@@ -211,8 +214,23 @@ Phases, each printing one JSON line:
      (``DIST_QUANT_CASES``: w1 / w3 / w2 and wq at z = 1, w1 at z = 4);
  26. ``dist_ranks``: one NCCL rank per visible card, each a process of its
      own (spawned), mistral-7b at 2 layers, one row a rank: the manual
-     kinds, 3 steps each; on one card a world of one, which it says;
- 27. ``launchers``: ``launch.train`` (mistral-7b, 32 layers, the searched
+     kinds, then ``dist_xla``'s two plans through the sharded ``XlaSync``
+     (``dist_xla_ranks`` lines), 3 steps each; on one card a world of one,
+     which it says;
+ 27. ``dist_xla``: the xla path on several ranks (``XlaSync`` sharded) on
+     mistral-7b at full width, 4 layers, B 2, S 4096, the weights of
+     ``dist_sync``: ``xla_host`` (host chunks, weights and states pinned,
+     a swap block, checkpointed blocks, ``n_buffer`` 1, int8 + EF) and
+     ``xla_zero`` (ZeRO-sharded chunks, two buffered, ``zero1_persistent``
+     on the persistent ones), each 3 timed steps (and one profiled) through
+     the sharded ``XlaSync`` built directly over a one-rank NCCL group, then
+     3 through the single-device step: losses and fp32 masters bitwise
+     (every collective of one rank is a copy); step time, peak, pinned
+     bytes, launches, one profiled step (``collective``: NCCL's device
+     time). Then the plan searched for mistral-7b at 32 layers, B 4, on 4
+     data ranks, its modeled step and peak and what it would pin on one
+     host, trained 3 steps where 4 cards are visible;
+ 28. ``launchers``: ``launch.train`` (mistral-7b, 32 layers, the searched
      plan as searched; seamless-m4t-large-v2; each 2 steps of B 1 at S
      4096) and ``launch.serve`` (mistral-7b, paged, its default stream)
      through their ``main(argv)``, each JSON line checked (finite losses;
@@ -2946,6 +2964,15 @@ VLM_PATCHES = 1024  # the pipeline's min(1024, S) from S 1024 on
 VLM_SEQ = TRAIN_SEQ + VLM_PATCHES  # positions through the blocks in training: 5,120
 VLM_PREFILL_TOKENS = 1024  # vlm_prefill: 1024 patches, then 1024 tokens, B 4
 VLM_PATCHES_SEED = 13
+# depth cuts for the run's time: vlm_serve and vlm_prefill served all 60
+# layers before, and vlm_plan bisected down from 60 (13 fit the host)
+VLM_SERVE_LAYERS, VLM_PLAN_LAYERS = 30, 8
+
+
+def vlm_config(layers: int):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(VLM_ARCH), num_layers=layers)
 
 
 def phase_vlm_kernels() -> list[dict]:
@@ -2979,17 +3006,16 @@ def phase_vlm_kernels() -> list[dict]:
 
 
 def phase_vlm_serve(hw) -> tuple[dict[str, int], dict]:
-    """llava-next-34b at full width and all 60 layers (68.8 GB of bf16
-    weights) through ``serve_phase`` on the paged plan, chunked admission,
+    """llava-next-34b at full width and ``VLM_SERVE_LAYERS`` layers (34.9
+    GB of bf16 weights) through ``serve_phase`` on the paged plan, chunked admission,
     prompts of 595 to 758 tokens: the engine serves its tokens, as the JAX
     engine does (patches enter only through ``forward``). Returns the
     launches and a record of the weights, prompts and tokens."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
 
-    cfg = get_config(VLM_ARCH)
+    cfg = vlm_config(VLM_SERVE_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
@@ -3000,7 +3026,7 @@ def phase_vlm_serve(hw) -> tuple[dict[str, int], dict]:
     launches = serve_phase(cfg, hw, "vlm_serve", prompt_lens=ENCDEC_PROMPT_LENS, params=params,
                            record=record)
     n = launches["paged_attention"]
-    assert n % cfg.num_layers == 0 and n > 0, f"vlm_serve: {n} paged launches, not 60 a step"
+    assert n % cfg.num_layers == 0 and n > 0, f"vlm_serve: {n} paged launches, not 1 a layer"
     return launches, record
 
 
@@ -3025,9 +3051,10 @@ def greedy_check(got, plain, what: str) -> dict:
 
 
 def phase_vlm_prefill(record: dict) -> dict[str, int]:
-    """``build_prefill_step(chunk=None)`` for llava-next-34b at all 60 layers
-    on the served weights, B 4, 1,024 seeded patches ahead of 1,024 tokens:
-    through the kernels against the plain path (whole-row attention, plain
+    """``build_prefill_step(chunk=None)`` for llava-next-34b at the served
+    depth (``VLM_SERVE_LAYERS``) on the served weights, B 4, 1,024 seeded
+    patches ahead of 1,024 tokens: through the kernels against the plain
+    path (whole-row attention, plain
     RMSNorm; a row at a time) at ENGINE_TOL; with the patches against
     zeroed patches (the logits must move); without patches, over each
     served prompt, against the engine's first token for it; its device
@@ -3035,7 +3062,6 @@ def phase_vlm_prefill(record: dict) -> dict[str, int]:
     import torch
 
     from repro_torch import kernels as K
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.plan import MemoryPlan
     from repro_torch.models.model import num_repeats
@@ -3043,7 +3069,7 @@ def phase_vlm_prefill(record: dict) -> dict[str, int]:
 
     gc.collect()  # the engines' caches and graphs
     torch.cuda.empty_cache()
-    cfg = get_config(VLM_ARCH)
+    cfg = vlm_config(VLM_SERVE_LAYERS)
     params = record["params"]
     n = num_repeats(cfg) + 2
     plan = MemoryPlan(n, num_repeats(cfg), n_persist=n)
@@ -3150,15 +3176,14 @@ def phase_vlm_train_compare() -> dict[str, int]:
 
 def phase_vlm_plan(hw) -> dict:
     """llava-next-34b at full width through ``plan_phase`` at S 4096 tokens
-    after 1,024 patches, B 1: 550.2 GB of training state at 60 layers, more
-    than card and host hold, so the depth is the deepest whose searched
-    plan's pinned states fit the host (``depth_cuts``). The block profile,
-    the reference's, counts S positions where the blocks run S + 1,024, so
-    the first searched plan may run out of memory (``oom_attempts``)."""
-    from repro_torch.configs import get_config
-
+    after 1,024 patches, B 1, ``VLM_PLAN_LAYERS`` layers (550.2 GB of
+    training state at 60 layers, more than card and host hold): the depth
+    is at most that, and the deepest below whose searched plan's pinned
+    states fit the host (``depth_cuts``). The block profile, the
+    reference's, counts S positions where the blocks run S + 1,024, so the
+    first searched plan may run out of memory (``oom_attempts``)."""
     emit("vlm_plan_host_cache", **release_pinned_cache(), host=host_memory())
-    return plan_phase(get_config(VLM_ARCH), hw, "vlm_plan")
+    return plan_phase(vlm_config(VLM_PLAN_LAYERS), hw, "vlm_plan")
 
 
 # ---------------------------------------------------------------------------
@@ -3209,6 +3234,8 @@ def expected_quant_launches(art, state, kind: str, steps: int) -> int:
     for replicated leaves, which the plain per-tensor quantizer syncs."""
     from repro_torch.optim.adam import tree_leaves
 
+    if kind == "xla":  # the xla path's int8 numerics are the plain per-tensor ones
+        return 0
     run_leaves = {id(t) for t in tree_leaves(state["params"]["runs"])}
     n = sum((p.shape[0] if kind == "zero3" and id(p) in run_leaves else 1)
             for p, ls in zip(tree_leaves(state["params"]), art.leaf_syncs)
@@ -3224,13 +3251,15 @@ def _paths(tree, prefix: str = "") -> list:
 
 
 def stacked_masters(state) -> dict:
-    """The fp32 masters by leaf path, a run layout's ``runs`` stacked back
-    into ``blocks`` (at world one a shard is its full leaf)."""
+    """The fp32 masters by leaf path on the card (a host chunk's copied from
+    pinned memory), a run layout's ``runs`` stacked back into ``blocks`` (at
+    world one a shard is its full leaf)."""
     import torch
 
     master = state["opt"]["master"]
-    out = dict(_paths({k: v for k, v in master.items() if k != "runs"}))
-    runs = [dict(_paths(r)) for r in master["runs"]]
+    out = {p: t.to("cuda") for p, t in _paths({k: v for k, v in master.items()
+                                                 if k != "runs"})}
+    runs = [{p: t.to("cuda") for p, t in _paths(r)} for r in master["runs"]]
     for p in runs[0]:
         out["/blocks" + p] = torch.cat([r[p] for r in runs]) if len(runs) > 1 else runs[0][p]
     return out
@@ -3256,15 +3285,17 @@ def master_gap(got: dict, ref: dict, init: dict) -> dict:
 
 def dist_run(cfg, shape, plan, params, steps: int, mesh, kind: str | None = None,
              warmup: int = 0, profile: bool = False, ref_masters: dict | None = None,
-             keep_masters: bool = False) -> dict:
+             keep_masters: bool = False, sharded: bool = False) -> dict:
     """``steps`` timed steps of ``plan`` from ``params`` (stacked ``blocks``)
     with the launch counts zeroed just before: losses, each step's time
     (the median over the steps after ``warmup``), peak device bytes,
     ``ef_norm``, launches; with ``profile``, then one more step under the
     profiler (``profile_step``). ``kind``: build the manual
     kind's ``ManualSync`` directly (a world of one, where ``make_strategy``
-    routes a manual plan to ``XlaSync``). The fp32 masters after the timed
-    steps, before the profiled one: with ``ref_masters`` their
+    routes a manual plan to ``XlaSync``); ``sharded``: build the xla
+    path's sharded ``XlaSync`` directly (at world one ``make_strategy``
+    routes an xla plan to the single-device step). The fp32 masters after
+    the timed steps, before the profiled one: with ``ref_masters`` their
     ``master_gap`` to those (``"masters"``); with ``keep_masters`` they
     are returned (``"_masters"``, on the device)."""
     import torch
@@ -3274,10 +3305,11 @@ def dist_run(cfg, shape, plan, params, steps: int, mesh, kind: str | None = None
     from repro_torch.data.pipeline import SyntheticTokenPipeline
     from repro_torch.optim.adam import AdamConfig
     from repro_torch.train.step_builder import build_train_step
-    from repro_torch.train.sync import ManualSync
+    from repro_torch.train.sync import ManualSync, XlaSync
 
     tel = obs.Telemetry(trace=False)
-    strategy = ManualSync(plan, mesh, kind) if kind is not None else None
+    strategy = (ManualSync(plan, mesh, kind) if kind is not None
+                else XlaSync(plan, mesh, sharded=True) if sharded else None)
     art = build_train_step(cfg, plan, mesh.device, shape, mesh=mesh, strategy=strategy,
                            adam=AdamConfig(lr=3e-4), telemetry=tel)
     state = art.place_state(_relayout(params, art.runs))
@@ -3308,6 +3340,8 @@ def dist_run(cfg, shape, plan, params, steps: int, mesh, kind: str | None = None
            "leaves": len(art.leaf_syncs), "losses": losses, "step_times_s": times,
            "median_step_s": statistics.median(times[warmup:]), "ef_norms": ef_norms,
            "peak_device_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+           "pinned_state_bytes": pinned_state_bytes(state),
+           "sharded": getattr(art.strategy, "sharded", None),
            "expected_quant_launches": expected_quant_launches(
                art, state, art.strategy.kind, steps),
            "sync": {k: v for k, v in snap.items() if k.startswith("sync.")}}
@@ -3418,36 +3452,45 @@ def phase_dist_sync() -> tuple[dict[str, int], list[dict]]:
     return launches, rows
 
 
-def _dist_rank(rank: int, world: int, store: str, out: str) -> None:
-    """One rank of ``phase_dist_ranks``, in a process of its own on
-    ``cuda:rank``: the manual kinds, 3 steps each (rank 0 writes them)."""
+def _dist_rank(rank: int, world: int, store: str, out: str, jobs: list) -> None:
+    """One rank of the spawned dist runs, in a process of its own on
+    ``cuda:rank``: each job ``(name, layers, global batch, plan keywords,
+    kind)`` 3 steps, ``kind`` a manual kind (``ManualSync``, built directly
+    at world one, where ``make_strategy`` would route the plan to
+    ``XlaSync``) or ``"xla"`` (the sharded ``XlaSync``). Rank 0 writes
+    them."""
     sys.path.insert(0, str(HERE / "src"))
     import torch
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import model as M
 
     device = torch.device("cuda", rank)
     torch.cuda.set_device(device)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
                             world_size=world, device_id=device)
     try:
         mesh = make_local_mesh(device)
-        cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=DIST_RANKS_LAYERS)
-        shape = ShapeConfig("dist_ranks", TRAIN_SEQ, world, "train")  # one row a rank
-        params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
-        plans = dist_plans(DIST_RANKS_LAYERS + 2, DIST_RANKS_LAYERS)
-        res = {}
-        for kind in DIST_KINDS:
-            # one rank: make_strategy would route the plan to XlaSync
-            r = dist_run(cfg, shape, plans[kind], params, DIST_RANKS_STEPS, mesh=mesh,
-                         kind=kind if world == 1 else None, warmup=1)
-            assert r["strategy"] == kind, r["strategy"]
-            check_dist_run(kind, r, None)
-            res[kind] = r
+        res, params = {}, {}
+        for name, layers, batch, kw, kind in jobs:
+            if kw.get("act_policies") is not None:
+                kw = {**kw, "act_policies": tuple(kw["act_policies"])}
+            cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=layers)
+            if layers not in params:  # one draw a depth, shared by its jobs
+                params = {layers: M.init_params(
+                    cfg, torch.Generator(device=device).manual_seed(0), device)}
+            xla = kind == "xla"
+            r = dist_run(cfg, ShapeConfig(name, TRAIN_SEQ, batch, "train"), MemoryPlan(**kw),
+                         params[layers], DIST_RANKS_STEPS, mesh=mesh,
+                         kind=None if xla or world > 1 else kind, sharded=xla, warmup=1)
+            assert r["strategy"] == kind and (r["sharded"] or not xla), (name, r["strategy"])
+            check_dist_run(name, r, None)
+            res[name] = r
         if rank == 0:
             with open(out, "w") as f:
                 json.dump(res, f)
@@ -3455,38 +3498,220 @@ def _dist_rank(rank: int, world: int, store: str, out: str) -> None:
         dist.destroy_process_group()
 
 
-def phase_dist_ranks() -> dict[str, int]:
-    """One NCCL rank per visible card, each its own process (the launcher's
-    spawn), mistral-7b at full width, 2 layers, one row of S 4096 a rank,
-    the three manual kinds 3 steps each (the median over the last 2: a
-    fresh process's first step warms up). On a one-card machine this is a
-    world of one, and says so. Returns rank 0's launches, summed."""
+def spawn_dist_ranks(world: int, jobs: list) -> dict:
+    """``jobs`` (``_dist_rank``) on ``world`` spawned NCCL ranks, one a
+    card: rank 0's runs by name."""
     import tempfile
 
-    import torch
     import torch.multiprocessing as mp
 
-    world = torch.cuda.device_count()
     d = tempfile.mkdtemp()
-    out = f"{d}/ranks.json"
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     try:
-        mp.start_processes(_dist_rank, args=(world, f"{d}/store", out), nprocs=world,
-                           join=True, start_method="spawn")
-        with open(out) as f:
-            res = json.load(f)
+        mp.start_processes(_dist_rank, args=(world, f"{d}/store", f"{d}/out.json", jobs),
+                           nprocs=world, join=True, start_method="spawn")
+        with open(f"{d}/out.json") as f:
+            return json.load(f)
     finally:
         shutil.rmtree(d, ignore_errors=True)
+
+
+def _plan_kwargs(plan) -> dict:
+    return {f.name: getattr(plan, f.name) for f in dataclasses.fields(plan)}
+
+
+def phase_dist_ranks() -> dict[str, int]:
+    """One NCCL rank per visible card, each its own process (the launcher's
+    spawn), mistral-7b at full width, 2 layers, one row of S 4096 a rank:
+    the three manual kinds, then ``dist_xla``'s two plans through the
+    sharded ``XlaSync`` (in the same processes: one spawn, one warm-up),
+    3 steps each (the median over the last 2: a fresh process's first step
+    warms up). On a one-card machine this is a world of one, and says so.
+    Returns rank 0's launches of the manual kinds, summed."""
+    import torch
+
+    world = torch.cuda.device_count()
+    nc, nb = DIST_RANKS_LAYERS + 2, DIST_RANKS_LAYERS
+    manual = dist_plans(nc, nb)
+    xla = xla_plans(nc, nb)
+    jobs = ([(k, nb, world, _plan_kwargs(manual[k]), k) for k in DIST_KINDS]
+            + [(n, nb, world, _plan_kwargs(p), "xla") for n, p in xla.items()])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn_dist_ranks(world, jobs)
     launches: dict[str, int] = {}
-    for kind, r in res.items():
-        emit("dist_ranks", case=kind, world=world, layers=DIST_RANKS_LAYERS,
-             batch_per_rank=1, seq=TRAIN_SEQ, **r)
-        for k, v in r["launches"].items():
-            launches[k] = launches.get(k, 0) + v
+    for name, r in res.items():
+        emit("dist_xla_ranks" if name in xla else "dist_ranks", case=name, world=world,
+             layers=nb, batch_per_rank=1, seq=TRAIN_SEQ, **r)
+        if name not in xla:
+            sum_launches(launches, r["launches"])
     note = ("ran at world 1: one card is visible; multi-card numbers wait for a machine "
             "with several cards") if world == 1 else f"ran at world {world}"
     emit("dist_ranks_world", world=world, note=note, seconds=time.perf_counter() - t0)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The xla path on several ranks (train/sync.XlaSync, sharded)
+# ---------------------------------------------------------------------------
+# the plan searched on 4 data ranks: mistral-7b at 32 layers, B 4 (one row a
+# rank), S 4096; trained where 4 cards are visible
+DIST_XLA_SEARCH_WORLD, DIST_XLA_SEARCH_BATCH = 4, 4
+
+
+def xla_plans(nc: int, nb: int) -> dict:
+    """The dist_xla phase's plans at ``nb`` layers (``nc = nb + 2``
+    chunks). ``xla_host``: the front persistent, one ZeRO-sharded ``hbm``
+    chunk, the last ``nb // 2 + 1`` chunks on the host (weights and states
+    pinned), the first block swapped, the next ``nb // 2`` checkpointed,
+    only the head buffered (host blocks are fetched again in the backward),
+    int8 + EF. ``xla_zero``: the first ``nb // 2`` chunks persistent with
+    their optimizer states sharded (``zero1_persistent``), the rest
+    ZeRO-sharded in device memory, the last two buffered, no compression."""
+    from repro_torch.core.plan import MemoryPlan
+
+    n_host = nb // 2 + 1
+    return {"xla_host": MemoryPlan(nc, nb, n_persist=nc - n_host - 1, n_host=n_host,
+                                   n_buffer=1, n_swap=1, n_checkpoint=nb // 2,
+                                   grad_compress="int8_ef"),
+            "xla_zero": MemoryPlan(nc, nb, n_persist=nb // 2, n_buffer=2,
+                                   zero1_persistent=True)}
+
+
+def sum_launches(into: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        into[k] = into.get(k, 0) + v
+
+
+def phase_dist_xla_world_one() -> dict[str, int]:
+    """mistral-7b at full width, ``DIST_LAYERS`` layers, B 2, S 4096, the
+    weights of ``dist_sync``: each of ``xla_plans`` 3 timed steps (and one
+    profiled) through the sharded ``XlaSync`` built directly over a
+    one-rank NCCL group, then 3 through the single-device step
+    (``make_strategy`` at world one) from the same weights; every
+    collective at world one is a copy, so losses and fp32 masters must
+    agree bitwise. Returns the sharded runs' launches, summed."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import LocalMesh, make_local_mesh
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=DIST_LAYERS)
+    shape = ShapeConfig("dist_xla", TRAIN_SEQ, DIST_BATCH, "train")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    launches: dict[str, int] = {}
+    try:
+        mesh = make_local_mesh("cuda:0")
+        for name, plan in xla_plans(DIST_LAYERS + 2, DIST_LAYERS).items():
+            r = dist_run(cfg, shape, plan, params, DIST_STEPS, mesh, sharded=True,
+                         profile=True, keep_masters=True)
+            assert r["strategy"] == "xla" and r["sharded"], (name, r["strategy"])
+            check_dist_run(name, r, None)
+            sum_launches(launches, r["launches"])
+            ref = r.pop("_masters")
+            single = dist_run(cfg, shape, plan, params, DIST_STEPS,
+                              LocalMesh(0, 1, None, torch.device("cuda", 0)), ref_masters=ref)
+            del ref
+            assert single["sharded"] is False, name
+            check_dist_run(f"{name}_single", single, None)
+            emit("dist_xla", case=name, layers=DIST_LAYERS, batch=DIST_BATCH, seq=TRAIN_SEQ,
+                 world=1, process_group="nccl, one rank (XlaSync sharded, built directly)",
+                 **r)
+            emit("dist_xla", case=f"{name}_single", against=name, bitwise=True, **single)
+            assert single["losses"] == r["losses"], (name, single["losses"], r["losses"])
+            assert single["masters"]["differ"] == 0, (name, single["masters"])
+            assert single["masters"]["update_norm"] > 0, (name, single["masters"])
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    release_pinned_cache()
+    return launches
+
+
+def pinned_per_host(cfg, plan, world: int) -> dict:
+    """What a plan's host chunks pin on one host of ``world`` ranks: each
+    rank's shards of their leaves (a leaf whose ``zero`` dim the world does
+    not divide whole), fp32 master, m and v, and the bf16 weights under
+    ``host_params``; exact, and each allocation rounded up to a power of two
+    as PyTorch's caching host allocator rounds it. Swap buffers aside."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.train.step_builder import plan_runs
+
+    defs = M.param_defs(cfg)
+    leaves = []  # (elements a rank, weight bytes an element)
+
+    def collect(tree, length=None):
+        def one(d):
+            shape = d.shape if length is None else (length,) + d.shape[1:]
+            dim = SH.leaf_sync_dim(dataclasses.replace(d, shape=shape), world, "host")
+            leaves.append((math.prod(shape) // (world if dim is not None else 1),
+                           L.torch_dtype(d.dtype).itemsize))
+        L.map_defs(one, tree)
+
+    if plan.chunk_placement(0) == "host":
+        collect({k: defs[k] for k in ("embed", "encoder") if k in defs})
+    if plan.chunk_placement(plan.n_chunks - 1) == "host":
+        collect({k: defs[k] for k in ("final_norm", "head") if k in defs})
+    for run in plan_runs(plan, M.num_repeats(cfg)):
+        if run.placement == "host":
+            collect(defs["blocks"], run.length)
+    up = lambda n: 1 << (n - 1).bit_length() if n else 0  # noqa: E731
+    w = plan.host_params
+    exact = sum(12 * n + (b * n if w else 0) for n, b in leaves)
+    rounded = sum(3 * up(4 * n) + (up(b * n) if w else 0) for n, b in leaves)
+    return {"exact_bytes": world * exact, "rounded_bytes": world * rounded}
+
+
+def phase_dist_xla(hw) -> dict[str, int]:
+    """The xla path on several ranks: both ``xla_plans`` at world one
+    against the single-device step (``phase_dist_xla_world_one``; their
+    runs at ``DIST_RANKS_LAYERS`` layers on one spawned NCCL rank a visible
+    card ran in ``phase_dist_ranks``'s processes); then the plan searched
+    for mistral-7b at 32 layers, B 4, S 4096 on 4 data ranks against this
+    machine's spec, with what it would pin on one host, trained 3 steps
+    where 4 cards are visible. Returns the world-one sharded runs'
+    launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.autotuner import search
+    from repro_torch.core.cost_model import build_workload
+    from repro_torch.core.hardware import MeshSpec
+
+    launches = phase_dist_xla_world_one()
+    world = torch.cuda.device_count()
+    cfg = get_config("mistral-7b")
+    shape = ShapeConfig("dist_xla_search", TRAIN_SEQ, DIST_XLA_SEARCH_BATCH, "train")
+    w = build_workload(cfg, shape, MeshSpec((DIST_XLA_SEARCH_WORLD,), ("data",)), hw)
+    res = search(w)
+    plan = res.plan
+    row = {"plan": plan.describe(), "world": DIST_XLA_SEARCH_WORLD, "layers": cfg.num_layers,
+           "global_batch": DIST_XLA_SEARCH_BATCH, "seq": TRAIN_SEQ, "hw": hw.name,
+           "feasible": res.feasible, "search_seconds": res.search_seconds,
+           "modeled_t_iter_s": res.runtime.t_iteration, "modeled_peak_bytes": res.memory.peak,
+           "pinned_per_host": pinned_per_host(cfg, plan, DIST_XLA_SEARCH_WORLD),
+           "host_mem_bytes": hw.host_mem_bytes}
+    if world >= DIST_XLA_SEARCH_WORLD:
+        job = [("searched", cfg.num_layers, DIST_XLA_SEARCH_BATCH, _plan_kwargs(plan),
+                plan.manual_sync_kind() if plan.sync_mode == "manual" else "xla")]
+        run = spawn_dist_ranks(DIST_XLA_SEARCH_WORLD, job)["searched"]
+        emit("dist_xla_search", ran=True, **row, run=run)
+    else:
+        emit("dist_xla_search", ran=False, **row,
+             note=f"the plan needs {DIST_XLA_SEARCH_WORLD} cards; {world} visible: not run")
     return launches
 
 
@@ -3636,6 +3861,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist_sync_launches, dist_rows = timed_phase("dist_sync", phase_dist_sync)
     dist_ranks_launches = timed_phase("dist_ranks", phase_dist_ranks)
+    dist_xla_launches = timed_phase("dist_xla", lambda: phase_dist_xla(hw))
     launcher_launches = timed_phase("launchers", phase_launchers)
     # each path's launches, counted from 0 just before it ran
     by_path = {"engine": launches, "train": train_launches, "train_policies": policy_launches,
@@ -3648,6 +3874,7 @@ def main() -> int:
                "vlm_serve": vlm_serve_launches, "vlm_prefill": vlm_prefill_launches,
                "vlm_train_compare": vlm_compare_launches, "vlm_plan": vlm_plan_out["launches"],
                "dist_sync": dist_sync_launches, "dist_ranks": dist_ranks_launches,
+               "dist_xla": dist_xla_launches,
                **{f"launch_{k}": v for k, v in launcher_launches.items()}}
     rms = measured["rmsnorm"][0]  # rows = batch: the decode path's shape
     main_case = next(p for p in measured["paged_attention"]

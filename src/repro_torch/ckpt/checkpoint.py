@@ -8,10 +8,13 @@ checkpoint into the tensors of a target state of the same tree, in place:
 each leaf keeps its device, dtype and pinnedness, so optimizer states that
 live in pinned host memory are restored there.
 
-Each rank of ``world`` (one, unless the gradient sync is manual) saves and
-restores its own file, ``state_rank{r}_of{world}.pt``:
-its shards of the sharded leaves, with their optimizer states and
-shard-sized residuals, and its row of each replicated leaf's residual. A
+Each rank of ``world`` (one, unless the step runs on several data ranks:
+the manual sync or the xla path's sharded layouts) saves and restores its
+own file, ``state_rank{r}_of{world}.pt``: its shards of the sharded
+leaves, with their optimizer states (a host chunk's pinned shards, restored
+into pinned memory; a ``zero1_persistent`` leaf's state shards beside its
+replicated weights) and shard-sized residuals, and its row of each
+replicated leaf's residual under the manual sync. A
 step counts only once every rank's file is in it, so a crash between two
 ranks' saves leaves every rank resuming from the same earlier step. A
 checkpoint saved at another world size is refused, not resharded.

@@ -10,9 +10,14 @@ compression levels for the gradient all-reduce:
 
 Two sync paths consume them (``MemoryPlan.sync_mode``):
 
-  * **xla**: on one rank the reduction is the local math, so the wire
-    numerics apply to the accumulated gradients (``group=None``). Several
-    ranks under the xla path are queued in ROADMAP.md.
+  * **xla**: GSPMD's reduction, then the wire numerics on the reduced
+    gradients (``mesh=None`` in the reference). On one rank the reduction is
+    the local math (``group=None``). On several ranks a sharded leaf's
+    gradient comes out of the gather's backward reduce-scattered
+    (``LazyGather`` with ``compress="none"``), a replicated leaf's is
+    averaged by ``manual_mean``, and ``xla_int8_ef`` quantizes a shard with
+    the scale of the whole leaf: its absmax is all-reduced (MAX) first, as
+    the reference's ``max(|x|)`` over the logical tensor is under GSPMD.
   * **manual**: the step owns the reduction through the ``manual_*``
     functions, over a process group of the data-parallel ranks:
 
@@ -94,10 +99,15 @@ def _sum(t: torch.Tensor, group) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # bf16 and int8 + error feedback, all-reduce (collectives.py:78-131)
 # ---------------------------------------------------------------------------
-def _quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor absmax int8: (q int8, scale fp32 scalar)."""
+def _quantize_int8(x: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor absmax int8: (q int8, scale fp32 scalar). ``group``: the
+    ranks that hold the tensor's other shards; the absmax is then the whole
+    tensor's (a MAX all-reduce), so every shard takes one scale."""
     xf = x.float()
-    amax = torch.clamp_min(xf.abs().max(), 1e-30)
+    amax = xf.abs().max()
+    if group is not None and dist.is_initialized():
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    amax = torch.clamp_min(amax, 1e-30)
     scale = amax / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -115,6 +125,18 @@ def bf16_all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     if group is None or _world(group) == 1:
         return xb.to(x.dtype)
     return manual_mean(xb, group).to(x.dtype)
+
+
+def xla_int8_ef(x: torch.Tensor, err: torch.Tensor, group=None):
+    """The xla path's int8 + EF numerics on this rank's part of a reduced
+    gradient: ``compressed_all_reduce(x, err, mesh=None)`` of the whole
+    leaf, restricted to the shard. ``group``: the ranks that hold the
+    leaf's other shards, whose absmax is all-reduced (MAX) into the one
+    per-tensor scale; None for a replicated leaf (every rank holds it
+    whole). Returns ``(dequantized x, new_err)``."""
+    c = x.float() + err.float()
+    local = _dequantize_int8(*_quantize_int8(c, group))
+    return local.to(x.dtype), (c - local).to(err.dtype)
 
 
 def compressed_all_reduce(x: torch.Tensor, err: torch.Tensor, group=None):
@@ -273,36 +295,41 @@ def tiled_all_gather(w: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 
 class _GatherParam(torch.autograd.Function):
-    """The full leaf from shard ``w``; the backward reduce-scatters the
-    cotangent to shard owners and writes the new residual into ``err``."""
+    """The full leaf from shard ``w`` (or from ``src``, the shard in host
+    memory ``w`` stands in for); the backward reduce-scatters the cotangent
+    to shard owners and writes the new residual into ``err``."""
 
     @staticmethod
-    def forward(ctx, w, err, group, dim, compress, lazy):
+    def forward(ctx, w, err, group, dim, compress, lazy, src):
         ctx.err, ctx.group, ctx.dim, ctx.compress = err, group, dim, compress
-        return lazy.gather(w) if lazy is not None else tiled_all_gather(w, group, dim)
+        src = w if src is None else src
+        return lazy.gather(src) if lazy is not None else tiled_all_gather(src, group, dim)
 
     @staticmethod
     def backward(ctx, ct):
         g, new_err = sync_reduce_scatter(ct, ctx.err, ctx.group, ctx.dim, ctx.compress)
         if ctx.compress == "int8_ef":
             ctx.err.copy_(new_err)
-        return g, None, None, None, None, None
+        return g, None, None, None, None, None, None
 
 
 def gather_param_lazy(w: torch.Tensor, err: torch.Tensor | None, group, dim: int,
-                      compress: str = "int8_ef", lazy: "LazyGather | None" = None):
+                      compress: str = "int8_ef", lazy: "LazyGather | None" = None,
+                      src: torch.Tensor | None = None):
     """Just-in-time all-gather of this rank's shard ``w`` along ``dim``,
     whose backward is the compressed reduce-scatter: the rank receives only
     its shard's gradient, with the int8 payload on the wire. ``err`` (the
     shard-sized fp32 residual under ``int8_ef``, else None) is unused in
     the forward; the backward overwrites it with the new residual, the
     state the caller carries keyed by chunk. ``lazy``: the step's
-    ``LazyGather``, which may hold the gather started ahead."""
+    ``LazyGather``, which may hold the gather started ahead. ``src``: the
+    shard in host memory that ``w`` (its device proxy, which takes the
+    gradient) stands in for."""
     if compress not in COMPRESS:
         raise ValueError(f"compress={compress!r} not in {COMPRESS}")
     if compress == "int8_ef" and err is None:
         raise ValueError("int8_ef needs the shard's residual")
-    return _GatherParam.apply(w, err, group, dim, compress, lazy)
+    return _GatherParam.apply(w, err, group, dim, compress, lazy, src)
 
 
 class _Regather:
@@ -319,34 +346,49 @@ class _Regather:
 
 
 class LazyGather:
-    """A step's gathers of ZeRO-3 shards (the manual ``zero3`` dataflow).
+    """A step's gathers of ZeRO shards: the manual ``zero3`` dataflow
+    (``compress`` its wire format) and the xla path on several ranks
+    (``compress="none"``: the wire numerics apply after the reduction).
 
-    ``register(shard, dim, err, chunk)`` names a shard (a tensor or a
+    ``register(shard, dim, err, chunk, host)`` names a shard (a tensor or a
     stacked run's per-repeat view, found again by its address), the dim
-    it gathers along, its residual and its chunk's label. The model takes
-    the same calls from it as from ``models/offload.HostIO``: ``fetch``
-    (gather, differentiable into the shard), ``prefetch`` (start the
-    gathers of a later repeat, ``async_op=True``, one repeat ahead when the
-    plan's ``gather_prefetch_depth`` is 2), ``refetch_saved`` (what autograd
+    it gathers along, its residual, its chunk's label and whether it lies
+    in host memory: then ``io`` (the step's ``models/offload.HostIO``)
+    copies it to the device before the all-gather, and a replicated host
+    leaf (``dim`` None) is only copied. The model takes the same calls from
+    it as from ``HostIO``: ``fetch`` (gather, differentiable into the shard
+    or its device proxy), ``prefetch`` (start a later unit's reads: host
+    copies always, through ``io``; with ``gather`` the all-gathers of
+    device shards, ``async_op=True``), ``refetch_saved`` (what autograd
     saves of a gathered weight is dropped and gathered again in the
-    backward: an unbuffered chunk) and ``will_fetch_again``. A leaf that
-    was not registered (replicated) passes through unchanged."""
+    backward: an unbuffered chunk) and ``will_fetch_again``. A device leaf
+    that was not registered (replicated) passes through unchanged. Every
+    rank issues the same collectives in the same order: the program order
+    of the forward and the backward, with host copies ahead on ``io``'s
+    side stream and each all-gather of a host shard at its point of use."""
 
-    def __init__(self, group, compress: str, registry=NULL_REGISTRY):
-        self.group, self.compress, self.registry = group, compress, registry
-        self._leaves: dict[int, tuple[int, torch.Tensor | None, str]] = {}
+    def __init__(self, group, compress: str, registry=NULL_REGISTRY, io=None):
+        self.group, self.compress, self.registry, self.io = group, compress, registry, io
+        self._leaves: dict[int, tuple[int | None, torch.Tensor | None, str, bool]] = {}
         self._pending: dict[int, tuple[torch.Tensor, object]] = {}
 
     def register(self, w: torch.Tensor, dim: int | None, err: torch.Tensor | None,
-                 chunk: str) -> None:
-        if dim is not None:
-            self._leaves[w.data_ptr()] = (dim, err, chunk)
+                 chunk: str, host: bool = False) -> None:
+        if dim is not None or host:
+            self._leaves[w.data_ptr()] = (dim, err, chunk, host)
+
+    def _hosts(self, tree) -> list:
+        """The registered host leaves of ``tree``."""
+        return [w for w in tree_leaves(tree)
+                if w.data_ptr() in self._leaves and self._leaves[w.data_ptr()][3]]
 
     def will_fetch_again(self, tree) -> None:
-        """The model's notice that the backward gathers ``tree`` again
-        (``HostIO`` starts such reads ahead in the backward); a regather
-        runs where the backward first reads the weight, so nothing is
-        recorded."""
+        """The model's notice that the backward gathers ``tree`` again: a
+        regather runs where the backward first reads the weight; its host
+        copies are recorded with ``io``, which starts them a unit ahead."""
+        hosts = self._hosts(tree)
+        if hosts:
+            self.io.will_fetch_again(hosts)
 
     def _count(self, w: torch.Tensor, chunk: str, ahead: bool) -> None:
         self.registry.counter("sync.param_gathers", chunk=chunk, ahead=ahead).inc()
@@ -354,39 +396,54 @@ class LazyGather:
             w.numel() * w.element_size() * _world(self.group))
 
     def gather(self, w: torch.Tensor) -> torch.Tensor:
-        """The full leaf of registered shard ``w`` (no gradient): the
-        prefetched gather once it is done, else one now."""
-        dim, _, chunk = self._leaves[w.data_ptr()]
+        """The full leaf of registered shard ``w`` on the device (no
+        gradient): the prefetched gather once it is done, else one now (a
+        host shard copied to the device first)."""
+        dim, _, chunk, host = self._leaves[w.data_ptr()]
+        if dim is None:
+            return self.io.take(w)
         hit = self._pending.pop(w.data_ptr(), None)
         if hit is None:
             self._count(w, chunk, ahead=False)
-            return tiled_all_gather(w, self.group, dim)
+            return tiled_all_gather(self.io.take(w) if host else w, self.group, dim)
         out, work = hit
         if work is not None:
             work.wait()
         return _tiled(out, dim)
 
-    def prefetch(self, tree) -> None:
+    def prefetch(self, tree, gather: bool = True) -> None:
+        hosts = self._hosts(tree)
+        if hosts:
+            self.io.prefetch(hosts)
+        if not gather:
+            return
         for w in tree_leaves(tree):
             key = w.data_ptr()
-            if key in self._leaves and key not in self._pending:
-                self._count(w, self._leaves[key][2], ahead=True)
+            entry = self._leaves.get(key)
+            if entry is not None and entry[0] is not None and not entry[3] \
+                    and key not in self._pending:
+                self._count(w, entry[2], ahead=True)
                 self._pending[key] = _all_gather(w, self.group, async_op=True)
 
     def fetch(self, proxies, shards):
-        """Gathered weights of the tree ``shards``, differentiable into it
-        (``proxies`` is the same tree: the shards are the autograd leaves)."""
-        def one(w):
+        """Gathered weights of the tree ``shards``, differentiable into the
+        same tree ``proxies``: the shards themselves where they lie on the
+        device, their device proxies where they lie in host memory."""
+        def one(px, w):
             entry = self._leaves.get(w.data_ptr())
             if entry is None:
                 return w
-            dim, err, _ = entry
-            return gather_param_lazy(w, err, self.group, dim, self.compress, lazy=self)
-        return tree_map(one, shards)
+            dim, err, _, host = entry
+            if dim is None:
+                return self.io.fetch(px, w)
+            return gather_param_lazy(px, err, self.group, dim, self.compress, lazy=self,
+                                     src=w if host else None)
+        return tree_map(one, proxies, shards)
 
     def refetch_saved(self, fetched, shards) -> torch.autograd.graph.saved_tensors_hooks:
         """Saved-tensor hooks under which what autograd saves of a gathered
         weight in ``fetched`` is not kept: the backward gathers it again."""
+        self.will_fetch_again(shards)
         by_storage = {}
         for full, w in zip(tree_leaves(fetched), tree_leaves(shards)):
             if w.data_ptr() in self._leaves:
@@ -413,15 +470,3 @@ def init_error_feedback(grads, device=None):
     each leaf's)."""
     return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
                                           device=device or g.device), grads)
-
-
-def bf16_tree_all_reduce(grads, group=None):
-    return tree_map(lambda g: bf16_all_reduce(g, group), grads)
-
-
-def compressed_tree_all_reduce(grads, errs, group=None):
-    """Leaf-wise ``compressed_all_reduce``: (averaged tree, new residual tree)."""
-    outs = [compressed_all_reduce(g, e, group)
-            for g, e in zip(tree_leaves(grads), tree_leaves(errs))]
-    avg, new = iter([o[0] for o in outs]), iter([o[1] for o in outs])
-    return tree_map(lambda _: next(avg), grads), tree_map(lambda _: next(new), grads)

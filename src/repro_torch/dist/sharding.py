@@ -11,9 +11,16 @@ slices along that dim (``shard``), the layout ``jax.device_put`` gives a
 ``NamedSharding`` over the data axis. ``leaf_sync_dim`` is that dim (None:
 replicated), the one the manual sync reduce-scatters over.
 
-Memory kinds, ``NamedSharding`` and the activation sharder have no
-counterpart here; the model axis (TP) and ``dp_only``'s folding of it wait
-in ROADMAP.md.
+The placements of the xla path on several ranks (the table at the top of
+the reference): a ``host`` chunk's shard lies in pinned host memory under
+``host_params`` and on the device under the ZeRO-Offload split (the
+reference's ``param_place``, ``step_builder.py:146-148``); its optimizer
+states are pinned shards. A persistent leaf's optimizer states shard as an
+``hbm`` leaf's under ``zero1_persistent`` while its weights stay
+replicated (``opt_dim``). The gather target is the full leaf on the device
+(``unshard``, or ``dist.collectives.LazyGather`` at the point of use). Memory kinds,
+``NamedSharding`` and the activation sharder have no counterpart here; the
+model axis (TP) and ``dp_only``'s folding of it wait in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -43,6 +50,13 @@ def leaf_sync_dim(d: ParamDef, world: int, placement: str) -> int | None:
     """The dim the manual sync reduce-scatters a leaf's gradient over (the
     dim its shards split), or None for a replicated leaf."""
     return _spec(d, world, placement)
+
+
+def opt_dim(d: ParamDef, world: int, placement: str, zero1: bool) -> int | None:
+    """The dim a leaf's fp32 master, m and v shard over (``_opt_placement``,
+    ``step_builder.py:112-123``): its weights' dim, except that a persistent
+    leaf's states shard as an ``hbm`` leaf's under ``zero1_persistent``."""
+    return _spec(d, world, "hbm" if placement == "persist" and zero1 else placement)
 
 
 def def_leaves(tree) -> list[ParamDef]:

@@ -12,6 +12,8 @@
         --batch 2 --seq 64 --device cpu
     python -m repro_torch.launch.train --arch llama3-405b --reduced --nproc 4 \\
         --steps 4 --batch 16 --seq 32 --device cpu        # 4 gloo ranks, spawned
+    python -m repro_torch.launch.train --arch llama3-405b --reduced --nproc 4 \\
+        --steps 4 --batch 16 --seq 32 --device cpu --plan fsdp   # the xla path
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch mistral-7b \\
         --nproc 4 --plan zero3 --batch 4 --seq 4096        # 4 NCCL ranks
 
@@ -45,18 +47,21 @@ as the JAX launcher does, the chunks are parked on the device and the block
 policies kept. ``resident``: every chunk
 persistent, no remat; ``fsdp``: every block checkpointed.
 
-Data parallelism: ``--nproc N`` trains on N ranks under the manual
-gradient sync (``train/sync.ManualSync``), each rank on its rows of the
-global batch. Under ``torchrun`` (``WORLD_SIZE`` set) the process is one
-rank; otherwise it spawns the N ranks itself, joined through a ``file://``
-store in a temporary directory. Rank r runs on ``cuda:r`` (NCCL) or, with
-``--device cpu``, on the CPU (gloo). ``auto`` then searches with
-``sync="manual"`` on ``MeshSpec((N,), ("data",))`` (the plan runs as
-searched, on the CPU too); ``ddp``, ``zero2`` and ``zero3`` name the
-manual kinds (int8 + EF on the wire). Rank 0 prints the plan and the JSON
-line, with the sync strategy's kind and the world size; each rank keeps
-its own checkpoint file. The xla path on several ranks raises
-(ROADMAP.md).
+Data parallelism: ``--nproc N`` trains on N ranks, each on its rows of
+the global batch, under the plan's gradient sync: the xla path's sharded
+layouts (``train/sync.XlaSync``: ZeRO-sharded and host chunks, swap,
+``zero1_persistent``) or the manual kinds (``train/sync.ManualSync``).
+Under ``torchrun`` (``WORLD_SIZE`` set) the process is one rank; otherwise
+it spawns the N ranks itself, joined through a ``file://`` store in a
+temporary directory. Rank r runs on ``cuda:r`` (NCCL) or, with ``--device
+cpu``, on the CPU (gloo). ``auto`` then searches both sync modes on
+``MeshSpec((N,), ("data",))``, as the reference's launcher searches its
+mesh, and the plan runs as searched (host chunks and all, on the CPU too);
+``fsdp`` (every chunk ZeRO-sharded, every block checkpointed) and
+``resident`` run through the xla path; ``ddp``, ``zero2`` and ``zero3``
+name the manual kinds (int8 + EF on the wire). Rank 0 prints the plan and
+the JSON line, with the plan, the sync strategy's kind and the world size;
+each rank keeps its own checkpoint file.
 """
 from __future__ import annotations
 
@@ -108,7 +113,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--plan", default="auto",
                     choices=["auto", "resident", "fsdp", *MANUAL_PLANS])
     ap.add_argument("--nproc", type=int, default=1,
-                    help="data-parallel ranks (manual sync); spawned unless under torchrun")
+                    help="data-parallel ranks; spawned unless under torchrun")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda (raises without it)")
     return ap.parse_args(argv)
@@ -186,8 +191,7 @@ def _train(args, device, mesh) -> dict | None:
             # one device: the plain reduction; compression buys nothing there
             res = search(build_workload(cfg, shape, ONE_CHIP, hw), compress="off", sync="xla")
         else:
-            res = search(build_workload(cfg, shape, MeshSpec((world,), ("data",)), hw),
-                         sync="manual")
+            res = search(build_workload(cfg, shape, MeshSpec((world,), ("data",)), hw))
         plan = res.plan
         say(f"[train] searched plan: {plan.describe()} (modeled t_iter="
             f"{res.runtime.t_iteration:.3f}s, peak {res.memory.peak / 1e9:.2f}GB on {hw.name}, "
@@ -199,8 +203,8 @@ def _train(args, device, mesh) -> dict | None:
     elif args.plan in MANUAL_PLANS:
         plan = MemoryPlan(n_chunks=nc, n_blocks=nb, sync_mode="manual",
                           grad_compress="int8_ef", **MANUAL_PLANS[args.plan](nc))
-    elif args.plan == "fsdp":  # one device: every chunk already resident; checkpoint all
-        plan = MemoryPlan(n_chunks=nc, n_blocks=nb, n_persist=nc, n_checkpoint=nb)
+    elif args.plan == "fsdp":  # every chunk ZeRO-sharded (one device: all of it there)
+        plan = MemoryPlan(n_chunks=nc, n_blocks=nb, n_checkpoint=nb)
     else:
         plan = fully_resident_plan(nc, nb)
     say(f"[train] arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
@@ -229,6 +233,7 @@ def _train(args, device, mesh) -> dict | None:
         "final_ce": res.ces[-1] if res.ces else None,
         "resumed_from": res.resumed_from,
         "straggler_events": res.straggler_events,
+        "plan": plan.describe(),
         "strategy": art.strategy.kind,
         "world": world,
     }

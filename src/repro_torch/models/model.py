@@ -43,7 +43,10 @@ region). A ZeRO-3 run of the manual sync (``Run.io``: the step's
 weights the same way, per repeat (``Run.lazy_gather`` / ``prefetch`` in
 ``model.py:342-370, 470-510``): buffered, the gathered copy lives FWD->BWD;
 unbuffered, the backward gathers it again (``_save_acts_not_lazy_gathers``,
-``:392-430``); the backward of each gather is the reduce-scatter.
+``:392-430``); the backward of each gather is the reduce-scatter. The xla
+path on several ranks runs its non-persistent chunks so too, with
+``Run.proxies`` the device proxies of shards that lie in host memory
+(``host_params``): their copies to the device run a repeat ahead.
 
 Each position returns ``(x, aux)``: an MoE position's load-balance loss
 (``apply_moe``), 0.0 for a dense one. The aux losses are summed through
@@ -448,12 +451,13 @@ class Run:
     ckpt_group: int = 1  # remat region size in superblock repeats (checkpoint only)
     buffered: bool = True  # fetched weights kept FWD->BWD (else fetched again)
     proxies: dict | None = None  # fetched weights: their autograd stand-ins, stacked
-    # where fetched weights come from when not the step's HostIO: a ZeRO-3
-    # run's LazyGather (dist/collectives.py), with ``proxies`` its shards
+    # where fetched weights come from when not the step's HostIO: a
+    # gathered run's LazyGather (dist/collectives.py), with ``proxies`` its
+    # shards, or their device proxies for shards in host memory
     io: Any = None
     # fetch the next unit's weights during this one: always for host
-    # weights; for a ZeRO-3 run when both units' runs set it (a buffered
-    # ``none`` run under an overlapped plan, gather_prefetch_depth == 2)
+    # weights; the all-gathers of a gathered run when both units' runs set
+    # it (a buffered ``none`` zero3 run, gather_prefetch_depth == 2)
     prefetch: bool = False
 
 
@@ -496,10 +500,12 @@ def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
         io.begin_unit()
         wio = run.io if run.io is not None else io
         nxt = units[i + 1][0] if i + 1 < len(units) else None
-        if nxt is not None and nxt.proxies is not None and (
-                nxt.io is None or (run.prefetch and nxt.prefetch)):
+        if nxt is not None and nxt.proxies is not None:
             for src in units[i + 1][1]:  # the next unit's weights, during this one
-                (nxt.io if nxt.io is not None else io).prefetch(src)
+                if nxt.io is None:
+                    io.prefetch(src)
+                else:  # host shards' copies always; device gathers when both runs say so
+                    nxt.io.prefetch(src, gather=run.prefetch and nxt.prefetch)
         if len(reps) == 1:
             x, aux = apply_superblock(reps[0], x, cfg, memory=memory,
                                       act_policy=run.act_policy, buffered=run.buffered,

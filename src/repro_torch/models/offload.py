@@ -30,6 +30,13 @@ gradient thus takes the same device bytes as any other chunk's (its bf16
 size, or fp32 while microbatches accumulate); its bf16 weights and fp32
 optimizer states stay in pinned memory, where the Adam kernel updates them.
 
+On several data ranks (the xla path's sharded layouts) a host chunk's
+pinned leaves are this rank's shards: ``dist.collectives.LazyGather``
+takes each through ``take`` (prefetched a repeat ahead, as here) and then
+all-gathers it, and the gather's backward reduce-scatters the gradient onto
+the shard's device proxy; swapped sites go to this rank's pinned memory
+unchanged.
+
 Counters (``train.*`` in the telemetry registry): ``train.weight_fetch_bytes``
 (every host-to-device weight copy, prefetched or not, forward or backward),
 ``train.act_swap_out_bytes`` and ``train.act_swap_in_bytes``; beside them

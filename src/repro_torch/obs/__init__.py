@@ -1,16 +1,18 @@
-"""Runtime telemetry of the port: metrics registry and span tracer.
+"""Runtime telemetry of the port: metrics registry, span tracer, logger.
 
-Port of ``src/repro/obs/__init__.py`` without the structured logger: the
-registry, the span tracer, the device-memory watermark (``obs.mem``) and the
-cost-model drift monitor (``obs.drift``).
-``Telemetry`` bundles one registry and one tracer; ``current_telemetry()``
-returns the shared no-op ``NULL_TELEMETRY`` unless a caller installed one.
+Port of ``src/repro/obs/__init__.py``: the registry, the span tracer, the
+structured logger (``obs.logging``), the device-memory watermark
+(``obs.mem``) and the cost-model drift monitor (``obs.drift``).
+``Telemetry`` bundles one registry, one tracer and one logger;
+``current_telemetry()`` returns the shared no-op ``NULL_TELEMETRY`` unless
+a caller installed one.
 """
 from __future__ import annotations
 
 import contextlib
 
 from repro_torch.obs.drift import DriftMonitor
+from repro_torch.obs.logging import StructuredLogger, as_logger
 from repro_torch.obs.mem import device_memory_watermark
 from repro_torch.obs.metrics import (
     DOCUMENTED_METRICS,
@@ -22,12 +24,15 @@ from repro_torch.obs.trace import NULL_TRACER, Span, Tracer
 
 
 class Telemetry:
-    """One registry + tracer. ``Telemetry(trace=False)`` keeps the (cheap)
-    registry and drops span retention -- the decode engine's default."""
+    """One registry + tracer + logger. ``Telemetry(trace=False)`` keeps the
+    (cheap) registry and drops span retention -- the decode engine's
+    default."""
 
-    def __init__(self, *, metrics: bool = True, trace: bool = True):
+    def __init__(self, *, metrics: bool = True, trace: bool = True,
+                 logger: StructuredLogger | None = None, name: str = "repro"):
         self.registry: MetricsRegistry = MetricsRegistry() if metrics else NULL_REGISTRY
         self.tracer: Tracer = Tracer(enabled=trace)
+        self.log: StructuredLogger = logger if logger is not None else StructuredLogger(name)
         self.enabled = metrics or trace
 
 
@@ -35,6 +40,7 @@ class _NullTelemetry(Telemetry):
     def __init__(self):
         self.registry = NULL_REGISTRY
         self.tracer = NULL_TRACER
+        self.log = StructuredLogger("null", sink=None, min_level="error", max_records=0)
         self.enabled = False
 
 
@@ -66,6 +72,7 @@ def use_telemetry(tel: Telemetry):
 
 __all__ = [
     "DOCUMENTED_METRICS", "DriftMonitor", "MetricsRegistry", "NULL_REGISTRY", "NULL_TELEMETRY",
-    "NULL_TRACER", "Span", "Telemetry", "Tracer", "current_telemetry", "device_memory_watermark", "quantile",
-    "set_default_telemetry", "use_telemetry",
+    "NULL_TRACER", "Span", "StructuredLogger", "Telemetry", "Tracer", "as_logger",
+    "current_telemetry", "device_memory_watermark", "quantile", "set_default_telemetry",
+    "use_telemetry",
 ]

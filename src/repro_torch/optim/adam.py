@@ -22,6 +22,15 @@ fp32 device tensor, and gradient clipping scales the grads with plain torch
 ops before the kernel, as JAX does outside the Pallas call. The leaves'
 updates run under the profiler annotation ``adam_update``, so a trace shows
 the optimizer's span on the device (its copies included) beside its kernels.
+
+On several data ranks the update runs on each rank's shards, element by
+element as on one device: a ZeRO-sharded leaf's weights, gradient and
+states are this rank's shard (a host chunk's states, and under
+``host_params`` its weights, pinned shards through the same pipeline).
+Under ``zero1_persistent`` a persistent leaf's states are shards while its
+weights are replicated: ``train/sync.XlaSync.update_views`` hands the
+update this rank's slice of the weights and of the gradient, and
+all-gathers the new bf16 slices into the weights after it.
 """
 from __future__ import annotations
 
@@ -72,15 +81,17 @@ def init_opt_state(params) -> dict:
             "count": 0}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32, on the leaves' device.
-    A leaf widened to fp32 is squared in place: one fp32 copy of it at a
-    time, not two."""
-    def sum_sq(g):
-        if g.dtype == torch.float32:
-            return torch.sum(torch.square(g))
-        return torch.sum(g.float().square_())
+def sum_sq(g: torch.Tensor) -> torch.Tensor:
+    """The fp32 sum of squares of one leaf. A leaf widened to fp32 is
+    squared in place: one fp32 copy of it at a time, not two."""
+    if g.dtype == torch.float32:
+        return torch.sum(torch.square(g))
+    return torch.sum(g.float().square_())
 
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32, on the leaves'
+    device, the leaves' sums added in ``tree_leaves`` order."""
     return torch.sqrt(sum(sum_sq(g) for g in tree_leaves(tree)))
 
 

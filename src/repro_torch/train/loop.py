@@ -11,8 +11,12 @@ loss) and the cross-entropy apart. With ``telemetry=`` it records the ``train.*`
 metrics (step-time histogram, loss gauge, step / NaN-skip / straggler
 counters, the device-memory high-water mark on CUDA) and a ``train.step``
 span per step; with ``drift=`` each step's wall time and watermark go to
-the online measured-vs-modeled ``obs.DriftMonitor``. The structured logger
-is queued in ROADMAP.md (telemetry).
+the online measured-vs-modeled ``obs.DriftMonitor``. ``log`` is a callable
+or an ``obs.StructuredLogger`` (``obs.as_logger``, ``loop.py:59-70``): the
+human lines are unchanged, and each is also a record (``resume``,
+``step``, ``nan_skip``, ``straggler``, ``preempt``) with its fields; a
+``sync_config`` record (no line) names the gradient sync, its strategy and
+the world.
 """
 from __future__ import annotations
 
@@ -56,12 +60,13 @@ class LoopResult:
 def train_loop(step_artifacts, pipeline: SyntheticTokenPipeline,
                ckpt: CheckpointManager | None, loop_cfg: LoopConfig, *,
                generator: torch.Generator | None = None,
-               log: Callable[[str], None] = print,
+               log: Callable[[str], None] | obs.StructuredLogger = print,
                telemetry: obs.Telemetry | None = None,
                drift: obs.DriftMonitor | None = None) -> LoopResult:
     """Run ``loop_cfg.total_steps`` steps of ``step_artifacts.fn``, from the
     latest checkpoint of ``ckpt`` if it has one, else from
     ``step_artifacts.init(generator)``."""
+    logger = obs.as_logger(log, name="loop")
     tel = telemetry if telemetry is not None else obs.NULL_TELEMETRY
     reg, tracer = tel.registry, tel.tracer
     step_time_h = reg.histogram("train.step_time_s")
@@ -70,6 +75,10 @@ def train_loop(step_artifacts, pipeline: SyntheticTokenPipeline,
     steps_c = reg.counter("train.steps")
     nan_c = reg.counter("train.nan_skips")
     straggler_c = reg.counter("train.straggler_events")
+
+    plan, strategy = step_artifacts.plan, step_artifacts.strategy
+    logger.info("sync_config", sync_mode=plan.sync_mode, grad_compress=plan.grad_compress,
+                strategy=strategy.kind, world=strategy.mesh.world)
 
     # --- init, then resume over it -------------------------------------------
     state = step_artifacts.init(generator)
@@ -81,7 +90,8 @@ def train_loop(step_artifacts, pipeline: SyntheticTokenPipeline,
             start_step, state, extra = got
             pipeline.step = int(extra.get("data_step", start_step))
             resumed_from = start_step
-            log(f"[loop] resumed from checkpoint step {start_step}")
+            logger.info("resume", f"[loop] resumed from checkpoint step {start_step}",
+                        step=start_step)
 
     preempted = {"flag": False}
 
@@ -118,7 +128,9 @@ def train_loop(step_artifacts, pipeline: SyntheticTokenPipeline,
             if not math.isfinite(loss):
                 nan_skips += 1
                 nan_c.inc()
-                log(f"[loop] step {step}: non-finite loss ({loss}); skipping batch")
+                logger.warning("nan_skip",
+                               f"[loop] step {step}: non-finite loss ({loss}); skipping batch",
+                               step=step, loss=loss)
                 if nan_skips > loop_cfg.max_nan_skips:
                     raise FloatingPointError("too many non-finite losses")
                 step += 1  # the update ran in place: keep going with it
@@ -134,16 +146,24 @@ def train_loop(step_artifacts, pipeline: SyntheticTokenPipeline,
                 if dt > loop_cfg.deadline_factor * med:
                     straggler_events += 1
                     straggler_c.inc()
-                    log(f"[loop] step {step}: straggler ({dt:.3f}s vs median {med:.3f}s)")
+                    logger.warning(
+                        "straggler", f"[loop] step {step}: straggler ({dt:.3f}s vs median "
+                        f"{med:.3f}s)", step=step, dt_s=dt, median_s=med)
             if loop_cfg.log_every and step % loop_cfg.log_every == 0:
-                log(f"[loop] step {step} loss={loss:.4f} ce={ce:.4f} ({dt * 1e3:.0f} ms)")
+                fields = {"step": step, "loss": loss, "ce": ce, "dt_s": dt}
+                if "ef_norm" in metrics:
+                    fields["ef_norm"] = float(metrics["ef_norm"])
+                logger.info("step", f"[loop] step {step} loss={loss:.4f} ce={ce:.4f} "
+                            f"({dt * 1e3:.0f} ms)", **fields)
             step += 1
 
             if ckpt is not None and step % loop_cfg.checkpoint_every == 0:
                 with tracer.span("train.checkpoint", step=step):
                     ckpt.save(step, state, extra={"data_step": pipeline.step})
             if preempted["flag"]:
-                log("[loop] preemption signal received: final checkpoint + exit")
+                logger.warning("preempt",
+                               "[loop] preemption signal received: final checkpoint + exit",
+                               step=step)
                 if ckpt is not None:
                     ckpt.save(step, state, extra={"data_step": pipeline.step}, sync=True)
                 break

@@ -53,7 +53,20 @@ its point of use (``make_lazy_loss_fn``: the embedding, final norm and
 head at the start, each run's repeats through ``dist.collectives.
 LazyGather``), whose backward reduce-scatters. The losses are averaged
 over the ranks and the clip's norm sums the shards' squares with one
-all-reduce. The xla path on several ranks raises (ROADMAP.md).
+all-reduce. The xla path on several ranks (``XlaSync`` sharded) lays the
+state out by the reference's table (``dist/sharding.py``): persistent
+chunks replicated (their optimizer states this rank's shards under
+``zero1_persistent``, the new bf16 slices all-gathered after the update),
+``hbm`` and ``host`` chunks as this rank's shards -- a host chunk's
+optimizer states pinned shards, and under ``host_params`` its weights too.
+Each rank takes its rows of the global batch; every non-persistent chunk
+is gathered at its point of use through the ``LazyGather`` of ZeRO-3
+(``compress="none"``), a host shard copied to the device by ``HostIO``
+first, a repeat ahead; buffered chunks keep the gathered weights FWD->BWD,
+unbuffered ones gather again in the backward; swapped sites go to this
+rank's pinned memory. The gather's backward reduce-scatters; the
+replicated leaves' gradients are averaged once the microbatches are
+accumulated; then the wire numerics (``XlaSync.finalize_grads``).
 
 Serving: ``fn(state, batch)`` runs the step under ``torch.inference_mode``
 and returns ``(state, next_tok)``, the greedy argmax taken on the device.
@@ -100,6 +113,7 @@ class StepArtifacts:
     grad_fn: Callable[[dict, dict], tuple] | None = None  # training: the step's gradients
     strategy: Any = None  # training: the gradient sync (train/sync.py)
     leaf_syncs: list | None = None  # training: each param leaf's LeafSync, tree_leaves order
+    opt_dims: list | None = None  # training: the dim each leaf's master, m, v shard over
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +186,7 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
     check_train_plan(cfg, plan, shape, mesh.world)
     strategy = strategy if strategy is not None else SYNC.make_strategy(plan, mesh)
     manual = strategy.manual_active
+    sharded = not manual and strategy.sharded  # the xla path's sharded layouts
     runs_layout = plan_runs(plan, M.num_repeats(cfg))
     defs = M.param_defs(cfg)
     p_defs: dict[str, Any] = {
@@ -208,14 +223,21 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
     chunk_of = {"embed": plan.chunk_placement(0), "encoder": plan.chunk_placement(0),
                 "final_norm": plan.chunk_placement(plan.n_chunks - 1),
                 "head": plan.chunk_placement(plan.n_chunks - 1)}
-    placements, leaf_chunks = [], []
+    placements, leaf_chunks, leaf_host = [], [], []
     for key in sorted(p_defs):
         subs = enumerate(p_defs["runs"]) if key == "runs" else [(None, p_defs[key])]
         for i, sub in subs:
             n = len(SH.def_leaves(sub))
             placements += [chunk_of[key] if i is None else runs_layout[i].placement] * n
             leaf_chunks += [(key, False) if i is None else (f"runs[{i}]", True)] * n
+            leaf_host += [weights_on_host[key] if i is None else weights_on_host["runs"][i]] * n
     leafs = SYNC.leaf_sync_tree(p_defs, placements, mesh.world)
+    # the xla path's zero1_persistent: a persistent leaf whose fp32 states
+    # are shards while its weights stay replicated (the dim they shard over)
+    zero1_dims = [od if sharded and ls.dim is None else None for ls, od in zip(
+        leafs, (SH.opt_dim(d, mesh.world, pl, plan.zero1_persistent)
+                for d, pl in zip(SH.def_leaves(p_defs), placements)))]
+    zero1 = any(d is not None for d in zero1_dims)
     SYNC.record_sync_inventory(strategy, p_defs, leafs, plan.microbatch, tel.registry)
 
     def host_subtrees(tree, flags):
@@ -236,13 +258,36 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         return map_host(params, weights_on_host,
                         lambda sub: OPT.tree_map(lambda t: proxy_like(t, device), sub))
 
+    def shard_leaves(tree, dims: list) -> dict:
+        """This rank's slices of a tree's leaves along ``dims`` (None: the
+        leaf itself)."""
+        it = iter(dims)
+        return OPT.tree_map(lambda t: SH.shard(t, next(it), mesh.rank, mesh.world), tree)
+
+    def make_gather(params, errs: list, compress: str) -> COLL.LazyGather:
+        """The step's ``LazyGather``: every sharded leaf and every leaf in
+        host memory registered, a run's repeat by repeat (dim - 1)."""
+        gather = COLL.LazyGather(mesh.group, compress, tel.registry, io=io)
+        with torch.no_grad():
+            for p, e, ls, (label, stacked), host in zip(OPT.tree_leaves(params), errs, leafs,
+                                                        leaf_chunks, leaf_host):
+                if ls.dim is None and not host:
+                    continue
+                if not stacked:
+                    gather.register(p, ls.dim, e, label, host)
+                    continue
+                for r in range(p.shape[0]):
+                    gather.register(p[r], None if ls.dim is None else ls.dim - 1,
+                                    None if e is None else e[r], label, host)
+        return gather
+
     def make_runs(params, proxies, gather=None) -> list[M.Run]:
         runs = []
         for i, r in enumerate(runs_layout):
             kw = dict(params=params["runs"][i], n_repeats=r.length, act_policy=r.act_policy,
                       ckpt_group=plan.ckpt_group, buffered=r.buffered)
-            if gather is not None and r.placement != "persist":  # ZeRO-3: gathered per repeat
-                runs.append(M.Run(**kw, proxies=params["runs"][i], io=gather,
+            if gather is not None and r.placement != "persist":  # gathered per repeat
+                runs.append(M.Run(**kw, proxies=proxies["runs"][i], io=gather,
                                   prefetch=(plan.gather_prefetch_depth >= 2 and r.buffered
                                             and r.act_policy == "none")))
             else:
@@ -251,16 +296,19 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         return runs
 
     def loss_fn(params, proxies, batch, gather=None):
-        """(loss, ce) of one microbatch. ``gather``: a ZeRO-3 step's
-        ``LazyGather``; the embedding, final norm and head are gathered at
-        the start, each run's repeats as the layers reach them
+        """(loss, ce) of one microbatch. ``gather``: the step's
+        ``LazyGather`` (ZeRO-3, or the xla path on several ranks); the
+        embedding, final norm and head are gathered at the start (a tied
+        embedding once, so both of its gradients reach the one
+        reduce-scatter), each run's repeats as the layers reach them
         (``make_lazy_loss_fn``, ``step_builder.py:382-455``)."""
         fparams = dict(params)
         if gather is not None:
             for key in NON_RUN_KEYS:
                 if key in params:
-                    fparams[key] = gather.fetch(params[key], params[key])
-        host_keys = [k for k in NON_RUN_KEYS if k in params and weights_on_host[k]]
+                    fparams[key] = gather.fetch(proxies[key], params[key])
+        host_keys = [k for k in NON_RUN_KEYS
+                     if gather is None and k in params and weights_on_host[k]]
         for key in host_keys:  # in flight from the start: the head's during the layers
             io.prefetch(params[key])
         for key in FRONT_KEYS:
@@ -280,22 +328,31 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         """The step's gradients and losses: (grads tree, (2,) fp32 [loss,
         ce]), accumulated over the plan's microbatches; the loss is the
         cross-entropy plus the MoE aux loss. Every gradient lies on the
-        device."""
+        device. Sharded: over this rank's rows of ``batch``, a sharded
+        leaf's gradient reduce-scattered (this rank's shard), a replicated
+        leaf's local (``finalize_grads`` averages it), the losses averaged
+        over the ranks."""
         params = state["params"]
         proxies = make_proxies(params)
         flat = OPT.tree_leaves(proxies)
+        gather = None
+        if sharded:
+            batch = {k: SH.manual_batch_split(v, mesh.rank, mesh.world)
+                     for k, v in batch.items()}
+            gather = make_gather(params, [None] * len(leafs), "none")
 
         def micro_grad(mb_batch):
             io.reset()
             before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
-            loss, ce = loss_fn(params, proxies, mb_batch)
+            loss, ce = loss_fn(params, proxies, mb_batch, gather)
             if device.type == "cuda":
                 act_bytes.set(torch.cuda.memory_allocated(device) - before)
             io.begin_backward()  # its host reads run one unit ahead
             grads = iter(torch.autograd.grad(loss, flat))
             return OPT.tree_map(lambda _: next(grads), params), torch.stack([loss, ce]).detach()
 
-        return accumulate_grads(micro_grad, batch, plan.microbatch)
+        grads, losses = accumulate_grads(micro_grad, batch, plan.microbatch)
+        return grads, COLL.manual_mean(losses, mesh.group) if sharded else losses
 
     def manual_grad_fn(state: dict, batch: dict):
         """The manual sync's gradients (this rank's shards of the sharded
@@ -305,23 +362,12 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         local = {k: SH.manual_batch_split(v, mesh.rank, mesh.world) for k, v in batch.items()}
         lazy_loss = None
         if strategy.kind == "zero3":
-            gather = COLL.LazyGather(mesh.group, plan.grad_compress, tel.registry)
-            errs = strategy.local_ef(ef, leafs)
-            with torch.no_grad():  # a run's shards gather per repeat: dim - 1
-                for p, e, ls, (label, stacked) in zip(OPT.tree_leaves(params), errs, leafs,
-                                                      leaf_chunks):
-                    if ls.dim is None:
-                        continue
-                    if not stacked:
-                        gather.register(p, ls.dim, e, label)
-                        continue
-                    for r in range(p.shape[0]):
-                        gather.register(p[r], ls.dim - 1, None if e is None else e[r], label)
+            gather = make_gather(params, strategy.local_ef(ef, leafs), plan.grad_compress)
             lazy_loss = lambda p, mb: loss_fn(p, p, mb, gather)  # noqa: E731
         micro = strategy.micro_grad(params, ef, leafs, loss=lambda p, mb: loss_fn(p, p, mb),
                                     lazy_loss=lazy_loss)
         grads, losses = accumulate_grads(micro, local, plan.microbatch, overlap=plan.overlap)
-        return grads, strategy.mean(losses)
+        return grads, COLL.manual_mean(losses, mesh.group)
 
     def step_fn(state: dict, batch: dict):
         params = state["params"]
@@ -329,12 +375,17 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         if manual:
             metrics = ({"ef_norm": strategy.ef_norm(state["ef"], leafs)}
                        if plan.grad_compress == "int8_ef" else {})
-            norm = strategy.grad_norm(grads, leafs)
+            norm = SYNC.grad_norm(grads, leafs, mesh)
         else:
-            grads, metrics = strategy.finalize_grads(grads, state.get("ef"))
-            norm = None
+            grads, metrics = strategy.finalize_grads(grads, state.get("ef"), leafs)
+            norm = SYNC.grad_norm(grads, leafs, mesh) if sharded else None
         lr = lr_schedule(state["step"]) if lr_schedule else adam.lr
-        gnorm = OPT.adam_update(params, grads, state["opt"], adam, lr, grad_norm=norm)
+        if zero1:
+            p_up, g_up, regather = strategy.update_views(params, grads, zero1_dims)
+            gnorm = OPT.adam_update(p_up, g_up, state["opt"], adam, lr, grad_norm=norm)
+            regather()
+        else:
+            gnorm = OPT.adam_update(params, grads, state["opt"], adam, lr, grad_norm=norm)
         state["step"] += 1
         loss, ce = losses.unbind()
         return state, {"loss": loss, "ce": ce, "grad_norm": gnorm, "lr": lr, **metrics}
@@ -343,12 +394,14 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         """``{"params", "opt", "step"}`` (and ``"ef"`` under int8_ef) around
         the full ``params`` (tensors on the device, in the tree above): a
         host chunk's weights move to pinned memory under host_params, a
-        manual sync keeps this rank's shards, fresh optimizer states (and
-        zero residuals) are placed by plan."""
-        if manual:
-            params = strategy.shard_params(params, leafs)
+        manual or sharded sync keeps this rank's shards, fresh optimizer
+        states (and zero residuals) are placed by plan: this rank's shards
+        of its leaves, a zero1 leaf's sliced from its replicated weights."""
+        if manual or sharded:
+            params = shard_leaves(params, [ls.dim for ls in leafs])
         if pin:
             params = map_host(params, weights_on_host, to_pinned)
+        opt_src = shard_leaves(params, zero1_dims) if zero1 else params
 
         def states(sub, host: bool) -> dict:
             """fp32 master, m and v of a subtree: a host chunk's made in
@@ -360,8 +413,8 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
                         "v": pinned_zeros(sub)}
             return OPT.init_opt_state(sub)
 
-        parts = {k: states(v, pin and on_host[k]) for k, v in params.items() if k != "runs"}
-        runs = [states(sub, pin and f) for sub, f in zip(params["runs"], on_host["runs"])]
+        parts = {k: states(v, pin and on_host[k]) for k, v in opt_src.items() if k != "runs"}
+        runs = [states(sub, pin and f) for sub, f in zip(opt_src["runs"], on_host["runs"])]
         opt = {key: {**{k: st[key] for k, st in parts.items()}, "runs": [r[key] for r in runs]}
                for key in ("master", "m", "v")}
         opt["count"] = 0
@@ -391,7 +444,8 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
     return StepArtifacts(fn=step_fn, plan=plan, runs=runs_layout, init=init,
                          place_state=place_state,
                          grad_fn=manual_grad_fn if manual else grad_fn, strategy=strategy,
-                         leaf_syncs=leafs)
+                         leaf_syncs=leafs,
+                         opt_dims=[ls.dim if z is None else z for ls, z in zip(leafs, zero1_dims)])
 
 
 def to_pinned(tree):

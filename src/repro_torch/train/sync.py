@@ -3,12 +3,19 @@
 Port of ``src/repro/train/sync.py``. A strategy object owns one
 ``(sync_mode, layout kind)`` pipeline:
 
-  * ``XlaSync``: ``sync_mode="xla"`` on one rank (and the one-rank fallback
-    of a manually eligible plan, ``make_strategy``): the reduction is the
-    local math, and ``finalize_grads`` applies the wire numerics (int8 + EF
-    or bf16) to the accumulated gradients. Several ranks under the xla path
-    (GSPMD's implied ZeRO layouts with host chunks, swap and the model
-    axis) are queued in ROADMAP.md.
+  * ``XlaSync``: ``sync_mode="xla"`` (and the one-rank fallback of a
+    manually eligible plan, ``make_strategy``): GSPMD's reduction, then
+    ``finalize_grads`` applies the wire numerics (int8 + EF or bf16) to the
+    reduced, accumulated gradients. On one rank the reduction is the local
+    math. On several (``sharded``) it is the layout of the reference's
+    table (``dist/sharding.py``): every plan the xla path lowers without a
+    model axis -- ZeRO-sharded ``hbm`` chunks, host chunks with or without
+    ``host_params``, swap blocks, ``zero1_persistent``, microbatches. A
+    sharded leaf is gathered at its point of use (``LazyGather``,
+    ``compress="none"``), so its gradient leaves the backward
+    reduce-scattered; a replicated leaf's is averaged over the ranks once
+    the microbatches are accumulated; the int8 scale is the whole leaf's
+    (``collectives.xla_int8_ef``). The model axis is queued in ROADMAP.md.
   * ``ManualSync``: ``sync_mode="manual"`` over the data-parallel ranks of a
     ``launch.mesh.LocalMesh``; ``dist/collectives.py`` owns the wire. Per
     leaf (``leaf_sync_tree``): a *replicated* leaf (every leaf of a "ddp"
@@ -39,7 +46,7 @@ import torch.distributed as dist
 
 from repro_torch.dist import collectives as COLL
 from repro_torch.dist import sharding as SH
-from repro_torch.optim.adam import global_norm, tree_leaves, tree_map
+from repro_torch.optim.adam import global_norm, sum_sq, tree_leaves, tree_map
 
 
 class Deferred:
@@ -147,38 +154,93 @@ def _local_sq(tensors: list) -> torch.Tensor:
     return sum((torch.sum(torch.square(t.float())) for t in tensors), torch.zeros(()))
 
 
+def grad_norm(grads, leafs: list[LeafSync], mesh) -> torch.Tensor:
+    """The global norm of a tree of this rank's parts over ``mesh``'s
+    ranks: each leaf's sum of squares, a replicated leaf's (equal on every
+    rank) counted on rank 0 only, summed over the ranks in one all-reduce,
+    then added in ``tree_leaves`` order as ``optim.adam.global_norm`` adds
+    them: at world one, bitwise its norm."""
+    sq = torch.stack([sum_sq(g) for g in tree_leaves(grads)])
+    if dist.is_initialized():
+        if mesh.rank:
+            keep = [float(ls.dim is not None) for ls in leafs]
+            sq = sq * torch.tensor(keep, dtype=sq.dtype, device=sq.device)
+        dist.all_reduce(sq, group=mesh.group)
+    return torch.sqrt(sum(sq.unbind()))
+
+
 # ---------------------------------------------------------------------------
 # Strategies (sync.py:206-477)
 # ---------------------------------------------------------------------------
 class XlaSync:
-    """One rank: the reduction is the local math, and compression is the
-    wire numerics applied to the accumulated gradients."""
+    """GSPMD's reduction, then the wire numerics on the reduced gradients.
+    ``sharded`` (default: a world above one) runs the reference's sharded
+    layouts over ``mesh``'s ranks; built with ``sharded=True`` at world one
+    (over a one-rank process group, or none) every collective is a copy,
+    and the step is bitwise the single-device one."""
 
     manual_active = False
     kind = "xla"
 
-    def __init__(self, plan, mesh):
+    def __init__(self, plan, mesh, sharded: bool | None = None):
         self.plan, self.mesh = plan, mesh
         self.compress = plan.grad_compress
+        self.sharded = mesh.world > 1 if sharded is None else sharded
+        self.group = mesh.group
 
     def ef_state(self, params, device):
-        """The residuals (fp32, param-shaped, on the gradients' ``device``),
-        or None without int8_ef."""
+        """The residuals (fp32, on the gradients' ``device``), shaped like
+        this rank's params: a sharded leaf's residual is its shard's, as
+        the reference shards it like the gradients. None without int8_ef."""
         if self.compress != "int8_ef":
             return None
         return COLL.init_error_feedback(params, device)
 
-    def finalize_grads(self, grads, ef):
-        """Post-accumulation wire numerics, the residuals updated in place.
-        Returns (grads, metrics)."""
+    def finalize_grads(self, grads, ef, leafs: list[LeafSync]):
+        """The reduction's last part (sharded: the replicated leaves' mean
+        over the ranks), then the wire numerics a leaf at a time, the
+        residuals updated in place. Returns (grads, metrics)."""
+        group = self.group if self.sharded else None
+        flat = tree_leaves(grads)
+        if self.sharded:
+            flat = [g if ls.dim is not None else COLL.manual_mean(g, group)
+                    for g, ls in zip(flat, leafs)]
         metrics = {}
         if self.compress == "int8_ef":
-            grads, new_ef = COLL.compressed_tree_all_reduce(grads, ef)
-            tree_map(lambda e, n: e.copy_(n), ef, new_ef)
-            metrics["ef_norm"] = global_norm(ef)
+            out = []
+            for g, e, ls in zip(flat, tree_leaves(ef), leafs):
+                s, new = COLL.xla_int8_ef(g, e, group if ls.dim is not None else None)
+                e.copy_(new)
+                out.append(s)
+            flat = out
+            metrics["ef_norm"] = (grad_norm(ef, leafs, self.mesh) if self.sharded
+                                  else global_norm(ef))
         elif self.compress == "bf16":
-            grads = COLL.bf16_tree_all_reduce(grads)
-        return grads, metrics
+            flat = [COLL.bf16_all_reduce(g) for g in flat]
+        return tree_map_flat(grads, flat), metrics
+
+    def update_views(self, params, grads, zero1_dims: list):
+        """What ``adam_update`` takes under ``zero1_persistent``: flat lists
+        of weights and gradients in which a leaf with a ``zero1_dims`` entry
+        (a persistent leaf whose states are shards) is this rank's slice,
+        and a ``regather()`` that all-gathers the updated bf16 slices into
+        the replicated weights. At world one a slice is the leaf itself."""
+        rank, world = self.mesh.rank, self.mesh.world
+        flat_p, flat_g = tree_leaves(params), tree_leaves(grads)
+        if world == 1:
+            return flat_p, flat_g, lambda: None
+        views = [p if d is None else SH.shard(p.detach(), d, rank, world)
+                 for p, d in zip(flat_p, zero1_dims)]
+        g_views = [g if d is None else SH.shard(g, d, rank, world)
+                   for g, d in zip(flat_g, zero1_dims)]
+
+        @torch.no_grad()
+        def regather():
+            for p, v, d in zip(flat_p, views, zero1_dims):
+                if d is not None:
+                    p.copy_(COLL.tiled_all_gather(v, self.group, d))
+
+        return views, g_views, regather
 
 
 class ManualSync:
@@ -196,12 +258,6 @@ class ManualSync:
         self.group = mesh.group
 
     # -- state layout ---------------------------------------------------------
-    def shard_params(self, params, leafs: list[LeafSync]):
-        """This rank's shards of a full parameter tree."""
-        it = iter(leafs)
-        return tree_map(lambda t: SH.shard(t, next(it).dim, self.mesh.rank, self.n_sync),
-                        params)
-
     def ef_state(self, params, leafs: list[LeafSync]):
         """The residuals of this rank's (sharded) params: shard-sized for a
         sharded leaf, ``(1, *shape)`` for a replicated one; None without
@@ -231,23 +287,6 @@ class ManualSync:
                 for p, ls in zip(tree_leaves(params), leafs)]
 
     # -- the step --------------------------------------------------------------
-    def grad_norm(self, grads, leafs: list[LeafSync]) -> torch.Tensor:
-        """Global gradient norm: sharded leaves' squared sums add across
-        ranks (one all-reduce); replicated leaves, equal on every rank, count
-        once."""
-        flat = tree_leaves(grads)
-        sq = _local_sq([g for g, ls in zip(flat, leafs) if ls.dim is not None])
-        rep = _local_sq([g for g, ls in zip(flat, leafs) if ls.dim is None])
-        dev = flat[0].device
-        sq, rep = sq.to(dev), rep.to(dev)
-        if any(ls.dim is not None for ls in leafs) and dist.is_initialized():
-            dist.all_reduce(sq, group=self.group)
-        return torch.sqrt(sq + rep)
-
-    def mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean over the ranks of a per-rank value (losses)."""
-        return COLL.manual_mean(x, self.group)
-
     def ef_norm(self, ef, leafs: list[LeafSync]) -> torch.Tensor:
         """The global residual norm: per-rank values differ, so the squared
         sums are reduced."""
@@ -303,8 +342,8 @@ def make_strategy(plan, mesh, tp_degree: int = 1) -> XlaSync | ManualSync:
     """The sync strategy of a plan on a mesh. Raises the reference's
     ``ValueError`` for a manual plan no kind lowers, at every world size;
     a manual plan on one rank falls back to ``XlaSync`` (the local math is
-    the collective); the xla path on several ranks raises
-    ``NotImplementedError``."""
+    the collective); the xla path runs ``XlaSync``, sharded on several
+    ranks. A model axis (``tp_degree > 1``) raises ``NotImplementedError``."""
     if plan.sync_mode == "manual":
         kind = plan.manual_sync_kind(tp_degree)
         if kind is None:
@@ -317,11 +356,10 @@ def make_strategy(plan, mesh, tp_degree: int = 1) -> XlaSync | ManualSync:
         if mesh.world == 1:
             return XlaSync(plan, mesh)
         return ManualSync(plan, mesh, kind)
-    if mesh.world > 1:
+    if tp_degree > 1:
         raise NotImplementedError(
-            f"sync_mode='xla' on {mesh.world} ranks: GSPMD's implied ZeRO layouts with host "
-            "chunks, swap and the model axis are not ported (ROADMAP.md, port queue 1: the "
-            "xla path on several ranks); use sync_mode='manual'")
+            f"tp_degree={tp_degree}: tensor parallelism (the model axis, dp_only, sequence "
+            "sharding) is not ported (ROADMAP.md, port queue 1)")
     return XlaSync(plan, mesh)
 
 

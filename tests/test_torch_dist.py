@@ -225,8 +225,8 @@ LATTICE = [  # (n_persist, n_host, n_swap, zero1, zero_stage) -> kind at tp 1
 def test_make_strategy_kinds_and_guards(cell, kind):
     """A manual plan no kind lowers raises the reference's ValueError at
     every world size; one that lowers is ``ManualSync`` of its kind on 4
-    ranks and ``XlaSync`` on one; the xla path on 4 ranks raises, naming
-    ROADMAP.md."""
+    ranks and ``XlaSync`` on one; the xla path on 4 ranks is the sharded
+    ``XlaSync``, and with a model axis it raises, naming ROADMAP.md."""
     n_persist, n_host, n_swap, zero1, stage = cell
     plan = MemoryPlan(4, 2, n_persist=n_persist, n_host=n_host, n_swap=n_swap,
                       zero1_persistent=zero1, zero_stage=stage, sync_mode="manual",
@@ -242,8 +242,11 @@ def test_make_strategy_kinds_and_guards(cell, kind):
             continue
         s = SYNC.make_strategy(plan, mesh)
         assert s.kind == (kind if world == 4 else "xla")
+    xla = SYNC.make_strategy(MemoryPlan(4, 2, n_persist=n_persist), LocalMesh(0, 4, None, CPU))
+    assert xla.kind == "xla" and xla.sharded
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SYNC.make_strategy(MemoryPlan(4, 2, n_persist=n_persist), LocalMesh(0, 4, None, CPU))
+        SYNC.make_strategy(MemoryPlan(4, 2, n_persist=n_persist), LocalMesh(0, 4, None, CPU),
+                           tp_degree=2)
 
 
 JCFG = jreduced(jget_config("llama3-405b"), dtype="float32")

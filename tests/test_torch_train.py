@@ -303,7 +303,9 @@ def test_default_device_without_cuda_raises():
 
 
 OUT_OF_SCOPE = {  # (plan, ranks, the error and what it names)
-    "xla_sync_on_ranks": (dict(n_persist=4), 4, NotImplementedError, "ROADMAP"),
+    # the xla path runs on several ranks; a global batch of 4 rows does not
+    # split over 4 ranks and 2 microbatches
+    "xla_sync_on_ranks": (dict(n_persist=0, microbatch=2), 4, ValueError, "does not split"),
     "manual_sync_with_swap": (dict(n_persist=4, n_swap=1, sync_mode="manual",
                                    grad_compress="int8_ef"), 1, ValueError, "manual"),
 }
@@ -311,10 +313,10 @@ OUT_OF_SCOPE = {  # (plan, ranks, the error and what it names)
 
 @pytest.mark.parametrize("name", sorted(OUT_OF_SCOPE))
 def test_out_of_scope_plans_raise(name):
-    """Manual sync and gradient compression run now (``tests/test_torch_dist*.py``);
-    what still raises: the xla path on several ranks (GSPMD's implied
-    layouts, queued in ROADMAP.md) and a manual plan no kind lowers (swap
-    blocks: the reference's ``ValueError``)."""
+    """Manual sync, gradient compression and the xla path on several ranks
+    run now (``tests/test_torch_dist*.py``); what still raises: a batch
+    that does not split over the ranks and the microbatches, and a manual
+    plan no kind lowers (swap blocks: the reference's ``ValueError``)."""
     from repro_torch.launch.mesh import LocalMesh
 
     plan_kw, world, err, match = OUT_OF_SCOPE[name]

@@ -24,11 +24,23 @@ TIMEOUT = datetime.timedelta(seconds=120)
 def spawn_ranks(scenarios: str, directory: str, *extra) -> list[dict]:
     """Run ``scenarios`` (a function of this module) on ``WORLD`` ranks;
     returns each rank's results."""
+    return start_ranks(scenarios, directory, *extra)()
+
+
+def start_ranks(scenarios: str, directory: str, *extra):
+    """Start ``scenarios`` on ``WORLD`` ranks and return at once: the
+    returned function waits for them and returns each rank's results."""
     store = os.path.join(directory, "store")
-    mp.start_processes(_rank_main, args=(scenarios, store, directory, *extra), nprocs=WORLD,
-                       join=True, start_method="spawn")
-    return [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False)
-            for r in range(WORLD)]
+    ctx = mp.start_processes(_rank_main, args=(scenarios, store, directory, *extra),
+                             nprocs=WORLD, join=False, start_method="spawn")
+
+    def results() -> list[dict]:
+        while not ctx.join():
+            pass
+        return [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False)
+                for r in range(WORLD)]
+
+    return results
 
 
 def _rank_main(rank: int, scenarios: str, store: str, directory: str, *extra) -> None:
@@ -243,6 +255,7 @@ def checkpoint_resume(rank: int, directory: str) -> dict:
 
     straight = loop(4, None)
     first = loop(2, CheckpointManager(ck, keep=2, rank=rank, world=WORLD))
+    dist.barrier()  # every rank's step-2 file is written before any rank looks
     mgr = CheckpointManager(ck, keep=2, rank=rank, world=WORLD)
     saved = mgr.steps()
     fresh = build_train_step(cfg, plan, "cpu", shape, mesh=make_local_mesh("cpu"),
@@ -269,3 +282,151 @@ def tensors(state) -> list:
 
     return tree_leaves([state["params"], state["ef"],
                         [state["opt"][k] for k in ("master", "m", "v")]])
+
+
+# ---------------------------------------------------------------------------
+# The xla path on several ranks (tests/test_torch_dist_xla.py)
+# ---------------------------------------------------------------------------
+XLA_STEPS = 3
+XLA_PLANS = {  # name: (MemoryPlan keywords, wire formats)
+    # (a) every chunk ZeRO-sharded in device memory, the last one buffered
+    "zero": (dict(n_persist=0, n_buffer=1), ("none", "int8_ef")),
+    # (b) host chunks (weights and states pinned), one swap and one
+    # checkpointed block; block 1 lives on the host and is gathered again
+    # inside its replay
+    "host": (dict(n_persist=1, n_host=2, n_buffer=1, n_swap=1, n_checkpoint=1),
+             ("none", "int8_ef")),
+    # (c) the ZeRO-Offload split: host chunks' weights on the device, two
+    # microbatches
+    "offload": (dict(n_persist=1, n_host=3, host_params=False, microbatch=2), ("none",)),
+    # (d) every chunk persistent, the optimizer states sharded
+    "zero1": (dict(n_persist=4, zero1_persistent=True), ("none", "bf16")),
+}
+XLA_CASES = tuple((name, c) for name, (_, cs) in XLA_PLANS.items() for c in cs)
+XLA_CKPT_CASE = ("host", "int8_ef")
+XLA_ABSMAX_SHAPE, XLA_ABSMAX_DIM = (8, 12), 1
+
+
+def xla_plan(name: str, compress: str):
+    from repro_torch.core.plan import MemoryPlan
+
+    return MemoryPlan(4, 2, grad_compress=compress, **XLA_PLANS[name][0])
+
+
+def xla_absmax_inputs(seed: int = SEED + 20):
+    """One leaf whose 4 shards along ``XLA_ABSMAX_DIM`` have absmaxes 1, 10,
+    0.1 and 1000 times apart, and its residual: (x, err) fp32."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(XLA_ABSMAX_SHAPE).astype(np.float32)
+    scale = np.repeat(np.array([1.0, 10.0, 0.1, 1000.0], np.float32),
+                      XLA_ABSMAX_SHAPE[XLA_ABSMAX_DIM] // WORLD)
+    x = x * scale[None, :]
+    err = (rng.standard_normal(XLA_ABSMAX_SHAPE) * 1e-2).astype(np.float32)
+    return x, err
+
+
+def xla_run(name: str, compress: str, params, steps: int = XLA_STEPS) -> dict:
+    """``steps`` steps of the plan at this rank from ``params`` (the JAX
+    init in the plan's run layout): losses, norms, the residual norms, the
+    replicated leaves' residuals after every step, the fp32 masters made
+    whole after the last, the local shapes."""
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim.adam import AdamConfig, tree_leaves, tree_map
+    from repro_torch.train.step_builder import build_train_step
+
+    cfg, shape = train_setup()
+    art = build_train_step(cfg, xla_plan(name, compress), "cpu", shape,
+                           mesh=make_local_mesh("cpu"), adam=AdamConfig(lr=LR))
+    state = art.place_state(tree_map(lambda t: t.clone(), params))
+    pipe = SyntheticTokenPipeline(cfg, shape, seed=0)
+    ls = art.leaf_syncs
+    losses, norms, ef_norms, rep_ef = [], [], [], []
+    for _ in range(steps):
+        state, m = art.fn(state, pipe.next_sync())
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if "ef" in state:
+            ef_norms.append(float(m["ef_norm"]))
+            rep_ef.append([e.numpy().copy() for e, x in zip(tree_leaves(state["ef"]), ls)
+                           if x.dim is None])
+    opt = [whole(t, d) for t, d in zip(tree_leaves(state["opt"]["master"]), art.opt_dims)]
+    return {"kind": art.strategy.kind, "sharded": art.strategy.sharded, "losses": losses,
+            "norms": norms, "ef_norms": ef_norms, "rep_ef": rep_ef, "dims": [x.dim for x in ls],
+            "opt_dims": list(art.opt_dims), "master": opt,
+            "params": [whole(t, x.dim) for t, x in zip(tree_leaves(state["params"]), ls)],
+            "param_shapes": [tuple(t.shape) for t in tree_leaves(state["params"])],
+            "master_shapes": [tuple(t.shape) for t in tree_leaves(state["opt"]["master"])],
+            "ef_shapes": [tuple(t.shape) for t in tree_leaves(state.get("ef", []))]}
+
+
+def whole(t, dim) -> np.ndarray:
+    """A rank's shard of a leaf made whole (the leaf itself if replicated)."""
+    from repro_torch.dist import sharding as SH
+
+    return SH.unshard(t.detach(), dim, WORLD).numpy().copy()
+
+
+def xla_steps(rank: int, directory: str, params_file: str) -> dict:
+    """Every plan and wire format of ``XLA_CASES``; the absmax unit case;
+    a checkpoint resumed; ``launch.train``'s ``auto`` plan at 4 ranks."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import sharding as SH
+
+    params = torch.load(params_file, weights_only=True)
+    out = {f"{n}_{c}": xla_run(n, c, params[n]) for n, c in XLA_CASES}
+    x, err = xla_absmax_inputs()
+    xs = SH.shard(torch.from_numpy(x), XLA_ABSMAX_DIM, rank, WORLD)
+    es = SH.shard(torch.from_numpy(err), XLA_ABSMAX_DIM, rank, WORLD)
+    q, scale = C._quantize_int8(xs + es, dist.group.WORLD)
+    local, new_err = C.xla_int8_ef(xs, es, dist.group.WORLD)
+    out["absmax"] = {"q": q.numpy(), "scale": scale.numpy(), "local": local.numpy(),
+                     "err": new_err.numpy()}
+    out["checkpoint"] = xla_checkpoint_resume(rank, directory)
+    out["auto"] = xla_launcher_auto()
+    return out
+
+
+def xla_checkpoint_resume(rank: int, directory: str) -> dict:
+    """4 steps straight against 2, a checkpoint, and 2 more from it, under
+    ``XLA_CKPT_CASE``: every rank's state bitwise."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.step_builder import build_train_step
+
+    cfg, shape = train_setup()
+    plan = xla_plan(*XLA_CKPT_CASE)
+    ck = os.path.join(directory, "xla_ckpt")
+
+    def loop(steps, mgr):
+        art = build_train_step(cfg, plan, "cpu", shape, mesh=make_local_mesh("cpu"),
+                               adam=AdamConfig(lr=LR))
+        return train_loop(art, SyntheticTokenPipeline(cfg, shape, seed=0), mgr,
+                          LoopConfig(total_steps=steps, checkpoint_every=2, log_every=0),
+                          generator=torch.Generator().manual_seed(0), log=lambda s: None)
+
+    straight = loop(4, None)
+    loop(2, CheckpointManager(ck, keep=2, rank=rank, world=WORLD))
+    dist.barrier()  # every rank's step-2 file is written before any rank looks
+    second = loop(4, CheckpointManager(ck, keep=2, rank=rank, world=WORLD))
+    same = all(torch.equal(x, y) for x, y in zip(tensors(second.state), tensors(straight.state)))
+    return {"resumed_from": second.resumed_from, "state_equal": same,
+            "losses": second.losses, "straight_losses": straight.losses[2:]}
+
+
+XLA_AUTO_ARGV = ["--arch", "llama3-405b", "--reduced", "--nproc", "4", "--steps", "2",
+                 "--batch", "16", "--seq", "32", "--device", "cpu", "--plan", "auto"]
+
+
+def xla_launcher_auto() -> dict | None:
+    """``launch.train``'s ``--plan auto`` at this rank of the process group
+    (its ``_train``, which ``--nproc 4`` runs in each spawned rank):
+    rank 0's summary."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_local_mesh
+
+    args = launch_train.parse_args(XLA_AUTO_ARGV)
+    return launch_train._train(args, torch.device("cpu"), make_local_mesh("cpu"))
