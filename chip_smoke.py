@@ -230,7 +230,22 @@ Phases, each printing one JSON line:
      time). Then the plan searched for mistral-7b at 32 layers, B 4, on 4
      data ranks, its modeled step and peak and what it would pin on one
      host, trained 3 steps where 4 cards are visible;
- 28. ``launchers``: ``launch.train`` (mistral-7b, 32 layers, the searched
+ 28. ``tp``: the model axis (``dist/tensor_parallel.py``). The flash
+     forward and backward at mistral-7b's shard shapes (model extent 2: 16
+     over 4 heads of 128; 4: 8 over 2; S 4096, window 4096) against their
+     plain versions, each beside SDPA and its bound (``"path": "tp"``);
+     then ``tp_ranks``: two processes on the one card, a gloo group of
+     data 1 x model 2 (NCCL refuses two ranks on one device; gloo takes
+     CUDA tensors in all-reduces, all-gathers and reduce-scatters: checked
+     on an H100 with torch 2.11), mistral-7b at full width and
+     ``TP_LAYERS`` (8) layers, B 1, S 4096, 3 steps of the resident plan
+     from the weights of seed 0, without and with ``seq_shard_acts``, each
+     loss and grad norm held to the single-device step from the same
+     weights (``TP_LOSS_TOL``, ``TP_NORM_RTOL``: a row-parallel product
+     rounds its partial sums to bf16 and again after the reduction). Its
+     step times are two ranks sharing one card's SMs with gloo reducing
+     through the host: not tensor-parallel speed, and printed as such;
+ 29. ``launchers``: ``launch.train`` (mistral-7b, 32 layers, the searched
      plan as searched; seamless-m4t-large-v2; each 2 steps of B 1 at S
      4096) and ``launch.serve`` (mistral-7b, paged, its default stream)
      through their ``main(argv)``, each JSON line checked (finite losses;
@@ -241,7 +256,8 @@ The kernels summary line gives each kernel's launches per path
 ``launches`` stays each kernel's count on the path it came with;
 ``encdec_cases``: the flash and paged rows at seamless-m4t-large-v2's heads;
 ``vlm_cases``: every kernel's rows at llava-next-34b's shapes;
-``dist_cases``: the quantizer's rows at the gradient sync's chunks.
+``dist_cases``: the quantizer's rows at the gradient sync's chunks;
+``tp_cases``: the flash rows at the model axis's shard shapes.
 
 The fused int8 quantize kernel (``fused_quantize_ef``) is held to its
 plain version bitwise (q, scales and the residual) in phase 5 at
@@ -3715,6 +3731,153 @@ def phase_dist_xla(hw) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The model axis (dist/tensor_parallel.py)
+# ---------------------------------------------------------------------------
+# mistral-7b's 32 query over 8 KV heads of 128, split over a model extent
+TP_FLASH_HEADS = ((2, (16, 4)), (4, (8, 2)))
+TP_LAYERS, TP_STEPS, TP_MODEL = 8, 3, 2
+# tp_ranks against the single-device step: bf16 through 8 layers, the
+# row-parallel products rounded twice (each rank's partial sum, then the
+# reduced sum); train_compare's bounds, which hold kernels against the plain
+# path through 2 layers
+TP_LOSS_TOL, TP_NORM_RTOL = 1e-2, 2e-2
+TP_SEQ_SHARD = (False, True)
+
+
+def phase_tp_kernels() -> list[dict]:
+    """The flash forward and backward at the model axis's shard shapes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for tp, heads in TP_FLASH_HEADS:
+        for r in flash_case(TRAIN_SEQ, gen, True, heads=heads):
+            r["model_extent"] = tp
+            emit("kernel_vs_plain", path="tp", **r)
+            rows.append(r)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tp_steps(mesh=None, seq_shard: bool = False) -> dict:
+    """``TP_STEPS`` steps of the resident plan at ``TP_LAYERS`` layers from
+    the weights of seed 0, on ``mesh`` (None: one device), ``seq_shard``
+    its ``seq_shard_acts``: losses, norms, step seconds, the kernels'
+    launches over the steps, the peak."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import fully_resident_plan
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train.step_builder import build_train_step
+
+    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=TP_LAYERS)
+    shape = ShapeConfig("tp", TRAIN_SEQ, 1, "train")
+    plan = dataclasses.replace(fully_resident_plan(TP_LAYERS + 2, TP_LAYERS),
+                               seq_shard_acts=seq_shard)
+    art = build_train_step(cfg, plan, "cuda", shape, mesh=mesh, adam=AdamConfig(lr=3e-4))
+    state = art.init(torch.Generator(device="cuda").manual_seed(0))
+    pipe = SyntheticTokenPipeline(cfg, shape, seed=0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, norms, secs = [], [], []
+    for _ in range(TP_STEPS):
+        batch = pipe.next_sync()
+        t0 = time.perf_counter()
+        state, m = art.fn(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    out = {"losses": losses, "grad_norms": norms, "step_seconds": secs,
+           "launches": dict(K.launch_counts()), "peak_bytes": torch.cuda.max_memory_allocated(),
+           "strategy": art.strategy.kind,
+           "model_split_leaves": sum(ls.mdim is not None for ls in art.leaf_syncs)}
+    del state, art
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of ``tp_ranks``: a process of its own on ``cuda:0``, in a
+    gloo group laid out data 1 x model ``world``, without and with
+    sequence sharding. Rank 0 writes its runs."""
+    sys.path.insert(0, str(HERE / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    torch.cuda.set_device(0)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_local_mesh("cuda:0", model=world)
+        run = {sp: tp_steps(mesh, sp) for sp in TP_SEQ_SHARD}
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(run, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp() -> tuple[dict[str, int], list[dict]]:
+    """The model axis on the card: the flash kernels at its shard shapes,
+    then ``TP_MODEL`` ranks on the one card against the single-device step
+    from the same weights. Returns rank 0's launches and the flash rows."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    rows = phase_tp_kernels()
+    t0 = time.perf_counter()
+    one = tp_steps()
+    d = tempfile.mkdtemp()
+    try:
+        mp.start_processes(_tp_rank, args=(TP_MODEL, f"{d}/store", f"{d}/out.json"),
+                           nprocs=TP_MODEL, join=True, start_method="spawn")
+        with open(f"{d}/out.json") as f:
+            runs = json.load(f)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    launches: dict[str, int] = {}
+    for sp in TP_SEQ_SHARD:
+        run = runs[str(sp).lower()]
+        loss_diff = [abs(a - b) for a, b in zip(run["losses"], one["losses"])]
+        norm_rel = [abs(a - b) / b for a, b in zip(run["grad_norms"], one["grad_norms"])]
+        emit("tp_ranks", arch="mistral-7b", layers=TP_LAYERS, seq=TRAIN_SEQ, batch=1,
+             layout={"data": 1, "model": TP_MODEL}, backend="gloo", plan="resident",
+             seq_shard_acts=sp, losses=run["losses"], losses_one_device=one["losses"],
+             grad_norms=run["grad_norms"], grad_norms_one_device=one["grad_norms"],
+             loss_abs_diff=loss_diff, grad_norm_rel_diff=norm_rel,
+             tol={"loss": TP_LOSS_TOL, "grad_norm_rel": TP_NORM_RTOL},
+             strategy=run["strategy"], model_split_leaves=run["model_split_leaves"],
+             launches=run["launches"], peak_bytes_rank0=run["peak_bytes"],
+             peak_bytes_one_device=one["peak_bytes"])
+        emit("tp_step_seconds", seq_shard_acts=sp,
+             not_tp_speed="two ranks share one card's SMs and gloo reduces through the host: "
+             "these are no tensor-parallel step times",
+             ranks=run["step_seconds"], one_device=one["step_seconds"])
+        assert run["strategy"] == "xla" and run["model_split_leaves"] > 0, run
+        assert all(math.isfinite(x) for x in run["losses"] + run["grad_norms"]), run
+        assert max(loss_diff) <= TP_LOSS_TOL, (sp, loss_diff, run["losses"], one["losses"])
+        assert max(norm_rel) <= TP_NORM_RTOL, (sp, norm_rel, run["grad_norms"],
+                                               one["grad_norms"])
+        for k in ("flash_attention", "flash_attention_bwd", "rmsnorm", "fused_adam"):
+            assert run["launches"].get(k, 0) > 0, f"tp_ranks: {k} was not launched"
+        sum_launches(launches, run["launches"])
+    emit("tp_ranks_seconds", seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
 def run_launcher(module, argv: list[str]) -> dict:
     """``module.main(argv)`` in this process, its standard output echoed and
     its last line read as the launcher's JSON summary; the kernels' launch
@@ -3862,6 +4025,7 @@ def main() -> int:
     dist_sync_launches, dist_rows = timed_phase("dist_sync", phase_dist_sync)
     dist_ranks_launches = timed_phase("dist_ranks", phase_dist_ranks)
     dist_xla_launches = timed_phase("dist_xla", lambda: phase_dist_xla(hw))
+    tp_launches, tp_rows = timed_phase("tp", phase_tp)
     launcher_launches = timed_phase("launchers", phase_launchers)
     # each path's launches, counted from 0 just before it ran
     by_path = {"engine": launches, "train": train_launches, "train_policies": policy_launches,
@@ -3874,7 +4038,7 @@ def main() -> int:
                "vlm_serve": vlm_serve_launches, "vlm_prefill": vlm_prefill_launches,
                "vlm_train_compare": vlm_compare_launches, "vlm_plan": vlm_plan_out["launches"],
                "dist_sync": dist_sync_launches, "dist_ranks": dist_ranks_launches,
-               "dist_xla": dist_xla_launches,
+               "dist_xla": dist_xla_launches, "tp": tp_launches,
                **{f"launch_{k}": v for k, v in launcher_launches.items()}}
     rms = measured["rmsnorm"][0]  # rows = batch: the decode path's shape
     main_case = next(p for p in measured["paged_attention"]
@@ -3908,17 +4072,18 @@ def main() -> int:
             "replaces": replaces, "launches": n,
             "max_abs_err": row["max_abs_err"], **{k: row[k] for k in keys}})
     case_keys = ("s", "sk", "hd", "causal", "heads", "case", "cold", "rows", "d", "states",
-                 "shape", "max_abs_err") + keys
+                 "shape", "model_extent", "max_abs_err") + keys
     for row in summary["kernels"]:
         name = row["name"]
         row["launches_by_path"] = {p: got.get(name, 0) for p, got in by_path.items()}
         # the MoE, Mamba-2, encoder-decoder and VLM shapes' cases held to the same bounds
         row["max_abs_err"] = max([row["max_abs_err"], moe_errs.get(name, 0.0),
                                   mamba_errs.get(name, 0.0)]
-                                 + [r["max_abs_err"] for r in encdec_rows + vlm_rows + dist_rows
+                                 + [r["max_abs_err"] for r in
+                                    encdec_rows + vlm_rows + dist_rows + tp_rows
                                     if r["kernel"] == name])
         for key, rows in (("encdec_cases", encdec_rows), ("vlm_cases", vlm_rows),
-                          ("dist_cases", dist_rows)):
+                          ("dist_cases", dist_rows), ("tp_cases", tp_rows)):
             # seamless-m4t-large-v2's heads (hd 64, group 1); llava-next-34b's
             # shapes (group 7, d 7168), with mistral-7b's paged group 4 beside
             cases = [{k: r[k] for k in case_keys if k in r} for r in rows if r["kernel"] == name]

@@ -16,8 +16,12 @@ into pinned memory; a ``zero1_persistent`` leaf's state shards beside its
 replicated weights) and shard-sized residuals, and its row of each
 replicated leaf's residual under the manual sync. A
 step counts only once every rank's file is in it, so a crash between two
-ranks' saves leaves every rank resuming from the same earlier step. A
-checkpoint saved at another world size is refused, not resharded.
+ranks' saves leaves every rank resuming from the same earlier step. Each
+rank writes on a thread of its own, so one rank may list the directory
+while another still writes: ``restore_latest`` takes the newest step
+complete on every rank's listing (a MIN all-reduce), so the ranks resume
+from one step. A checkpoint saved at another world size is refused, not
+resharded.
 
 The fused-Adam kernel writes pinned host states asynchronously, so a save
 reads them only when the CUDA stream is idle, and raises otherwise; the
@@ -33,6 +37,7 @@ import threading
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 STATE_FILE = re.compile(r"state_rank(\d+)_of(\d+)\.pt")  # rank, world
 
@@ -180,8 +185,26 @@ class CheckpointManager:
                              f"{self.rank} of {self.world}")
         return _copy_into(target, payload["state"]), payload["extra"]
 
-    def restore_latest(self, target: Any):
+    def agreed_latest_step(self) -> int | None:
+        """The newest step complete for every rank: on several ranks (an
+        initialised process group) the minimum of each rank's
+        ``latest_step``, one all-reduce, so that a rank listing the
+        directory while another still writes its file agrees with that
+        rank. A rank's files are published in step order, so the minimum is
+        complete for every rank."""
         step = self.latest_step()
+        if self.world == 1 or not dist.is_initialized():
+            return step
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dist.get_backend() == "nccl" else torch.device("cpu"))
+        t = torch.tensor([-1 if step is None else step], dtype=torch.int64, device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        return None if int(t) < 0 else int(t)
+
+    def restore_latest(self, target: Any):
+        """Restore the newest step every rank holds (``agreed_latest_step``)
+        into ``target``: (step, state, extra), or None without one."""
+        step = self.agreed_latest_step()
         if step is None:
             return None
         state, extra = self.restore(step, target)

@@ -101,12 +101,14 @@ def _sum(t: torch.Tensor, group) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def _quantize_int8(x: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor absmax int8: (q int8, scale fp32 scalar). ``group``: the
-    ranks that hold the tensor's other shards; the absmax is then the whole
-    tensor's (a MAX all-reduce), so every shard takes one scale."""
+    ranks that hold the tensor's other shards, or a tuple of groups, one an
+    axis the tensor is split on; the absmax is then the whole tensor's (a
+    MAX all-reduce over each), so every shard takes one scale."""
     xf = x.float()
     amax = xf.abs().max()
     if group is not None and dist.is_initialized():
-        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        for g in group if isinstance(group, tuple) else (group,):
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=g)
     amax = torch.clamp_min(amax, 1e-30)
     scale = amax / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
@@ -131,9 +133,10 @@ def xla_int8_ef(x: torch.Tensor, err: torch.Tensor, group=None):
     """The xla path's int8 + EF numerics on this rank's part of a reduced
     gradient: ``compressed_all_reduce(x, err, mesh=None)`` of the whole
     leaf, restricted to the shard. ``group``: the ranks that hold the
-    leaf's other shards, whose absmax is all-reduced (MAX) into the one
-    per-tensor scale; None for a replicated leaf (every rank holds it
-    whole). Returns ``(dequantized x, new_err)``."""
+    leaf's other shards (a tuple of groups for a leaf split over both
+    axes), whose absmax is all-reduced (MAX) into the one per-tensor scale;
+    None for a replicated leaf (every rank holds it whole). Returns
+    ``(dequantized x, new_err)``."""
     c = x.float() + err.float()
     local = _dequantize_int8(*_quantize_int8(c, group))
     return local.to(x.dtype), (c - local).to(err.dtype)

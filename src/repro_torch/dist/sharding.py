@@ -1,33 +1,52 @@
-"""How a parameter leaf is sharded over the data extent.
+"""How a parameter leaf, a batch and an activation are sharded over the
+``(data, model)`` mesh.
 
-Port of the data-axis part of ``src/repro/dist/sharding.py``. Every
-``ParamDef`` names its dims with tags (``models/layers.py``); under a
-``MemoryPlan`` a leaf of a non-persistent chunk shards its ``zero``-tagged
-dim over the ZeRO axes, and a persistent chunk's leaves stay replicated
+Port of ``src/repro/dist/sharding.py``. Every ``ParamDef`` names its dims
+with tags (``models/layers.py``); under a ``MemoryPlan`` the reference's
+table (``:7-13``) places them:
+
+  tag       persist            hbm / host               dp_only
+  ------    ----------------   ----------------------   -----------------
+  zero      replicated         sharded over data        sharded over data
+  tp/exp    "model" axis       "model" axis             replicated
+
 (``_spec``, ``:78-96``). A dim shards only when the extent divides it
 (``_fits``, ``:70-75``), so one model under one plan has both kinds of
-leaves. Each rank holds its shard: the slice ``rank`` of ``world`` equal
-slices along that dim (``shard``), the layout ``jax.device_put`` gives a
-``NamedSharding`` over the data axis. ``leaf_sync_dim`` is that dim (None:
-replicated), the one the manual sync reduce-scatters over.
+leaves, and ``_fits`` looks at the flattened dim, not at whole heads: at 2
+KV heads over a model extent of 4, ``wk``'s columns shard as half-heads
+(``models/layers.attention_block`` gathers them at use). Each rank holds
+its shard, 2-D where both dims shard (``wq``: ``(zero, tp)``): slice
+``data_rank`` of ``data`` along the data dim, then ``model_rank`` of
+``model`` along the model dim (``shard2``), the layout ``jax.device_put``
+gives a ``NamedSharding`` over both axes. ``leaf_dims`` is the pair (None:
+replicated over that axis); ``leaf_sync_dim`` the data dim, the one the
+manual sync reduce-scatters and the xla path's ``LazyGather`` gathers over
+the data group -- a gathered leaf stays split over ``model``, as
+``gather_sharding`` (``:110-113``) keeps the TP dims. At a data extent of
+one beside a model axis the data dims are None: there is nothing to gather.
 
-The placements of the xla path on several ranks (the table at the top of
-the reference): a ``host`` chunk's shard lies in pinned host memory under
-``host_params`` and on the device under the ZeRO-Offload split (the
-reference's ``param_place``, ``step_builder.py:146-148``); its optimizer
-states are pinned shards. A persistent leaf's optimizer states shard as an
-``hbm`` leaf's under ``zero1_persistent`` while its weights stay
-replicated (``opt_dim``). The gather target is the full leaf on the device
-(``unshard``, or ``dist.collectives.LazyGather`` at the point of use). Memory kinds,
-``NamedSharding`` and the activation sharder have no counterpart here; the
-model axis (TP) and ``dp_only``'s folding of it wait in ROADMAP.md.
+The placements of the xla path on several ranks: a ``host`` chunk's shard
+lies in pinned host memory under ``host_params`` and on the device under
+the ZeRO-Offload split (the reference's ``param_place``,
+``step_builder.py:146-148``); its optimizer states are pinned shards. A
+persistent leaf's optimizer states shard over data as an ``hbm`` leaf's
+under ``zero1_persistent`` while its weights stay replicated over data
+(``opt_dim``). The batch splits over ``batch_axes``: the data axis, and
+under ``dp_only`` the model axis too (``:53-55``). ``shard_activation`` is
+the activation sharder's three kinds (``make_activation_sharder``,
+``:214-243``) as this rank's part of a whole tensor: ``bsd`` a
+block boundary (batch over the batch axes, the sequence over ``model``
+under ``seq_shard_acts``), ``enter`` batch only, ``logits`` the vocab
+dim over ``model``. Memory kinds and ``NamedSharding`` have no counterpart
+here; the multi-pod mesh waits in ROADMAP.md.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.layers import ZERO, ParamDef
+from repro_torch.models.layers import TP, ZERO, ParamDef
+from repro_torch.models.moe import EXP
 
 
 def _fits(world: int, dim: int) -> bool:
@@ -35,9 +54,9 @@ def _fits(world: int, dim: int) -> bool:
 
 
 def _spec(d: ParamDef, world: int, placement: str) -> int | None:
-    """The dim of ``d`` sharded over the data extent under ``placement``,
-    or None: the first ``zero`` dim that ``world`` divides, for a
-    non-persistent chunk."""
+    """The dim of ``d`` sharded over a data extent of ``world`` under
+    ``placement``, or None: the first ``zero`` dim that ``world`` divides,
+    for a non-persistent chunk."""
     if placement == "persist":
         return None
     for i, (n, tag) in enumerate(zip(d.shape, d.axes)):
@@ -46,16 +65,37 @@ def _spec(d: ParamDef, world: int, placement: str) -> int | None:
     return None
 
 
+def model_dim(d: ParamDef, model: int, dp_only: bool = False) -> int | None:
+    """The dim of ``d`` sharded over a model extent of ``model``, or None:
+    the first ``tp`` or ``exp`` dim that ``model`` divides, unless
+    ``dp_only`` keeps them replicated or there is no model axis."""
+    if model == 1 or dp_only:
+        return None
+    for i, (n, tag) in enumerate(zip(d.shape, d.axes)):
+        if tag in (TP, EXP) and _fits(model, n):
+            return i
+    return None
+
+
+def leaf_dims(d: ParamDef, placement: str, data: int, model: int = 1,
+              dp_only: bool = False) -> tuple[int | None, int | None]:
+    """(data dim, model dim) of ``d`` on a ``(data, model)`` mesh."""
+    ddim = None if model > 1 and data == 1 else _spec(d, data, placement)
+    return ddim, model_dim(d, model, dp_only)
+
+
 def leaf_sync_dim(d: ParamDef, world: int, placement: str) -> int | None:
     """The dim the manual sync reduce-scatters a leaf's gradient over (the
-    dim its shards split), or None for a replicated leaf."""
+    dim its shards split over ``world`` data ranks), or None for a
+    replicated leaf."""
     return _spec(d, world, placement)
 
 
 def opt_dim(d: ParamDef, world: int, placement: str, zero1: bool) -> int | None:
-    """The dim a leaf's fp32 master, m and v shard over (``_opt_placement``,
-    ``step_builder.py:112-123``): its weights' dim, except that a persistent
-    leaf's states shard as an ``hbm`` leaf's under ``zero1_persistent``."""
+    """The data dim a leaf's fp32 master, m and v shard over
+    (``_opt_placement``, ``step_builder.py:112-123``): its weights' dim,
+    except that a persistent leaf's states shard as an ``hbm`` leaf's under
+    ``zero1_persistent``."""
     return _spec(d, world, "hbm" if placement == "persist" and zero1 else placement)
 
 
@@ -68,6 +108,22 @@ def def_leaves(tree) -> list[ParamDef]:
     return [d for v in tree for d in def_leaves(v)]
 
 
+# ---------------------------------------------------------------------------
+# Batch and activations (sharding.py:53-55, 206-243)
+# ---------------------------------------------------------------------------
+def batch_axes(mesh, dp_only: bool = False) -> tuple[str, ...]:
+    """The axes the batch dim shards over; under ``dp_only`` the model axis
+    joins the data axis."""
+    return ("data", "model") if dp_only and mesh.model > 1 else ("data",)
+
+
+def batch_extent(mesh, dp_only: bool = False) -> tuple[int, int]:
+    """(this rank's index, the extent) along the batch axes."""
+    if dp_only and mesh.model > 1:
+        return mesh.rank, mesh.world
+    return mesh.data_rank, mesh.data
+
+
 def manual_batch_split(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
     """This rank's rows of a global batch input: its leading dim split in
     ``world`` equal slices (the ``P("data", None, ...)`` in_spec of
@@ -78,12 +134,45 @@ def manual_batch_split(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
     return x[rank * b:(rank + 1) * b]
 
 
+def shard_activation(x: torch.Tensor, kind: str, mesh, plan=None) -> torch.Tensor:
+    """This rank's part of a whole activation ``x`` under the reference's
+    sharder: the batch dim over the batch axes (where they divide it);
+    ``logits``: the last dim over ``model``; ``bsd`` under
+    ``seq_shard_acts``: the sequence dim over ``model``; ``enter``: batch
+    only."""
+    if kind not in ("bsd", "enter", "logits"):
+        raise ValueError(f"activation kind {kind!r}")
+    dp = bool(getattr(plan, "dp_only", False))
+    idx, ext = batch_extent(mesh, dp)
+    if x.ndim < 2:
+        return x
+    if _fits(ext, x.shape[0]):
+        x = shard(x, 0, idx, ext)
+    tp = mesh.model > 1 and not dp
+    if kind == "logits" and tp and _fits(mesh.model, x.shape[-1]):
+        return shard(x, x.ndim - 1, mesh.model_rank, mesh.model)
+    if (kind == "bsd" and tp and getattr(plan, "seq_shard_acts", False)
+            and _fits(mesh.model, x.shape[1])):
+        return shard(x, 1, mesh.model_rank, mesh.model)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Shards of a leaf
+# ---------------------------------------------------------------------------
 def shard(t: torch.Tensor, dim: int | None, rank: int, world: int) -> torch.Tensor:
     """This rank's contiguous shard of the full leaf ``t`` along ``dim``
     (``t`` itself for a replicated leaf)."""
     if dim is None or world == 1:
         return t
     return t.chunk(world, dim)[rank].clone(memory_format=torch.contiguous_format)
+
+
+def shard2(t: torch.Tensor, ddim: int | None, mdim: int | None, mesh) -> torch.Tensor:
+    """This rank's 2-D shard of the full leaf ``t``: its data slice along
+    ``ddim``, then its model slice along ``mdim``."""
+    t = shard(t, ddim, mesh.data_rank, mesh.data)
+    return shard(t, mdim, mesh.model_rank, mesh.model)
 
 
 def unshard(t: torch.Tensor, dim: int | None, world: int, group=None) -> torch.Tensor:
@@ -94,3 +183,10 @@ def unshard(t: torch.Tensor, dim: int | None, world: int, group=None) -> torch.T
     parts = [torch.empty_like(t) for _ in range(world)]
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts, dim)
+
+
+def unshard2(t: torch.Tensor, ddim: int | None, mdim: int | None, mesh) -> torch.Tensor:
+    """The full leaf from every rank's 2-D shard: gathered over the model
+    group, then over the data group."""
+    t = unshard(t, mdim, mesh.model, mesh.model_group)
+    return unshard(t, ddim, mesh.data, mesh.data_group)

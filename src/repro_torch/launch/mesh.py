@@ -1,12 +1,21 @@
-"""The process group a training step syncs over.
+"""The process groups a training step syncs over.
 
 Port of ``src/repro/launch/mesh.py``. ``mesh_spec`` is the planner's data,
-unchanged. The port's mesh is one axis, ``data``: one rank a device, every
-rank holding the whole batch's replica of the step and its own shards of
-the ZeRO-sharded leaves. ``make_local_mesh`` returns it for this process
-(``LocalMesh``: ``rank``, ``world``, the process ``group``, the ``device``
-and the ``MeshSpec((world,), ("data",))`` the planner prices); the model
-axis (tensor parallelism) and the multi-pod mesh are queued in ROADMAP.md.
+unchanged. The port's mesh has the reference's two axes, ``data`` and
+``model``: ``world = data * model`` ranks, one a device, rank ``r`` at
+``(r // model, r % model)`` (the row-major order of ``jax.make_mesh``).
+``make_local_mesh`` returns it for this process (``LocalMesh``: ``rank``,
+``world``, the process ``group``, the ``device``, the ``model`` extent, and
+a process group for each axis: ``data_group``, this rank's column, the
+ranks that share its model rank; ``model_group``, its row, the ranks that
+share its data rank). ``spec`` is the ``MeshSpec`` the planner prices:
+``((world,), ("data",))`` at a model extent of one, as before the model
+axis, else ``((data, model), ("data", "model"))``. A model extent of one
+leaves every path as it was: ``data_group`` is then ``group``.
+
+The reference's ``make_local_mesh`` picks a model extent of 4, 2 or 1 by
+the device count; the port's takes it from the caller (``launch.train
+--model M``). The multi-pod mesh is queued in ROADMAP.md.
 
 ``init_distributed`` joins the process group as ``torchrun`` describes it
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, and ``MASTER_ADDR`` /
@@ -26,6 +35,7 @@ from repro_torch.compat import resolve_device
 from repro_torch.core.hardware import MULTI_POD, SINGLE_POD, MeshSpec
 
 AXES = ("data",)
+AXES_2D = ("data", "model")
 
 
 def mesh_spec(*, multi_pod: bool = False) -> MeshSpec:
@@ -34,36 +44,93 @@ def mesh_spec(*, multi_pod: bool = False) -> MeshSpec:
 
 @dataclasses.dataclass(frozen=True)
 class LocalMesh:
-    """This process's place in the data-parallel mesh."""
+    """This process's place in the ``(data, model)`` mesh."""
 
     rank: int
     world: int
     group: object | None  # a torch.distributed ProcessGroup (None: the default group)
     device: torch.device
+    model: int = 1  # the model axis's extent
+    col_group: object | None = None  # the data axis's group at model > 1
+    row_group: object | None = None  # the model axis's group at model > 1
+
+    def __post_init__(self):
+        if self.model < 1 or self.world % self.model:
+            raise ValueError(f"a model extent of {self.model} does not divide a world of "
+                             f"{self.world}")
+
+    @property
+    def data(self) -> int:
+        return self.world // self.model
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def data_group(self):
+        """The ranks of this rank's model rank, over which the ZeRO dims
+        shard and the gradients are reduced."""
+        return self.group if self.model == 1 else self.col_group
+
+    @property
+    def model_group(self):
+        """The ranks of this rank's data rank, over which the ``tp`` and
+        ``exp`` dims shard (None at a model extent of one)."""
+        return None if self.model == 1 else self.row_group
 
     @property
     def spec(self) -> MeshSpec:
-        return MeshSpec((self.world,), AXES)
+        if self.model == 1:
+            return MeshSpec((self.world,), AXES)
+        return MeshSpec((self.data, self.model), AXES_2D)
 
 
-def make_local_mesh(device=None, group=None) -> LocalMesh:
+def axis_groups(world: int, model: int, group=None) -> tuple[object, object]:
+    """(this rank's data group, its model group) over the ranks of the
+    initialised process group: every rank creates every group, in one
+    order, as ``torch.distributed.new_group`` asks."""
+    rank = dist.get_rank(group)
+    ranks = (list(range(world)) if group is None
+             else dist.get_process_group_ranks(group))
+    cols = [dist.new_group([ranks[d * model + m] for d in range(world // model)])
+            for m in range(model)]
+    rows = [dist.new_group([ranks[d * model + m] for m in range(model)])
+            for d in range(world // model)]
+    return cols[rank % model], rows[rank // model]
+
+
+def make_local_mesh(device=None, group=None, model: int = 1) -> LocalMesh:
     """The mesh of this process: the initialised default process group (or
-    ``group``) if there is one, else a world of one on ``device``."""
+    ``group``) if there is one, else a world of one on ``device``; its
+    ranks laid out ``(world // model, model)``."""
     device = resolve_device(device)
     if not dist.is_initialized():
         if group is not None:
             raise ValueError("a process group was given, but torch.distributed is not "
                              "initialised")
-        return LocalMesh(0, 1, None, device)
-    return LocalMesh(dist.get_rank(group), dist.get_world_size(group), group, device)
+        return LocalMesh(0, 1, None, device, model=model)
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    if model == 1:
+        return LocalMesh(rank, world, group, device)
+    if world % model:
+        raise ValueError(f"a model extent of {model} does not divide a world of {world}")
+    col, row = axis_groups(world, model, group)
+    return LocalMesh(rank, world, group, device, model=model, col_group=col, row_group=row)
 
 
 def init_distributed(device=None, *, init_method: str | None = None,
-                     rank: int | None = None, world: int | None = None) -> LocalMesh:
+                     rank: int | None = None, world: int | None = None,
+                     model: int = 1) -> LocalMesh:
     """Join the process group this process was started in and return its
-    mesh. ``rank`` / ``world`` default to ``RANK`` / ``WORLD_SIZE`` (1 when
-    unset); a CUDA device defaults to ``cuda:LOCAL_RANK``. NCCL on CUDA,
-    gloo on the CPU; ``init_method`` defaults to ``env://``."""
+    mesh, ``model`` ranks a row. ``rank`` / ``world`` default to ``RANK`` /
+    ``WORLD_SIZE`` (1 when unset); a CUDA device defaults to
+    ``cuda:LOCAL_RANK``. NCCL on CUDA, gloo on the CPU; ``init_method``
+    defaults to ``env://``."""
     rank = int(os.environ.get("RANK", 0)) if rank is None else rank
     world = int(os.environ.get("WORLD_SIZE", 1)) if world is None else world
     device = resolve_device(device)
@@ -76,4 +143,4 @@ def init_distributed(device=None, *, init_method: str | None = None,
         kw = {"device_id": device} if device.type == "cuda" else {}
         dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
                                 world_size=world, **kw)
-    return make_local_mesh(device)
+    return make_local_mesh(device, model=model)

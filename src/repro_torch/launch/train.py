@@ -14,6 +14,8 @@
         --steps 4 --batch 16 --seq 32 --device cpu        # 4 gloo ranks, spawned
     python -m repro_torch.launch.train --arch llama3-405b --reduced --nproc 4 \\
         --steps 4 --batch 16 --seq 32 --device cpu --plan fsdp   # the xla path
+    python -m repro_torch.launch.train --arch llama3-405b --reduced --nproc 4 \\
+        --model 2 --steps 4 --batch 16 --seq 32 --device cpu     # data 2 x model 2
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch mistral-7b \\
         --nproc 4 --plan zero3 --batch 4 --seq 4096        # 4 NCCL ranks
 
@@ -62,6 +64,15 @@ mesh, and the plan runs as searched (host chunks and all, on the CPU too);
 name the manual kinds (int8 + EF on the wire). Rank 0 prints the plan and
 the JSON line, with the plan, the sync strategy's kind and the world size;
 each rank keeps its own checkpoint file.
+
+Tensor parallelism: ``--model M`` lays the N ranks out as ``(N / M, M)``,
+data by model (``launch/mesh.py``; the default 1 keeps ``--nproc N`` data
+N). The dense and MoE decoders split their ``tp`` and ``exp`` dims over
+the model axis (``dist/tensor_parallel.py``); ``auto`` then searches on
+``MeshSpec((N / M, M), ("data", "model"))`` with sequence sharding and
+``dp_only`` among the candidates, and the searched plan runs. The
+reference's ``make_local_mesh`` picks the model extent (4, 2 or 1) by the
+device count; here the caller picks it.
 """
 from __future__ import annotations
 
@@ -113,7 +124,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--plan", default="auto",
                     choices=["auto", "resident", "fsdp", *MANUAL_PLANS])
     ap.add_argument("--nproc", type=int, default=1,
-                    help="data-parallel ranks; spawned unless under torchrun")
+                    help="ranks; spawned unless under torchrun")
+    ap.add_argument("--model", type=int, default=1,
+                    help="the model axis's extent: the ranks laid out (nproc / model, model)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda (raises without it)")
     return ap.parse_args(argv)
@@ -155,10 +168,13 @@ def run(args, *, rank: int | None = None, world: int | None = None,
     """Train as one rank (of ``world``; default: ``RANK`` / ``WORLD_SIZE``);
     returns rank 0's summary (None on the other ranks)."""
     device, mesh = resolve_device(args.device), None
+    if args.nproc % args.model:
+        raise ValueError(f"--model {args.model} does not divide --nproc {args.nproc}")
     if args.nproc > 1:
         if device.type == "cpu":  # the ranks share the host's cores
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.nproc))
-        mesh = init_distributed(device, init_method=init_method, rank=rank, world=world)
+        mesh = init_distributed(device, init_method=init_method, rank=rank, world=world,
+                                model=args.model)
         if mesh.world != args.nproc:
             raise ValueError(f"--nproc {args.nproc}, but the process group has {mesh.world} "
                              "ranks")
@@ -190,8 +206,10 @@ def _train(args, device, mesh) -> dict | None:
         if world == 1:
             # one device: the plain reduction; compression buys nothing there
             res = search(build_workload(cfg, shape, ONE_CHIP, hw), compress="off", sync="xla")
-        else:
+        elif mesh.model == 1:
             res = search(build_workload(cfg, shape, MeshSpec((world,), ("data",)), hw))
+        else:  # the model axis: sequence sharding and dp_only are candidates too
+            res = search(build_workload(cfg, shape, mesh.spec, hw), sp="auto", dp="auto")
         plan = res.plan
         say(f"[train] searched plan: {plan.describe()} (modeled t_iter="
             f"{res.runtime.t_iteration:.3f}s, peak {res.memory.peak / 1e9:.2f}GB on {hw.name}, "
@@ -236,6 +254,9 @@ def _train(args, device, mesh) -> dict | None:
         "plan": plan.describe(),
         "strategy": art.strategy.kind,
         "world": world,
+        "model": 1 if mesh is None else mesh.model,
+        "dp_only": plan.dp_only,
+        "seq_shard_acts": plan.seq_shard_acts,
     }
 
 

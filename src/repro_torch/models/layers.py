@@ -311,26 +311,77 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offs
     return out.reshape(b, sq, hq, hd)
 
 
-def attention_block(params: dict, x: torch.Tensor, cfg, *, positions=None,
-                    impl: str = "blockwise", block_kv: int = 1024) -> torch.Tensor:
-    """Full causal self-attention over x: (B, S, D) -> (B, S, D)."""
-    b, s, d = x.shape
-    hd = cfg.resolved_head_dim
-    q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ params["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+def _attend(q, k, v, cfg, positions, impl: str, block_kv: int) -> torch.Tensor:
+    """RoPE on q (B, S, Hq, hd) and k (B, S, Hkv, hd), then causal
+    attention with the config's window: (B, S, Hq, hd)."""
+    s = q.shape[1]
     if positions is None:
-        positions = torch.arange(s, device=x.device)
+        positions = torch.arange(s, device=q.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if impl == "blockwise":
-        out = blockwise_attention(q, k, v, causal=True, window=cfg.sliding_window,
-                                  block_kv=min(block_kv, max(s, 128)))
-    elif impl == "naive":
-        out = naive_attention(q, k, v, causal=True, window=cfg.sliding_window)
+        return blockwise_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                                   block_kv=min(block_kv, max(s, 128)))
+    if impl == "naive":
+        return naive_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    raise ValueError(f"attention impl {impl!r}: 'blockwise' or 'naive'")
+
+
+def tp_heads(cfg, tp) -> tuple[int, int, int]:
+    """(this rank's first query head, its query heads, its first KV head)
+    over ``tp.size`` model ranks: whole query heads a rank, and each rank's
+    query heads reading whole KV heads of their own -- those heads alone,
+    or one KV head that several ranks read (fewer KV heads than ranks)."""
+    h, hkv, t = cfg.num_heads, cfg.num_kv_heads, tp.size
+    if h % t:
+        raise NotImplementedError(
+            f"{cfg.name}: {h} query heads do not split over a model extent of {t}")
+    hl, g = h // t, h // hkv
+    if hkv % t and g % hl:
+        raise NotImplementedError(
+            f"{cfg.name}: the query heads of a rank ({hl}) straddle its KV heads "
+            f"(group {g}) at a model extent of {t}")
+    q0 = tp.rank * hl
+    return q0, hl, q0 // g
+
+
+def attention_block(params: dict, x: torch.Tensor, cfg, *, positions=None,
+                    impl: str = "blockwise", block_kv: int = 1024,
+                    tp=None) -> torch.Tensor:
+    """Full causal self-attention over x: (B, S, D) -> (B, S, D).
+
+    ``tp`` (``dist.tensor_parallel.TensorParallel``): this rank computes
+    its query heads from the column shards of ``wq`` / ``wk`` / ``wv`` and
+    multiplies by the row shard of ``wo``; the partial outputs are reduced
+    over the model group (scattered over the sequence under sequence
+    parallelism, where ``x`` is this rank's rows). With fewer KV heads
+    than ranks ``wk`` / ``wv`` split into part-heads, or stay whole where
+    the extent does not divide them: each rank then takes the whole weight
+    (``whole_weight``) and uses the columns of its one KV head, as the
+    reference's partitioned program computes the same function."""
+    hd = cfg.resolved_head_dim
+    if tp is None:
+        b, s, _ = x.shape
+        q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd)
+        k = (x @ params["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
+        v = (x @ params["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+        out = _attend(q, k, v, cfg, positions, impl, block_kv)
+        return out.reshape(b, s, cfg.num_heads * hd) @ params["wo"]
+    q0, hl, kv0 = tp_heads(cfg, tp)
+    h = tp.enter(x)
+    b, s, _ = h.shape
+    q = (h @ params["wq"]).reshape(b, s, hl, hd)
+    nkv = cfg.num_kv_heads * hd
+    if cfg.num_kv_heads % tp.size == 0 and params["wk"].shape[-1] < nkv:
+        wk, wv = params["wk"], params["wv"]  # this rank's KV heads, whole
     else:
-        raise ValueError(f"attention impl {impl!r}: 'blockwise' or 'naive'")
-    return out.reshape(b, s, cfg.num_heads * hd) @ params["wo"]
+        cols = slice(kv0 * hd, (kv0 + 1) * hd)
+        wk = tp.whole_weight(params["wk"], -1, nkv)[:, cols]
+        wv = tp.whole_weight(params["wv"], -1, nkv)[:, cols]
+    k = (h @ wk).reshape(b, s, -1, hd)
+    v = (h @ wv).reshape(b, s, -1, hd)
+    out = _attend(q, k, v, cfg, positions, impl, block_kv)
+    return tp.exit(out.reshape(b, s, hl * hd) @ params["wo"])
 
 
 def full_attention(q, k, v, impl: str = "blockwise") -> torch.Tensor:
@@ -391,7 +442,7 @@ def mlp_defs(cfg, d_ff: int | None = None) -> dict:
     }
 
 
-def apply_mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def _mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     h = x @ params["w1"]
     if kind == "swiglu":
         h = F.silu(h) * (x @ params["w3"])
@@ -404,3 +455,15 @@ def apply_mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:
         raise ValueError(kind)
     return h @ params["w2"]
+
+
+def apply_mlp(params: dict, x: torch.Tensor, kind: str, tp=None,
+              d_ff: int | None = None) -> torch.Tensor:
+    """The MLP. ``tp``: ``w1`` / ``w3`` column shards and the ``w2`` row
+    shard, the partial outputs reduced over the model group; where the
+    extent does not divide the hidden width (``d_ff``, the full one: the
+    weights are then whole) every rank computes all of it."""
+    if tp is None:
+        return _mlp(params, x, kind)
+    partial = params["w1"].shape[-1] != d_ff
+    return tp.exit(_mlp(params, tp.enter(x, partial), kind), partial)

@@ -48,6 +48,14 @@ path on several ranks runs its non-persistent chunks so too, with
 ``Run.proxies`` the device proxies of shards that lie in host memory
 (``host_params``): their copies to the device run a repeat ahead.
 
+Over the model axis (``tp``, a ``dist.tensor_parallel.TensorParallel``;
+the dense and MoE decoders) each sublayer runs on this rank's shards of
+its weights and the hidden states between sublayers are whole on every
+model rank, or this rank's rows of the sequence under ``seq_shard_acts``
+(the reference's ``bsd`` sites, ``model.py:314, 333``, gathered at a
+sublayer's ``enter``); the embedding is the vocab-parallel lookup
+(``:628``) and the head's logits stay split over the vocab (``:634``).
+
 Each position returns ``(x, aux)``: an MoE position's load-balance loss
 (``apply_moe``), 0.0 for a dense one. The aux losses are summed through
 superblocks, checkpointed regions and runs, and ``forward`` returns them
@@ -177,13 +185,37 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     return L.init_tree(param_defs(cfg), generator, device)
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"]["tok"][tokens]
+def check_tp_family(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a model the model axis does not
+    split yet: tensor parallelism runs decoders of attention positions with
+    dense MLPs or MoE layers and no frontend."""
+    if (cfg.kind != "decoder" or cfg.frontend != "none"
+            or any(m != "attention" for m in cfg.mixer_pattern)):
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over the model axis covers the dense and MoE "
+            "decoders; Mamba-2, the hybrid, the encoder-decoder and the VLM are queued in "
+            "ROADMAP.md (port queue 1)")
 
 
-def lm_head(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                 tp=None) -> torch.Tensor:
+    """The token embedding; ``tp``: the vocab-parallel lookup where the
+    vocab splits over the model axis, in the block boundary's layout."""
+    tok = params["embed"]["tok"]
+    if tp is None:
+        return tok[tokens]
+    if tok.shape[0] != cfg.vocab_size:
+        return tp.vocab_embed(tok, tokens)
+    return tp.exit(tok[tokens], partial=False)
+
+
+def lm_head(params: dict, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """The logits; ``tp``: this rank's slice of the vocab where the head
+    splits over the model axis (``shard_act(..., "logits")``)."""
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     w = params["embed"]["tok"].T if cfg.tie_embeddings else params["head"]["w"]
+    if tp is not None:
+        x = tp.enter(x, partial=w.shape[-1] != cfg.vocab_size)
     return x @ w
 
 
@@ -346,17 +378,23 @@ def save_act(x: torch.Tensor, sites: ActSites | None = None, keep: bool = True):
 
 def apply_position(pparams: dict, x: torch.Tensor, cfg: ModelConfig, pos_j: int, *,
                    positions=None, memory: torch.Tensor | None = None,
-                   attn_impl: str = "blockwise", sites: ActSites | None = None) -> XAux:
+                   attn_impl: str = "blockwise", sites: ActSites | None = None,
+                   tp=None) -> XAux:
     """One layer (superblock position): norm, the mixer (attention or
     Mamba-2), residual, with ``memory`` norm, cross-attention over it and
     residual, then norm, MLP or MoE (if the position has one), residual,
     with a save site at each output (``save_act``); the backward reads all
     but the last (the MLP or MoE output only feeds the residual add).
-    Returns (x, aux): the MoE's aux loss, 0.0 without one."""
+    Returns (x, aux): the MoE's aux loss, 0.0 without one. ``tp``: the
+    model axis's split of each sublayer (``x`` this rank's rows under
+    sequence parallelism, as the reference's ``enter`` / ``bsd`` sites lay
+    them out, the norms on those rows)."""
     aux = 0.0
-    h = save_act(L.apply_norm(pparams["norm1"], x, cfg.norm), sites)
+    norm = (lambda p: p) if tp is None else tp.norm_params  # noqa: E731
+    h = save_act(L.apply_norm(norm(pparams["norm1"]), x, cfg.norm), sites)
     if "attn" in pparams:
-        mix = L.attention_block(pparams["attn"], h, cfg, positions=positions, impl=attn_impl)
+        mix = L.attention_block(pparams["attn"], h, cfg, positions=positions, impl=attn_impl,
+                                tp=tp)
     else:
         mix = M2.apply_mamba2(pparams["mamba"], h, cfg)
     x = x + save_act(mix, sites)
@@ -365,12 +403,13 @@ def apply_position(pparams: dict, x: torch.Tensor, cfg: ModelConfig, pos_j: int,
         x = x + save_act(L.cross_attention_block(pparams["xattn"], hx, memory, cfg,
                                                  impl=attn_impl), sites)
     if "moe" in pparams:
-        h2 = L.apply_norm(pparams["norm2"], x, cfg.norm)
-        out, aux = MOE.apply_moe(pparams["moe"], h2, cfg)
+        h2 = L.apply_norm(norm(pparams["norm2"]), x, cfg.norm)
+        out, aux = MOE.apply_moe(pparams["moe"], h2, cfg, tp=tp)
         x = x + save_act(out, sites, keep=False)
     elif "mlp" in pparams:
-        h2 = L.apply_norm(pparams["norm2"], x, cfg.norm)
-        x = x + save_act(L.apply_mlp(pparams["mlp"], h2, cfg.mlp), sites, keep=False)
+        h2 = L.apply_norm(norm(pparams["norm2"]), x, cfg.norm)
+        x = x + save_act(L.apply_mlp(pparams["mlp"], h2, cfg.mlp, tp, cfg.d_ff), sites,
+                         keep=False)
     return x, aux
 
 
@@ -387,7 +426,7 @@ def _weights(src: dict, proxies: dict | None, io: HostIO) -> dict:
 
 
 def _apply_layer(src, proxies, x, memory, cfg, pos_j, *, act_policy: str, buffered: bool,
-                 io: HostIO, attn_impl: str, wio=None) -> XAux:
+                 io: HostIO, attn_impl: str, wio=None, tp=None) -> XAux:
     """One position under its run's act policy and weight buffering:
     (x, aux). ``wio``: where the weights come from (default ``io``)."""
     wio = wio if wio is not None else io
@@ -395,9 +434,11 @@ def _apply_layer(src, proxies, x, memory, cfg, pos_j, *, act_policy: str, buffer
     if act_policy == "none":
         pp = _weights(src, proxies, wio)
         if not fetch_again:
-            return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl)
+            return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl,
+                                  tp=tp)
         with wio.refetch_saved(pp, src):
-            return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl)
+            return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl,
+                                  tp=tp)
     sites = ActSites(act_policy, io) if act_policy in SITE_POLICIES else None
     # kept weights are fetched outside the recomputed region; the others
     # inside it, so the replay fetches them again
@@ -410,7 +451,7 @@ def _apply_layer(src, proxies, x, memory, cfg, pos_j, *, act_policy: str, buffer
             sites.begin()
         pp = _weights(src, proxies, wio) if fetch_again else kept
         return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl,
-                              sites=sites)
+                              sites=sites, tp=tp)
 
     out = _checkpointed(one, x, memory)
     if sites is not None:
@@ -422,21 +463,22 @@ def apply_superblock(block_params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                      memory: torch.Tensor | None = None, act_policy: str = "none",
                      buffered: bool = True, proxies: dict | None = None,
                      io: HostIO | None = None, attn_impl: str = "blockwise",
-                     wio=None) -> XAux:
+                     wio=None, tp=None) -> XAux:
     """block_params: {posJ: params of one repeat}, on the device or (with
     ``proxies``, the autograd stand-ins of the same tree) in host memory.
     ``act_policy`` applies per position (layer), the paper's per-block
     granularity; ``memory``: the encoder's output an encoder-decoder's
     positions attend over (None: no cross-attention, as the profile traces
     a block). ``wio``: the weights' source when it is not ``io`` (a ZeRO-3
-    run's ``dist.collectives.LazyGather``). Returns (x, aux), aux summed
-    over the positions."""
+    run's ``dist.collectives.LazyGather``). ``tp``: the model axis
+    (``dist.tensor_parallel``). Returns (x, aux), aux summed over the
+    positions."""
     aux = 0.0
     for j in range(superblock_period(cfg)):
         key = f"pos{j}"
         x, a = _apply_layer(block_params[key], None if proxies is None else proxies[key], x,
                             memory, cfg, j, act_policy=act_policy, buffered=buffered, io=io,
-                            attn_impl=attn_impl, wio=wio)
+                            attn_impl=attn_impl, wio=wio, tp=tp)
         aux = aux + a
     return x, aux
 
@@ -488,7 +530,7 @@ def _units(runs: list[Run]) -> list[tuple[Run, list, list]]:
 
 def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
                memory: torch.Tensor | None = None, attn_impl: str = "blockwise",
-               io: HostIO | None = None) -> XAux:
+               io: HostIO | None = None, tp=None) -> XAux:
     """Execute the layer stack as policy runs of superblocks: (x, aux), the
     aux losses summed. ``memory``: the encoder's output (encoder-decoders).
     ``io``: the step's host copies and counters (a fresh one on x's device
@@ -509,7 +551,8 @@ def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
         if len(reps) == 1:
             x, aux = apply_superblock(reps[0], x, cfg, memory=memory,
                                       act_policy=run.act_policy, buffered=run.buffered,
-                                      proxies=prox[0], io=io, attn_impl=attn_impl, wio=wio)
+                                      proxies=prox[0], io=io, attn_impl=attn_impl, wio=wio,
+                                      tp=tp)
             aux_total = aux_total + aux
             continue
         # grouped remat: one checkpoint region spans the group's superblocks;
@@ -524,7 +567,7 @@ def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
             aux = 0.0
             for src, px, pp in _items:
                 pp = pp if pp is not None else _weights(src, px, wio)
-                x, a = apply_superblock(pp, x, cfg, memory=memory, attn_impl=attn_impl)
+                x, a = apply_superblock(pp, x, cfg, memory=memory, attn_impl=attn_impl, tp=tp)
                 aux = aux + a
             return x, aux
 
@@ -573,7 +616,7 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *, runs: list[Run] | None = None,
-            attn_impl: str = "blockwise", io: HostIO | None = None) -> XAux:
+            attn_impl: str = "blockwise", io: HostIO | None = None, tp=None) -> XAux:
     """Training and prefill forward. ``batch["tokens"]``: (B, S) integer; an
     encoder-decoder's ``batch["frames"]``: (B, S_src, D) in the model's
     dtype; a vision-language model's ``batch["patches"]`` (B, P, D), if
@@ -581,9 +624,13 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *, runs: list[Run] | No
     tokens (B, S, D) and the aux loss: the MoE layers' load-balance losses
     summed, an fp32 scalar (0.0 for a dense model, where JAX returns a zero
     array). ``io``: the host copies of runs with host weights and of
-    swapped activations."""
+    swapped activations. ``tp``: the model axis (``dist.tensor_parallel``;
+    dense and MoE decoders): the hidden states come back in the block
+    boundary's layout, this rank's rows under sequence parallelism."""
     check_family(cfg)
-    x = embed_tokens(params, batch["tokens"], cfg)
+    if tp is not None:
+        check_tp_family(cfg)
+    x = embed_tokens(params, batch["tokens"], cfg, tp)
     patches = batch.get("patches") if cfg.frontend == "vision_patches" else None
     if patches is not None:
         x = torch.cat([patches.detach().to(x.dtype), x], dim=1)
@@ -591,7 +638,7 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *, runs: list[Run] | No
               if cfg.kind == "encdec" else None)
     if runs is None:
         runs = default_runs(cfg, params)
-    x, aux = apply_runs(runs, x, cfg, memory=memory, attn_impl=attn_impl, io=io)
+    x, aux = apply_runs(runs, x, cfg, memory=memory, attn_impl=attn_impl, io=io, tp=tp)
     if patches is not None:
         x = x[:, patches.shape[1]:].contiguous()  # the kernels take whole rows
     return x, aux

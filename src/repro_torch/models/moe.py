@@ -80,16 +80,28 @@ def expert_capacity(cfg, tokens: int) -> int:
     return max(math.ceil(mc.top_k * tokens * mc.capacity_factor / mc.num_experts), 1)
 
 
-def apply_moe(params: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+def apply_moe(params: dict, x: torch.Tensor, cfg,
+              tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D), aux loss, an fp32 scalar).
 
     Each expert takes at most C (``expert_capacity``) of the (token, k)
     choices, counted in token-major, then-k order; the overflow is dropped
-    (the token keeps its residual stream only)."""
+    (the token keeps its residual stream only).
+
+    ``tp`` (``dist.tensor_parallel.TensorParallel``): the router and the
+    gating run on every rank over every token, as on one device, and are
+    differentiated so on every rank (the slice of ``combine`` a rank uses
+    gathers its gradient back whole: the router's gradient and the aux
+    loss are counted once). Where the experts split over the model axis a
+    rank dispatches to and runs its ``E / size`` experts, through its
+    slice of ``dispatch`` and ``combine``, combines their outputs in fp32
+    and reduces them over the model group in fp32 before the cast. The
+    shared expert is ``apply_mlp``'s column / row split."""
     mc = cfg.moe
-    b, s, d = x.shape
+    xr = x if tp is None else tp.enter(x, partial=False)
+    b, s, d = xr.shape
     t, k, e = b * s, mc.top_k, mc.num_experts
-    xt = x.reshape(t, d)
+    xt = xr.reshape(t, d)
     logits = xt.float() @ params["router"]
     weights, _, one_hot, aux = _top_k_gating(logits, k)
 
@@ -103,6 +115,12 @@ def apply_moe(params: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.T
     dispatch = torch.einsum("tke,tkec->tec", within_cap.float(), cap_one_hot)
     combine = torch.einsum("tke,tkec->tec",
                            torch.where(within_cap, weights[..., None].float(), 0.0), cap_one_hot)
+    split = tp is not None and params["w1"].shape[0] != e
+    if split:  # this rank's experts
+        el = params["w1"].shape[0]
+        dispatch = dispatch[:, tp.rank * el:(tp.rank + 1) * el]
+        combine = tp.split(combine, 1)
+        xt = tp.copy(xt)
     expert_in = torch.einsum("tec,td->ecd", dispatch, xt.float()).to(x.dtype)
     h = torch.einsum("ecd,edf->ecf", expert_in, params["w1"])
     if "w3" in params:
@@ -114,9 +132,15 @@ def apply_moe(params: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.T
     elif cfg.mlp == "relu2":
         h = torch.square(F.relu(h))
     expert_out = torch.einsum("ecf,efd->ecd", h, params["w2"])
-    out = torch.einsum("tec,ecd->td", combine, expert_out.float()).to(x.dtype)
+    out = torch.einsum("tec,ecd->td", combine, expert_out.float())
+    if tp is not None:
+        out = tp.exit(out.reshape(b, s, d), partial=split)
+    out = out.to(x.dtype).reshape(-1, d)
 
     if mc.num_shared_experts:
         shared = {n[len("shared_"):]: w for n, w in params.items() if n.startswith("shared_")}
-        out = out + apply_mlp(shared, xt, cfg.mlp if "shared_w3" in params else "gelu")
-    return out.reshape(b, s, d), aux * mc.aux_loss_weight
+        kind = cfg.mlp if "shared_w3" in params else "gelu"
+        ds = (mc.d_expert or cfg.d_ff) * mc.num_shared_experts
+        out = out + apply_mlp(shared, x.reshape(-1, d) if tp is None else x, kind, tp,
+                              ds).reshape(-1, d)
+    return out.reshape(x.shape), aux * mc.aux_loss_weight

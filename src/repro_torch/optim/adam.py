@@ -30,7 +30,10 @@ states are this rank's shard (a host chunk's states, and under
 Under ``zero1_persistent`` a persistent leaf's states are shards while its
 weights are replicated: ``train/sync.XlaSync.update_views`` hands the
 update this rank's slice of the weights and of the gradient, and
-all-gathers the new bf16 slices into the weights after it.
+all-gathers the new bf16 slices into the weights after it. Over the
+model axis a leaf's weights, gradient and states are this rank's 2-D
+shard, and ``grad_norm`` (``train/sync.grad_norm``) counts every leaf once
+across the mesh, so the clip scales every shard alike.
 """
 from __future__ import annotations
 

@@ -68,6 +68,20 @@ rank's pinned memory. The gather's backward reduce-scatters; the
 replicated leaves' gradients are averaged once the microbatches are
 accumulated; then the wire numerics (``XlaSync.finalize_grads``).
 
+With a model axis (``LocalMesh.model > 1``) the xla path shards every leaf
+along both of its dims (``dist/sharding.shard2``): its ``zero`` dim over
+the data ranks, its ``tp`` / ``exp`` dim over the model ranks. The
+``LazyGather`` gathers over the data group only, so a gathered leaf stays
+split over ``model`` (the reference's ``gather_sharding``); the model runs
+Megatron-style on those shards (``dist/tensor_parallel.py``: column- and
+row-parallel attention and MLP, experts over the model axis, the
+vocab-parallel embedding and cross-entropy, sequence sharding under
+``seq_shard_acts``). The batch splits over the data axis, and under
+``dp_only`` -- where the ``tp`` dims stay whole and the model runs as on
+one device -- over the model axis too (``dist/sharding.batch_axes``).
+Every single-device plan kind runs so. The dense and MoE decoders split;
+the other families raise ``NotImplementedError`` (ROADMAP.md).
+
 Serving: ``fn(state, batch)`` runs the step under ``torch.inference_mode``
 and returns ``(state, next_tok)``, the greedy argmax taken on the device.
 ``state`` is ``{"params", "cache"}``; the cache is written in place; the
@@ -88,6 +102,7 @@ from repro_torch.core.plan import MemoryPlan
 from repro_torch.core.serve_plan import paging_from_plan
 from repro_torch.dist import collectives as COLL
 from repro_torch.dist import sharding as SH
+from repro_torch.dist.tensor_parallel import make_tensor_parallel
 from repro_torch.launch.mesh import LocalMesh
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
@@ -153,9 +168,9 @@ def _slice_run_defs(block_defs, length: int):
 def check_train_plan(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig,
                      world: int = 1) -> None:
     """Raise ``ValueError`` for a plan that does not fit the model, or a
-    batch that does not split over ``world`` ranks and the plan's
-    microbatches (what the strategy refuses, ``train/sync.make_strategy``,
-    it raises itself)."""
+    batch that does not split over ``world`` ranks (the batch axes' extent)
+    and the plan's microbatches (what the strategy refuses,
+    ``train/sync.make_strategy``, it raises itself)."""
     n_rep = M.num_repeats(cfg)
     if plan.n_chunks != n_rep + 2 or plan.n_blocks != n_rep:
         raise ValueError(f"plan {plan.describe()} does not fit {cfg.name}: it has "
@@ -183,10 +198,17 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
     device = resolve_device(device)
     adam = adam or OPT.AdamConfig()
     mesh = mesh if mesh is not None else LocalMesh(0, 1, None, device)
-    check_train_plan(cfg, plan, shape, mesh.world)
+    batch_rank, batch_ranks = SH.batch_extent(mesh, plan.dp_only)
+    check_train_plan(cfg, plan, shape, batch_ranks)
     strategy = strategy if strategy is not None else SYNC.make_strategy(plan, mesh)
     manual = strategy.manual_active
     sharded = not manual and strategy.sharded  # the xla path's sharded layouts
+    # the model axis: tp / exp dims split over it (None without one, or
+    # under dp_only); sequence parallelism where the model extent divides S
+    tp = make_tensor_parallel(mesh, plan if shape.seq_len % mesh.model == 0 else
+                              dataclasses.replace(plan, seq_shard_acts=False))
+    if tp is not None:
+        M.check_tp_family(cfg)
     runs_layout = plan_runs(plan, M.num_repeats(cfg))
     defs = M.param_defs(cfg)
     p_defs: dict[str, Any] = {
@@ -231,12 +253,14 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
             placements += [chunk_of[key] if i is None else runs_layout[i].placement] * n
             leaf_chunks += [(key, False) if i is None else (f"runs[{i}]", True)] * n
             leaf_host += [weights_on_host[key] if i is None else weights_on_host["runs"][i]] * n
-    leafs = SYNC.leaf_sync_tree(p_defs, placements, mesh.world)
+    leafs = SYNC.leaf_sync_tree(p_defs, placements, mesh.data, mesh.model, plan.dp_only)
     # the xla path's zero1_persistent: a persistent leaf whose fp32 states
-    # are shards while its weights stay replicated (the dim they shard over)
-    zero1_dims = [od if sharded and ls.dim is None else None for ls, od in zip(
-        leafs, (SH.opt_dim(d, mesh.world, pl, plan.zero1_persistent)
-                for d, pl in zip(SH.def_leaves(p_defs), placements)))]
+    # are shards over data while its weights stay replicated there (the
+    # dim they shard over)
+    zero1_dims = [od if sharded and ls.dim is None and mesh.data > 1 else None
+                  for ls, od in zip(leafs, (SH.opt_dim(d, mesh.data, pl, plan.zero1_persistent)
+                                            for d, pl in zip(SH.def_leaves(p_defs),
+                                                             placements)))]
     zero1 = any(d is not None for d in zero1_dims)
     SYNC.record_sync_inventory(strategy, p_defs, leafs, plan.microbatch, tel.registry)
 
@@ -259,15 +283,27 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
                         lambda sub: OPT.tree_map(lambda t: proxy_like(t, device), sub))
 
     def shard_leaves(tree, dims: list) -> dict:
-        """This rank's slices of a tree's leaves along ``dims`` (None: the
-        leaf itself)."""
+        """This rank's slices of a tree's leaves along ``dims`` over the data
+        ranks (None: the leaf itself)."""
         it = iter(dims)
-        return OPT.tree_map(lambda t: SH.shard(t, next(it), mesh.rank, mesh.world), tree)
+        return OPT.tree_map(lambda t: SH.shard(t, next(it), mesh.data_rank, mesh.data), tree)
+
+    def shard_leaves2(tree) -> dict:
+        """This rank's 2-D shards of a tree's full leaves."""
+        it = iter(leafs)
+
+        def one(t):
+            ls = next(it)
+            return SH.shard2(t, ls.dim, ls.mdim, mesh)
+
+        return OPT.tree_map(one, tree)
 
     def make_gather(params, errs: list, compress: str) -> COLL.LazyGather:
-        """The step's ``LazyGather``: every sharded leaf and every leaf in
-        host memory registered, a run's repeat by repeat (dim - 1)."""
-        gather = COLL.LazyGather(mesh.group, compress, tel.registry, io=io)
+        """The step's ``LazyGather`` over the data group: every leaf sharded
+        over data and every leaf in host memory registered, a run's repeat
+        by repeat (dim - 1). A gathered leaf stays split over the model
+        axis."""
+        gather = COLL.LazyGather(mesh.data_group, compress, tel.registry, io=io)
         with torch.no_grad():
             for p, e, ls, (label, stacked), host in zip(OPT.tree_leaves(params), errs, leafs,
                                                         leaf_chunks, leaf_host):
@@ -315,29 +351,32 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
             if key in host_keys:
                 fparams[key] = io.fetch(proxies[key], params[key])
         h, aux = M.forward(fparams, batch, cfg, runs=make_runs(params, proxies, gather),
-                           attn_impl=attn_impl, io=io)
+                           attn_impl=attn_impl, io=io, tp=tp)
         for key in host_keys:
             if key not in FRONT_KEYS:
                 fparams[key] = io.fetch(proxies[key], params[key])
-        h = L.apply_norm(fparams["final_norm"], h, cfg.norm)
+        norm = fparams["final_norm"] if tp is None else tp.norm_params(fparams["final_norm"])
+        h = L.apply_norm(norm, h, cfg.norm)
         w = fparams["embed"]["tok"].T if cfg.tie_embeddings else fparams["head"]["w"]
-        ce = chunked_cross_entropy(h, w, batch["labels"], ce_chunk=ce_chunk)
+        ce = chunked_cross_entropy(h, w, batch["labels"], ce_chunk=ce_chunk, tp=tp,
+                                   vocab=cfg.vocab_size)
         return ce + aux, ce
 
     def grad_fn(state: dict, batch: dict):
         """The step's gradients and losses: (grads tree, (2,) fp32 [loss,
         ce]), accumulated over the plan's microbatches; the loss is the
         cross-entropy plus the MoE aux loss. Every gradient lies on the
-        device. Sharded: over this rank's rows of ``batch``, a sharded
-        leaf's gradient reduce-scattered (this rank's shard), a replicated
-        leaf's local (``finalize_grads`` averages it), the losses averaged
-        over the ranks."""
+        device. Sharded: over this rank's rows of ``batch`` (split over the
+        batch axes), a leaf sharded over data has its gradient
+        reduce-scattered over the data group (this rank's shard), a
+        replicated leaf's local (``finalize_grads`` averages it), the
+        losses averaged over the batch ranks."""
         params = state["params"]
         proxies = make_proxies(params)
         flat = OPT.tree_leaves(proxies)
         gather = None
         if sharded:
-            batch = {k: SH.manual_batch_split(v, mesh.rank, mesh.world)
+            batch = {k: SH.manual_batch_split(v, batch_rank, batch_ranks)
                      for k, v in batch.items()}
             gather = make_gather(params, [None] * len(leafs), "none")
 
@@ -352,7 +391,7 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
             return OPT.tree_map(lambda _: next(grads), params), torch.stack([loss, ce]).detach()
 
         grads, losses = accumulate_grads(micro_grad, batch, plan.microbatch)
-        return grads, COLL.manual_mean(losses, mesh.group) if sharded else losses
+        return grads, strategy.batch_mean(losses) if sharded else losses
 
     def manual_grad_fn(state: dict, batch: dict):
         """The manual sync's gradients (this rank's shards of the sharded
@@ -398,7 +437,7 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         states (and zero residuals) are placed by plan: this rank's shards
         of its leaves, a zero1 leaf's sliced from its replicated weights."""
         if manual or sharded:
-            params = shard_leaves(params, [ls.dim for ls in leafs])
+            params = shard_leaves2(params)
         if pin:
             params = map_host(params, weights_on_host, to_pinned)
         opt_src = shard_leaves(params, zero1_dims) if zero1 else params

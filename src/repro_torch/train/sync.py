@@ -8,14 +8,21 @@ Port of ``src/repro/train/sync.py``. A strategy object owns one
     ``finalize_grads`` applies the wire numerics (int8 + EF or bf16) to the
     reduced, accumulated gradients. On one rank the reduction is the local
     math. On several (``sharded``) it is the layout of the reference's
-    table (``dist/sharding.py``): every plan the xla path lowers without a
-    model axis -- ZeRO-sharded ``hbm`` chunks, host chunks with or without
-    ``host_params``, swap blocks, ``zero1_persistent``, microbatches. A
-    sharded leaf is gathered at its point of use (``LazyGather``,
-    ``compress="none"``), so its gradient leaves the backward
-    reduce-scattered; a replicated leaf's is averaged over the ranks once
-    the microbatches are accumulated; the int8 scale is the whole leaf's
-    (``collectives.xla_int8_ef``). The model axis is queued in ROADMAP.md.
+    table (``dist/sharding.py``) on the ``(data, model)`` mesh: every plan
+    the xla path lowers -- ZeRO-sharded ``hbm`` chunks, host chunks with or
+    without ``host_params``, swap blocks, ``zero1_persistent``,
+    microbatches -- with ``tp`` / ``exp`` dims split over the model axis
+    (``dist/tensor_parallel.py``), or folded into the batch under
+    ``dp_only``. A leaf sharded over data is gathered over the data group
+    at its point of use (``LazyGather``, ``compress="none"``), so its
+    gradient leaves the backward reduce-scattered over the data group; a
+    leaf replicated over data has its gradient averaged over the batch
+    ranks once the microbatches are accumulated. Over the model axis every
+    rank's gradient is already whole (its slice's for a split leaf), so the
+    gradients are reduced over the data group only -- under ``dp_only``,
+    where the model ranks took other rows, over the model group too. The
+    int8 scale is the whole leaf's (``collectives.xla_int8_ef``: a MAX
+    all-reduce over every axis the leaf is split on).
   * ``ManualSync``: ``sync_mode="manual"`` over the data-parallel ranks of a
     ``launch.mesh.LocalMesh``; ``dist/collectives.py`` owns the wire. Per
     leaf (``leaf_sync_tree``): a *replicated* leaf (every leaf of a "ddp"
@@ -114,17 +121,21 @@ def accumulate_grads(micro_grad, batch: dict, microbatch: int, overlap: bool = F
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class LeafSync:
-    """How the manual path syncs one gradient leaf: ``dim`` is its
-    ZeRO-sharded dim (reduce-scatter to shard owners) or None (replicated:
-    the DDP-style gather sync)."""
+    """How one gradient leaf syncs: ``dim`` is its ZeRO-sharded dim over the
+    data axis (reduce-scatter to shard owners) or None (replicated over
+    data: the DDP-style gather sync, or the xla path's mean); ``mdim`` the
+    dim it splits over the model axis, or None."""
 
     dim: int | None
+    mdim: int | None = None
 
 
-def leaf_sync_tree(defs, placements: list[str], world: int) -> list[LeafSync]:
+def leaf_sync_tree(defs, placements: list[str], world: int, model: int = 1,
+                   dp_only: bool = False) -> list[LeafSync]:
     """LeafSync descriptors of a ParamDef tree's leaves (``tree_leaves``
-    order), each under its chunk's placement."""
-    return [LeafSync(SH.leaf_sync_dim(d, world, pl))
+    order), each under its chunk's placement, on a ``(world, model)``
+    mesh."""
+    return [LeafSync(*SH.leaf_dims(d, pl, world, model, dp_only))
             for d, pl in zip(SH.def_leaves(defs), placements)]
 
 
@@ -156,14 +167,17 @@ def _local_sq(tensors: list) -> torch.Tensor:
 
 def grad_norm(grads, leafs: list[LeafSync], mesh) -> torch.Tensor:
     """The global norm of a tree of this rank's parts over ``mesh``'s
-    ranks: each leaf's sum of squares, a replicated leaf's (equal on every
-    rank) counted on rank 0 only, summed over the ranks in one all-reduce,
-    then added in ``tree_leaves`` order as ``optim.adam.global_norm`` adds
-    them: at world one, bitwise its norm."""
+    ranks, each leaf counted once across the mesh: its sum of squares,
+    kept on a rank where, along each axis, the leaf is split or the rank is
+    that axis's rank 0 (a leaf replicated over an axis is equal on its
+    ranks), summed over every rank in one all-reduce, then added in
+    ``tree_leaves`` order as ``optim.adam.global_norm`` adds them: at world
+    one, bitwise its norm."""
     sq = torch.stack([sum_sq(g) for g in tree_leaves(grads)])
     if dist.is_initialized():
         if mesh.rank:
-            keep = [float(ls.dim is not None) for ls in leafs]
+            keep = [float((ls.dim is not None or mesh.data_rank == 0)
+                          and (ls.mdim is not None or mesh.model_rank == 0)) for ls in leafs]
             sq = sq * torch.tensor(keep, dtype=sq.dtype, device=sq.device)
         dist.all_reduce(sq, group=mesh.group)
     return torch.sqrt(sum(sq.unbind()))
@@ -186,7 +200,27 @@ class XlaSync:
         self.plan, self.mesh = plan, mesh
         self.compress = plan.grad_compress
         self.sharded = mesh.world > 1 if sharded is None else sharded
-        self.group = mesh.group
+        self.group = mesh.data_group
+        # dp_only: the model ranks took other rows of the batch
+        self.fold = plan.dp_only and mesh.model > 1
+
+    def batch_mean(self, x: torch.Tensor, over_data: bool = True) -> torch.Tensor:
+        """The mean over the ranks that took other rows of the batch:
+        the data group (``over_data``), then under ``dp_only`` the model
+        group."""
+        if over_data and self.mesh.data > 1:
+            x = COLL.manual_mean(x, self.group)
+        if self.fold:
+            x = COLL.manual_mean(x, self.mesh.model_group)
+        return x
+
+    def _wire_groups(self, ls: LeafSync):
+        """The groups of the axes a leaf is split on: its int8 scale's MAX
+        all-reduce runs over them (None: whole on this rank)."""
+        groups = tuple(g for g, split in ((self.group, ls.dim is not None),
+                                          (self.mesh.model_group, ls.mdim is not None))
+                       if split)
+        return groups or None
 
     def ef_state(self, params, device):
         """The residuals (fp32, on the gradients' ``device``), shaped like
@@ -200,16 +234,14 @@ class XlaSync:
         """The reduction's last part (sharded: the replicated leaves' mean
         over the ranks), then the wire numerics a leaf at a time, the
         residuals updated in place. Returns (grads, metrics)."""
-        group = self.group if self.sharded else None
         flat = tree_leaves(grads)
         if self.sharded:
-            flat = [g if ls.dim is not None else COLL.manual_mean(g, group)
-                    for g, ls in zip(flat, leafs)]
+            flat = [self.batch_mean(g, over_data=ls.dim is None) for g, ls in zip(flat, leafs)]
         metrics = {}
         if self.compress == "int8_ef":
             out = []
             for g, e, ls in zip(flat, tree_leaves(ef), leafs):
-                s, new = COLL.xla_int8_ef(g, e, group if ls.dim is not None else None)
+                s, new = COLL.xla_int8_ef(g, e, self._wire_groups(ls) if self.sharded else None)
                 e.copy_(new)
                 out.append(s)
             flat = out
@@ -225,7 +257,7 @@ class XlaSync:
         (a persistent leaf whose states are shards) is this rank's slice,
         and a ``regather()`` that all-gathers the updated bf16 slices into
         the replicated weights. At world one a slice is the leaf itself."""
-        rank, world = self.mesh.rank, self.mesh.world
+        rank, world = self.mesh.data_rank, self.mesh.data
         flat_p, flat_g = tree_leaves(params), tree_leaves(grads)
         if world == 1:
             return flat_p, flat_g, lambda: None
@@ -338,12 +370,15 @@ def tree_map_flat(like, flat: list):
     return tree_map(lambda _: next(it), like)
 
 
-def make_strategy(plan, mesh, tp_degree: int = 1) -> XlaSync | ManualSync:
+def make_strategy(plan, mesh, tp_degree: int | None = None) -> XlaSync | ManualSync:
     """The sync strategy of a plan on a mesh. Raises the reference's
-    ``ValueError`` for a manual plan no kind lowers, at every world size;
-    a manual plan on one rank falls back to ``XlaSync`` (the local math is
-    the collective); the xla path runs ``XlaSync``, sharded on several
-    ranks. A model axis (``tp_degree > 1``) raises ``NotImplementedError``."""
+    ``ValueError`` for a manual plan no kind lowers, at every world size:
+    with a model axis (``tp_degree``, default the mesh's model extent)
+    only an all-persistent plan under ``dp_only`` lowers, as "ddp"
+    (``core/plan.manual_sync_kind``). A manual plan on one rank falls back
+    to ``XlaSync`` (the local math is the collective); the xla path runs
+    ``XlaSync``, sharded on several ranks, with or without a model axis."""
+    tp_degree = mesh.model if tp_degree is None else tp_degree
     if plan.sync_mode == "manual":
         kind = plan.manual_sync_kind(tp_degree)
         if kind is None:
@@ -356,10 +391,6 @@ def make_strategy(plan, mesh, tp_degree: int = 1) -> XlaSync | ManualSync:
         if mesh.world == 1:
             return XlaSync(plan, mesh)
         return ManualSync(plan, mesh, kind)
-    if tp_degree > 1:
-        raise NotImplementedError(
-            f"tp_degree={tp_degree}: tensor parallelism (the model axis, dp_only, sequence "
-            "sharding) is not ported (ROADMAP.md, port queue 1)")
     return XlaSync(plan, mesh)
 
 

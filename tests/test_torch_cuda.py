@@ -27,6 +27,10 @@ from repro_torch import kernels as K
 from repro_torch.compat import cuda_kernel_problems
 from repro_torch.kernels import ref
 
+import torch_cores
+
+torch_cores.share_cores()
+
 TOL = 2e-2
 
 

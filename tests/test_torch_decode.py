@@ -46,6 +46,10 @@ from repro_torch.serve import (
     prefill_chunk,
 )
 
+import torch_cores
+
+torch_cores.share_cores()
+
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 B = 2
 

@@ -52,6 +52,10 @@ from repro_torch.train.step_builder import build_train_step
 
 import torch_dist_ranks as R
 
+import torch_cores
+
+torch_cores.share_cores()
+
 MEAN_TOL = 1e-6
 BF16_TOL = 2.0 ** -7
 TOL = 1e-4  # steps: tests/test_torch_train.py's bound
@@ -226,7 +230,8 @@ def test_make_strategy_kinds_and_guards(cell, kind):
     """A manual plan no kind lowers raises the reference's ValueError at
     every world size; one that lowers is ``ManualSync`` of its kind on 4
     ranks and ``XlaSync`` on one; the xla path on 4 ranks is the sharded
-    ``XlaSync``, and with a model axis it raises, naming ROADMAP.md."""
+    ``XlaSync``, with a model axis too, where a manual plan lowers only as
+    "ddp" under ``dp_only`` (``tests/test_torch_tp.py``)."""
     n_persist, n_host, n_swap, zero1, stage = cell
     plan = MemoryPlan(4, 2, n_persist=n_persist, n_host=n_host, n_swap=n_swap,
                       zero1_persistent=zero1, zero_stage=stage, sync_mode="manual",
@@ -244,9 +249,12 @@ def test_make_strategy_kinds_and_guards(cell, kind):
         assert s.kind == (kind if world == 4 else "xla")
     xla = SYNC.make_strategy(MemoryPlan(4, 2, n_persist=n_persist), LocalMesh(0, 4, None, CPU))
     assert xla.kind == "xla" and xla.sharded
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SYNC.make_strategy(MemoryPlan(4, 2, n_persist=n_persist), LocalMesh(0, 4, None, CPU),
-                           tp_degree=2)
+    tp = SYNC.make_strategy(MemoryPlan(4, 2, n_persist=n_persist), LocalMesh(0, 4, None, CPU),
+                            tp_degree=2)
+    assert tp.kind == "xla" and tp.sharded
+    if kind is not None:
+        with pytest.raises(ValueError, match="manual"):
+            SYNC.make_strategy(plan, LocalMesh(0, 4, None, CPU), tp_degree=2)
 
 
 JCFG = jreduced(jget_config("llama3-405b"), dtype="float32")

@@ -35,6 +35,10 @@ from repro_torch.models import convert
 
 import torch_dist_ranks as R
 
+import torch_cores
+
+torch_cores.share_cores()
+
 TOL = 1e-4
 RTOL_INT8 = 2e-2
 MASTER_ABS = 1e-3

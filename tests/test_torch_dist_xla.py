@@ -54,6 +54,10 @@ from repro_torch.train.step_builder import build_train_step
 
 import torch_dist_ranks as R
 
+import torch_cores
+
+torch_cores.share_cores()
+
 TOL = 1e-4
 RTOL_INT8 = 1e-3
 INT8_UPDATE_GAP = 0.1
@@ -295,14 +299,14 @@ def test_launcher_auto_runs_the_plan_searched_over_both_sync_modes(ranks):
 
 
 def test_make_strategy_xla_on_four_ranks():
-    """Every plan the xla path lowers without a model axis is a sharded
-    ``XlaSync`` at world 4; a model axis raises, naming ROADMAP.md."""
+    """Every plan the xla path lowers is a sharded ``XlaSync`` at world 4,
+    with and without a model axis (``tp_degree=2``)."""
     mesh = LocalMesh(0, 4, None, torch.device("cpu"))
     for n, c in R.XLA_CASES:
         s = SYNC.make_strategy(R.xla_plan(n, c), mesh)
         assert isinstance(s, SYNC.XlaSync) and s.sharded and s.kind == "xla"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SYNC.make_strategy(MemoryPlan(4, 2, n_persist=0), mesh, tp_degree=2)
+    s = SYNC.make_strategy(MemoryPlan(4, 2, n_persist=0), mesh, tp_degree=2)
+    assert isinstance(s, SYNC.XlaSync) and s.sharded and s.kind == "xla"
 
 
 def test_launcher_nproc_fsdp_runs_the_xla_path(capsys):

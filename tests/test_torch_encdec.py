@@ -51,6 +51,10 @@ from repro_torch.optim.adam import tree_leaves
 from repro_torch.serve.paging import PagedKV, choose_paging, init_paged_cache
 from repro_torch.train.losses import chunked_cross_entropy
 
+import torch_cores
+
+torch_cores.share_cores()
+
 TOL = 1e-4
 SEAMLESS = "seamless-m4t-large-v2"
 LR = 3e-3

@@ -10,6 +10,10 @@ import pytest
 
 from test_torch_encdec_train import check_steps_match_jax
 
+import torch_cores
+
+torch_cores.share_cores()
+
 
 @pytest.mark.parametrize("plan_name", ["compress8", "front_chunk_host"])
 def test_seamless_offload_steps_match_jax(plan_name):

@@ -38,6 +38,10 @@ from repro_torch.optim.adam import AdamConfig, tree_leaves
 from repro_torch.train.step_builder import build_train_step
 from test_torch_encdec import LR, SEAMLESS, _batch, _cfgs, _close, _rebuild, _torch_loss
 
+import torch_cores
+
+torch_cores.share_cores()
+
 
 # ---------------------------------------------------------------------------
 # Cross-attention and the encoder

@@ -35,6 +35,10 @@ from repro_torch.serve import (
     choose_paging,
 )
 
+import torch_cores
+
+torch_cores.share_cores()
+
 B, S, CHUNK = 2, 32, 8
 
 

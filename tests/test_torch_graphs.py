@@ -35,6 +35,10 @@ from repro_torch.models.model import init_params
 from repro_torch.serve import PagedKV, PagingSpec, choose_paging, init_paged_cache
 from repro_torch.serve.prefill import ServeStep
 
+import torch_cores
+
+torch_cores.share_cores()
+
 
 @st.composite
 def _steps(draw):

@@ -67,6 +67,10 @@ from repro_torch.serve import (
     prefill_chunk,
 )
 
+import torch_cores
+
+torch_cores.share_cores()
+
 ARCH = "jamba-1.5-large-398b"
 
 

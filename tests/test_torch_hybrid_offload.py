@@ -7,6 +7,10 @@ backward). Tolerances are ``tests/test_torch_mamba.py``'s (``train_case``).
 import pytest
 from test_torch_mamba import train_case
 
+import torch_cores
+
+torch_cores.share_cores()
+
 ARCH = "jamba-1.5-large-398b"
 PLANS = {  # name: plan keywords for 3 chunks and 1 block
     "swap": dict(n_persist=3, n_swap=1),

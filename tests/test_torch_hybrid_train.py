@@ -14,6 +14,10 @@ where the 2-layer Mamba-2 case holds 0.1. The host-memory plans are in
 import pytest
 from test_torch_mamba import train_case
 
+import torch_cores
+
+torch_cores.share_cores()
+
 ARCH = "jamba-1.5-large-398b"
 PLANS = {  # name: (plan keywords for 3 chunks and 1 block, quantizes)
     "none": (dict(n_persist=3), False),

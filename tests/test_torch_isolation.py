@@ -14,6 +14,10 @@ from repro import configs as JC
 from repro_torch import configs as TC
 from repro_torch.compat import cuda_kernel_problems, require_cuda_kernels, resolve_device
 
+import torch_cores
+
+torch_cores.share_cores()
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -32,6 +32,10 @@ from repro_torch import kernels as K
 from repro_torch.kernels import ref as TR
 from repro_torch.optim import adam as TADAM
 
+import torch_cores
+
+torch_cores.share_cores()
+
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

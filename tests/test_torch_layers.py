@@ -16,6 +16,10 @@ from repro_torch.models import convert
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 
+import torch_cores
+
+torch_cores.share_cores()
+
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -19,6 +19,10 @@ from repro_torch.obs import logging as TL
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.step_builder import build_train_step
 
+import torch_cores
+
+torch_cores.share_cores()
+
 CALLS = [  # (method, event, msg, fields)
     ("debug", "probe", None, {"x": 1}),
     ("info", "step", "[loop] step 0 loss=1.0000", {"step": 0, "loss": 1.0}),

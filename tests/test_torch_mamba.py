@@ -37,6 +37,7 @@ carried across bit for bit by ``repro_torch.models.convert`` (the fp32
   plan equal to the reference's on a shared profile.
 """
 import dataclasses
+import functools
 import json
 import math
 
@@ -81,6 +82,10 @@ from repro_torch.models import model as TM
 from repro_torch.optim.adam import AdamConfig, tree_leaves
 from repro_torch.serve import DecodeEngine, Request
 from repro_torch.train.step_builder import build_train_step
+
+import torch_cores
+
+torch_cores.share_cores()
 
 ARCH = "mamba2-130m"
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -280,9 +285,19 @@ def test_check_family_admits_mamba_and_hybrid_and_trees_match():
 # ---------------------------------------------------------------------------
 # The model: forward and gradients, decode
 # ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _jax_params(arch, seed):
+    """The JAX init of ``arch`` (fp32) from ``seed``, drawn once a module:
+    the forward, decode and engine cases share it."""
+    jc, _ = _cfgs("float32", arch)
+    return jax.device_get(JM.init_params(jc, jax.random.PRNGKey(seed)))
+
+
 def _model(arch, seed=1):
+    """(JAX config, port config, JAX params, the port's copy of them); the
+    port's tensors are fresh a call, so a case may mark them for autograd."""
     jc, tc = _cfgs("float32", arch)
-    jp = jax.device_get(JM.init_params(jc, jax.random.PRNGKey(seed)))
+    jp = _jax_params(arch, seed)
     return jc, tc, jp, convert.tree_from_numpy(jp)
 
 

@@ -32,6 +32,7 @@ carried across bit for bit by ``repro_torch.models.convert``. Tolerances:
   profile (1e-12 relative).
 """
 import dataclasses
+import functools
 import json
 import math
 
@@ -76,6 +77,10 @@ from repro_torch.models.offload import proxy_like
 from repro_torch.optim.adam import AdamConfig, tree_leaves
 from repro_torch.serve import DecodeEngine, PagedKV, Request, choose_paging, init_paged_cache
 from repro_torch.train.step_builder import build_train_step
+
+import torch_cores
+
+torch_cores.share_cores()
 
 ARCH = "qwen2-moe-a2.7b"
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -367,9 +372,17 @@ def _prompts():
             for i, n in enumerate(rng.integers(3, 13, 4))]
 
 
+@functools.lru_cache(maxsize=None)
+def _engine_params(cf):
+    """The engine cases' JAX init (cf only changes the config), drawn once
+    a module."""
+    jc, _ = _cfgs("float32", cf)
+    return JM.init_params(jc, jax.random.PRNGKey(0))
+
+
 def _engine_model(cf):
     jc, tc = _cfgs("float32", cf)
-    jp = JM.init_params(jc, jax.random.PRNGKey(0))
+    jp = _engine_params(cf)
     return jc, tc, jp, convert.tree_from_numpy(jax.device_get(jp))
 
 

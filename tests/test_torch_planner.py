@@ -38,6 +38,10 @@ from repro_torch.obs import device_memory_watermark
 from repro_torch.obs.drift import DriftMonitor as TDrift
 from repro_torch.serve.paging import choose_paging as t_paging
 
+import torch_cores
+
+torch_cores.share_cores()
+
 RTOL = 1e-12
 H100_J = JH.HardwareSpec(**dataclasses.asdict(TH.H100_SXM))  # the port's spec, as the reference's
 

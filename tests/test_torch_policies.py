@@ -51,6 +51,10 @@ from repro_torch.models.offload import HostIO
 from repro_torch.optim.adam import AdamConfig, tree_leaves
 from repro_torch.train.step_builder import build_train_step
 
+import torch_cores
+
+torch_cores.share_cores()
+
 JCFG = jreduced(jget_config("mistral-7b"), num_kv_heads=2, dtype="float32")
 CFG = reduced(get_config("mistral-7b"), num_kv_heads=2, dtype="float32")
 SHAPE = ShapeConfig("tiny", 32, 4, "train")

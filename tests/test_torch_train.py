@@ -48,6 +48,10 @@ from repro_torch.train.losses import chunked_cross_entropy
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.step_builder import build_train_step
 
+import torch_cores
+
+torch_cores.share_cores()
+
 TOL = 1e-4
 JCFG = jreduced(jget_config("mistral-7b"), num_kv_heads=2, dtype="float32")
 CFG = reduced(get_config("mistral-7b"), num_kv_heads=2, dtype="float32")

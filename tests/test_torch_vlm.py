@@ -51,6 +51,10 @@ from repro_torch.serve.paging import PagedKV, choose_paging, init_paged_cache
 from repro_torch.train.step_builder import build_prefill_step, build_train_step
 from test_torch_encdec import _close, _torch_loss
 
+import torch_cores
+
+torch_cores.share_cores()
+
 LLAVA = "llava-next-34b"
 HEADS = dict(num_heads=14, num_kv_heads=2)  # group 7, head_dim 32 (reduced's)
 LR = 3e-3

@@ -430,3 +430,141 @@ def xla_launcher_auto() -> dict | None:
 
     args = launch_train.parse_args(XLA_AUTO_ARGV)
     return launch_train._train(args, torch.device("cpu"), make_local_mesh("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# The model axis (tests/test_torch_tp.py)
+# ---------------------------------------------------------------------------
+TP_STEPS = 3
+TP_MODELS = {  # name: (arch, num_kv_heads override)
+    "dense": ("llama3-405b", None),
+    "kv2": ("llama3-405b", 2),
+    "moe": ("qwen2-moe-a2.7b", None),
+}
+TP_PLANS = {  # name: MemoryPlan keywords
+    # a persistent embedding chunk, ZeRO hbm chunks, the first block
+    # checkpointed, the head's chunk buffered
+    "zero": dict(n_persist=1, n_buffer=1, n_checkpoint=1),
+    # host chunks with a swap and a checkpointed block, int8 + EF
+    "host": dict(n_persist=1, n_host=2, n_buffer=1, n_swap=1, n_checkpoint=1,
+                 grad_compress="int8_ef"),
+    # compressed saves: int8 rows in block 0, bf16 in block 1
+    "compress": dict(n_persist=1, n_buffer=1, act_policies=("compress8", "compress16")),
+}
+# name: (model, plan, (data, model) layout, extra plan keywords); each case
+# is held against the JAX step of its (model, plan)
+TP_CASES = {
+    "dense_2x2": ("dense", "zero", (2, 2), {}),
+    "dense_2x2_sp": ("dense", "zero", (2, 2), dict(seq_shard_acts=True)),
+    "dense_1x4": ("dense", "zero", (1, 4), {}),
+    "dense_1x4_sp": ("dense", "zero", (1, 4), dict(seq_shard_acts=True)),
+    "dense_2x2_dp_only": ("dense", "zero", (2, 2), dict(dp_only=True)),
+    "dense_4x1": ("dense", "zero", (4, 1), {}),
+    "kv2_1x4": ("kv2", "zero", (1, 4), {}),
+    "moe_1x4": ("moe", "zero", (1, 4), {}),
+    "moe_1x4_sp": ("moe", "zero", (1, 4), dict(seq_shard_acts=True)),
+    "host_2x2_int8_ef": ("dense", "host", (2, 2), {}),
+    "compress_2x2_sp": ("dense", "compress", (2, 2), dict(seq_shard_acts=True)),
+}
+TP_AUTO_ARGV = ["--arch", "llama3-405b", "--reduced", "--nproc", "4", "--model", "2",
+                "--steps", "2", "--batch", "16", "--seq", "32", "--device", "cpu",
+                "--plan", "auto"]
+
+
+def tp_config(model: str):
+    """The reduced fp32 config of ``TP_MODELS[model]`` and the shape."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+
+    arch, kv = TP_MODELS[model]
+    cfg = reduced(get_config(arch), dtype="float32")
+    if kv is not None:
+        cfg = dataclasses.replace(cfg, num_kv_heads=kv)
+    return cfg, ShapeConfig("tiny", 32, 16, "train")
+
+
+def tp_plan(case: str):
+    from repro_torch.core.plan import MemoryPlan
+
+    _, plan, _, extra = TP_CASES[case]
+    return MemoryPlan(4, 2, **TP_PLANS[plan], **extra)
+
+
+def tp_run(case: str, params, mesh) -> dict:
+    """``TP_STEPS`` steps of a case on this rank's mesh from the full
+    ``params`` (the JAX init): losses, norms, the layout, the fp32 masters
+    made whole after the last step."""
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.dist import sharding as SH
+    from repro_torch.optim.adam import AdamConfig, tree_leaves, tree_map
+    from repro_torch.train.step_builder import build_train_step
+
+    cfg, shape = tp_config(TP_CASES[case][0])
+    art = build_train_step(cfg, tp_plan(case), "cpu", shape, mesh=mesh, adam=AdamConfig(lr=LR))
+    state = art.place_state(tree_map(lambda t: t.clone(), params))
+    pipe = SyntheticTokenPipeline(cfg, shape, seed=0)
+    losses, norms, ef_norms = [], [], []
+    for _ in range(TP_STEPS):
+        state, m = art.fn(state, pipe.next_sync())
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if "ef_norm" in m:
+            ef_norms.append(float(m["ef_norm"]))
+    ls = art.leaf_syncs
+    masters = [SH.unshard2(t.detach(), d, x.mdim, mesh).numpy().copy() for t, d, x in
+               zip(tree_leaves(state["opt"]["master"]), art.opt_dims, ls)]
+    return {"kind": art.strategy.kind, "losses": losses, "norms": norms, "ef_norms": ef_norms,
+            "dims": [(x.dim, x.mdim) for x in ls], "master": masters,
+            "param_shapes": [tuple(t.shape) for t in tree_leaves(state["params"])]}
+
+
+def tp_steps(rank: int, directory: str, params_file: str) -> dict:
+    """Every case of ``TP_CASES`` on its layout of the 4 ranks; the
+    checkpoint race; ``launch.train``'s ``auto`` plan at 2 x 2."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    params = torch.load(params_file, weights_only=True)
+    meshes = {m: make_local_mesh("cpu", model=m) for m in (1, 2, 4)}
+    out = {}
+    for case, (model, plan, (_, m), _) in TP_CASES.items():
+        out[case] = tp_run(case, params[f"{model}_{plan}"], meshes[m])
+    out["race"] = checkpoint_race(rank, directory)
+    from repro_torch.launch import train as launch_train
+
+    out["auto"] = launch_train._train(launch_train.parse_args(TP_AUTO_ARGV),
+                                      torch.device("cpu"), meshes[2])
+    return out
+
+
+def checkpoint_race(rank: int, directory: str) -> dict:
+    """Every rank saves step 2, then step 4, but the last rank writes its
+    step-4 file only once every other rank has listed the steps (it waits
+    for their marks), and lists after: its own listing holds step 4
+    complete, the others' do not. Returns the step this rank listed and
+    the one ``restore_latest`` resumed from."""
+    import time
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+
+    ck = os.path.join(directory, "race")
+    os.makedirs(ck, exist_ok=True)
+    seen = {}
+
+    class Marked(CheckpointManager):
+        def latest_step(self):
+            seen["step"] = super().latest_step()
+            open(os.path.join(ck, f"listed{self.rank}"), "w").close()
+            return seen["step"]
+
+    mgr = Marked(ck, keep=3, rank=rank, world=WORLD)
+    mgr.save(2, {"w": torch.full((3,), 2.0 + rank)}, sync=True)
+    dist.barrier()  # every rank's step 2 is written
+    if rank == WORLD - 1:  # held back until the others have listed
+        while not all(os.path.exists(os.path.join(ck, f"listed{r}"))
+                      for r in range(WORLD - 1)):
+            time.sleep(0.01)
+    mgr.save(4, {"w": torch.full((3,), 4.0 + rank)}, sync=True)
+    got = mgr.restore_latest({"w": torch.zeros(3)})
+    return {"listed": seen["step"], "resumed": got[0], "w": got[1]["w"].tolist()}
