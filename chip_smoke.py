@@ -178,7 +178,7 @@ Phases, each printing one JSON line:
      (7168 x 20480), states on the device and pinned; the quantizer at
      5,120 x 7,168 bf16; each line carries ``"path": "vlm"``;
  22. ``vlm_serve``: phase 4's engine and checks for llava-next-34b at full
-     width and ``VLM_SERVE_LAYERS`` (30) of its 60 layers (34.9 GB of bf16
+     width and ``VLM_SERVE_LAYERS`` (20) of its 60 layers (23.9 GB of bf16
      weights, ``vlm_init``; a cut for the run's time, from all 60),
      prompts of 595 to 758 tokens, one paged launch a layer a step; the
      engine serves tokens, as the JAX engine does;
@@ -232,19 +232,36 @@ Phases, each printing one JSON line:
      host, trained 3 steps where 4 cards are visible;
  28. ``tp``: the model axis (``dist/tensor_parallel.py``). The flash
      forward and backward at mistral-7b's shard shapes (model extent 2: 16
-     over 4 heads of 128; 4: 8 over 2; S 4096, window 4096) against their
-     plain versions, each beside SDPA and its bound (``"path": "tp"``);
-     then ``tp_ranks``: two processes on the one card, a gloo group of
-     data 1 x model 2 (NCCL refuses two ranks on one device; gloo takes
-     CUDA tensors in all-reduces, all-gathers and reduce-scatters: checked
-     on an H100 with torch 2.11), mistral-7b at full width and
-     ``TP_LAYERS`` (8) layers, B 1, S 4096, 3 steps of the resident plan
-     from the weights of seed 0, without and with ``seq_shard_acts``, each
-     loss and grad norm held to the single-device step from the same
-     weights (``TP_LOSS_TOL``, ``TP_NORM_RTOL``: a row-parallel product
-     rounds its partial sums to bf16 and again after the reduction). Its
-     step times are two ranks sharing one card's SMs with gloo reducing
-     through the host: not tensor-parallel speed, and printed as such;
+     over 4 heads of 128; 4: 8 over 2; S 4096, window 4096) and at the
+     other families' at extent 2 (the hybrid's 4 over 1 of 128 at S 2048;
+     seamless-m4t-large-v2's 8 over 8 of 64: causal and non-causal S 4096,
+     1024 over 4096 rows; llava-next-34b's 28 over 4 of 128 at P + S =
+     4,096) against their plain versions, each beside SDPA and its bound
+     (``"path": "tp"``); then two processes on the one card, a gloo group
+     (NCCL refuses two ranks on one device; gloo takes CUDA tensors in
+     all-reduces, all-gathers and reduce-scatters: checked on an H100 with
+     torch 2.11), each run 3 steps from the weights of seed 0, each loss
+     and grad norm held to the single-device step from the same weights,
+     which ran first (``TP_LOSS_TOL``, ``TP_NORM_RTOL``: a row-parallel
+     product rounds its partial sums to bf16 and again after the
+     reduction), each on the resident plan at full width and a depth cut
+     for the run's time: ``tp_ranks``, data 1 x model 2, mistral-7b at
+     ``TP_LAYERS`` (4) layers, B 1, S 4096, without and with
+     ``seq_shard_acts``; ``tp_moe_data``, data 2 x model 1,
+     qwen2-moe-a2.7b at 1 layer, B 2, S 4096, its capacity factor 1.25,
+     the MoE
+     routed over both ranks' tokens (with the share of choices the
+     capacity dropped, counted on the one-device step); ``tp_families``,
+     data 1 x model 2: mamba2-130m at 8 of 24 layers, B 1, S 8192, and
+     llava-next-34b at 2 layers, 1,024 patches and 3,072 tokens, each
+     without and with ``seq_shard_acts``; the reduced hybrid of ``hybrid``
+     at S 2048; seamless-m4t-large-v2 at 4 + 4 layers, S 4096 frames and
+     tokens; these take Adam steps of 3e-5
+     (``TP_FAMILY_LR``: at mistral's 3e-4 bf16 rounding makes 3-step
+     trajectories diverge). Each line states the state bytes of rank 0
+     and of one device. Their step times are two ranks sharing one card's
+     SMs with gloo reducing through the host: not tensor-parallel speed,
+     and printed as such (``tp_step_seconds``);
  29. ``launchers``: ``launch.train`` (mistral-7b, 32 layers, the searched
      plan as searched; seamless-m4t-large-v2; each 2 steps of B 1 at S
      4096) and ``launch.serve`` (mistral-7b, paged, its default stream)
@@ -257,7 +274,8 @@ The kernels summary line gives each kernel's launches per path
 ``encdec_cases``: the flash and paged rows at seamless-m4t-large-v2's heads;
 ``vlm_cases``: every kernel's rows at llava-next-34b's shapes;
 ``dist_cases``: the quantizer's rows at the gradient sync's chunks;
-``tp_cases``: the flash rows at the model axis's shard shapes.
+``tp_cases``: the flash rows at the model axis's shard shapes, each with
+its ``family``.
 
 The fused int8 quantize kernel (``fused_quantize_ef``) is held to its
 plain version bitwise (q, scales and the residual) in phase 5 at
@@ -1468,12 +1486,13 @@ def routing_choices(choices: list, replay: bool = False):
     gating = MOE._top_k_gating
     given = iter(list(choices))
 
-    def record(logits, top_k):
-        out = gating(logits, top_k)
+    def record(logits, top_k, route=None):
+        out = gating(logits, top_k, route)
         choices.append(out[1].clone())
         return out
 
-    def pinned(logits, top_k):
+    def pinned(logits, top_k, route=None):
+        assert route is None, "routing_choices pins one device's routing"
         indices = next(given)
         probs = torch.softmax(logits, dim=-1)
         weights = probs.gather(-1, indices)
@@ -2982,7 +3001,8 @@ VLM_PREFILL_TOKENS = 1024  # vlm_prefill: 1024 patches, then 1024 tokens, B 4
 VLM_PATCHES_SEED = 13
 # depth cuts for the run's time: vlm_serve and vlm_prefill served all 60
 # layers before, and vlm_plan bisected down from 60 (13 fit the host)
-VLM_SERVE_LAYERS, VLM_PLAN_LAYERS = 30, 8
+# (20 of them since the tp phase grew to every family)
+VLM_SERVE_LAYERS, VLM_PLAN_LAYERS = 20, 8
 
 
 def vlm_config(layers: int):
@@ -3022,7 +3042,7 @@ def phase_vlm_kernels() -> list[dict]:
 
 
 def phase_vlm_serve(hw) -> tuple[dict[str, int], dict]:
-    """llava-next-34b at full width and ``VLM_SERVE_LAYERS`` layers (34.9
+    """llava-next-34b at full width and ``VLM_SERVE_LAYERS`` layers (23.9
     GB of bf16 weights) through ``serve_phase`` on the paged plan, chunked admission,
     prompts of 595 to 758 tokens: the engine serves its tokens, as the JAX
     engine does (patches enter only through ``forward``). Returns the
@@ -3736,67 +3756,187 @@ def phase_dist_xla(hw) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 # mistral-7b's 32 query over 8 KV heads of 128, split over a model extent
 TP_FLASH_HEADS = ((2, (16, 4)), (4, (8, 2)))
-TP_LAYERS, TP_STEPS, TP_MODEL = 8, 3, 2
+TP_LAYERS, TP_STEPS, TP_MODEL = 4, 3, 2
 # tp_ranks against the single-device step: bf16 through 8 layers, the
 # row-parallel products rounded twice (each rank's partial sum, then the
 # reduced sum); train_compare's bounds, which hold kernels against the plain
 # path through 2 layers
 TP_LOSS_TOL, TP_NORM_RTOL = 1e-2, 2e-2
 TP_SEQ_SHARD = (False, True)
+# Adam's step of the other families' runs: at 3e-4 its first, sign-like
+# updates turn bf16 rounding into diverging trajectories, and by step 3
+# seamless-m4t-large-v2's grad norm (256k vocab) moved 0.04-0.6 % under
+# mere re-chunkings of the one-device cross-entropy and 0.65-3.5 % on two
+# ranks, by the chunking alone (scripts/tp_spread_chip.py, PERF.md §6);
+# step 1 does not depend on it
+TP_FAMILY_LR, TP_LR = 3e-5, 3e-4
+# the families' depths on the model axis (widths stay whole), cut for the
+# run's time: two ranks' steps on one card through gloo took 94 s of the
+# phase's 134 at mistral-7b 8, qwen2-moe-a2.7b 1 (ZeRO over data), mamba2-130m
+# 12, seamless 8 + 8 and llava 4 layers, and the script reached `done` at
+# 809.9 s on an H100 (PERF.md §6); qwen2-moe's two resident states of one
+# layer hold 19 GB each
+TP_MOE_LAYERS, TP_MOE_BATCH = 1, 2
+TP_MAMBA_LAYERS, TP_MAMBA_SEQ = 8, 8192
+TP_ENCDEC_LAYERS = 4
+TP_VLM_LAYERS, TP_VLM_TOKENS = 2, 3072  # 1,024 patches ahead: P + S = 4,096
+TP_VLM_SEQ = TP_VLM_TOKENS + VLM_PATCHES
+# tp_ranks' runs, in order: (name, family, (data, model), seq_shard_acts)
+TP_RUNS = (
+    ("mistral", "mistral", (1, TP_MODEL), False),
+    ("mistral_sp", "mistral", (1, TP_MODEL), True),
+    ("moe_data", "moe", (TP_MODEL, 1), False),
+    ("mamba", "mamba", (1, TP_MODEL), False),
+    ("mamba_sp", "mamba", (1, TP_MODEL), True),
+    ("hybrid", "hybrid", (1, TP_MODEL), False),
+    ("seamless", "seamless", (1, TP_MODEL), False),
+    ("llava", "llava", (1, TP_MODEL), False),
+    ("llava_sp", "llava", (1, TP_MODEL), True),
+)
+# the kernels each family's step must launch
+TP_KERNELS = {"mamba": ("rmsnorm", "fused_adam"),
+              "seamless": ("flash_attention", "flash_attention_bwd", "fused_adam")}
+TP_DEFAULT_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm", "fused_adam")
+
+
+def tp_family_flash() -> list[tuple]:
+    """The other families' flash shapes at a model extent of 2: (family,
+    heads, hd, query rows, key rows, causal). The hybrid's 8 over 1 of 128
+    as 4 over 1; seamless-m4t-large-v2's 16 over 16 of 64 as 8 over 8 (the
+    decoder's causal S 4096, the encoder's non-causal S 4096, a
+    cross-attention's 1024 over 4096); llava-next-34b's 56 over 8 of 128
+    as 28 over 4 at P + S = 4,096."""
+    half = lambda h: (h[0] // TP_MODEL, max(1, h[1] // TP_MODEL))  # noqa: E731
+    rows = [("hybrid", half(HYBRID_HEADS), HD, HYBRID_SEQ, HYBRID_SEQ, True)]
+    rows += [("seamless", half(ENCDEC_HEADS), ENCDEC_HD, s, sk, c)
+             for s, sk, c in ENCDEC_FLASH_CASES]
+    return rows + [("llava", half(VLM_HEADS), HD, TP_VLM_SEQ, TP_VLM_SEQ, True)]
 
 
 def phase_tp_kernels() -> list[dict]:
-    """The flash forward and backward at the model axis's shard shapes."""
+    """The flash forward and backward at the model axis's shard shapes:
+    mistral-7b's at extents 2 and 4, the other families' at 2."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(9)
+    cases = [(dict(heads=heads), dict(model_extent=tp, family="mistral"))
+             for tp, heads in TP_FLASH_HEADS]
+    cases += [(dict(heads=heads, hd=hd, window=0, causal=c, sk=sk, s=s),
+               dict(model_extent=TP_MODEL, family=fam))
+              for fam, heads, hd, s, sk, c in tp_family_flash()]
     rows = []
-    for tp, heads in TP_FLASH_HEADS:
-        for r in flash_case(TRAIN_SEQ, gen, True, heads=heads):
-            r["model_extent"] = tp
+    for kw, tag in cases:
+        for r in flash_case(kw.pop("s", TRAIN_SEQ), gen, True, **kw):
+            r.update(tag)
             emit("kernel_vs_plain", path="tp", **r)
             rows.append(r)
         torch.cuda.empty_cache()
     return rows
 
 
-def tp_steps(mesh=None, seq_shard: bool = False) -> dict:
-    """``TP_STEPS`` steps of the resident plan at ``TP_LAYERS`` layers from
-    the weights of seed 0, on ``mesh`` (None: one device), ``seq_shard``
-    its ``seq_shard_acts``: losses, norms, step seconds, the kernels'
-    launches over the steps, the peak."""
-    import torch
-
-    from repro_torch import kernels as K
+def tp_setup(family: str, seq_shard: bool):
+    """(config, shape, plan) of a ``tp`` run: the family at full width and
+    its depth above, the resident plan; qwen2-moe-a2.7b at B 2, its
+    config's capacity factor 1.25."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.plan import fully_resident_plan
+    from repro_torch.models.model import num_repeats
+
+    seq, batch = TRAIN_SEQ, 1
+    if family == "mistral":
+        cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=TP_LAYERS)
+    elif family == "moe":
+        cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=TP_MOE_LAYERS)
+        batch = TP_MOE_BATCH
+    elif family == "mamba":
+        cfg = dataclasses.replace(get_config(MAMBA_ARCH), num_layers=TP_MAMBA_LAYERS)
+        seq = TP_MAMBA_SEQ
+    elif family == "hybrid":
+        cfg, seq = hybrid_config(), HYBRID_SEQ
+    elif family == "seamless":
+        cfg = dataclasses.replace(encdec_cut(), num_layers=TP_ENCDEC_LAYERS,
+                                  encoder_layers=TP_ENCDEC_LAYERS)
+    else:
+        cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=TP_VLM_LAYERS)
+        seq = TP_VLM_TOKENS
+    n = num_repeats(cfg)
+    return cfg, ShapeConfig("tp", seq, batch, "train"), dataclasses.replace(
+        fully_resident_plan(n + 2, n), seq_shard_acts=seq_shard)
+
+
+@contextlib.contextmanager
+def moe_drop_count(into: dict):
+    """Count the (token, k) choices the MoE layers' capacity drops while
+    the block runs, in ``into``: each expert keeps its first C choices, so
+    a layer drops its per-expert counts beyond C."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+
+    apply = MOE.apply_moe
+
+    def counting(params, x, cfg, tp=None, route=None):
+        with torch.no_grad():
+            t = x.shape[0] * x.shape[1]
+            _, _, one_hot, _ = MOE._top_k_gating(x.reshape(t, -1).float() @ params["router"],
+                                                cfg.moe.top_k)
+            over = one_hot.sum(dim=(0, 1)) - MOE.expert_capacity(cfg, t)
+            into["dropped"] = into.get("dropped", 0) + int(over.clamp_min(0).sum())
+            into["choices"] = into.get("choices", 0) + t * cfg.moe.top_k
+        return apply(params, x, cfg, tp=tp, route=route)
+
+    MOE.apply_moe = counting
+    try:
+        yield
+    finally:
+        MOE.apply_moe = apply
+
+
+def tp_steps(family: str = "mistral", seq_shard: bool = False, mesh=None) -> dict:
+    """``TP_STEPS`` steps of ``family``'s ``tp`` run (Adam at ``TP_LR`` for
+    mistral-7b, ``TP_FAMILY_LR`` for the others) from the weights of
+    seed 0, on ``mesh`` (None: one device), ``seq_shard`` its
+    ``seq_shard_acts``: losses, norms, step seconds, the kernels' launches
+    over the steps, the peak, this rank's state bytes (weights and fp32
+    master, m and v); on one device an MoE's first step counts the choices
+    its capacity dropped."""
+    import torch
+
+    from repro_torch import kernels as K
     from repro_torch.data.pipeline import SyntheticTokenPipeline
-    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.optim.adam import AdamConfig, tree_leaves
     from repro_torch.train.step_builder import build_train_step
 
-    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=TP_LAYERS)
-    shape = ShapeConfig("tp", TRAIN_SEQ, 1, "train")
-    plan = dataclasses.replace(fully_resident_plan(TP_LAYERS + 2, TP_LAYERS),
-                               seq_shard_acts=seq_shard)
-    art = build_train_step(cfg, plan, "cuda", shape, mesh=mesh, adam=AdamConfig(lr=3e-4))
+    cfg, shape, plan = tp_setup(family, seq_shard)
+    lr = TP_LR if family == "mistral" else TP_FAMILY_LR
+    art = build_train_step(cfg, plan, "cuda", shape, mesh=mesh, adam=AdamConfig(lr=lr))
     state = art.init(torch.Generator(device="cuda").manual_seed(0))
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+        [state["params"]] + [state["opt"][k] for k in ("master", "m", "v")]))
     pipe = SyntheticTokenPipeline(cfg, shape, seed=0, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    losses, norms, secs = [], [], []
-    for _ in range(TP_STEPS):
+    losses, norms, secs, drops = [], [], [], {}
+    for step in range(TP_STEPS):
         batch = pipe.next_sync()
+        count = family == "moe" and mesh is None and step == 0
         t0 = time.perf_counter()
-        state, m = art.fn(state, batch)
+        with moe_drop_count(drops) if count else contextlib.nullcontext():
+            state, m = art.fn(state, batch)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         secs.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     out = {"losses": losses, "grad_norms": norms, "step_seconds": secs,
            "launches": dict(K.launch_counts()), "peak_bytes": torch.cuda.max_memory_allocated(),
-           "strategy": art.strategy.kind,
+           "state_bytes": state_bytes, "strategy": art.strategy.kind,
+           "arch": cfg.name, "layers": cfg.num_layers, "seq": shape.seq_len, "lr": lr,
+           "batch": shape.global_batch,
            "model_split_leaves": sum(ls.mdim is not None for ls in art.leaf_syncs)}
+    if drops:
+        out["moe_dropped_share"] = drops["dropped"] / drops["choices"]
+        out["moe_choices"] = drops["choices"]
     del state, art
     gc.collect()
     torch.cuda.empty_cache()
@@ -3805,8 +3945,8 @@ def tp_steps(mesh=None, seq_shard: bool = False) -> dict:
 
 def _tp_rank(rank: int, world: int, store: str, out: str) -> None:
     """One rank of ``tp_ranks``: a process of its own on ``cuda:0``, in a
-    gloo group laid out data 1 x model ``world``, without and with
-    sequence sharding. Rank 0 writes its runs."""
+    gloo group of ``world``, running ``TP_RUNS`` in order on their layouts.
+    Rank 0 writes its runs."""
     sys.path.insert(0, str(HERE / "src"))
     import torch
     import torch.distributed as dist
@@ -3818,11 +3958,12 @@ def _tp_rank(rank: int, world: int, store: str, out: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world)
     try:
-        mesh = make_local_mesh("cuda:0", model=world)
-        run = {sp: tp_steps(mesh, sp) for sp in TP_SEQ_SHARD}
+        meshes = {m: make_local_mesh("cuda:0", model=m) for m in (1, world)}
+        runs = {name: tp_steps(family, sp, meshes[layout[1]])
+                for name, family, layout, sp in TP_RUNS}
         if rank == 0:
             with open(out, "w") as f:
-                json.dump(run, f)
+                json.dump(runs, f)
     finally:
         dist.destroy_process_group()
 
@@ -3830,7 +3971,9 @@ def _tp_rank(rank: int, world: int, store: str, out: str) -> None:
 def phase_tp() -> tuple[dict[str, int], list[dict]]:
     """The model axis on the card: the flash kernels at its shard shapes,
     then ``TP_MODEL`` ranks on the one card against the single-device step
-    from the same weights. Returns rank 0's launches and the flash rows."""
+    from the same weights, every family's run after the one-device
+    reference of each has run and freed the card. Returns rank 0's
+    launches and the flash rows."""
     import tempfile
 
     import torch
@@ -3838,7 +3981,8 @@ def phase_tp() -> tuple[dict[str, int], list[dict]]:
 
     rows = phase_tp_kernels()
     t0 = time.perf_counter()
-    one = tp_steps()
+    one = {fam: tp_steps(fam) for fam in dict.fromkeys(f for _, f, _, _ in TP_RUNS)}
+    emit("tp_one_device_seconds", seconds=time.perf_counter() - t0)
     d = tempfile.mkdtemp()
     try:
         mp.start_processes(_tp_rank, args=(TP_MODEL, f"{d}/store", f"{d}/out.json"),
@@ -3848,32 +3992,43 @@ def phase_tp() -> tuple[dict[str, int], list[dict]]:
     finally:
         shutil.rmtree(d, ignore_errors=True)
     launches: dict[str, int] = {}
-    for sp in TP_SEQ_SHARD:
-        run = runs[str(sp).lower()]
-        loss_diff = [abs(a - b) for a, b in zip(run["losses"], one["losses"])]
-        norm_rel = [abs(a - b) / b for a, b in zip(run["grad_norms"], one["grad_norms"])]
-        emit("tp_ranks", arch="mistral-7b", layers=TP_LAYERS, seq=TRAIN_SEQ, batch=1,
-             layout={"data": 1, "model": TP_MODEL}, backend="gloo", plan="resident",
-             seq_shard_acts=sp, losses=run["losses"], losses_one_device=one["losses"],
-             grad_norms=run["grad_norms"], grad_norms_one_device=one["grad_norms"],
+    failed: list[str] = []
+    for name, family, (data, model), sp in TP_RUNS:
+        run, ref = runs[name], one[family]
+        loss_diff = [abs(a - b) for a, b in zip(run["losses"], ref["losses"])]
+        norm_rel = [abs(a - b) / b for a, b in zip(run["grad_norms"], ref["grad_norms"])]
+        line = "tp_ranks" if family == "mistral" else (
+            "tp_moe_data" if family == "moe" else "tp_families")
+        extra = {k: ref[k] for k in ("moe_dropped_share", "moe_choices") if k in ref}
+        emit(line, run=name, arch=run["arch"], layers=run["layers"], seq=run["seq"],
+             batch=run["batch"], lr=run["lr"], layout={"data": data, "model": model},
+             backend="gloo", plan="resident", seq_shard_acts=sp,
+             losses=run["losses"], losses_one_device=ref["losses"],
+             grad_norms=run["grad_norms"], grad_norms_one_device=ref["grad_norms"],
              loss_abs_diff=loss_diff, grad_norm_rel_diff=norm_rel,
              tol={"loss": TP_LOSS_TOL, "grad_norm_rel": TP_NORM_RTOL},
              strategy=run["strategy"], model_split_leaves=run["model_split_leaves"],
-             launches=run["launches"], peak_bytes_rank0=run["peak_bytes"],
-             peak_bytes_one_device=one["peak_bytes"])
-        emit("tp_step_seconds", seq_shard_acts=sp,
+             launches=run["launches"],
+             peak_bytes_rank0=run["peak_bytes"], peak_bytes_one_device=ref["peak_bytes"],
+             state_bytes_rank0=run["state_bytes"], state_bytes_one_device=ref["state_bytes"],
+             **extra)
+        emit("tp_step_seconds", run=name, seq_shard_acts=sp,
              not_tp_speed="two ranks share one card's SMs and gloo reduces through the host: "
              "these are no tensor-parallel step times",
-             ranks=run["step_seconds"], one_device=one["step_seconds"])
-        assert run["strategy"] == "xla" and run["model_split_leaves"] > 0, run
-        assert all(math.isfinite(x) for x in run["losses"] + run["grad_norms"]), run
-        assert max(loss_diff) <= TP_LOSS_TOL, (sp, loss_diff, run["losses"], one["losses"])
-        assert max(norm_rel) <= TP_NORM_RTOL, (sp, norm_rel, run["grad_norms"],
-                                               one["grad_norms"])
-        for k in ("flash_attention", "flash_attention_bwd", "rmsnorm", "fused_adam"):
-            assert run["launches"].get(k, 0) > 0, f"tp_ranks: {k} was not launched"
+             ranks=run["step_seconds"], one_device=ref["step_seconds"])
+        checks = {"strategy xla": run["strategy"] == "xla",
+                  "leaves split": model == 1 or run["model_split_leaves"] > 0,
+                  "finite": all(math.isfinite(x) for x in run["losses"] + run["grad_norms"]),
+                  "losses within TP_LOSS_TOL": max(loss_diff) <= TP_LOSS_TOL,
+                  "grad norms within TP_NORM_RTOL": max(norm_rel) <= TP_NORM_RTOL}
+        checks.update({f"{k} launched": run["launches"].get(k, 0) > 0
+                       for k in TP_KERNELS.get(family, TP_DEFAULT_KERNELS)})
+        failed += [f"{name}: {k}" for k, ok in checks.items() if not ok]
         sum_launches(launches, run["launches"])
+    if not one["moe"]["moe_dropped_share"] > 0:
+        failed.append("moe_data: the capacity dropped nothing")
     emit("tp_ranks_seconds", seconds=time.perf_counter() - t0)
+    assert not failed, failed  # every run's line printed first
     torch.cuda.empty_cache()
     return launches, rows
 
@@ -4071,8 +4226,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": n,
             "max_abs_err": row["max_abs_err"], **{k: row[k] for k in keys}})
-    case_keys = ("s", "sk", "hd", "causal", "heads", "case", "cold", "rows", "d", "states",
-                 "shape", "model_extent", "max_abs_err") + keys
+    case_keys = ("s", "sk", "hd", "causal", "heads", "family", "case", "cold", "rows", "d",
+                 "states", "shape", "model_extent", "max_abs_err") + keys
     for row in summary["kernels"]:
         name = row["name"]
         row["launches_by_path"] = {p: got.get(name, 0) for p, got in by_path.items()}

@@ -12,9 +12,15 @@ table (``:7-13``) places them:
 
 (``_spec``, ``:78-96``). A dim shards only when the extent divides it
 (``_fits``, ``:70-75``), so one model under one plan has both kinds of
-leaves, and ``_fits`` looks at the flattened dim, not at whole heads: at 2
-KV heads over a model extent of 4, ``wk``'s columns shard as half-heads
-(``models/layers.attention_block`` gathers them at use). Each rank holds
+leaves -- seamless-m4t-large-v2's 256,206-row vocab stays whole at a
+model extent of 4 -- and ``_fits`` looks at the flattened dim, not at
+whole heads: at 2 KV heads over a model extent of 4, ``wk``'s columns
+shard as half-heads (``models/layers.qkv`` gathers them at use), and
+Mamba-2's ``in_proj`` (``[z | x | B | C | dt]``) and conv (``[x | B |
+C]``) shard as flat slices that cut across the segments
+(``models/mamba2.rank_params`` gathers them at use). A rank's shard is
+the reference's in every case, so Adam, the norms, the int8 scale and the
+data axis's gather see the reference's leaves. Each rank holds
 its shard, 2-D where both dims shard (``wq``: ``(zero, tp)``): slice
 ``data_rank`` of ``data`` along the data dim, then ``model_rank`` of
 ``model`` along the model dim (``shard2``), the layout ``jax.device_put``
@@ -32,7 +38,8 @@ the ZeRO-Offload split (the reference's ``param_place``,
 persistent leaf's optimizer states shard over data as an ``hbm`` leaf's
 under ``zero1_persistent`` while its weights stay replicated over data
 (``opt_dim``). The batch splits over ``batch_axes``: the data axis, and
-under ``dp_only`` the model axis too (``:53-55``). ``shard_activation`` is
+under ``dp_only`` the model axis too (``:53-55``), a rank taking its slice
+of each microbatch (``xla_batch_split``). ``shard_activation`` is
 the activation sharder's three kinds (``make_activation_sharder``,
 ``:214-243``) as this rank's part of a whole tensor: ``bsd`` a
 block boundary (batch over the batch axes, the sequence over ``model``
@@ -132,6 +139,22 @@ def manual_batch_split(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
         raise ValueError(f"batch of {x.shape[0]} rows does not split over {world} ranks")
     b = x.shape[0] // world
     return x[rank * b:(rank + 1) * b]
+
+
+def xla_batch_split(x: torch.Tensor, rank: int, world: int,
+                    microbatch: int = 1) -> torch.Tensor:
+    """This rank's rows of a global batch input on the xla path: its slice
+    of each microbatch, in microbatch order. The reference's microbatch m
+    is the global rows ``[m B / M, (m + 1) B / M)`` split over the batch
+    axes (``accumulate_grads``, ``train/sync.py:93-95``), so the m-th
+    contiguous slice of a rank's rows (``train/sync.accumulate_grads``)
+    is its part of microbatch m; at one microbatch these are its
+    contiguous rows (``manual_batch_split``)."""
+    if x.shape[0] % (world * microbatch):
+        raise ValueError(f"batch of {x.shape[0]} rows does not split over {world} ranks "
+                         f"and {microbatch} microbatches")
+    parts = x.reshape(microbatch, world, x.shape[0] // (world * microbatch), *x.shape[1:])
+    return parts[:, rank].reshape(-1, *x.shape[1:])
 
 
 def shard_activation(x: torch.Tensor, kind: str, mesh, plan=None) -> torch.Tensor:

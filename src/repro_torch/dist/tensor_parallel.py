@@ -36,6 +36,20 @@ their gradients over the model group (``norm_params``).
 range, zeroes the rows of other tokens, then the partial rows are reduced
 (summing one row with zeros: the lookup exactly). A world of one, or no
 ``TensorParallel`` (None), is the one-device program.
+
+Every family splits so: attention and MLPs (the decoder's, the encoder's
+and the cross-attention's), the experts, and the Mamba-2 mixer on a rank's
+SSD heads (``models/mamba2.py``). A leaf whose split does not follow whole
+heads (Mamba-2's ``in_proj`` and conv, whose ``tp`` dim packs ``[z | x |
+B | C | dt]`` flat) is taken whole at use (``whole_weight``) and a rank
+reads its heads' columns, as ``wk`` at part-heads; ``own_part`` is a
+rank's heads of a leaf that splits by whole heads, or of one left whole.
+
+``BatchGroup`` is the other side of the xla path's layout: the ranks that
+hold other rows of one batch (the data group, and under ``dp_only`` every
+rank). The reference routes an MoE over the global batch in one program;
+the port's ranks route theirs over the group's tokens through its
+collectives (``models/moe.apply_moe``).
 """
 from __future__ import annotations
 
@@ -216,6 +230,16 @@ class TensorParallel:
             return params
         return {k: self.copy(v) for k, v in params.items()}
 
+    def own_part(self, w: torch.Tensor, dim: int, full: int, start: int,
+                 length: int) -> torch.Tensor:
+        """This rank's part ``[start, start + length)`` along ``dim`` of a
+        leaf ``full`` long there: ``w`` itself where the leaf splits over
+        the model axis (the caller's part is then this rank's shard), else
+        the slice of the whole leaf, its gradient summed over the ranks."""
+        if w.shape[dim] != full:
+            return w
+        return self.copy(w).narrow(dim, start, length)
+
     def whole_weight(self, w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
         """The whole weight (``full`` along ``dim``) for a partial consumer
         that reads a slice of it: all-gathered if this rank holds a shard
@@ -236,6 +260,52 @@ class TensorParallel:
         rows = torch.where(here[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                               device=rows.device))
         return self.exit(rows, partial=True)
+
+
+class _Total(torch.autograd.Function):
+    """The sum over the ranks, all-reduced forward and backward: every rank
+    consumes the total alike, and the step averages the ranks' gradients,
+    so each rank's addend takes the sum of the consumers' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchGroup:
+    """The ranks that hold other rows of one batch, ``rank`` of ``size``:
+    rank r holds the r-th slice of each microbatch's rows
+    (``dist/sharding.xla_batch_split``)."""
+
+    group: object
+    rank: int
+    size: int
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the ranks, with the gradient of a term
+        that every rank's loss holds once: the mean of the ranks'
+        gradients (``train/sync.XlaSync.batch_mean``) counts it once."""
+        return _Total.apply(x, self.group)
+
+    def count_before(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the lower ranks (no gradient): this rank's
+        offset in the batch's row order."""
+        rows = _all_gather(x.detach()[None], self.group, self.size, 0)
+        return rows[:self.rank].sum(dim=0)
+
+
+def batch_group(mesh, plan) -> BatchGroup | None:
+    """The batch group of the xla path's sharded layout on ``mesh``: the
+    data group, or under ``dp_only`` every rank (None for one rank)."""
+    if getattr(plan, "dp_only", False) and mesh.model > 1:
+        return BatchGroup(mesh.group, mesh.rank, mesh.world)
+    return BatchGroup(mesh.data_group, mesh.data_rank, mesh.data) if mesh.data > 1 else None
 
 
 def make_tensor_parallel(mesh, plan) -> TensorParallel | None:

@@ -16,6 +16,8 @@
         --steps 4 --batch 16 --seq 32 --device cpu --plan fsdp   # the xla path
     python -m repro_torch.launch.train --arch llama3-405b --reduced --nproc 4 \\
         --model 2 --steps 4 --batch 16 --seq 32 --device cpu     # data 2 x model 2
+    python -m repro_torch.launch.train --arch mamba2-130m --reduced --nproc 4 \\
+        --model 2 --steps 4 --batch 16 --seq 32 --device cpu     # any family
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch mistral-7b \\
         --nproc 4 --plan zero3 --batch 4 --seq 4096        # 4 NCCL ranks
 
@@ -67,8 +69,11 @@ each rank keeps its own checkpoint file.
 
 Tensor parallelism: ``--model M`` lays the N ranks out as ``(N / M, M)``,
 data by model (``launch/mesh.py``; the default 1 keeps ``--nproc N`` data
-N). The dense and MoE decoders split their ``tp`` and ``exp`` dims over
-the model axis (``dist/tensor_parallel.py``); ``auto`` then searches on
+N). Every family splits its ``tp`` and ``exp`` dims over the model axis
+(``dist/tensor_parallel.py``): the dense and MoE decoders, Mamba-2 and
+the hybrid (on a rank's SSD heads), the encoder-decoder (its frames'
+encoder and the cross-attention too) and the VLM (its patches ahead of
+the tokens); ``auto`` then searches on
 ``MeshSpec((N / M, M), ("data", "model"))`` with sequence sharding and
 ``dp_only`` among the candidates, and the searched plan runs. The
 reference's ``make_local_mesh`` picks the model extent (4, 2 or 1) by the

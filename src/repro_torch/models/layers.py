@@ -345,32 +345,25 @@ def tp_heads(cfg, tp) -> tuple[int, int, int]:
     return q0, hl, q0 // g
 
 
-def attention_block(params: dict, x: torch.Tensor, cfg, *, positions=None,
-                    impl: str = "blockwise", block_kv: int = 1024,
-                    tp=None) -> torch.Tensor:
-    """Full causal self-attention over x: (B, S, D) -> (B, S, D).
-
-    ``tp`` (``dist.tensor_parallel.TensorParallel``): this rank computes
-    its query heads from the column shards of ``wq`` / ``wk`` / ``wv`` and
-    multiplies by the row shard of ``wo``; the partial outputs are reduced
-    over the model group (scattered over the sequence under sequence
-    parallelism, where ``x`` is this rank's rows). With fewer KV heads
-    than ranks ``wk`` / ``wv`` split into part-heads, or stay whole where
-    the extent does not divide them: each rank then takes the whole weight
-    (``whole_weight``) and uses the columns of its one KV head, as the
-    reference's partitioned program computes the same function."""
+def qkv(params: dict, x: torch.Tensor, kv_in: torch.Tensor, cfg, tp=None):
+    """The query heads of ``x`` (B, Sq, D) and the KV heads of ``kv_in``
+    (B, Sk, D): (q (B, Sq, Hq, hd), k, v (B, Sk, Hkv, hd)). ``tp``: this
+    rank's heads, from the column shards of ``wq`` / ``wk`` / ``wv``. With
+    fewer KV heads than ranks ``wk`` / ``wv`` split into part-heads, or
+    stay whole where the extent does not divide them: each rank then takes
+    the whole weight (``whole_weight``) and uses the columns of its one KV
+    head, as the reference's partitioned program computes the same
+    function."""
     hd = cfg.resolved_head_dim
+    b, sq, _ = x.shape
+    sk = kv_in.shape[1]
     if tp is None:
-        b, s, _ = x.shape
-        q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd)
-        k = (x @ params["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-        v = (x @ params["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
-        out = _attend(q, k, v, cfg, positions, impl, block_kv)
-        return out.reshape(b, s, cfg.num_heads * hd) @ params["wo"]
-    q0, hl, kv0 = tp_heads(cfg, tp)
-    h = tp.enter(x)
-    b, s, _ = h.shape
-    q = (h @ params["wq"]).reshape(b, s, hl, hd)
+        q = (x @ params["wq"]).reshape(b, sq, cfg.num_heads, hd)
+        k = (kv_in @ params["wk"]).reshape(b, sk, cfg.num_kv_heads, hd)
+        v = (kv_in @ params["wv"]).reshape(b, sk, cfg.num_kv_heads, hd)
+        return q, k, v
+    _, hl, kv0 = tp_heads(cfg, tp)
+    q = (x @ params["wq"]).reshape(b, sq, hl, hd)
     nkv = cfg.num_kv_heads * hd
     if cfg.num_kv_heads % tp.size == 0 and params["wk"].shape[-1] < nkv:
         wk, wv = params["wk"], params["wv"]  # this rank's KV heads, whole
@@ -378,10 +371,27 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions=None,
         cols = slice(kv0 * hd, (kv0 + 1) * hd)
         wk = tp.whole_weight(params["wk"], -1, nkv)[:, cols]
         wv = tp.whole_weight(params["wv"], -1, nkv)[:, cols]
-    k = (h @ wk).reshape(b, s, -1, hd)
-    v = (h @ wv).reshape(b, s, -1, hd)
+    k = (kv_in @ wk).reshape(b, sk, -1, hd)
+    v = (kv_in @ wv).reshape(b, sk, -1, hd)
+    return q, k, v
+
+
+def attention_block(params: dict, x: torch.Tensor, cfg, *, positions=None,
+                    impl: str = "blockwise", block_kv: int = 1024,
+                    tp=None) -> torch.Tensor:
+    """Full causal self-attention over x: (B, S, D) -> (B, S, D).
+
+    ``tp`` (``dist.tensor_parallel.TensorParallel``): this rank computes
+    its query heads (``qkv``) and multiplies by the row shard of ``wo``;
+    the partial outputs are reduced over the model group (scattered over
+    the sequence under sequence parallelism, where ``x`` is this rank's
+    rows)."""
+    h = x if tp is None else tp.enter(x)
+    b, s, _ = h.shape
+    q, k, v = qkv(params, h, h, cfg, tp)
     out = _attend(q, k, v, cfg, positions, impl, block_kv)
-    return tp.exit(out.reshape(b, s, hl * hd) @ params["wo"])
+    out = out.reshape(b, s, -1) @ params["wo"]
+    return out if tp is None else tp.exit(out)
 
 
 def full_attention(q, k, v, impl: str = "blockwise") -> torch.Tensor:
@@ -397,17 +407,17 @@ def full_attention(q, k, v, impl: str = "blockwise") -> torch.Tensor:
 
 
 def cross_attention_block(params: dict, x: torch.Tensor, memory: torch.Tensor, cfg, *,
-                          impl: str = "blockwise") -> torch.Tensor:
+                          impl: str = "blockwise", tp=None) -> torch.Tensor:
     """x: (B, Sq, D) attends over the encoder's memory (B, Sk, D), with no
-    mask and no RoPE (layers.py:343-352)."""
-    b, sq, _ = x.shape
-    sk = memory.shape[1]
-    hd = cfg.resolved_head_dim
-    q = (x @ params["wq"]).reshape(b, sq, cfg.num_heads, hd)
-    k = (memory @ params["wk"]).reshape(b, sk, cfg.num_kv_heads, hd)
-    v = (memory @ params["wv"]).reshape(b, sk, cfg.num_kv_heads, hd)
-    out = full_attention(q, k, v, impl)
-    return out.reshape(b, sq, cfg.num_heads * hd) @ params["wo"]
+    mask and no RoPE (layers.py:343-352). ``tp``: column / row split as
+    ``attention_block``; ``memory`` is whole on every rank, its gradient
+    this rank's part (the caller sums it over the model group once, where
+    the encoder's output enters the decoder)."""
+    h = x if tp is None else tp.enter(x)
+    b, sq, _ = h.shape
+    q, k, v = qkv(params, h, memory, cfg, tp)
+    out = full_attention(q, k, v, impl).reshape(b, sq, -1) @ params["wo"]
+    return out if tp is None else tp.exit(out)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,11 @@ Autograd keeps no more than the reference's residuals: the chunk loop's
 backward is written out (``_ChunkScan``, which keeps each carry once), the
 product with the permuted x keeps x itself (``_Matmul``), C is not
 broadcast over the heads, and the skip term keeps x in bf16.
+
+Over the model axis (``tp``) a rank runs its share of the SSD heads
+(``rank_params``, ``apply_mamba2``): the reference lets GSPMD split the
+flat ``tp`` dims of ``in_proj`` and the conv, whose segments a flat shard
+cuts across, so those leaves are taken whole at use and read by head.
 """
 from __future__ import annotations
 
@@ -203,11 +208,71 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch
     return y.to(x.dtype), carry
 
 
-def apply_mamba2(params: dict, x: torch.Tensor, cfg, *, state=None, return_state: bool = False):
+def rank_heads(cfg, tp) -> tuple[int, int]:
+    """(this rank's first SSD head, its heads) over ``tp.size`` model ranks."""
+    _, n_heads, _ = mamba2_dims(cfg)
+    if n_heads % tp.size:
+        raise NotImplementedError(
+            f"{cfg.name}: {n_heads} SSD heads do not split over a model extent of {tp.size}")
+    hl = n_heads // tp.size
+    return tp.rank * hl, hl
+
+
+def rank_params(params: dict, cfg, tp) -> dict:
+    """The weights of this rank's SSD heads. ``in_proj``'s columns are
+    ``[z | x | B | C | dt]`` and the conv's ``[x | B | C]``, each split over
+    the model axis as one flat dim (``_fits``), so a shard does not hold
+    whole heads: they are taken whole (``whole_weight``: all-gathered,
+    reduce-scatter backward) and the rank reads its heads' ``z``, ``x`` and
+    ``dt`` columns and all of ``B`` and ``C``, which every head reads (one
+    group). ``A_log``, ``D``, ``dt_bias`` and ``out_proj``'s rows split by
+    whole heads (``own_part``); ``norm_scale`` is taken whole, for the
+    gated norm's whole rows."""
+    mc = cfg.mamba2
+    d_in, n_heads, conv_dim = mamba2_dims(cfg)
+    h0, hl = rank_heads(cfg, tp)
+    p, n = mc.head_dim, mc.d_state
+    cols = slice(h0 * p, (h0 + hl) * p)  # the heads' channels within a d_in segment
+    w = tp.whole_weight(params["in_proj"], -1, 2 * d_in + 2 * n + n_heads)
+    dt0 = 2 * d_in + 2 * n + h0
+    in_proj = torch.cat([w[:, cols], w[:, d_in:2 * d_in][:, cols],
+                         w[:, 2 * d_in:2 * d_in + 2 * n], w[:, dt0:dt0 + hl]], dim=-1)
+
+    def conv(t):  # [x | B | C]: the heads' x channels, all of B and C
+        t = tp.whole_weight(t, -1, conv_dim)
+        return torch.cat([t[..., cols], t[..., d_in:]], dim=-1)
+
+    out = {name: tp.own_part(params[name], 0, n_heads, h0, hl)
+           for name in ("A_log", "D", "dt_bias")}
+    return {**out, "in_proj": in_proj, "conv_w": conv(params["conv_w"]),
+            "conv_b": conv(params["conv_b"]),
+            "norm_scale": tp.whole_weight(params["norm_scale"], 0, d_in),
+            "out_proj": tp.own_part(params["out_proj"], 0, d_in, h0 * p, hl * p)}
+
+
+def apply_mamba2(params: dict, x: torch.Tensor, cfg, *, state=None, return_state: bool = False,
+                 tp=None):
     """x: (B, S, D) -> (B, S, D). ``state`` = (conv_state, ssm_state) for
-    decode; with ``return_state`` also returns the new pair."""
+    decode; with ``return_state`` also returns the new pair.
+
+    ``tp`` (``dist.tensor_parallel.TensorParallel``): this rank runs its
+    ``n_heads / size`` SSD heads (``rank_params``): the input projection
+    column-parallel, the conv on its channels, the SSD on its heads; the
+    gated norm's mean spans all of ``d_in``, so the gated rows are
+    all-gathered over the model group (reduce-scatter backward) and the
+    kernel normalises whole rows, of which the rank keeps its heads'
+    columns; ``out_proj`` is row-parallel, the partial outputs reduced
+    (scattered over the sequence under sequence parallelism). Decode
+    (``state``) runs on one device."""
     mc = cfg.mamba2
     d_in, n_heads, _ = mamba2_dims(cfg)
+    if tp is not None:
+        if state is not None or return_state:
+            raise NotImplementedError("Mamba-2 decode over the model axis (ROADMAP.md)")
+        h0, n_heads = rank_heads(cfg, tp)
+        params = rank_params(params, cfg, tp)
+        d_in = n_heads * mc.head_dim
+        x = tp.enter(x)
     b, s, _ = x.shape
     proj = x @ params["in_proj"]
     z, xin, bmat, cmat, dt = torch.split(proj, [d_in, d_in, mc.d_state, mc.d_state, n_heads],
@@ -226,8 +291,14 @@ def apply_mamba2(params: dict, x: torch.Tensor, cfg, *, state=None, return_state
     # copy it would be kept again in fp32)
     y = torch.addcmul(y, xh, params["D"][None, None, :, None])
     y = y.reshape(b, s, d_in).to(x.dtype)
-    y = L.rmsnorm(y * _silu(z), params["norm_scale"])
+    if tp is None:
+        y = L.rmsnorm(y * _silu(z), params["norm_scale"])
+    else:  # whole rows of d_in for the norm, then this rank's columns
+        y = L.rmsnorm(tp.gather_partial(y * _silu(z), -1), params["norm_scale"])
+        y = y[..., h0 * mc.head_dim:h0 * mc.head_dim + d_in]
     out = y @ params["out_proj"]
+    if tp is not None:
+        return tp.exit(out)
     if return_state:
         return out, (new_conv_state, new_ssm_state)
     return out

@@ -49,12 +49,21 @@ path on several ranks runs its non-persistent chunks so too, with
 (``host_params``): their copies to the device run a repeat ahead.
 
 Over the model axis (``tp``, a ``dist.tensor_parallel.TensorParallel``;
-the dense and MoE decoders) each sublayer runs on this rank's shards of
-its weights and the hidden states between sublayers are whole on every
-model rank, or this rank's rows of the sequence under ``seq_shard_acts``
-(the reference's ``bsd`` sites, ``model.py:314, 333``, gathered at a
-sublayer's ``enter``); the embedding is the vocab-parallel lookup
-(``:628``) and the head's logits stay split over the vocab (``:634``).
+every family) each sublayer runs on this rank's shards of its weights --
+attention and the MLPs column / row split, the experts over the axis, the
+Mamba-2 mixer on its SSD heads -- and the hidden states between sublayers
+are whole on every model rank, or this rank's rows of the sequence under
+``seq_shard_acts`` (the reference's ``bsd`` sites, ``model.py:314, 333``,
+gathered at a sublayer's ``enter``); the embedding is the vocab-parallel
+lookup (``:628``) and the head's logits stay split over the vocab
+(``:634``). The encoder splits so too, its boundaries over ``S_src``
+(``:640, 658``); its output enters the decoder whole on every rank, its
+gradient summed over the model group there. A VLM's boundary under
+sequence sharding is this rank's rows of the ``P + S`` positions: the
+tokens are embedded whole, the patches put ahead, and then split; after
+the layers the token rows are split again. ``route`` (a
+``dist.tensor_parallel.BatchGroup``: the xla path's ranks with other rows
+of the batch) routes the MoE layers over the whole batch.
 
 Each position returns ``(x, aux)``: an MoE position's load-balance loss
 (``apply_moe``), 0.0 for a dense one. The aux losses are summed through
@@ -185,16 +194,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     return L.init_tree(param_defs(cfg), generator, device)
 
 
-def check_tp_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a model the model axis does not
-    split yet: tensor parallelism runs decoders of attention positions with
-    dense MLPs or MoE layers and no frontend."""
-    if (cfg.kind != "decoder" or cfg.frontend != "none"
-            or any(m != "attention" for m in cfg.mixer_pattern)):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over the model axis covers the dense and MoE "
-            "decoders; Mamba-2, the hybrid, the encoder-decoder and the VLM are queued in "
-            "ROADMAP.md (port queue 1)")
+def boundary_lengths(cfg: ModelConfig, seq_len: int) -> tuple[int, ...]:
+    """Every sequence a block boundary holds in a training step of
+    ``seq_len`` tokens: the tokens, a VLM's min(1024, S) patches and the
+    tokens (``step_builder.py:255-259``), an encoder's frames (as many as
+    the tokens)."""
+    if cfg.frontend == "vision_patches":
+        return seq_len, seq_len + min(1024, seq_len)
+    return (seq_len,) * (2 if cfg.kind == "encdec" else 1)
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -379,7 +386,7 @@ def save_act(x: torch.Tensor, sites: ActSites | None = None, keep: bool = True):
 def apply_position(pparams: dict, x: torch.Tensor, cfg: ModelConfig, pos_j: int, *,
                    positions=None, memory: torch.Tensor | None = None,
                    attn_impl: str = "blockwise", sites: ActSites | None = None,
-                   tp=None) -> XAux:
+                   tp=None, route=None) -> XAux:
     """One layer (superblock position): norm, the mixer (attention or
     Mamba-2), residual, with ``memory`` norm, cross-attention over it and
     residual, then norm, MLP or MoE (if the position has one), residual,
@@ -388,7 +395,7 @@ def apply_position(pparams: dict, x: torch.Tensor, cfg: ModelConfig, pos_j: int,
     Returns (x, aux): the MoE's aux loss, 0.0 without one. ``tp``: the
     model axis's split of each sublayer (``x`` this rank's rows under
     sequence parallelism, as the reference's ``enter`` / ``bsd`` sites lay
-    them out, the norms on those rows)."""
+    them out, the norms on those rows). ``route``: the MoE's batch group."""
     aux = 0.0
     norm = (lambda p: p) if tp is None else tp.norm_params  # noqa: E731
     h = save_act(L.apply_norm(norm(pparams["norm1"]), x, cfg.norm), sites)
@@ -396,15 +403,15 @@ def apply_position(pparams: dict, x: torch.Tensor, cfg: ModelConfig, pos_j: int,
         mix = L.attention_block(pparams["attn"], h, cfg, positions=positions, impl=attn_impl,
                                 tp=tp)
     else:
-        mix = M2.apply_mamba2(pparams["mamba"], h, cfg)
+        mix = M2.apply_mamba2(pparams["mamba"], h, cfg, tp=tp)
     x = x + save_act(mix, sites)
     if memory is not None and "xattn" in pparams:
-        hx = L.apply_norm(pparams["norm_x"], x, cfg.norm)
+        hx = L.apply_norm(norm(pparams["norm_x"]), x, cfg.norm)
         x = x + save_act(L.cross_attention_block(pparams["xattn"], hx, memory, cfg,
-                                                 impl=attn_impl), sites)
+                                                 impl=attn_impl, tp=tp), sites)
     if "moe" in pparams:
         h2 = L.apply_norm(norm(pparams["norm2"]), x, cfg.norm)
-        out, aux = MOE.apply_moe(pparams["moe"], h2, cfg, tp=tp)
+        out, aux = MOE.apply_moe(pparams["moe"], h2, cfg, tp=tp, route=route)
         x = x + save_act(out, sites, keep=False)
     elif "mlp" in pparams:
         h2 = L.apply_norm(norm(pparams["norm2"]), x, cfg.norm)
@@ -426,7 +433,7 @@ def _weights(src: dict, proxies: dict | None, io: HostIO) -> dict:
 
 
 def _apply_layer(src, proxies, x, memory, cfg, pos_j, *, act_policy: str, buffered: bool,
-                 io: HostIO, attn_impl: str, wio=None, tp=None) -> XAux:
+                 io: HostIO, attn_impl: str, wio=None, tp=None, route=None) -> XAux:
     """One position under its run's act policy and weight buffering:
     (x, aux). ``wio``: where the weights come from (default ``io``)."""
     wio = wio if wio is not None else io
@@ -435,10 +442,10 @@ def _apply_layer(src, proxies, x, memory, cfg, pos_j, *, act_policy: str, buffer
         pp = _weights(src, proxies, wio)
         if not fetch_again:
             return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl,
-                                  tp=tp)
+                                  tp=tp, route=route)
         with wio.refetch_saved(pp, src):
             return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl,
-                                  tp=tp)
+                                  tp=tp, route=route)
     sites = ActSites(act_policy, io) if act_policy in SITE_POLICIES else None
     # kept weights are fetched outside the recomputed region; the others
     # inside it, so the replay fetches them again
@@ -451,7 +458,7 @@ def _apply_layer(src, proxies, x, memory, cfg, pos_j, *, act_policy: str, buffer
             sites.begin()
         pp = _weights(src, proxies, wio) if fetch_again else kept
         return apply_position(pp, x, cfg, pos_j, memory=memory, attn_impl=attn_impl,
-                              sites=sites, tp=tp)
+                              sites=sites, tp=tp, route=route)
 
     out = _checkpointed(one, x, memory)
     if sites is not None:
@@ -463,7 +470,7 @@ def apply_superblock(block_params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                      memory: torch.Tensor | None = None, act_policy: str = "none",
                      buffered: bool = True, proxies: dict | None = None,
                      io: HostIO | None = None, attn_impl: str = "blockwise",
-                     wio=None, tp=None) -> XAux:
+                     wio=None, tp=None, route=None) -> XAux:
     """block_params: {posJ: params of one repeat}, on the device or (with
     ``proxies``, the autograd stand-ins of the same tree) in host memory.
     ``act_policy`` applies per position (layer), the paper's per-block
@@ -471,14 +478,14 @@ def apply_superblock(block_params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     positions attend over (None: no cross-attention, as the profile traces
     a block). ``wio``: the weights' source when it is not ``io`` (a ZeRO-3
     run's ``dist.collectives.LazyGather``). ``tp``: the model axis
-    (``dist.tensor_parallel``). Returns (x, aux), aux summed over the
-    positions."""
+    (``dist.tensor_parallel``); ``route``: the MoE's batch group. Returns
+    (x, aux), aux summed over the positions."""
     aux = 0.0
     for j in range(superblock_period(cfg)):
         key = f"pos{j}"
         x, a = _apply_layer(block_params[key], None if proxies is None else proxies[key], x,
                             memory, cfg, j, act_policy=act_policy, buffered=buffered, io=io,
-                            attn_impl=attn_impl, wio=wio, tp=tp)
+                            attn_impl=attn_impl, wio=wio, tp=tp, route=route)
         aux = aux + a
     return x, aux
 
@@ -530,7 +537,7 @@ def _units(runs: list[Run]) -> list[tuple[Run, list, list]]:
 
 def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
                memory: torch.Tensor | None = None, attn_impl: str = "blockwise",
-               io: HostIO | None = None, tp=None) -> XAux:
+               io: HostIO | None = None, tp=None, route=None) -> XAux:
     """Execute the layer stack as policy runs of superblocks: (x, aux), the
     aux losses summed. ``memory``: the encoder's output (encoder-decoders).
     ``io``: the step's host copies and counters (a fresh one on x's device
@@ -552,7 +559,7 @@ def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
             x, aux = apply_superblock(reps[0], x, cfg, memory=memory,
                                       act_policy=run.act_policy, buffered=run.buffered,
                                       proxies=prox[0], io=io, attn_impl=attn_impl, wio=wio,
-                                      tp=tp)
+                                      tp=tp, route=route)
             aux_total = aux_total + aux
             continue
         # grouped remat: one checkpoint region spans the group's superblocks;
@@ -567,7 +574,8 @@ def apply_runs(runs: list[Run], x: torch.Tensor, cfg: ModelConfig, *,
             aux = 0.0
             for src, px, pp in _items:
                 pp = pp if pp is not None else _weights(src, px, wio)
-                x, a = apply_superblock(pp, x, cfg, memory=memory, attn_impl=attn_impl, tp=tp)
+                x, a = apply_superblock(pp, x, cfg, memory=memory, attn_impl=attn_impl, tp=tp,
+                                        route=route)
                 aux = aux + a
             return x, aux
 
@@ -582,41 +590,46 @@ def default_runs(cfg: ModelConfig, params: dict) -> list[Run]:
 
 
 def _encoder_layer(pp: dict, x: torch.Tensor, cfg: ModelConfig,
-                   attn_impl: str = "blockwise") -> torch.Tensor:
+                   attn_impl: str = "blockwise", tp=None) -> torch.Tensor:
     """One encoder layer (``encode``'s scan body, model.py:643-658): norm,
-    non-causal self-attention with RoPE, residual, norm, MLP, residual."""
-    h = L.apply_norm(pp["norm1"], x, cfg.norm)
+    non-causal self-attention with RoPE, residual, norm, MLP, residual.
+    ``tp``: both sublayers column / row split (``x`` the boundary's layout)."""
+    norm = (lambda p: p) if tp is None else tp.norm_params  # noqa: E731
+    h = L.apply_norm(norm(pp["norm1"]), x, cfg.norm)
+    if tp is not None:
+        h = tp.enter(h)
     b, s, _ = h.shape
-    hd = cfg.resolved_head_dim
-    q = (h @ pp["attn"]["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (h @ pp["attn"]["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (h @ pp["attn"]["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    q, k, v = L.qkv(pp["attn"], h, h, cfg, tp)
     pos = torch.arange(s, device=x.device)
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta)
-    o = L.full_attention(q, k, v, attn_impl)
-    x = x + o.reshape(b, s, -1) @ pp["attn"]["wo"]
-    h2 = L.apply_norm(pp["norm2"], x, cfg.norm)
-    return x + L.apply_mlp(pp["mlp"], h2, cfg.mlp)
+    o = L.full_attention(q, k, v, attn_impl).reshape(b, s, -1) @ pp["attn"]["wo"]
+    x = x + (o if tp is None else tp.exit(o))
+    h2 = L.apply_norm(norm(pp["norm2"]), x, cfg.norm)
+    return x + L.apply_mlp(pp["mlp"], h2, cfg.mlp, tp, cfg.d_ff)
 
 
 def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
-           attn_impl: str = "blockwise") -> torch.Tensor:
+           attn_impl: str = "blockwise", tp=None) -> torch.Tensor:
     """The encoder stack over precomputed frontend embeddings (B, S_src, D)
     (model.py:637-663): every layer keeps only its input and is recomputed
-    in the backward, then the encoder's final norm."""
+    in the backward, collectives and all, then the encoder's final norm.
+    ``tp``: the output in the block boundary's layout (this rank's rows of
+    ``S_src`` under sequence parallelism)."""
     enc = params["encoder"]
-    x = frames
+    x = frames if tp is None else tp.exit(frames, partial=False)
     for pp in _unstack(enc["blocks"], cfg.encoder_layers):
         if torch.is_grad_enabled():
-            x = _checkpointed(_encoder_layer, pp, x, cfg, attn_impl)
+            x = _checkpointed(_encoder_layer, pp, x, cfg, attn_impl, tp)
         else:
-            x = _encoder_layer(pp, x, cfg, attn_impl)
-    return L.apply_norm(enc["final_norm"], x, cfg.norm)
+            x = _encoder_layer(pp, x, cfg, attn_impl, tp)
+    norm = enc["final_norm"] if tp is None else tp.norm_params(enc["final_norm"])
+    return L.apply_norm(norm, x, cfg.norm)
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *, runs: list[Run] | None = None,
-            attn_impl: str = "blockwise", io: HostIO | None = None, tp=None) -> XAux:
+            attn_impl: str = "blockwise", io: HostIO | None = None, tp=None,
+            route=None) -> XAux:
     """Training and prefill forward. ``batch["tokens"]``: (B, S) integer; an
     encoder-decoder's ``batch["frames"]``: (B, S_src, D) in the model's
     dtype; a vision-language model's ``batch["patches"]`` (B, P, D), if
@@ -624,21 +637,34 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *, runs: list[Run] | No
     tokens (B, S, D) and the aux loss: the MoE layers' load-balance losses
     summed, an fp32 scalar (0.0 for a dense model, where JAX returns a zero
     array). ``io``: the host copies of runs with host weights and of
-    swapped activations. ``tp``: the model axis (``dist.tensor_parallel``;
-    dense and MoE decoders): the hidden states come back in the block
-    boundary's layout, this rank's rows under sequence parallelism."""
+    swapped activations. ``tp``: the model axis (``dist.tensor_parallel``):
+    the hidden states of the tokens come back in the block boundary's
+    layout, this rank's rows under sequence parallelism, which must then
+    split the tokens, the patches and tokens, and the frames alike
+    (``boundary_lengths``). ``route``: the MoE layers' batch group."""
     check_family(cfg)
-    if tp is not None:
-        check_tp_family(cfg)
-    x = embed_tokens(params, batch["tokens"], cfg, tp)
     patches = batch.get("patches") if cfg.frontend == "vision_patches" else None
-    if patches is not None:
+    seq = tp is not None and tp.seq
+    if patches is None:
+        x = embed_tokens(params, batch["tokens"], cfg, tp)
+    else:  # under sequence sharding the boundary splits the P + S positions
+        x = embed_tokens(params, batch["tokens"], cfg,
+                         dataclasses.replace(tp, seq=False) if seq else tp)
         x = torch.cat([patches.detach().to(x.dtype), x], dim=1)
-    memory = (encode(params, batch["frames"], cfg, attn_impl=attn_impl)
-              if cfg.kind == "encdec" else None)
+        if seq:
+            x = tp.exit(x, partial=False)
+    memory = None
+    if cfg.kind == "encdec":
+        memory = encode(params, batch["frames"], cfg, attn_impl=attn_impl, tp=tp)
+        if tp is not None:  # whole on every rank: the cross-attentions' parts summed
+            memory = tp.enter(memory)
     if runs is None:
         runs = default_runs(cfg, params)
-    x, aux = apply_runs(runs, x, cfg, memory=memory, attn_impl=attn_impl, io=io, tp=tp)
+    x, aux = apply_runs(runs, x, cfg, memory=memory, attn_impl=attn_impl, io=io, tp=tp,
+                        route=route)
     if patches is not None:
-        x = x[:, patches.shape[1]:].contiguous()  # the kernels take whole rows
+        p = patches.shape[1]
+        if seq:  # this rank's rows of the tokens
+            return tp.split(tp.gather(x, 1)[:, p:], 1), aux
+        x = x[:, p:].contiguous()  # the kernels take whole rows
     return x, aux

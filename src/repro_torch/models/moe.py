@@ -57,10 +57,11 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
-def _top_k_gating(logits: torch.Tensor, top_k: int):
+def _top_k_gating(logits: torch.Tensor, top_k: int, route=None):
     """logits: (T, E) fp32 -> (weights (T, k), indices (T, k), one_hot
     (T, k, E), aux_loss). ``lax.top_k`` orders equal values lower index
-    first: a stable descending sort, sliced, does the same."""
+    first: a stable descending sort, sliced, does the same. ``route``: the
+    means run over the batch group's tokens."""
     probs = torch.softmax(logits, dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, indices = top.values[:, :top_k], top.indices[:, :top_k]
@@ -68,8 +69,13 @@ def _top_k_gating(logits: torch.Tensor, top_k: int):
     # load-balance auxiliary loss (Switch-style): E * sum_e f_e * p_e
     num_experts = logits.shape[-1]
     one_hot = _one_hot(indices, num_experts)  # (T, k, E)
-    tokens_per_expert = one_hot.sum(dim=1).mean(dim=0)  # fraction (E,)
-    mean_probs = probs.mean(dim=0)
+    if route is None:
+        tokens_per_expert = one_hot.sum(dim=1).mean(dim=0)  # fraction (E,)
+        mean_probs = probs.mean(dim=0)
+    else:
+        n = logits.shape[0] * route.size
+        tokens_per_expert = route.total(one_hot.sum(dim=(0, 1))) / n
+        mean_probs = route.total(probs.sum(dim=0)) / n
     aux = num_experts * (tokens_per_expert * mean_probs).sum()
     return weights, indices, one_hot, aux
 
@@ -80,13 +86,21 @@ def expert_capacity(cfg, tokens: int) -> int:
     return max(math.ceil(mc.top_k * tokens * mc.capacity_factor / mc.num_experts), 1)
 
 
-def apply_moe(params: dict, x: torch.Tensor, cfg,
-              tp=None) -> tuple[torch.Tensor, torch.Tensor]:
+def apply_moe(params: dict, x: torch.Tensor, cfg, tp=None,
+              route=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D), aux loss, an fp32 scalar).
 
     Each expert takes at most C (``expert_capacity``) of the (token, k)
     choices, counted in token-major, then-k order; the overflow is dropped
     (the token keeps its residual stream only).
+
+    ``route`` (``dist.tensor_parallel.BatchGroup``): the xla path's ranks
+    that hold other rows of the batch route them as the reference's one
+    program routes the global batch: the capacity from the group's token
+    count, each choice's position offset by the lower ranks' counts (rank
+    r holds the r-th slice of the microbatch's tokens), ``f_e`` and ``p_e``
+    the group's means. The manual kinds pass none: the reference runs
+    their step under ``shard_map``, where each device routes its own rows.
 
     ``tp`` (``dist.tensor_parallel.TensorParallel``): the router and the
     gating run on every rank over every token, as on one device, and are
@@ -103,11 +117,13 @@ def apply_moe(params: dict, x: torch.Tensor, cfg,
     t, k, e = b * s, mc.top_k, mc.num_experts
     xt = xr.reshape(t, d)
     logits = xt.float() @ params["router"]
-    weights, _, one_hot, aux = _top_k_gating(logits, k)
+    weights, _, one_hot, aux = _top_k_gating(logits, k, route)
 
-    capacity = expert_capacity(cfg, t)
+    capacity = expert_capacity(cfg, t if route is None else t * route.size)
     # position of each (token, k) choice within its expert's buffer
     cum = torch.cumsum(one_hot.reshape(t * k, e), dim=0)
+    if route is not None:
+        cum = cum + route.count_before(one_hot.sum(dim=(0, 1)))
     pos_in_expert = (cum - 1).reshape(t, k, e)
     within_cap = (pos_in_expert < capacity) & (one_hot > 0)
     pos_clipped = pos_in_expert.clamp(0, capacity - 1).to(torch.int32)

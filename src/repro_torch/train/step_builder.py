@@ -74,13 +74,18 @@ the data ranks, its ``tp`` / ``exp`` dim over the model ranks. The
 ``LazyGather`` gathers over the data group only, so a gathered leaf stays
 split over ``model`` (the reference's ``gather_sharding``); the model runs
 Megatron-style on those shards (``dist/tensor_parallel.py``: column- and
-row-parallel attention and MLP, experts over the model axis, the
-vocab-parallel embedding and cross-entropy, sequence sharding under
-``seq_shard_acts``). The batch splits over the data axis, and under
-``dp_only`` -- where the ``tp`` dims stay whole and the model runs as on
-one device -- over the model axis too (``dist/sharding.batch_axes``).
-Every single-device plan kind runs so. The dense and MoE decoders split;
-the other families raise ``NotImplementedError`` (ROADMAP.md).
+row-parallel attention and MLP -- the decoder's, the encoder's and the
+cross-attention's --, experts over the model axis, the Mamba-2 mixer on a
+rank's SSD heads, the vocab-parallel embedding and cross-entropy,
+sequence sharding under ``seq_shard_acts`` where the model extent divides
+every sequence a boundary holds, ``models/model.boundary_lengths``). The
+batch splits over the data axis, and under ``dp_only`` -- where the ``tp``
+dims stay whole and the model runs as on one device -- over the model
+axis too (``dist/sharding.batch_axes``), each rank taking its slice of
+every microbatch (``dist/sharding.xla_batch_split``), and the MoE layers
+route over the batch group's tokens (``dist.tensor_parallel.BatchGroup``),
+as the reference's one program routes the global batch. Every
+single-device plan kind and every family runs so.
 
 Serving: ``fn(state, batch)`` runs the step under ``torch.inference_mode``
 and returns ``(state, next_tok)``, the greedy argmax taken on the device.
@@ -102,7 +107,7 @@ from repro_torch.core.plan import MemoryPlan
 from repro_torch.core.serve_plan import paging_from_plan
 from repro_torch.dist import collectives as COLL
 from repro_torch.dist import sharding as SH
-from repro_torch.dist.tensor_parallel import make_tensor_parallel
+from repro_torch.dist.tensor_parallel import batch_group, make_tensor_parallel
 from repro_torch.launch.mesh import LocalMesh
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
@@ -204,11 +209,15 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
     manual = strategy.manual_active
     sharded = not manual and strategy.sharded  # the xla path's sharded layouts
     # the model axis: tp / exp dims split over it (None without one, or
-    # under dp_only); sequence parallelism where the model extent divides S
-    tp = make_tensor_parallel(mesh, plan if shape.seq_len % mesh.model == 0 else
+    # under dp_only); sequence parallelism where the model extent divides
+    # every sequence a block boundary holds (the reference's sharder skips
+    # a dim it does not divide: either way the same function)
+    seq_fits = all(n % mesh.model == 0 for n in M.boundary_lengths(cfg, shape.seq_len))
+    tp = make_tensor_parallel(mesh, plan if seq_fits else
                               dataclasses.replace(plan, seq_shard_acts=False))
-    if tp is not None:
-        M.check_tp_family(cfg)
+    # the xla path's ranks with other rows of the batch: the MoE routes
+    # over all of them, as the reference's one program
+    route = batch_group(mesh, plan) if sharded else None
     runs_layout = plan_runs(plan, M.num_repeats(cfg))
     defs = M.param_defs(cfg)
     p_defs: dict[str, Any] = {
@@ -351,7 +360,7 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
             if key in host_keys:
                 fparams[key] = io.fetch(proxies[key], params[key])
         h, aux = M.forward(fparams, batch, cfg, runs=make_runs(params, proxies, gather),
-                           attn_impl=attn_impl, io=io, tp=tp)
+                           attn_impl=attn_impl, io=io, tp=tp, route=route)
         for key in host_keys:
             if key not in FRONT_KEYS:
                 fparams[key] = io.fetch(proxies[key], params[key])
@@ -366,8 +375,9 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         """The step's gradients and losses: (grads tree, (2,) fp32 [loss,
         ce]), accumulated over the plan's microbatches; the loss is the
         cross-entropy plus the MoE aux loss. Every gradient lies on the
-        device. Sharded: over this rank's rows of ``batch`` (split over the
-        batch axes), a leaf sharded over data has its gradient
+        device. Sharded: over this rank's rows of ``batch`` (its slice of
+        each microbatch, split over the batch axes), a leaf sharded over
+        data has its gradient
         reduce-scattered over the data group (this rank's shard), a
         replicated leaf's local (``finalize_grads`` averages it), the
         losses averaged over the batch ranks."""
@@ -376,7 +386,7 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
         flat = OPT.tree_leaves(proxies)
         gather = None
         if sharded:
-            batch = {k: SH.manual_batch_split(v, batch_rank, batch_ranks)
+            batch = {k: SH.xla_batch_split(v, batch_rank, batch_ranks, plan.microbatch)
                      for k, v in batch.items()}
             gather = make_gather(params, [None] * len(leafs), "none")
 

@@ -2,23 +2,36 @@
 the xla path, at 4 gloo ranks, against the JAX package's one-device xla
 step over the global batch with the same plan.
 
-Reduced ``llama3-405b`` (also with ``num_kv_heads = 2``: at a model
-extent of 4 the reference's ``_fits`` shards ``wk`` / ``wv`` in half-heads)
-and reduced ``qwen2-moe-a2.7b`` (4 experts, one a rank, and the shared
-expert) in fp32 at ``ShapeConfig("tiny", 32, 16, "train")``, each
+Every family in fp32 at ``ShapeConfig("tiny", 32, 16, "train")``, each
 model's parameters carried from its plan's JAX init by
-``repro_torch.models.convert``. The layouts (``torch_dist_ranks.TP_CASES``):
-data x model 2 x 2 and 1 x 4, with and without ``seq_shard_acts``,
-``dp_only`` at 2 x 2 (which also equals the port at data 4), and a host
-chunk plan under int8 + EF at 2 x 2, compressed saves (int8 and bf16)
-under ``seq_shard_acts`` at 2 x 2. ``seq_shard_acts`` and ``dp_only``
+``repro_torch.models.convert`` (``torch_dist_ranks.TP_MODELS`` /
+``TP_CASES``): reduced ``llama3-405b`` at data x model 2 x 2 and 1 x 4,
+with and without ``seq_shard_acts``, ``dp_only`` at 2 x 2 (which also
+equals the port at data 4), a host chunk plan under int8 + EF at 2 x 2,
+compressed saves (int8 and bf16) under ``seq_shard_acts`` at 2 x 2, and
+with ``num_kv_heads = 2`` at 1 x 4 (the reference's ``_fits`` shards
+``wk`` / ``wv`` in half-heads); reduced ``qwen2-moe-a2.7b`` (4 experts,
+one a rank, and the shared expert) at 1 x 4, and with ``capacity_factor``
+1.0 on both sides and 2 microbatches at 4 x 1, 2 x 2 and 2 x 2
+``dp_only``: the capacity drops choices, so the ranks must route the
+global microbatch as the reference does (its capacity, its token order,
+its aux loss); reduced ``mamba2-130m`` at 2 x 2, 1 x 4 and 1 x 4 with
+``seq_shard_acts`` (the SSD on a rank's heads, ``in_proj`` and the conv
+taken whole at use); the reduced hybrid (one Jamba period, one KV head)
+at 2 x 2 and 1 x 4 with ``seq_shard_acts``; reduced
+``seamless-m4t-large-v2`` at 2 x 2 and 1 x 4 with ``seq_shard_acts``
+(the encoder and the cross-attention split) and at 1 x 4 with a vocab of
+510, which 4 does not divide (the embedding and head stay whole); reduced
+``llava-next-34b`` at 2 x 2 and 1 x 4 with ``seq_shard_acts`` (the
+boundary splits the patches and tokens). ``seq_shard_acts`` and ``dp_only``
 change only how the reference lays the step out on a mesh above one
 device (its activation sharder is the identity on one device,
 ``make_activation_sharder``, and ``batch_axes`` differs by the model axis
 alone), so each layout is held against the one JAX step of its model and
 plan, which runs while the ranks train. The 4 ranks
 (``torch_dist_ranks.tp_steps``) are spawned once for the module; they
-also run the checkpoint race and ``launch.train --nproc 4 --model 2``.
+also run the checkpoint race and ``launch.train --nproc 4 --model 2`` on
+``llama3-405b`` and ``mamba2-130m``.
 
 Tolerances are ``tests/test_torch_dist_xla.py``'s: losses, grad norms and
 fp32 masters after 3 steps at ``TOL = 1e-4``, with its Adam-eps exception
@@ -29,7 +42,9 @@ the losses at ``COMPRESS_LOSS_TOL``, each master's update within
 ``COMPRESS_UPDATE_TOL`` of JAX's: an int8 activation a step off moves
 the later steps). The row-parallel products and the
 vocab-parallel cross-entropy sum in another order than one device: in
-fp32 that is within ``TOL``.
+fp32 that is within ``TOL``. The hybrid runs Adam at eps 1e-6 on both
+sides (``torch_dist_ranks.TP_ADAM_EPS``): at 1e-8 its one-device port
+already misses the JAX masters at ``TOL``.
 """
 import dataclasses
 import types
@@ -58,6 +73,7 @@ from repro_torch.dist import sharding as SH
 from repro_torch.launch.mesh import LocalMesh
 from repro_torch.models import convert
 from repro_torch.models import model as TM
+from repro_torch.optim.adam import tree_leaves as OPT_LEAVES
 from repro_torch.train import sync as SYNC
 from repro_torch.train.step_builder import build_train_step
 
@@ -76,9 +92,7 @@ REFS = sorted({f"{m}_{p}" for m, p, _, _ in R.TP_CASES.values()})
 
 
 def _jcfg(model: str):
-    arch, kv = R.TP_MODELS[model]
-    cfg = jreduced(jget_config(arch), dtype="float32")
-    return cfg if kv is None else dataclasses.replace(cfg, num_kv_heads=kv)
+    return R.tp_overrides(jreduced(jget_config(R.TP_MODELS[model][0]), dtype="float32"), model)
 
 
 def _jax_step(ref: str):
@@ -88,14 +102,15 @@ def _jax_step(ref: str):
     cfg = _jcfg(model)
     mesh = jax.make_mesh((1, 1), ("data", "model"), devices=jax.devices()[:1],
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
-    art = j_build(cfg, JPlan(4, 2, **R.TP_PLANS[plan]), mesh, JSHAPE, adam=JAdam(lr=R.LR))
+    n = JM.num_repeats(cfg)
+    art = j_build(cfg, JPlan(n + 2, n, **R.TP_PLANS[plan]), mesh, JSHAPE,
+                  adam=JAdam(lr=R.LR, **R.tp_adam_kw(model)))
     return cfg, art, art.init(jax.random.PRNGKey(0))
 
 
-def _jax_ref(ref: str) -> dict:
-    """3 steps of the JAX step: losses, norms, the fp32 masters before and
-    after."""
-    cfg, art, state = _jax_step(ref)
+def _jax_ref(cfg, art, state) -> dict:
+    """3 steps of a JAX step (``_jax_step``'s triple): losses, norms, the
+    fp32 masters before and after."""
     init = jax.device_get(state["opt"]["master"])
     fn = jax.jit(art.fn)
     pipe = JPipe(cfg, JSHAPE, seed=0)
@@ -115,12 +130,13 @@ def both(tmp_path_factory):
     """The 4 ranks, started first, and the JAX steps run while they train:
     (JAX results by reference, ranks' results)."""
     d = str(tmp_path_factory.mktemp("tp"))
-    inits = {r: convert.tree_from_numpy(jax.device_get(_jax_step(r)[2]["params"]))
-             for r in REFS}
+    steps = {r: _jax_step(r) for r in REFS}
+    inits = {r: convert.tree_from_numpy(jax.device_get(st[2]["params"]))
+             for r, st in steps.items()}
     path = f"{d}/params.pt"
     torch.save(inits, path)
     wait = R.start_ranks("tp_steps", d, path)
-    ref = {r: _jax_ref(r) for r in REFS}
+    ref = {r: _jax_ref(*steps.pop(r)) for r in REFS}
     return ref, wait()
 
 
@@ -217,15 +233,15 @@ def test_checkpoint_ranks_resume_from_one_step(ranks):
         assert r["race"]["w"] == [2.0 + rank] * 3
 
 
-def test_launcher_model_axis_runs_the_searched_plan(ranks):
-    """``launch.train --nproc 4 --model 2 --plan auto`` lays the ranks out
-    2 x 2 and runs ``search(w, sp="auto", dp="auto")`` on
-    ``MeshSpec((2, 2), ("data", "model"))``, as searched."""
-    summary = ranks[0]["auto"]
-    assert all(r["auto"] is None for r in ranks[1:])
-    w = build_workload(reduced(get_config("llama3-405b")), ShapeConfig("cli", 32, 16, "train"),
+def _check_searched(ranks, key: str, arch: str) -> None:
+    """Rank 0's launcher summary under ``key`` ran the plan searched for
+    ``arch`` on the 2 x 2 mesh."""
+    summary = ranks[0][key]
+    assert all(r[key] is None for r in ranks[1:])
+    w = build_workload(reduced(get_config(arch)), ShapeConfig("cli", 32, 16, "train"),
                        MeshSpec((2, 2), ("data", "model")), LOCAL_CPU_HW)
     plan = search(w, sp="auto", dp="auto").plan
+    assert summary["arch"] == arch
     assert summary["plan"] == plan.describe()
     assert (summary["dp_only"], summary["seq_shard_acts"]) == (plan.dp_only,
                                                                 plan.seq_shard_acts)
@@ -233,6 +249,19 @@ def test_launcher_model_axis_runs_the_searched_plan(ranks):
     assert summary["strategy"] == ("xla" if plan.sync_mode == "xla"
                                    else plan.manual_sync_kind(2))
     assert summary["steps"] == 2 and np.isfinite(summary["final_loss"])
+
+
+def test_launcher_model_axis_runs_the_searched_plan(ranks):
+    """``launch.train --nproc 4 --model 2 --plan auto`` lays the ranks out
+    2 x 2 and runs ``search(w, sp="auto", dp="auto")`` on
+    ``MeshSpec((2, 2), ("data", "model"))``, as searched."""
+    _check_searched(ranks, "auto", "llama3-405b")
+
+
+def test_launcher_model_axis_runs_mamba2(ranks):
+    """The same launcher at ``--arch mamba2-130m``: the Mamba-2 family
+    trains the plan searched for its 2 x 2 mesh."""
+    _check_searched(ranks, "auto_mamba", "mamba2-130m")
 
 
 # ---------------------------------------------------------------------------
@@ -285,20 +314,53 @@ def test_shard_activation_kinds():
     assert mesh.spec == MeshSpec((2, 2), ("data", "model"))
 
 
+def _leaf_paths(tree, prefix="") -> list[str]:
+    """The paths of a tree's leaves in ``tree_leaves`` order."""
+    if isinstance(tree, torch.Tensor):
+        return [prefix]
+    items = enumerate(tree) if isinstance(tree, list) else sorted(tree.items())
+    return [p for k, v in items for p in _leaf_paths(v, f"{prefix}/{k}")]
+
+
 @pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-1.5-large-398b",
                                   "seamless-m4t-large-v2", "llava-next-34b"])
 def test_uncovered_families_raise_at_model_two(arch):
-    """Mamba-2, the hybrid, the encoder-decoder and the VLM raise at a
-    model extent of 2, naming ROADMAP.md; ``dp_only`` folds the axis into
-    the batch, and they build."""
+    """Mamba-2, the hybrid, the encoder-decoder and the VLM, which raised
+    at a model extent of 2 before the model axis split them, build there:
+    each rank's state holds, of every leaf, its model shard along the dim
+    ``leaf_dims`` names (held to JAX's ``_spec`` above) -- the Mamba-2
+    mixer's ``in_proj``, conv and ``out_proj``, the encoder's and the
+    cross-attention's projections among them -- and ``dp_only`` folds the
+    axis into the batch, every leaf whole."""
     cfg = reduced(get_config(arch), dtype="float32")
-    mesh = LocalMesh(0, 4, None, CPU, model=2)
+    shape = ShapeConfig("tiny", 32, 16, "train")
+    mesh = LocalMesh(1, 4, None, CPU, model=2)  # data rank 0, model rank 1
     nc = TM.num_repeats(cfg) + 2
-    plan = MemoryPlan(nc, nc - 2, n_persist=nc)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train_step(cfg, plan, "cpu", ShapeConfig("tiny", 32, 16, "train"), mesh=mesh)
-    build_train_step(cfg, dataclasses.replace(plan, dp_only=True), "cpu",
-                     ShapeConfig("tiny", 32, 16, "train"), mesh=mesh)
+    plan = MemoryPlan(nc, nc - 2, n_persist=nc)  # one persistent run
+    full = build_train_step(cfg, plan, "cpu", shape).init()["params"]
+    defs = TM.param_defs(cfg)
+    state_defs = {**{k: v for k, v in defs.items() if k != "blocks"}, "runs": [defs["blocks"]]}
+    paths = _leaf_paths(full)
+    for dp in (False, True):
+        art = build_train_step(cfg, dataclasses.replace(plan, dp_only=dp), "cpu", shape,
+                               mesh=mesh)
+        local = OPT_LEAVES(art.init()["params"])
+        want_mdims = [SH.leaf_dims(d, "persist", 2, 2, dp)[1]
+                      for d in SH.def_leaves(state_defs)]
+        assert [ls.mdim for ls in art.leaf_syncs] == want_mdims
+        split = set()
+        for path, m, t, f in zip(paths, want_mdims, local, OPT_LEAVES(full)):
+            assert torch.equal(t, SH.shard(f, m, 1, 2)), (arch, dp, path, t.shape, f.shape)
+            if m is not None:
+                split.add("/".join(path.split("/")[-2:]))
+        if dp:
+            assert not split
+            continue
+        assert "embed/tok" in split
+        want = {"mamba/in_proj", "mamba/conv_w", "mamba/out_proj"} if cfg.mamba2 else set()
+        want |= {"attn/wq", "attn/wo"} if "attention" in cfg.mixer_pattern else set()
+        want |= {"xattn/wq", "xattn/wo"} if cfg.kind == "encdec" else set()
+        assert want <= split, (arch, want - split)
 
 
 def test_make_strategy_with_a_model_axis():

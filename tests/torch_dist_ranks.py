@@ -436,15 +436,32 @@ def xla_launcher_auto() -> dict | None:
 # The model axis (tests/test_torch_tp.py)
 # ---------------------------------------------------------------------------
 TP_STEPS = 3
-TP_MODELS = {  # name: (arch, num_kv_heads override)
-    "dense": ("llama3-405b", None),
-    "kv2": ("llama3-405b", 2),
-    "moe": ("qwen2-moe-a2.7b", None),
+TP_MODELS = {  # name: (arch, overrides of its reduced config)
+    "dense": ("llama3-405b", {}),
+    "kv2": ("llama3-405b", dict(num_kv_heads=2)),
+    "moe": ("qwen2-moe-a2.7b", {}),
+    # the config's capacity drops choices (reduced() sets 8.0: none)
+    "moedrop": ("qwen2-moe-a2.7b", dict(capacity_factor=1.0)),
+    "mamba": ("mamba2-130m", {}),
+    # one 8-layer period: Mamba-2, attention at 3 (4 query heads over one
+    # KV head: the whole_weight route), MoE every second layer
+    "hybrid": ("jamba-1.5-large-398b", dict(num_kv_heads=1)),
+    "seamless": ("seamless-m4t-large-v2", {}),
+    # a vocab the model extent of 4 does not divide: embedding and head whole
+    "seamlessv510": ("seamless-m4t-large-v2", dict(vocab_size=510)),
+    "llava": ("llava-next-34b", {}),
 }
+# Adam's eps where the default (1e-8) divides the two frameworks' fp32
+# noise into whole steps: the hybrid's one-device port misses the JAX
+# step's masters at TOL with it, as tests/test_torch_mamba.py's ADAM_EPS
+# records; both sides take it
+TP_ADAM_EPS = {"hybrid": 1e-6}
 TP_PLANS = {  # name: MemoryPlan keywords
     # a persistent embedding chunk, ZeRO hbm chunks, the first block
     # checkpointed, the head's chunk buffered
     "zero": dict(n_persist=1, n_buffer=1, n_checkpoint=1),
+    # the same in 2 microbatches: a rank's rows of each global one
+    "zeromb2": dict(n_persist=1, n_buffer=1, n_checkpoint=1, microbatch=2),
     # host chunks with a swap and a checkpointed block, int8 + EF
     "host": dict(n_persist=1, n_host=2, n_buffer=1, n_swap=1, n_checkpoint=1,
                  grad_compress="int8_ef"),
@@ -465,31 +482,59 @@ TP_CASES = {
     "moe_1x4_sp": ("moe", "zero", (1, 4), dict(seq_shard_acts=True)),
     "host_2x2_int8_ef": ("dense", "host", (2, 2), {}),
     "compress_2x2_sp": ("dense", "compress", (2, 2), dict(seq_shard_acts=True)),
+    # the MoE routed over the batch group's tokens, dropping choices
+    "moedrop_4x1": ("moedrop", "zeromb2", (4, 1), {}),
+    "moedrop_2x2": ("moedrop", "zeromb2", (2, 2), {}),
+    "moedrop_2x2_dp_only": ("moedrop", "zeromb2", (2, 2), dict(dp_only=True)),
+    "mamba_2x2": ("mamba", "zero", (2, 2), {}),
+    "mamba_1x4": ("mamba", "zero", (1, 4), {}),
+    "mamba_1x4_sp": ("mamba", "zero", (1, 4), dict(seq_shard_acts=True)),
+    "hybrid_2x2": ("hybrid", "zero", (2, 2), {}),
+    "hybrid_1x4_sp": ("hybrid", "zero", (1, 4), dict(seq_shard_acts=True)),
+    "seamless_2x2": ("seamless", "zero", (2, 2), {}),
+    "seamless_1x4_sp": ("seamless", "zero", (1, 4), dict(seq_shard_acts=True)),
+    "seamlessv510_1x4": ("seamlessv510", "zero", (1, 4), {}),
+    "llava_2x2": ("llava", "zero", (2, 2), {}),
+    "llava_1x4_sp": ("llava", "zero", (1, 4), dict(seq_shard_acts=True)),
 }
 TP_AUTO_ARGV = ["--arch", "llama3-405b", "--reduced", "--nproc", "4", "--model", "2",
                 "--steps", "2", "--batch", "16", "--seq", "32", "--device", "cpu",
                 "--plan", "auto"]
+TP_AUTO_MAMBA_ARGV = ["--arch", "mamba2-130m"] + TP_AUTO_ARGV[2:]
+
+
+def tp_overrides(cfg, model: str):
+    """``cfg`` (the JAX package's or the port's reduced fp32 config) with
+    ``TP_MODELS[model]``'s overrides."""
+    import dataclasses
+
+    kw = dict(TP_MODELS[model][1])
+    if "capacity_factor" in kw:
+        kw["moe"] = dataclasses.replace(cfg.moe, capacity_factor=kw.pop("capacity_factor"))
+    return dataclasses.replace(cfg, **kw)
+
+
+def tp_adam_kw(model: str) -> dict:
+    """The Adam keywords of ``model``'s runs beside the learning rate."""
+    return {"eps": TP_ADAM_EPS[model]} if model in TP_ADAM_EPS else {}
 
 
 def tp_config(model: str):
     """The reduced fp32 config of ``TP_MODELS[model]`` and the shape."""
-    import dataclasses
-
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import ShapeConfig
 
-    arch, kv = TP_MODELS[model]
-    cfg = reduced(get_config(arch), dtype="float32")
-    if kv is not None:
-        cfg = dataclasses.replace(cfg, num_kv_heads=kv)
-    return cfg, ShapeConfig("tiny", 32, 16, "train")
+    cfg = reduced(get_config(TP_MODELS[model][0]), dtype="float32")
+    return tp_overrides(cfg, model), ShapeConfig("tiny", 32, 16, "train")
 
 
 def tp_plan(case: str):
     from repro_torch.core.plan import MemoryPlan
+    from repro_torch.models.model import num_repeats
 
-    _, plan, _, extra = TP_CASES[case]
-    return MemoryPlan(4, 2, **TP_PLANS[plan], **extra)
+    model, plan, _, extra = TP_CASES[case]
+    n = num_repeats(tp_config(model)[0])
+    return MemoryPlan(n + 2, n, **TP_PLANS[plan], **extra)
 
 
 def tp_run(case: str, params, mesh) -> dict:
@@ -501,8 +546,10 @@ def tp_run(case: str, params, mesh) -> dict:
     from repro_torch.optim.adam import AdamConfig, tree_leaves, tree_map
     from repro_torch.train.step_builder import build_train_step
 
-    cfg, shape = tp_config(TP_CASES[case][0])
-    art = build_train_step(cfg, tp_plan(case), "cpu", shape, mesh=mesh, adam=AdamConfig(lr=LR))
+    model = TP_CASES[case][0]
+    cfg, shape = tp_config(model)
+    art = build_train_step(cfg, tp_plan(case), "cpu", shape, mesh=mesh,
+                           adam=AdamConfig(lr=LR, **tp_adam_kw(model)))
     state = art.place_state(tree_map(lambda t: t.clone(), params))
     pipe = SyntheticTokenPipeline(cfg, shape, seed=0)
     losses, norms, ef_norms = [], [], []
@@ -533,8 +580,9 @@ def tp_steps(rank: int, directory: str, params_file: str) -> dict:
     out["race"] = checkpoint_race(rank, directory)
     from repro_torch.launch import train as launch_train
 
-    out["auto"] = launch_train._train(launch_train.parse_args(TP_AUTO_ARGV),
-                                      torch.device("cpu"), meshes[2])
+    for key, argv in (("auto", TP_AUTO_ARGV), ("auto_mamba", TP_AUTO_MAMBA_ARGV)):
+        out[key] = launch_train._train(launch_train.parse_args(argv), torch.device("cpu"),
+                                       meshes[2])
     return out
 
 
