@@ -110,7 +110,7 @@ Phases, each printing one JSON line:
      that tolerance, and ``routing`` reports the share of (token, k)
      expert choices on which the kernel and plain paths agree;
  12. ``moe_plan``: phase 9 for ``qwen2-moe-a2.7b`` at ``MOE_PLAN_LAYERS``
-     (8) of its 24 layers, a cut for the run's time: 229 GB of training
+     (4) of its 24 layers, a cut for the run's time: 229 GB of training
      state at 24 layers, more than card and host hold, so the depth is the
      deepest up to that whose searched plan's pinned states, as the caching host
      allocator takes them (``pinned_alloc_bytes``: each allocation rounded
@@ -127,7 +127,7 @@ Phases, each printing one JSON line:
      forward and backward and paged attention at the hybrid's 8 query
      heads over 1 KV head of 128; each line carries ``"path": "mamba"``;
  14. ``mamba_serve``: phase 4's engine and checks for ``mamba2-130m`` at
-     full width and 12 of its 24 layers (``MAMBA_SERVE_LAYERS``), on the
+     full width and 6 of its 24 layers (``MAMBA_SERVE_LAYERS``), on the
      resident plan under replay
      admission (the default without attention); the teacher-forced plain
      path runs the plain RMSNorm too; ``mamba_state_bytes``;
@@ -178,7 +178,7 @@ Phases, each printing one JSON line:
      (7168 x 20480), states on the device and pinned; the quantizer at
      5,120 x 7,168 bf16; each line carries ``"path": "vlm"``;
  22. ``vlm_serve``: phase 4's engine and checks for llava-next-34b at full
-     width and ``VLM_SERVE_LAYERS`` (20) of its 60 layers (23.9 GB of bf16
+     width and ``VLM_SERVE_LAYERS`` (10) of its 60 layers (12.0 GB of bf16
      weights, ``vlm_init``; a cut for the run's time, from all 60),
      prompts of 595 to 758 tokens, one paged launch a layer a step; the
      engine serves tokens, as the JAX engine does;
@@ -246,23 +246,44 @@ Phases, each printing one JSON line:
      product rounds its partial sums to bf16 and again after the
      reduction), each on the resident plan at full width and a depth cut
      for the run's time: ``tp_ranks``, data 1 x model 2, mistral-7b at
-     ``TP_LAYERS`` (4) layers, B 1, S 4096, without and with
+     ``TP_LAYERS`` (2) layers, B 1, S 4096, without and with
      ``seq_shard_acts``; ``tp_moe_data``, data 2 x model 1,
      qwen2-moe-a2.7b at 1 layer, B 2, S 4096, its capacity factor 1.25,
      the MoE
      routed over both ranks' tokens (with the share of choices the
      capacity dropped, counted on the one-device step); ``tp_families``,
-     data 1 x model 2: mamba2-130m at 8 of 24 layers, B 1, S 8192, and
+     data 1 x model 2: mamba2-130m at 4 of 24 layers, B 1, S 8192, and
      llava-next-34b at 2 layers, 1,024 patches and 3,072 tokens, each
      without and with ``seq_shard_acts``; the reduced hybrid of ``hybrid``
-     at S 2048; seamless-m4t-large-v2 at 4 + 4 layers, S 4096 frames and
+     at S 2048; seamless-m4t-large-v2 at 2 + 2 layers, S 4096 frames and
      tokens; these take Adam steps of 3e-5
      (``TP_FAMILY_LR``: at mistral's 3e-4 bf16 rounding makes 3-step
      trajectories diverge). Each line states the state bytes of rank 0
      and of one device. Their step times are two ranks sharing one card's
      SMs with gloo reducing through the host: not tensor-parallel speed,
      and printed as such (``tp_step_seconds``);
- 29. ``launchers``: ``launch.train`` (mistral-7b, 32 layers, the searched
+ 29. ``serve_mesh``: serving on a mesh. The paged kernel ``main`` at the
+     shards' heads over a model extent of 2 (mistral-7b's 16 over 4,
+     llava-next-34b's 28 over 4), pinned and on the device
+     (``"path": "serve_mesh"``); then each ``SERVE_MESH_RUNS`` run on one
+     device (its graph engine) and on two gloo ranks sharing the card,
+     from seed 0's weights at full width, depths cut for the run's time:
+     ``mesh_paged`` (mistral-7b, 8 of 32 layers, data 1 x model 2, the
+     ``serve`` phase's paged plan and requests), ``mesh_sharded`` (1
+     layer, data 2 x model 1, ``n_persist = 0``, a resident cache, 4
+     requests of 8 to 15 tokens and 4 new: every step gathers the
+     weights through the host) and ``mesh_mamba`` (mamba2-130m, 12 of
+     24 layers, model 2, replay, prompts of 24 to 39 tokens). Each
+     ``serve_mesh`` line: tokens/s and TTFT beside one device's (no
+     serving speed: two processes on one card), peak, cache and
+     cold-read bytes of rank 0 and of one device, rank 0's launches
+     against the plan's count (exact), the teacher-forced gap to one
+     device (8 seeded tokens on the cache the run filled, from the
+     shortest prompt's length; within ``SERVE_MESH_TOL * (1 + max
+     |logit|)``), the gap a planted split fault gives on the ranks
+     (``SERVE_MESH_FAULTS``, which must exceed that bound) and the greedy
+     tokens equal to one device's;
+ 30. ``launchers``: ``launch.train`` (mistral-7b, 32 layers, the searched
      plan as searched; seamless-m4t-large-v2; each 2 steps of B 1 at S
      4096) and ``launch.serve`` (mistral-7b, paged, its default stream)
      through their ``main(argv)``, each JSON line checked (finite losses;
@@ -275,7 +296,8 @@ The kernels summary line gives each kernel's launches per path
 ``vlm_cases``: every kernel's rows at llava-next-34b's shapes;
 ``dist_cases``: the quantizer's rows at the gradient sync's chunks;
 ``tp_cases``: the flash rows at the model axis's shard shapes, each with
-its ``family``.
+its ``family``; ``serve_mesh_cases``: the paged rows at the serving
+shards' heads.
 
 The fused int8 quantize kernel (``fused_quantize_ef``) is held to its
 plain version bitwise (q, scales and the residual) in phase 5 at
@@ -2530,15 +2552,17 @@ MOE_ARCH = "qwen2-moe-a2.7b"
 MOE_HEADS = (16, 16)  # query over KV heads, hd 128: group 1, no window
 MOE_D = 2048
 MOE_EXPERT_W1 = (60, 2048, 1408)  # one layer's stacked expert w1
-# mamba_serve's depth: half of mamba2-130m's 24 layers, cut so that the
-# whole run, the encoder-decoder's phases included, ends near half of its
-# time limit (24 layers through PR 20; its eager engine, a step a token,
-# takes most of the phase)
-MAMBA_SERVE_LAYERS = 12
+# mamba_serve's depth: a quarter of mamba2-130m's 24 layers, cut so that
+# the whole run, the encoder-decoder's phases included, ends near half of
+# its time limit (24 layers through PR 20, 12 through PR 27, cut again
+# when serve_mesh came; its eager engine, a step a token, takes most of
+# the phase)
+MAMBA_SERVE_LAYERS = 6
 # moe_plan's depth, cut for the run's time once the VLM's phases came (the
 # deepest the host can pin is 15 of 24 layers; the pinned states'
-# allocation and the host optimizer take most of the phase)
-MOE_PLAN_LAYERS = 8
+# allocation and the host optimizer take most of the phase; 8 through PR
+# 27, cut when serve_mesh came)
+MOE_PLAN_LAYERS = 4
 
 
 def release_pinned_cache() -> dict:
@@ -3001,8 +3025,8 @@ VLM_PREFILL_TOKENS = 1024  # vlm_prefill: 1024 patches, then 1024 tokens, B 4
 VLM_PATCHES_SEED = 13
 # depth cuts for the run's time: vlm_serve and vlm_prefill served all 60
 # layers before, and vlm_plan bisected down from 60 (13 fit the host)
-# (20 of them since the tp phase grew to every family)
-VLM_SERVE_LAYERS, VLM_PLAN_LAYERS = 20, 8
+# (20 of them since the tp phase grew to every family, 10 since serve_mesh)
+VLM_SERVE_LAYERS, VLM_PLAN_LAYERS = 10, 8
 
 
 def vlm_config(layers: int):
@@ -3042,7 +3066,7 @@ def phase_vlm_kernels() -> list[dict]:
 
 
 def phase_vlm_serve(hw) -> tuple[dict[str, int], dict]:
-    """llava-next-34b at full width and ``VLM_SERVE_LAYERS`` layers (23.9
+    """llava-next-34b at full width and ``VLM_SERVE_LAYERS`` layers (12.0
     GB of bf16 weights) through ``serve_phase`` on the paged plan, chunked admission,
     prompts of 595 to 758 tokens: the engine serves its tokens, as the JAX
     engine does (patches enter only through ``forward``). Returns the
@@ -3756,7 +3780,7 @@ def phase_dist_xla(hw) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 # mistral-7b's 32 query over 8 KV heads of 128, split over a model extent
 TP_FLASH_HEADS = ((2, (16, 4)), (4, (8, 2)))
-TP_LAYERS, TP_STEPS, TP_MODEL = 4, 3, 2
+TP_LAYERS, TP_STEPS, TP_MODEL = 2, 3, 2  # 8 layers in PR 26, 4 in PR 27
 # tp_ranks against the single-device step: bf16 through 8 layers, the
 # row-parallel products rounded twice (each rank's partial sum, then the
 # reduced sum); train_compare's bounds, which hold kernels against the plain
@@ -3777,8 +3801,9 @@ TP_FAMILY_LR, TP_LR = 3e-5, 3e-4
 # 809.9 s on an H100 (PERF.md §6); qwen2-moe's two resident states of one
 # layer hold 19 GB each
 TP_MOE_LAYERS, TP_MOE_BATCH = 1, 2
-TP_MAMBA_LAYERS, TP_MAMBA_SEQ = 8, 8192
-TP_ENCDEC_LAYERS = 4
+# (cut again when serve_mesh came: mamba2-130m 8 -> 4, seamless 4 + 4 -> 2 + 2)
+TP_MAMBA_LAYERS, TP_MAMBA_SEQ = 4, 8192
+TP_ENCDEC_LAYERS = 2
 TP_VLM_LAYERS, TP_VLM_TOKENS = 2, 3072  # 1,024 patches ahead: P + S = 4,096
 TP_VLM_SEQ = TP_VLM_TOKENS + VLM_PATCHES
 # tp_ranks' runs, in order: (name, family, (data, model), seq_shard_acts)
@@ -4033,6 +4058,336 @@ def phase_tp() -> tuple[dict[str, int], list[dict]]:
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# Serving on a mesh (train/step_builder.serve_layout, DecodeEngine(mesh=...))
+# ---------------------------------------------------------------------------
+# the paged kernel at the shards' heads over a model extent of 2: mistral-7b's
+# 32 over 8 as 16 over 4 (group 4), llava-next-34b's 56 over 8 as 28 over 4
+# (group 7), each pinned and on the device
+SERVE_MESH_PAGED_HEADS = (((HQ // 2, HKV // 2), "mistral-7b"),
+                          ((VLM_HEADS[0] // 2, VLM_HEADS[1] // 2), VLM_ARCH))
+# teacher-forced logits of the ranks against one device's from the same
+# weights and tokens, |diff| <= SERVE_MESH_TOL * (1 + max |logit|): bf16
+# through the served layers, the row-parallel products summed in another
+# order than on one device. On an H100 80GB HBM3 at 700 W the sound runs
+# gave at most 0.0201 of (1 + max |logit|) (mesh_mamba; mesh_paged 0.0129,
+# mesh_sharded 0) and the planted faults at least 1.06 (ssd_head; kv_group
+# 1.25): the bound sits 2.5x above the one and 21x below the other
+SERVE_MESH_TOL = 5e-2
+# teacher forcing: 8 seeded tokens a slot on the cache the engine's run
+# filled, from the shortest prompt's length: every slot's rows before it
+# are its prompt's, the same on both sides, and a paged cache holds most of
+# them cold; an attention-free model's state starts fresh
+SERVE_MESH_TEACHER_STEPS = 8
+# planted split faults, each run on the ranks after the sound pass, its gap
+# printed beside the sound one; the phase fails unless it exceeds the bound.
+# "kv_group": each attention layer's query heads rolled by one KV group
+# within the rank's shard (wq's columns, wo's rows), so they read their
+# neighbours' KV head; "ssd_head": each Mamba-2 layer's SSD heads rolled by
+# one head in the rank's rows of out_proj. (A doubled reduction of every
+# partial sum is a weak test: it scales most of the residual stream, which
+# the pre-norms largely cancel.)
+SERVE_MESH_FAULTS = {"mesh_paged": "kv_group", "mesh_mamba": "ssd_head"}
+# the runs, in order: (name, arch, (data, model), plan, admission, layers,
+# prompt lengths, new tokens). Depths cut for the run's time (two processes'
+# eager steps on one card through gloo). mesh_sharded also cuts the traffic:
+# the chunked prefill runs the step once a prompt token, and under
+# n_persist = 0 every step gathers the layer, the embedding and the head
+# (half of them from the other rank, through the host): 1.3 s a step at 2
+# layers on an H100 80GB HBM3 at 700 W, so 800-token prompts would take
+# about 1000 s; it serves 1 layer, prompts of 8-15 tokens and 4 new
+SERVE_MESH_RUNS = (
+    ("mesh_paged", "mistral-7b", (1, 2), "paged", "chunked", 8, PROMPT_LENS, NEW_TOKENS),
+    ("mesh_sharded", "mistral-7b", (2, 1), "sharded", "chunked", 1, (8, 16), 4),
+    ("mesh_mamba", MAMBA_ARCH, (1, 2), "resident", "replay", 12, (24, 40), NEW_TOKENS),
+)
+SERVE_MESH_NOTE = ("two processes share one card's SMs and gloo reduces through the host: "
+                   "no serving speed at a model or data extent above one")
+
+
+def phase_serve_mesh_kernels() -> list[dict]:
+    """The paged kernel ``main`` at the shards' heads (``SERVE_MESH_PAGED_HEADS``),
+    cold store pinned and on the device, against its plain version, the
+    bound and SDPA."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for heads, arch in SERVE_MESH_PAGED_HEADS:
+        for host in (True, False):
+            r = {"kernel": "paged_attention", **paged_case("main", host, gen, heads, arch),
+                 "model_extent": 2, "family": arch}
+            emit("kernel_vs_plain", path="serve_mesh", **r)
+            rows.append(r)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def serve_mesh_setup(run: tuple):
+    """(config, shape, plan, paging, engine keywords, requests' prompts) of
+    a ``SERVE_MESH_RUNS`` run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.models import kvcache as KV
+    from repro_torch.models.model import num_repeats
+    from repro_torch.serve import choose_paging
+
+    _, arch, _, kind, admission, layers, lens, _ = run
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    n = num_repeats(cfg)
+    paging = None
+    plan = MemoryPlan(n + 2, n, n_persist=0 if kind == "sharded" else n + 2)
+    if kind == "paged":
+        paging = choose_paging(KV.cache_len(cfg, SEQ_LEN), PAGE, N_HOT)
+        plan = MemoryPlan(n + 2, n, n_persist=n + 2, n_host=paging.n_cold)
+    kw = dict(admission=admission)
+    if admission != "replay":
+        kw["prefill_chunk"] = PREFILL_CHUNK
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, int(k)).tolist()
+               for k in rng.integers(*lens, size=BATCH)]
+    return cfg, ShapeConfig("serve_mesh", SEQ_LEN, BATCH, "decode"), plan, paging, kw, prompts
+
+
+def filled_cache(engine, cfg, prompts: list, finished: dict) -> dict:
+    """The engine's cache as its run left it, as a resident tree on the
+    card (a copy): a paged cache's cold store with the rows its hot ring
+    holds canonically (``PagedKV.residency`` at each slot's next write).
+    Requests took the slots in order, so slot b served request b."""
+    import torch
+
+    from repro_torch.serve import PagedKV
+
+    cache, spec = engine.state["cache"], engine.paging
+    if spec is None:
+        return {p: {k: t.clone() for k, t in e.items()} for p, e in cache.items()}
+    dev = next(iter(cache.values()))["k_hot"].device
+    nxt = torch.tensor([len(prompts[b]) + len(finished[b]) - 1 for b in range(BATCH)])
+    sel = PagedKV(spec).residency(nxt[engine.layout.rows].to(dev), bool(cfg.sliding_window))
+    ring = torch.arange(spec.cache_len, device=dev) % spec.hot_window
+    return {p: {x: torch.where(sel[None, :, :, None, None], e[f"{x}_hot"][:, :, ring],
+                               e[f"{x}_cold"].to(dev)) for x in ("k", "v")}
+            for p, e in cache.items()}
+
+
+def planted_fault(params: dict, cfg, fault: str) -> dict:
+    """``params`` with a planted split fault (``SERVE_MESH_FAULTS``) in
+    this rank's shards: ``kv_group`` rolls each attention layer's query
+    heads by one KV group (wq's columns, wo's rows), ``ssd_head`` each
+    Mamba-2 layer's heads by one head in ``out_proj``'s rows."""
+    import torch
+
+    if fault == "kv_group":
+        sub, rolls = "attn", {"wq": (cfg.num_heads // cfg.num_kv_heads
+                                     * cfg.resolved_head_dim, -1)}
+        rolls["wo"] = (rolls["wq"][0], -2)
+    else:
+        sub, rolls = "mamba", {"out_proj": (cfg.mamba2.head_dim, -2)}
+    blocks = {}
+    for pos, bp in params["blocks"].items():
+        if sub in bp:
+            bp = {**bp, sub: {**bp[sub], **{k: torch.roll(bp[sub][k], n, d)
+                                           for k, (n, d) in rolls.items()}}}
+        blocks[pos] = bp
+    return {**params, "blocks": blocks}
+
+
+def teacher_logits(engine, cfg, prompts: list, finished: dict, fault: str | None = None):
+    """``SERVE_MESH_TEACHER_STEPS`` decode steps of seeded tokens through
+    the engine's weights and layout: on the cache its run filled
+    (``filled_cache``), from the shortest prompt's length, through the
+    resident decode; an attention-free model on a fresh state. Each step's
+    logits made whole over the vocab and the slots: (steps, B, V) fp32 on
+    the host. ``fault``: a planted split fault (``SERVE_MESH_FAULTS``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist.tensor_parallel import gather_vocab
+    from repro_torch.models import kvcache as KV
+
+    lay, params = engine.layout, engine.state["params"]
+    rows, n = lay.rows, lay.slots[1]
+    dev = engine.device
+    if cfg.attention_free:
+        cache, start = KV.init_cache(cfg, n, SEQ_LEN, dev, lay.tp), 0
+    else:
+        cache = filled_cache(engine, cfg, prompts, finished)
+        start = min(len(p) for p in prompts)
+    if fault is not None:
+        params = planted_fault(params, cfg, fault)
+    toks = np.random.default_rng(1).integers(1, cfg.vocab_size,
+                                             (BATCH, SERVE_MESH_TEACHER_STEPS))
+    gather = lay.gather(params)
+    outs = []
+    with torch.inference_mode():
+        for t in range(SERVE_MESH_TEACHER_STEPS):
+            logits, _ = KV.decode_step(params, cache,
+                                       torch.from_numpy(toks[rows, t:t + 1]).to(dev),
+                                       torch.full((n,), start + t), cfg, tp=lay.tp,
+                                       route=lay.route, gather=gather)
+            outs.append(lay.gather_rows(gather_vocab(logits, lay.tp, cfg.vocab_size)).float())
+    return torch.stack(outs).cpu()
+
+
+def serve_mesh_serve(run: tuple, mesh=None) -> dict:
+    """A ``SERVE_MESH_RUNS`` run on ``mesh`` (None: one device, its graph
+    engine): ``DecodeEngine`` from seed 0's weights over the run's requests,
+    then the teacher-forced logits (``teacher_logits``). Returns the
+    report, the tokens, rank 0's launches and step replays over the served
+    run, the peak, the cache and cold-read bytes, the logits."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch import obs
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import DecodeEngine, Request
+
+    cfg, shape, plan, paging, kw, prompts = serve_mesh_setup(run)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    engine = DecodeEngine(cfg, plan, None if mesh else "cuda", shape, params, paging=paging,
+                          own_params=True, telemetry=obs.Telemetry(trace=False), mesh=mesh,
+                          **kw)
+    del params  # a rank keeps its shards: the peak below is the serving one
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine.warmup()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    engine.serve_step.replays = 0
+    report = engine.run([Request(i, p, run[7]) for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    launches = {k: K.launch_counts()[k] for k in SERVING_KERNELS}
+    replays = engine.serve_step.replays
+    teacher = teacher_logits(engine, cfg, prompts, report.finished)
+    fault = SERVE_MESH_FAULTS.get(run[0]) if mesh is not None else None
+    faulty = None if fault is None else teacher_logits(engine, cfg, prompts, report.finished,
+                                                       fault)
+    out = {"report": report.to_dict(), "finished": {str(k): v for k, v in report.finished.items()},
+           "launches": launches, "replays": replays, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "hbm_cache_bytes": report.hbm_cache_bytes, "host_cache_bytes": report.host_cache_bytes,
+           "h2d_bytes": report.h2d_bytes,
+           "graph": engine.serve_step.graph is not None, "slots": list(engine.layout.slots),
+           "gathers": sum(v["value"] for k, v in engine.tel.registry.snapshot().items()
+                          if k.startswith("sync.param_gathers")),
+           "teacher": teacher, "fault": fault, "faulty": faulty}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    release_pinned_cache()
+    return out
+
+
+def _serve_mesh_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of ``serve_mesh``: a process of its own on ``cuda:0``, in a
+    gloo group of ``world``, serving ``SERVE_MESH_RUNS`` in order on their
+    layouts. Rank 0 writes its runs (``torch.save``)."""
+    sys.path.insert(0, str(HERE / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        meshes = {m: make_local_mesh("cuda:0", model=m) for m in (1, world)}
+        runs = {}
+        for run in SERVE_MESH_RUNS:
+            t0 = time.perf_counter()
+            runs[run[0]] = serve_mesh_serve(run, meshes[run[2][1]])
+            runs[run[0]]["seconds"] = time.perf_counter() - t0
+        if rank == 0:
+            torch.save(runs, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_serve_mesh() -> tuple[dict[str, int], list[dict]]:
+    """Serving on a mesh on the card: the paged kernel at the shards' heads,
+    then each ``SERVE_MESH_RUNS`` run on one device (its graph engine) and
+    on two gloo ranks sharing ``cuda:0`` (NCCL refuses two ranks on one
+    card), from the same weights: the ranks' teacher-forced logits within
+    ``SERVE_MESH_TOL`` of one device's, rank 0's ``paged_attention`` and
+    ``rmsnorm`` launches equal to the plan's count (a paged attention an
+    attention layer and ``decode_norms`` a step, for every step replayed),
+    and how many greedy tokens equal one device's. Returns rank 0's
+    launches and the kernel rows."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    rows = phase_serve_mesh_kernels()
+    t0 = time.perf_counter()
+    one = {run[0]: serve_mesh_serve(run) for run in SERVE_MESH_RUNS}
+    emit("serve_mesh_one_device_seconds", seconds=time.perf_counter() - t0)
+    d = tempfile.mkdtemp()
+    try:
+        mp.start_processes(_serve_mesh_rank, args=(2, f"{d}/store", f"{d}/out.pt"),
+                           nprocs=2, join=True, start_method="spawn")
+        ranks = torch.load(f"{d}/out.pt", weights_only=False)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    launches: dict[str, int] = {}
+    failed: list[str] = []
+    for run in SERVE_MESH_RUNS:
+        name, arch, (data, model), kind = run[:4]
+        got, ref = ranks[name], one[name]
+        cfg, *_, prompts = serve_mesh_setup(run)
+        gap = (got["teacher"] - ref["teacher"]).abs().max().item()
+        scale = ref["teacher"].abs().max().item()
+        tol = SERVE_MESH_TOL * (1 + scale)
+        fault_gap = (None if got["faulty"] is None else
+                     (got["faulty"] - ref["teacher"]).abs().max().item())
+        same = sum(a == b for rid, toks in ref["finished"].items()
+                   for a, b in zip(toks, got["finished"][rid]))
+        total = sum(len(t) for t in ref["finished"].values())
+        n_attn = sum(cfg.mixer_at(i) == "attention" for i in range(cfg.num_layers))
+        want = {"paged_attention": got["replays"] * n_attn if kind == "paged" else 0,
+                "rmsnorm": got["replays"] * decode_norms(cfg)}
+        rep, rep1 = got["report"], ref["report"]
+        emit("serve_mesh", run=name, arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+             layout={"data": data, "model": model}, plan=kind, backend="gloo",
+             admission=rep["admission"], prompt_lens=list(run[6]), new_tokens=run[7],
+             not_serving_speed=SERVE_MESH_NOTE,
+             tokens_per_s=rep["tokens_per_s"], p50_ttft_s=rep["p50_ttft_s"],
+             tokens_per_s_one_device=rep1["tokens_per_s"],
+             p50_ttft_s_one_device=rep1["p50_ttft_s"], graph_one_device=ref["graph"],
+             peak_bytes_rank0=got["peak_bytes"], peak_bytes_one_device=ref["peak_bytes"],
+             hbm_cache_bytes_rank0=got["hbm_cache_bytes"],
+             hbm_cache_bytes_ranks=rep.get("hbm_cache_bytes_ranks"),
+             hbm_cache_bytes_one_device=ref["hbm_cache_bytes"],
+             host_cache_bytes_rank0=got["host_cache_bytes"],
+             host_cache_bytes_one_device=ref["host_cache_bytes"],
+             h2d_bytes_rank0=got["h2d_bytes"], h2d_bytes_ranks=rep.get("h2d_bytes_ranks"),
+             h2d_bytes_one_device=ref["h2d_bytes"], slots_rank0=got["slots"],
+             weight_gathers_rank0=got["gathers"], replays=got["replays"],
+             launches=got["launches"], launches_plan=want,
+             teacher_forced={"max_abs_diff": gap, "max_abs_logit": scale, "tol": tol,
+                             "tol_text": f"{SERVE_MESH_TOL} * (1 + max |logit|)",
+                             "steps": SERVE_MESH_TEACHER_STEPS,
+                             "from": 0 if cfg.attention_free else min(map(len, prompts)),
+                             "cache": "fresh" if cfg.attention_free else "filled by the run",
+                             "planted_fault": got["fault"], "fault_max_abs_diff": fault_gap},
+             greedy_equal=same, greedy_total=total, seconds=got["seconds"])
+        checks = {"drained": rep["drained"] and rep1["drained"],
+                  "launches equal the plan's": got["launches"] == want,
+                  "teacher-forced within SERVE_MESH_TOL": gap <= tol,
+                  "the planted fault beyond it": fault_gap is None or fault_gap > tol,
+                  "weights gathered": (got["gathers"] > 0) == (kind == "sharded")}
+        failed += [f"{name}: {k}" for k, ok in checks.items() if not ok]
+        sum_launches(launches, got["launches"])
+    emit("serve_mesh_seconds", seconds=time.perf_counter() - t0)
+    assert not failed, failed  # every run's line printed first
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
 def run_launcher(module, argv: list[str]) -> dict:
     """``module.main(argv)`` in this process, its standard output echoed and
     its last line read as the launcher's JSON summary; the kernels' launch
@@ -4181,6 +4536,7 @@ def main() -> int:
     dist_ranks_launches = timed_phase("dist_ranks", phase_dist_ranks)
     dist_xla_launches = timed_phase("dist_xla", lambda: phase_dist_xla(hw))
     tp_launches, tp_rows = timed_phase("tp", phase_tp)
+    serve_mesh_launches, serve_mesh_rows = timed_phase("serve_mesh", phase_serve_mesh)
     launcher_launches = timed_phase("launchers", phase_launchers)
     # each path's launches, counted from 0 just before it ran
     by_path = {"engine": launches, "train": train_launches, "train_policies": policy_launches,
@@ -4194,6 +4550,7 @@ def main() -> int:
                "vlm_train_compare": vlm_compare_launches, "vlm_plan": vlm_plan_out["launches"],
                "dist_sync": dist_sync_launches, "dist_ranks": dist_ranks_launches,
                "dist_xla": dist_xla_launches, "tp": tp_launches,
+               "serve_mesh": serve_mesh_launches,
                **{f"launch_{k}": v for k, v in launcher_launches.items()}}
     rms = measured["rmsnorm"][0]  # rows = batch: the decode path's shape
     main_case = next(p for p in measured["paged_attention"]
@@ -4236,9 +4593,10 @@ def main() -> int:
                                   mamba_errs.get(name, 0.0)]
                                  + [r["max_abs_err"] for r in
                                     encdec_rows + vlm_rows + dist_rows + tp_rows
-                                    if r["kernel"] == name])
+                                    + serve_mesh_rows if r["kernel"] == name])
         for key, rows in (("encdec_cases", encdec_rows), ("vlm_cases", vlm_rows),
-                          ("dist_cases", dist_rows), ("tp_cases", tp_rows)):
+                          ("dist_cases", dist_rows), ("tp_cases", tp_rows),
+                          ("serve_mesh_cases", serve_mesh_rows)):
             # seamless-m4t-large-v2's heads (hd 64, group 1); llava-next-34b's
             # shapes (group 7, d 7168), with mistral-7b's paged group 4 beside
             cases = [{k: r[k] for k in case_keys if k in r} for r in rows if r["kernel"] == name]

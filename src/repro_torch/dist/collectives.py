@@ -465,6 +465,67 @@ class LazyGather:
         return torch.autograd.graph.saved_tensors_hooks(pack, unpack)
 
 
+class ServeGather:
+    """The serving twin of the reference's ``gather_weights`` (its decode
+    scan, ``models/kvcache.py:238-278``): under a serve plan whose chunks
+    are not all persistent, a rank holds its data slice of every
+    non-persistent leaf (``dist/sharding.serve_shards``), and each step
+    makes them whole over the data group -- the embedding, final norm,
+    head and encoder once a step (``outer``), each layer's weights through
+    the ``LazyGather`` of the xla path, its all-gather started one layer
+    ahead (``prefetch``, then ``layer``). Nothing is kept between steps:
+    the device holds the rank's shards and at most two gathered layers.
+    The layers' gathers count as ``sync.param_gathers{chunk="blocks",
+    ahead}``. Every rank of the group issues the same gathers in one
+    order."""
+
+    def __init__(self, group, registry=NULL_REGISTRY):
+        self.group = group
+        self.lazy = LazyGather(group, "none", registry)
+        self._outer: dict[int, int] = {}  # a leaf's data_ptr -> the dim it gathers along
+
+    def register(self, params: dict, dims: dict) -> None:
+        """Name the sharded leaves of a rank's ``params`` (the serve tree)
+        by their data dims ``dims`` (the same tree of ints or None): each
+        block leaf per repeat (its stacked dim less one), the others
+        whole."""
+        for key, sub in params.items():
+            for t, d in zip(tree_leaves(sub), tree_leaves_dims(dims[key])):
+                if d is None:
+                    continue
+                if key == "blocks":
+                    for r in range(t.shape[0]):
+                        self.lazy.register(t[r], d - 1, None, "blocks")
+                else:
+                    self._outer[t.data_ptr()] = d
+
+    def outer(self, params: dict) -> dict:
+        """``params`` with every leaf outside the layer stack whole."""
+        def one(t):
+            d = self._outer.get(t.data_ptr())
+            return t if d is None else tiled_all_gather(t, self.group, d)
+        return {k: v if k == "blocks" else tree_map(one, v) for k, v in params.items()}
+
+    def prefetch(self, layer: dict) -> None:
+        """Start the all-gathers of a layer's leaves (a per-repeat tree)."""
+        self.lazy.prefetch(layer)
+
+    def layer(self, layer: dict) -> dict:
+        """A layer's weights whole over the data group: each leaf's
+        prefetched gather once it is done, else one now."""
+        known = self.lazy._leaves
+        return tree_map(lambda w: self.lazy.gather(w) if w.data_ptr() in known else w, layer)
+
+
+def tree_leaves_dims(dims) -> list:
+    """The leaves of a tree of dims (ints or None), in ``tree_leaves`` order."""
+    if dims is None or isinstance(dims, int):
+        return [dims]
+    if isinstance(dims, dict):
+        return [x for k in sorted(dims) for x in tree_leaves_dims(dims[k])]
+    return [x for v in dims for x in tree_leaves_dims(v)]
+
+
 # ---------------------------------------------------------------------------
 # Tree variants (collectives.py:372-389)
 # ---------------------------------------------------------------------------

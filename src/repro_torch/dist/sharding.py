@@ -46,14 +46,23 @@ block boundary (batch over the batch axes, the sequence over ``model``
 under ``seq_shard_acts``), ``enter`` batch only, ``logits`` the vocab
 dim over ``model``. Memory kinds and ``NamedSharding`` have no counterpart
 here; the multi-pod mesh waits in ROADMAP.md.
+
+Serving (``build_serve_params`` and ``_serve_cache_layout`` of the
+reference's step builder): ``serve_placements`` places the serve tree's
+parts by the plan's chunks (the embedding and encoder at chunk 0, the
+layer stack at chunk 1, the final norm and head at the last), ``serve_dims``
+gives each leaf's data and model dims by the table above, ``serve_shards``
+a rank's shards, and ``slot_split`` a rank's cache slots: ``B / data``
+where the data extent divides B, else every slot on every data rank.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.layers import TP, ZERO, ParamDef
+from repro_torch.models.layers import TP, ZERO, ParamDef, map_defs
 from repro_torch.models.moe import EXP
+from repro_torch.optim.adam import tree_map
 
 
 def _fits(world: int, dim: int) -> bool:
@@ -213,3 +222,56 @@ def unshard2(t: torch.Tensor, ddim: int | None, mdim: int | None, mesh) -> torch
     group, then over the data group."""
     t = unshard(t, mdim, mesh.model, mesh.model_group)
     return unshard(t, ddim, mesh.data, mesh.data_group)
+
+
+# ---------------------------------------------------------------------------
+# Serving (build_serve_params, step_builder.py:589-642; _serve_cache_layout,
+# :645-731)
+# ---------------------------------------------------------------------------
+def serve_placements(plan) -> dict[str, str]:
+    """Each part of the serve tree's placement, as ``build_serve_params``
+    places them: the embedding and the encoder at chunk 0's, the layer stack
+    at chunk 1's, the final norm and the head at the last chunk's. Serving
+    keeps weights only, so a ``host`` chunk would hold its weights in host
+    memory, which the port's serving step does not read (ROADMAP.md)."""
+    first, last = plan.chunk_placement(0), plan.chunk_placement(plan.n_chunks - 1)
+    out = {"embed": first, "encoder": first, "blocks": plan.chunk_placement(1),
+           "final_norm": last, "head": last}
+    if "host" in out.values():
+        raise NotImplementedError(f"serving plan {plan.describe()}: weight chunks in host "
+                                  "memory (ROADMAP.md)")
+    return out
+
+
+def serve_dims(defs: dict, plan, mesh) -> tuple[dict, dict]:
+    """(data dims, model dims): two trees of the serve tree's ``defs``
+    (ParamDefs) holding each leaf's dim sharded over the data ranks (its
+    ``zero`` dim where its part is not persistent and the extent divides
+    it, ``_spec``) and over the model ranks (``model_dim``), or None."""
+    place = serve_placements(plan)
+
+    def ddim(d: ParamDef, placement: str) -> int | None:
+        return None if mesh.data == 1 else _spec(d, mesh.data, placement)
+
+    data = {k: map_defs(lambda d, p=place[k]: ddim(d, p), sub) for k, sub in defs.items()}
+    model = {k: map_defs(lambda d: model_dim(d, mesh.model), sub) for k, sub in defs.items()}
+    return data, model
+
+
+def serve_shards(params: dict, defs: dict, plan, mesh) -> dict:
+    """This rank's shards of the whole serve tree ``params``: each leaf's
+    data slice (``serve_dims``), then its model slice (``shard2``)."""
+    data, model = serve_dims(defs, plan, mesh)
+    return {k: tree_map(lambda t, dd, md: shard2(t, dd, md, mesh), params[k], data[k],
+                        model[k]) for k in params}
+
+
+def slot_split(batch: int, mesh) -> tuple[int, int]:
+    """(this rank's first slot, its slots): ``batch / data`` a rank where the
+    data extent divides the batch, as the reference's ``fits(bsz, ba)``
+    shards the cache and the tokens; otherwise every data rank holds every
+    slot."""
+    if mesh is None or not _fits(mesh.data, batch):
+        return 0, batch
+    n = batch // mesh.data
+    return mesh.data_rank * n, n

@@ -45,11 +45,26 @@ B | C | dt]`` flat) is taken whole at use (``whole_weight``) and a rank
 reads its heads' columns, as ``wk`` at part-heads; ``own_part`` is a
 rank's heads of a leaf that splits by whole heads, or of one left whole.
 
+Where the extent does not divide a sublayer's heads (attention's query
+heads, or a rank's query heads straddling their KV heads; Mamba-2's SSD
+heads) the sublayer runs replicated: each rank takes its weights whole at
+use (``replicated``: all-gathered, the backward keeping this rank's slice
+of the equal gradients) and computes every head, entering and leaving as
+a replicated sublayer. GSPMD splits those flat dims wherever the extent
+divides them, and computes the same function.
+
 ``BatchGroup`` is the other side of the xla path's layout: the ranks that
 hold other rows of one batch (the data group, and under ``dp_only`` every
 rank). The reference routes an MoE over the global batch in one program;
 the port's ranks route theirs over the group's tokens through its
-collectives (``models/moe.apply_moe``).
+collectives (``models/moe.apply_moe``); so do the data ranks of a serving
+mesh over the slots they split.
+
+Serving adds plain functions over a group, with no backward:
+``vocab_argmax`` (the greedy token from each rank's vocab slice: every
+rank's (max, index) all-gathered, the largest kept, the lowest index on
+ties), ``gather_vocab`` (the whole logits) and ``gather_rows`` (the data
+group's rows: next tokens or logits of the slots each rank serves).
 """
 from __future__ import annotations
 
@@ -240,6 +255,15 @@ class TensorParallel:
             return w
         return self.copy(w).narrow(dim, start, length)
 
+    def replicated(self, w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+        """The whole weight (``full`` along ``dim``) for a replicated
+        consumer, which computes the same on every rank: all-gathered if
+        this rank holds a shard (the backward keeps this rank's slice of the
+        equal gradients), else ``w`` itself."""
+        if w.shape[dim] == full:
+            return w
+        return self.gather(w, dim)
+
     def whole_weight(self, w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
         """The whole weight (``full`` along ``dim``) for a partial consumer
         that reads a slice of it: all-gathered if this rank holds a shard
@@ -260,6 +284,39 @@ class TensorParallel:
         rows = torch.where(here[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                               device=rows.device))
         return self.exit(rows, partial=True)
+
+
+# -- serving: plain functions over a group, no backward ---------------------------
+def vocab_argmax(logits: torch.Tensor, tp: TensorParallel | None, vocab: int) -> torch.Tensor:
+    """The greedy token of each row of ``logits`` (..., V / size), this
+    rank's slice of the vocab where the head splits over the model group
+    (the whole vocab otherwise): each rank's (max, index) all-gathered, the
+    largest value kept and, on ties, the lowest index, as ``torch.argmax``
+    of the whole row. int64, equal on every rank of the group."""
+    if tp is None or logits.shape[-1] == vocab:
+        return torch.argmax(logits, dim=-1)
+    idx = torch.argmax(logits, dim=-1)
+    top = logits.gather(-1, idx[..., None])[..., 0]
+    pair = torch.stack([top.double(), (idx + tp.rank * logits.shape[-1]).double()], dim=-1)
+    every = _all_gather(pair[None], tp.group, tp.size, 0)  # (size, ..., 2), rank order
+    first = torch.argmax(every[..., 0], dim=0, keepdim=True)  # lowest rank of the max
+    return every[..., 1].gather(0, first)[0].to(torch.int64)
+
+
+def gather_vocab(logits: torch.Tensor, tp: TensorParallel | None, vocab: int) -> torch.Tensor:
+    """The whole-vocab logits from each rank's slice (``logits`` itself
+    where the head is whole)."""
+    if tp is None or logits.shape[-1] == vocab:
+        return logits
+    return _all_gather(logits, tp.group, tp.size, -1)
+
+
+def gather_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Every rank's rows of ``x`` concatenated in rank order along dim 0: a
+    data group's next tokens or logits for the slots each rank serves."""
+    if size == 1:
+        return x
+    return _all_gather(x, group, size, 0)
 
 
 class _Total(torch.autograd.Function):

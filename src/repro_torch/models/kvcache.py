@@ -29,6 +29,15 @@ the JAX package's ``jnp.where`` keeps an inactive slot's state). What
 depends on the data and cannot live in a graph -- the paged cache's page-boundary flush to its
 host-memory cold store -- is the cache hook's ``commit``, issued after the
 step from host positions; ``decode_step`` is the two together.
+
+**On a mesh** a rank's cache holds its slots and heads (``cache_specs(...,
+tp)``): its KV heads (the one KV head its query heads read, whole, where
+ranks outnumber the KV heads; all of them where attention runs
+replicated), its SSD heads' conv and SSM state. ``decode_forward`` then
+runs each sublayer over the model axis (``tp``), routes an MoE over the
+data ranks' slots (``route``) and, under a sharded-weight serve plan,
+takes each layer's weights from an all-gather started a layer ahead
+(``gather``).
 """
 from __future__ import annotations
 
@@ -57,22 +66,26 @@ def cache_len(cfg: ModelConfig, seq_len: int) -> int:
     return seq_len
 
 
-def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    """``{pos<j>: {name: (shape, dtype)}}`` of the decode cache (no allocation)."""
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, tp=None) -> dict:
+    """``{pos<j>: {name: (shape, dtype)}}`` of the decode cache (no
+    allocation). ``tp``: a model rank's, over its KV heads
+    (``layers.rank_kv_heads``) and its SSD heads (``mamba2_state_defs``);
+    ``batch`` is then the rank's slots."""
     check_family(cfg)
     r = num_repeats(cfg)
     hd = cfg.resolved_head_dim
     dt = L.torch_dtype(cfg.dtype)
-    kv = ((r, batch, cache_len(cfg, seq_len), cfg.num_kv_heads, hd), dt)
+    n_kv = L.rank_kv_heads(cfg, tp)
+    kv = ((r, batch, cache_len(cfg, seq_len), n_kv, hd), dt)
     out = {}
     for j in range(superblock_period(cfg)):
         if cfg.mixer_at(j) == "attention":
             out[f"pos{j}"] = {"k": kv, "v": kv}
         else:
-            (conv, conv_dt), (ssm, ssm_dt) = M2.mamba2_state_defs(cfg, batch)
+            (conv, conv_dt), (ssm, ssm_dt) = M2.mamba2_state_defs(cfg, batch, tp)
             out[f"pos{j}"] = {"conv": ((r,) + conv, conv_dt), "ssm": ((r,) + ssm, ssm_dt)}
     if cfg.kind == "encdec":  # cross-attention K/V over the encoded source
-        xkv = ((r, batch, seq_len, cfg.num_kv_heads, hd), dt)
+        xkv = ((r, batch, seq_len, n_kv, hd), dt)
         for entry in out.values():
             entry.update(xk=xkv, xv=xkv)
     return out
@@ -80,18 +93,23 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
 
 @torch.no_grad()
 def prime_cross_cache(params: dict, memory: torch.Tensor, cache: dict,
-                      cfg: ModelConfig) -> None:
+                      cfg: ModelConfig, tp=None, gather=None) -> None:
     """Write every position's cross-attention keys and values, ``memory @
     wk`` and ``memory @ wv``, into the cache's ``xk`` / ``xv`` **in place**
     (a captured serving step reads those tensors). ``memory``: the
-    encoder's output (B, S_max, D) for the cache's B slots and length."""
+    encoder's output (B, S_max, D) for the cache's B slots and length.
+    On a mesh: ``tp``, a model rank's KV heads (``layers.kv_weights``);
+    ``gather``, a layer's weights made whole over the data ranks under a
+    sharded-weight plan (``dist.collectives.ServeGather``)."""
     b, s, _ = memory.shape
     hd = cfg.resolved_head_dim
     for name, entry in cache.items():
-        ap = params["blocks"][name]["xattn"]
-        for leaf, w in (("xk", ap["wk"]), ("xv", ap["wv"])):
-            kv = torch.einsum("bsd,rdk->rbsk", memory, w)
-            entry[leaf].copy_(kv.reshape(w.shape[0], b, s, cfg.num_kv_heads, hd))
+        for r in range(entry["xk"].shape[0]):
+            ap = _layer_slice(params["blocks"][name]["xattn"], r)
+            if gather is not None:
+                ap = gather.layer(ap)
+            for leaf, w in zip(("xk", "xv"), L.kv_weights(ap, cfg, tp)):
+                entry[leaf][r].copy_((memory @ w).reshape(b, s, -1, hd))
 
 
 def attention_entries(cache: dict) -> list[dict]:
@@ -105,10 +123,10 @@ def batch_size(cache: dict) -> int:
     return next(iter(next(iter(cache.values())).values())).shape[1]
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cpu") -> dict:
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cpu", tp=None) -> dict:
     return {pos: {name: torch.zeros(shape, dtype=dt, device=device)
                   for name, (shape, dt) in entry.items()}
-            for pos, entry in cache_specs(cfg, batch, seq_len).items()}
+            for pos, entry in cache_specs(cfg, batch, seq_len, tp).items()}
 
 
 def host_positions(pos) -> torch.Tensor:
@@ -248,13 +266,14 @@ def _masked_decode_attn(q, k, v, logits_mask):
     return out.reshape(b, 1, hq, hd).to(q.dtype)
 
 
-def _decode_attention(ap: dict, h, entry: dict, step, cfg: ModelConfig, kv_io):
-    """h: (B,1,D). Writes the cache entry in place; returns (B,1,D)."""
+def _decode_attention(ap: dict, h, entry: dict, step, cfg: ModelConfig, kv_io, tp=None):
+    """h: (B,1,D). Writes the cache entry in place; returns (B,1,D). ``tp``:
+    this rank's query and KV heads (``layers.qkv``), ``wo`` row-parallel and
+    the partial outputs reduced over the model group; every head where the
+    sublayer runs replicated."""
     b = h.shape[0]
-    hd = cfg.resolved_head_dim
-    q = (h @ ap["wq"]).reshape(b, 1, cfg.num_heads, hd)
-    k = (h @ ap["wk"]).reshape(b, 1, cfg.num_kv_heads, hd)
-    v = (h @ ap["wv"]).reshape(b, 1, cfg.num_kv_heads, hd)
+    h = L.attn_enter(h, cfg, tp)
+    q, k, v = L.qkv(ap, h, h, cfg, tp)
     q = L.apply_rope(q, step.rope, cfg.rope_theta)
     k = L.apply_rope(k, step.rope, cfg.rope_theta)
     attend = getattr(kv_io, "attend", None)
@@ -265,48 +284,55 @@ def _decode_attention(ap: dict, h, entry: dict, step, cfg: ModelConfig, kv_io):
     else:
         full_k, full_v, mask = kv_io.update_and_fetch(entry, k, v, step)
         out = _masked_decode_attn(q, full_k, full_v, mask)
-    return out.reshape(b, 1, -1) @ ap["wo"]
+    return L.attn_exit(ap, out.reshape(b, 1, -1), cfg, tp)
 
 
-def _decode_cross_attention(ap: dict, h, xk, xv, cfg: ModelConfig):
-    """h: (B,1,D) attends over the whole cross cache (B, S, n_kv, hd)."""
+def _decode_cross_attention(ap: dict, h, xk, xv, cfg: ModelConfig, tp=None):
+    """h: (B,1,D) attends over the whole cross cache (B, S, n_kv, hd): this
+    rank's heads under ``tp``, as ``_decode_attention``."""
     b = h.shape[0]
-    q = (h @ ap["wq"]).reshape(b, 1, cfg.num_heads, cfg.resolved_head_dim)
+    wq, hq = L.q_weights(ap, cfg, tp)
+    q = (L.attn_enter(h, cfg, tp) @ wq).reshape(b, 1, hq, cfg.resolved_head_dim)
     mask = torch.zeros((xk.shape[1],), dtype=torch.float32, device=h.device)
-    return _masked_decode_attn(q, xk, xv, mask).reshape(b, 1, -1) @ ap["wo"]
+    return L.attn_exit(ap, _masked_decode_attn(q, xk, xv, mask).reshape(b, 1, -1), cfg, tp)
 
 
-def _decode_mamba(mp: dict, h, pcache: dict, step, cfg: ModelConfig):
+def _decode_mamba(mp: dict, h, pcache: dict, step, cfg: ModelConfig, tp=None):
     """h: (B,1,D). One step of the recurrence from the entry's state, whose
     new value is written in place (inactive slots keep theirs)."""
     mix, (conv, ssm) = M2.apply_mamba2(mp, h, cfg, state=(pcache["conv"], pcache["ssm"]),
-                                       return_state=True)
+                                       return_state=True, tp=tp)
     write_state(pcache["conv"], conv, step.active)
     write_state(pcache["ssm"], ssm, step.active)
     return mix
 
 
-def decode_position(pparams: dict, x, pcache: dict, step, cfg: ModelConfig, kv_io):
+def decode_position(pparams: dict, x, pcache: dict, step, cfg: ModelConfig, kv_io, tp=None,
+                    route=None):
     """One layer, one token. x: (B,1,D); ``pcache`` is this layer's cache
     entry (views, written in place; an encoder-decoder's cross cache only
     read). An MoE routes all B rows, inactive
     slots of a chunked-prefill step too, which take capacity as in the JAX
-    package; its aux loss is dropped."""
+    package; its aux loss is dropped. ``tp``: the model axis's split of
+    each sublayer (the hidden state whole on every model rank);
+    ``route``: the data ranks whose slots make up the batch an MoE routes
+    (``dist.tensor_parallel.BatchGroup``)."""
     h = L.apply_norm(pparams["norm1"], x, cfg.norm)
     if "attn" in pparams:
-        x = x + _decode_attention(pparams["attn"], h, pcache, step, cfg, kv_io)
+        x = x + _decode_attention(pparams["attn"], h, pcache, step, cfg, kv_io, tp)
     else:
-        x = x + _decode_mamba(pparams["mamba"], h, pcache, step, cfg)
+        x = x + _decode_mamba(pparams["mamba"], h, pcache, step, cfg, tp)
     if "xattn" in pparams:
         hx = L.apply_norm(pparams["norm_x"], x, cfg.norm)
-        x = x + _decode_cross_attention(pparams["xattn"], hx, pcache["xk"], pcache["xv"], cfg)
+        x = x + _decode_cross_attention(pparams["xattn"], hx, pcache["xk"], pcache["xv"], cfg,
+                                        tp)
     if "moe" in pparams:
         h2 = L.apply_norm(pparams["norm2"], x, cfg.norm)
-        out, _ = apply_moe(pparams["moe"], h2, cfg)
+        out, _ = apply_moe(pparams["moe"], h2, cfg, tp=tp, route=route)
         x = x + out
     elif "mlp" in pparams:
         h2 = L.apply_norm(pparams["norm2"], x, cfg.norm)
-        x = x + L.apply_mlp(pparams["mlp"], h2, cfg.mlp)
+        x = x + L.apply_mlp(pparams["mlp"], h2, cfg.mlp, tp, cfg.d_ff)
     return x
 
 
@@ -316,7 +342,8 @@ def _layer_slice(tree: dict, r: int) -> dict:
 
 
 def decode_forward(params: dict, cache: dict, tokens: torch.Tensor, pos, cfg: ModelConfig,
-                   *, kv_io=None, active=None) -> torch.Tensor:
+                   *, kv_io=None, active=None, tp=None, route=None,
+                   gather=None) -> torch.Tensor:
     """One decode step's device work across the whole model: returns the
     logits (B, V) and writes the cache in place. No value is read back to
     the host, so a CUDA graph can capture it.
@@ -327,26 +354,45 @@ def decode_forward(params: dict, cache: dict, tokens: torch.Tensor, pos, cfg: Mo
     they lie elsewhere. ``kv_io`` swaps the attention-cache strategy
     (default ``RESIDENT_KV``; the paged serving path passes
     ``serve.paging.PagedKV``).
+
+    On a mesh: ``tp`` splits each sublayer over the model ranks, the
+    logits then this rank's slice of the vocab where the head splits;
+    ``route`` is the MoE's batch group over the data ranks' slots;
+    ``gather`` (``dist.collectives.ServeGather``) makes the weights whole
+    over the data ranks under a sharded-weight plan -- the embedding and
+    head once a step, each layer's weights through an all-gather started
+    one layer ahead -- the serving twin of the reference's
+    ``gather_weights`` in its decode scan.
     """
     kv_io = kv_io or RESIDENT_KV
-    x = embed_tokens(params, tokens, cfg)
+    layers = [(r, f"pos{j}") for r in range(num_repeats(cfg))
+              for j in range(superblock_period(cfg))]
+    weights = lambda i: _layer_slice(params["blocks"][layers[i][1]], layers[i][0])  # noqa: E731
+    if gather is not None:
+        gather.prefetch(weights(0))
+        params = gather.outer(params)
+    x = embed_tokens(params, tokens, cfg, tp)
     step = kv_io.prepare(cache, pos, cfg, x.device, active=active)
-    for r in range(num_repeats(cfg)):
-        for j in range(superblock_period(cfg)):
-            name = f"pos{j}"
-            pp = _layer_slice(params["blocks"][name], r)
-            x = decode_position(pp, x, kv_io.layer_entry(cache[name], r), step, cfg, kv_io)
-    logits = lm_head(params, x, cfg)
+    for i, (r, name) in enumerate(layers):
+        pp = weights(i)
+        if gather is not None:
+            if i + 1 < len(layers):
+                gather.prefetch(weights(i + 1))
+            pp = gather.layer(pp)
+        x = decode_position(pp, x, kv_io.layer_entry(cache[name], r), step, cfg, kv_io, tp,
+                            route)
+    logits = lm_head(params, x, cfg, tp)
     return logits[:, 0]
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos, cfg: ModelConfig,
-                *, kv_io=None, active=None):
+                *, kv_io=None, active=None, tp=None, route=None, gather=None):
     """One decode step: ``decode_forward``, then the cache hook's host-side
     ``commit`` (the paged cache's page-boundary flush), with ``pos`` and
     ``active`` read on the host. Returns (logits (B, V), cache), the cache
     written in place."""
     kv_io = kv_io or RESIDENT_KV
-    logits = decode_forward(params, cache, tokens, pos, cfg, kv_io=kv_io, active=active)
+    logits = decode_forward(params, cache, tokens, pos, cfg, kv_io=kv_io, active=active,
+                            tp=tp, route=route, gather=gather)
     kv_io.commit(cache, pos, cfg, active=active)
     return logits, cache

@@ -327,22 +327,73 @@ def _attend(q, k, v, cfg, positions, impl: str, block_kv: int) -> torch.Tensor:
     raise ValueError(f"attention impl {impl!r}: 'blockwise' or 'naive'")
 
 
-def tp_heads(cfg, tp) -> tuple[int, int, int]:
-    """(this rank's first query head, its query heads, its first KV head)
-    over ``tp.size`` model ranks: whole query heads a rank, and each rank's
-    query heads reading whole KV heads of their own -- those heads alone,
-    or one KV head that several ranks read (fewer KV heads than ranks)."""
+def heads_split(cfg, tp) -> bool:
+    """Whether attention splits its heads over ``tp``'s ranks: whole query
+    heads a rank, each rank's query heads reading whole KV heads of their
+    own -- those heads alone, or one KV head that several ranks read (fewer
+    KV heads than ranks). Elsewhere -- the extent does not divide the query
+    heads, or a rank's query heads straddle their KV heads -- the sublayer
+    runs replicated: every rank takes its weights whole at use
+    (``TensorParallel.replicated``) and computes every head, the function
+    the reference's partitioned program computes there. False without
+    ``tp``."""
+    if tp is None:
+        return False
     h, hkv, t = cfg.num_heads, cfg.num_kv_heads, tp.size
     if h % t:
-        raise NotImplementedError(
-            f"{cfg.name}: {h} query heads do not split over a model extent of {t}")
+        return False
     hl, g = h // t, h // hkv
-    if hkv % t and g % hl:
-        raise NotImplementedError(
-            f"{cfg.name}: the query heads of a rank ({hl}) straddle its KV heads "
-            f"(group {g}) at a model extent of {t}")
+    return not (hkv % t and g % hl)
+
+
+def tp_heads(cfg, tp) -> tuple[int, int, int]:
+    """(this rank's first query head, its query heads, its first KV head)
+    where the heads split over ``tp.size`` model ranks (``heads_split``)."""
+    hl = cfg.num_heads // tp.size
     q0 = tp.rank * hl
-    return q0, hl, q0 // g
+    return q0, hl, q0 // (cfg.num_heads // cfg.num_kv_heads)
+
+
+def rank_kv_heads(cfg, tp) -> int:
+    """The KV heads a rank's attention computes, and its decode cache holds:
+    all of them without ``tp`` or where the sublayer runs replicated; its
+    share where the heads split, or the one KV head its query heads read
+    when ranks outnumber the KV heads (each such rank keeps that head's
+    whole cache)."""
+    if not heads_split(cfg, tp):
+        return cfg.num_kv_heads
+    return max(1, cfg.num_kv_heads // tp.size)
+
+
+def kv_weights(params: dict, cfg, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(wk, wv) of this rank's KV heads, (..., D, heads * hd): the column
+    shards where the KV heads split whole, else the whole weights
+    (``whole_weight``) and the columns of this rank's one KV head; the whole
+    weights where the sublayer runs replicated. Leaves may be stacked over
+    repeats."""
+    if tp is None:
+        return params["wk"], params["wv"]
+    hd = cfg.resolved_head_dim
+    nkv = cfg.num_kv_heads * hd
+    if not heads_split(cfg, tp):
+        return tp.replicated(params["wk"], -1, nkv), tp.replicated(params["wv"], -1, nkv)
+    if cfg.num_kv_heads % tp.size == 0 and params["wk"].shape[-1] < nkv:
+        return params["wk"], params["wv"]  # this rank's KV heads, whole
+    kv0 = tp_heads(cfg, tp)[2]
+    cols = slice(kv0 * hd, (kv0 + 1) * hd)
+    return (tp.whole_weight(params["wk"], -1, nkv)[..., cols],
+            tp.whole_weight(params["wv"], -1, nkv)[..., cols])
+
+
+def q_weights(params: dict, cfg, tp=None) -> tuple[torch.Tensor, int]:
+    """(wq, heads) of this rank's query heads: its column shard where the
+    heads split, else the whole weight and every head."""
+    if heads_split(cfg, tp):
+        return params["wq"], tp_heads(cfg, tp)[1]
+    wq = params["wq"]
+    if tp is not None:
+        wq = tp.replicated(wq, -1, cfg.num_heads * cfg.resolved_head_dim)
+    return wq, cfg.num_heads
 
 
 def qkv(params: dict, x: torch.Tensor, kv_in: torch.Tensor, cfg, tp=None):
@@ -353,27 +404,35 @@ def qkv(params: dict, x: torch.Tensor, kv_in: torch.Tensor, cfg, tp=None):
     stay whole where the extent does not divide them: each rank then takes
     the whole weight (``whole_weight``) and uses the columns of its one KV
     head, as the reference's partitioned program computes the same
-    function."""
+    function. Where the heads do not split (``heads_split``), every head."""
     hd = cfg.resolved_head_dim
     b, sq, _ = x.shape
     sk = kv_in.shape[1]
-    if tp is None:
-        q = (x @ params["wq"]).reshape(b, sq, cfg.num_heads, hd)
-        k = (kv_in @ params["wk"]).reshape(b, sk, cfg.num_kv_heads, hd)
-        v = (kv_in @ params["wv"]).reshape(b, sk, cfg.num_kv_heads, hd)
-        return q, k, v
-    _, hl, kv0 = tp_heads(cfg, tp)
-    q = (x @ params["wq"]).reshape(b, sq, hl, hd)
-    nkv = cfg.num_kv_heads * hd
-    if cfg.num_kv_heads % tp.size == 0 and params["wk"].shape[-1] < nkv:
-        wk, wv = params["wk"], params["wv"]  # this rank's KV heads, whole
-    else:
-        cols = slice(kv0 * hd, (kv0 + 1) * hd)
-        wk = tp.whole_weight(params["wk"], -1, nkv)[:, cols]
-        wv = tp.whole_weight(params["wv"], -1, nkv)[:, cols]
+    wq, hq = q_weights(params, cfg, tp)
+    wk, wv = kv_weights(params, cfg, tp)
+    q = (x @ wq).reshape(b, sq, hq, hd)
     k = (kv_in @ wk).reshape(b, sk, -1, hd)
     v = (kv_in @ wv).reshape(b, sk, -1, hd)
     return q, k, v
+
+
+def attn_enter(x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
+    """An attention sublayer's input (``tp.enter``): partial where its
+    heads split, replicated otherwise."""
+    return x if tp is None else tp.enter(x, heads_split(cfg, tp))
+
+
+def attn_exit(params: dict, o: torch.Tensor, cfg, tp=None) -> torch.Tensor:
+    """``o`` (B, S, this rank's heads * hd) times ``wo`` -- its row shard, or
+    the whole ``wo`` where the sublayer runs replicated -- in the block
+    boundary's layout (``tp.exit``: reduced over the model group where the
+    heads split)."""
+    if tp is None:
+        return o @ params["wo"]
+    if heads_split(cfg, tp):
+        return tp.exit(o @ params["wo"])
+    wo = tp.replicated(params["wo"], 0, cfg.num_heads * cfg.resolved_head_dim)
+    return tp.exit(o @ wo, partial=False)
 
 
 def attention_block(params: dict, x: torch.Tensor, cfg, *, positions=None,
@@ -385,13 +444,13 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, positions=None,
     its query heads (``qkv``) and multiplies by the row shard of ``wo``;
     the partial outputs are reduced over the model group (scattered over
     the sequence under sequence parallelism, where ``x`` is this rank's
-    rows)."""
-    h = x if tp is None else tp.enter(x)
+    rows). Where the heads do not split (``heads_split``) every rank
+    computes the whole sublayer from its whole weights."""
+    h = attn_enter(x, cfg, tp)
     b, s, _ = h.shape
     q, k, v = qkv(params, h, h, cfg, tp)
     out = _attend(q, k, v, cfg, positions, impl, block_kv)
-    out = out.reshape(b, s, -1) @ params["wo"]
-    return out if tp is None else tp.exit(out)
+    return attn_exit(params, out.reshape(b, s, -1), cfg, tp)
 
 
 def full_attention(q, k, v, impl: str = "blockwise") -> torch.Tensor:
@@ -413,11 +472,10 @@ def cross_attention_block(params: dict, x: torch.Tensor, memory: torch.Tensor, c
     ``attention_block``; ``memory`` is whole on every rank, its gradient
     this rank's part (the caller sums it over the model group once, where
     the encoder's output enters the decoder)."""
-    h = x if tp is None else tp.enter(x)
+    h = attn_enter(x, cfg, tp)
     b, sq, _ = h.shape
     q, k, v = qkv(params, h, memory, cfg, tp)
-    out = full_attention(q, k, v, impl).reshape(b, sq, -1) @ params["wo"]
-    return out if tp is None else tp.exit(out)
+    return attn_exit(params, full_attention(q, k, v, impl).reshape(b, sq, -1), cfg, tp)
 
 
 # ---------------------------------------------------------------------------

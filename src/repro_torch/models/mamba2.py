@@ -23,9 +23,11 @@ product with the permuted x keeps x itself (``_Matmul``), C is not
 broadcast over the heads, and the skip term keeps x in bf16.
 
 Over the model axis (``tp``) a rank runs its share of the SSD heads
-(``rank_params``, ``apply_mamba2``): the reference lets GSPMD split the
-flat ``tp`` dims of ``in_proj`` and the conv, whose segments a flat shard
-cuts across, so those leaves are taken whole at use and read by head.
+(``rank_params``, ``apply_mamba2``), in training and in decode: the
+reference lets GSPMD split the flat ``tp`` dims of ``in_proj`` and the
+conv, whose segments a flat shard cuts across, so those leaves are taken
+whole at use and read by head. Where the extent does not divide the heads
+the mixer runs replicated on every rank (``whole_params``).
 """
 from __future__ import annotations
 
@@ -208,14 +210,33 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch
     return y.to(x.dtype), carry
 
 
-def rank_heads(cfg, tp) -> tuple[int, int]:
-    """(this rank's first SSD head, its heads) over ``tp.size`` model ranks."""
+def rank_heads(cfg, tp) -> tuple[int, int] | None:
+    """(this rank's first SSD head, its heads) over ``tp.size`` model ranks;
+    None where the extent does not divide the heads: the mixer then runs
+    replicated (``whole_params``)."""
     _, n_heads, _ = mamba2_dims(cfg)
     if n_heads % tp.size:
-        raise NotImplementedError(
-            f"{cfg.name}: {n_heads} SSD heads do not split over a model extent of {tp.size}")
+        return None
     hl = n_heads // tp.size
     return tp.rank * hl, hl
+
+
+# each leaf's tp-tagged dim (mamba2_defs) and its full length
+def _tp_dims(cfg) -> dict[str, tuple[int, int]]:
+    mc = cfg.mamba2
+    d_in, n_heads, conv_dim = mamba2_dims(cfg)
+    return {"in_proj": (-1, 2 * d_in + 2 * mc.d_state + n_heads), "conv_w": (-1, conv_dim),
+            "conv_b": (0, conv_dim), "A_log": (0, n_heads), "D": (0, n_heads),
+            "dt_bias": (0, n_heads), "norm_scale": (0, d_in), "out_proj": (0, d_in)}
+
+
+def whole_params(params: dict, cfg, tp) -> dict:
+    """Every weight of the mixer whole (``TensorParallel.replicated``), for
+    a rank that computes all the SSD heads: where the model extent does not
+    divide them, the mixer runs replicated, as the reference's partitioned
+    program computes the same function."""
+    return {name: tp.replicated(params[name], dim, full)
+            for name, (dim, full) in _tp_dims(cfg).items()}
 
 
 def rank_params(params: dict, cfg, tp) -> dict:
@@ -262,17 +283,22 @@ def apply_mamba2(params: dict, x: torch.Tensor, cfg, *, state=None, return_state
     all-gathered over the model group (reduce-scatter backward) and the
     kernel normalises whole rows, of which the rank keeps its heads'
     columns; ``out_proj`` is row-parallel, the partial outputs reduced
-    (scattered over the sequence under sequence parallelism). Decode
-    (``state``) runs on one device."""
+    (scattered over the sequence under sequence parallelism). A decode
+    ``state`` is then the rank's: the conv's state over its heads' x
+    channels and all of B and C, the SSM state of its heads
+    (``mamba2_state_defs``). Where the extent does not divide the heads
+    the mixer runs replicated (``whole_params``), its state whole."""
     mc = cfg.mamba2
     d_in, n_heads, _ = mamba2_dims(cfg)
+    heads = None if tp is None else rank_heads(cfg, tp)
     if tp is not None:
-        if state is not None or return_state:
-            raise NotImplementedError("Mamba-2 decode over the model axis (ROADMAP.md)")
-        h0, n_heads = rank_heads(cfg, tp)
-        params = rank_params(params, cfg, tp)
-        d_in = n_heads * mc.head_dim
-        x = tp.enter(x)
+        if heads is None:
+            params = whole_params(params, cfg, tp)
+        else:
+            h0, n_heads = heads
+            params = rank_params(params, cfg, tp)
+            d_in = n_heads * mc.head_dim
+        x = tp.enter(x, heads is not None)
     b, s, _ = x.shape
     proj = x @ params["in_proj"]
     z, xin, bmat, cmat, dt = torch.split(proj, [d_in, d_in, mc.d_state, mc.d_state, n_heads],
@@ -291,23 +317,29 @@ def apply_mamba2(params: dict, x: torch.Tensor, cfg, *, state=None, return_state
     # copy it would be kept again in fp32)
     y = torch.addcmul(y, xh, params["D"][None, None, :, None])
     y = y.reshape(b, s, d_in).to(x.dtype)
-    if tp is None:
+    if heads is None:
         y = L.rmsnorm(y * _silu(z), params["norm_scale"])
     else:  # whole rows of d_in for the norm, then this rank's columns
         y = L.rmsnorm(tp.gather_partial(y * _silu(z), -1), params["norm_scale"])
         y = y[..., h0 * mc.head_dim:h0 * mc.head_dim + d_in]
     out = y @ params["out_proj"]
     if tp is not None:
-        return tp.exit(out)
+        out = tp.exit(out, heads is not None)
     if return_state:
         return out, (new_conv_state, new_ssm_state)
     return out
 
 
-def mamba2_state_defs(cfg, batch: int):
+def mamba2_state_defs(cfg, batch: int, tp=None):
     """(shape, dtype) of the decode state: conv (B, K - 1, conv_dim) in the
-    model's dtype, ssm (B, H, P, N) in fp32."""
+    model's dtype, ssm (B, H, P, N) in fp32; ``tp``: a rank's, over its
+    heads' x channels and all of B and C, and its H heads (the whole state
+    where the mixer runs replicated)."""
     mc = cfg.mamba2
     _, n_heads, conv_dim = mamba2_dims(cfg)
+    heads = None if tp is None else rank_heads(cfg, tp)
+    if heads is not None:
+        n_heads = heads[1]
+        conv_dim = n_heads * mc.head_dim + 2 * mc.d_state
     return (((batch, mc.d_conv - 1, conv_dim), L.torch_dtype(cfg.dtype)),
             ((batch, n_heads, mc.head_dim, mc.d_state), torch.float32))

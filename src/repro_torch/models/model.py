@@ -595,16 +595,14 @@ def _encoder_layer(pp: dict, x: torch.Tensor, cfg: ModelConfig,
     non-causal self-attention with RoPE, residual, norm, MLP, residual.
     ``tp``: both sublayers column / row split (``x`` the boundary's layout)."""
     norm = (lambda p: p) if tp is None else tp.norm_params  # noqa: E731
-    h = L.apply_norm(norm(pp["norm1"]), x, cfg.norm)
-    if tp is not None:
-        h = tp.enter(h)
+    h = L.attn_enter(L.apply_norm(norm(pp["norm1"]), x, cfg.norm), cfg, tp)
     b, s, _ = h.shape
     q, k, v = L.qkv(pp["attn"], h, h, cfg, tp)
     pos = torch.arange(s, device=x.device)
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta)
-    o = L.full_attention(q, k, v, attn_impl).reshape(b, s, -1) @ pp["attn"]["wo"]
-    x = x + (o if tp is None else tp.exit(o))
+    x = x + L.attn_exit(pp["attn"], L.full_attention(q, k, v, attn_impl).reshape(b, s, -1),
+                        cfg, tp)
     h2 = L.apply_norm(norm(pp["norm2"]), x, cfg.norm)
     return x + L.apply_mlp(pp["mlp"], h2, cfg.mlp, tp, cfg.d_ff)
 
@@ -656,8 +654,10 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *, runs: list[Run] | No
     memory = None
     if cfg.kind == "encdec":
         memory = encode(params, batch["frames"], cfg, attn_impl=attn_impl, tp=tp)
-        if tp is not None:  # whole on every rank: the cross-attentions' parts summed
-            memory = tp.enter(memory)
+        if tp is not None:  # whole on every rank, entered as the cross-attentions use it:
+            # their parts summed where the heads split, one rank's whole
+            # gradient where the sublayer runs replicated
+            memory = tp.enter(memory, L.heads_split(cfg, tp))
     if runs is None:
         runs = default_runs(cfg, params)
     x, aux = apply_runs(runs, x, cfg, memory=memory, attn_impl=attn_impl, io=io, tp=tp,

@@ -1,6 +1,7 @@
 """Decode engine: continuous batching over a (resident or paged) decode step.
 
-Port of ``src/repro/serve/engine.py`` for one device. ``DecodeEngine`` owns
+Port of ``src/repro/serve/engine.py``, on one device or on a mesh of data
+x model ranks (``mesh``, a ``launch.mesh.LocalMesh``). ``DecodeEngine`` owns
 one serving step (a ``serve.prefill.ServeStep`` bound to the engine's state,
 over the cache layout ``train.step_builder.serve_layout`` chooses), a
 ``ContinuousScheduler``
@@ -30,6 +31,16 @@ Each tick the engine
      when the next tick's admission zeroes rows of the pinned cold store on
      the host, no kernel or copy that touches it is still queued
      (``paging.assert_stream_idle`` checks this in the reset).
+
+On a mesh every rank runs the same scheduler on the same request stream:
+each holds the cache of its slots (``B / data`` where the data ranks
+divide B, else every slot) and heads and its weight shards under the plan
+(``train.step_builder.serve_layout``), runs the step eagerly, and after
+each tick the data ranks' next tokens for their slots are all-gathered
+(the argmax over the model group first), so every rank advances its
+scheduler identically. ``choose_prefill_chunk`` prices the mesh's spec.
+The report's cache bytes and ``h2d_bytes`` are this rank's, beside their
+sums over the ranks.
 """
 from __future__ import annotations
 
@@ -85,6 +96,13 @@ class EngineReport:
     decode_ticks: int = 0
     admission: str = "replay"
     prefill_chunk: int = 0
+    # -- on a mesh: the cache fields above are this rank's, the *_ranks the
+    # sum over its ranks (each holds the cache of its slots and heads)
+    world: int = 1
+    h2d_bytes: int = 0  # cold-store bytes this rank's attention read
+    h2d_bytes_ranks: int = 0
+    hbm_cache_bytes_ranks: int = 0
+    host_cache_bytes_ranks: int = 0
 
     @property
     def hbm_reduction(self) -> float:
@@ -131,6 +149,13 @@ class EngineReport:
             "p50_ttft_s": self.p50_ttft_s,
             "p99_ttft_s": self.p99_ttft_s,
             "p99_itl_s": self.p99_itl_s,
+            **({} if self.world == 1 else {
+                "world": self.world, "h2d_bytes_rank": self.h2d_bytes,
+                "h2d_bytes_ranks": self.h2d_bytes_ranks,
+                "hbm_cache_bytes_rank": self.hbm_cache_bytes,
+                "hbm_cache_bytes_ranks": self.hbm_cache_bytes_ranks,
+                "host_cache_bytes_rank": self.host_cache_bytes,
+                "host_cache_bytes_ranks": self.host_cache_bytes_ranks}),
         }
 
 
@@ -159,7 +184,10 @@ class DecodeEngine:
     decode-ready streams wait (None = unbounded). ``device`` is where the
     step runs: ``None`` means CUDA, and raises where there is none.
     ``graphs``: replay the step from a CUDA graph; ``None`` means yes on
-    CUDA and no on the CPU, and ``True`` on the CPU raises."""
+    CUDA and no on the CPU, and ``True`` on the CPU raises. ``mesh``:
+    serve on its ranks (``device`` is then the mesh's); ``params`` is the
+    whole tree, of which each rank keeps its shards; graphs stay off
+    there, and ``graphs=True`` raises."""
 
     def __init__(
         self,
@@ -177,12 +205,16 @@ class DecodeEngine:
         hw=None,
         telemetry: obs.Telemetry | None = None,
         graphs: bool | None = None,
+        mesh=None,
     ):
         from repro_torch.models import kvcache as KVC
         from repro_torch.serve.prefill import ServeStep
         from repro_torch.train import step_builder as SB
 
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device}, but the mesh's is {mesh.device}")
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.mesh = mesh
         self.cfg, self.shape = cfg, shape
         tel = telemetry if telemetry is not None else obs.current_telemetry()
         if not tel.enabled:
@@ -196,7 +228,8 @@ class DecodeEngine:
         self.chunk_budget = None if admission == "whole" else chunk_budget
 
         cache_len = KVC.cache_len(cfg, shape.seq_len)
-        paging, self.kv_io = SB.serve_layout(cfg, plan, shape, paging)
+        self.layout = layout = SB.serve_layout(cfg, plan, shape, paging, mesh)
+        paging, self.kv_io = layout.paging, layout.kv_io
         self.paging = paging
         if admission != "replay":
             if prefill_chunk is None:
@@ -207,25 +240,27 @@ class DecodeEngine:
                 if hw is None:
                     hw = local_cuda_hw(self.device) if on_cuda else LOCAL_CPU_HW
                 prefill_chunk = choose_prefill_chunk(
-                    cfg, shape, ONE_CHIP, hw, spec=paging,
+                    cfg, shape, ONE_CHIP if mesh is None else mesh.spec, hw, spec=paging,
                     max_chunk=paging.page_size if paging else cache_len, kernel=on_cuda)
             self.prefill_chunk = max(1, min(int(prefill_chunk), cache_len))
         else:
             self.prefill_chunk = 0
         if graphs is None:
-            graphs = self.device.type == "cuda"
+            graphs = self.device.type == "cuda" and layout.world == 1
         # the step writes the cache in place; the engine owns its parameter
-        # copies unless ownership was handed over (own_params=True)
-        params = _tree_to(params, self.device, copy=not own_params)
+        # copies unless ownership was handed over (own_params=True); on a
+        # mesh it keeps this rank's shards
+        params = layout.shard(_tree_to(params, self.device, copy=not own_params))
+        slots = layout.slots[1]
         if paging is None:
-            cache = KVC.init_cache(cfg, shape.global_batch, shape.seq_len, self.device)
+            cache = KVC.init_cache(cfg, slots, shape.seq_len, self.device, layout.tp)
         else:
-            cache = init_paged_cache(cfg, shape.global_batch, shape.seq_len, paging,
-                                     self.device)
+            cache = init_paged_cache(cfg, slots, shape.seq_len, paging, self.device, layout.tp)
         self.state = {"params": params, "cache": cache}
         self.serve_step = ServeStep(params, cache, cfg, self.kv_io,
                                     batch=shape.global_batch, chunk=max(1, self.prefill_chunk),
-                                    device=self.device, graph=graphs)
+                                    device=self.device, graph=graphs, layout=layout,
+                                    gather=layout.gather(params, tel.registry))
 
         page_size = paging.page_size if paging else cache_len
         n_pages_per_slot = -(-cache_len // page_size)
@@ -300,8 +335,10 @@ class DecodeEngine:
         """One engine tick: admit, then one prefill chunk or one decode step."""
         sched = self.scheduler
         admitted = sched.admit()
-        if admitted:
-            _zero_slots(self.state["cache"], admitted)
+        first, n = self.layout.slots
+        mine = [b - first for b in admitted if first <= b < first + n]
+        if mine:
+            _zero_slots(self.state["cache"], mine)
         if (self.prefill_chunk
                 and sched.should_prefill(self._consec_prefill, self.chunk_budget)):
             with self.tel.tracer.span("serve.prefill_tick"):
@@ -426,12 +463,12 @@ class DecodeEngine:
 
     # -- reporting -------------------------------------------------------------
     def report(self, steps: int | None = None) -> EngineReport:
-        """Metrics snapshot, callable mid-flight."""
+        """Metrics snapshot, callable mid-flight; at a world above one every
+        rank calls it (``run`` does): it sums the ranks' cold-store bytes."""
         sched = self.scheduler
-        parts = cache_partition_bytes(self.cfg, self.shape.global_batch,
-                                      self.shape.seq_len, self.paging)
-        resident = cache_partition_bytes(self.cfg, self.shape.global_batch,
-                                         self.shape.seq_len, None)
+        slots, tp = self.layout.slots[1], self.layout.tp
+        parts = cache_partition_bytes(self.cfg, slots, self.shape.seq_len, self.paging, tp)
+        resident = cache_partition_bytes(self.cfg, slots, self.shape.seq_len, None, tp)
         pending = tuple(sorted({r.rid for r in sched.queue}
                                | {s.rid for s in sched.slots if s is not None}))
         t0 = self._t0 if self._t0 is not None else time.time()
@@ -442,6 +479,13 @@ class DecodeEngine:
         # the kernel path attends over hot ring + cold store in place: no
         # gathered transient exists on the device
         transient = 0 if getattr(self.kv_io, "use_kernel", False) else parts["transient"]
+        world = self.layout.world
+        h2d = int(self._c_h2d.value)
+        h2d_ranks = h2d
+        if world > 1:  # every rank reports (run does): the ranks' sum
+            total = torch.tensor([float(h2d)], dtype=torch.float64, device=self.device)
+            torch.distributed.all_reduce(total, group=self.mesh.group)
+            h2d_ranks = int(total.item())
         return EngineReport(
             drained=sched.idle,
             pending=pending,
@@ -462,4 +506,9 @@ class DecodeEngine:
             decode_ticks=self.decode_ticks,
             admission=self.admission,
             prefill_chunk=self.prefill_chunk,
+            world=world,
+            h2d_bytes=h2d,
+            h2d_bytes_ranks=h2d_ranks,
+            hbm_cache_bytes_ranks=world * (parts["hbm"] + transient),
+            host_cache_bytes_ranks=world * parts["host"],
         )

@@ -40,7 +40,8 @@ by every layer.
 
 ``PagedKV.h2d_bytes`` counts the cold-store bytes attention reads: on CUDA
 the cold store is pinned host memory, so these are the bytes that cross the
-host link. The kernel reads K and V of the attended cold rows only; the
+host link. On a mesh each rank holds the cache of its slots and heads and
+counts its own bytes. The kernel reads K and V of the attended cold rows only; the
 rebuild path copies each layer's whole cold store. ``commit`` counts them
 from host positions with the same functions the step runs on the device.
 
@@ -110,11 +111,13 @@ def choose_paging(cache_len: int, page_size: int, n_hot: int) -> PagingSpec:
 # ---------------------------------------------------------------------------
 # Paged cache trees
 # ---------------------------------------------------------------------------
-def paged_cache_specs(cfg: ModelConfig, batch: int, seq_len: int, spec: PagingSpec) -> dict:
+def paged_cache_specs(cfg: ModelConfig, batch: int, seq_len: int, spec: PagingSpec,
+                      tp=None) -> dict:
     """``{pos<j>: {name: (shape, dtype)}}`` of the paged decode cache:
     attention positions split into hot ring and cold store, Mamba-2 state as
-    in the resident layout."""
-    base = KV.cache_specs(cfg, batch, seq_len)
+    in the resident layout. ``tp``: a model rank's heads, ``batch`` its
+    slots (``KV.cache_specs``)."""
+    base = KV.cache_specs(cfg, batch, seq_len, tp)
     assert spec.cache_len == KV.cache_len(cfg, seq_len), (
         f"paging spec covers {spec.cache_len} slots, cache has "
         f"{KV.cache_len(cfg, seq_len)}")
@@ -131,9 +134,11 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, seq_len: int, spec: PagingSp
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, seq_len: int, spec: PagingSpec,
-                     device="cpu") -> dict:
+                     device="cpu", tp=None) -> dict:
     """Zeros matching ``paged_cache_specs``: hot rings on ``device``; cold
-    stores in pinned host memory when ``device`` is CUDA, else on ``device``."""
+    stores in pinned host memory when ``device`` is CUDA, else on ``device``.
+    ``tp``: a model rank's cache over its heads and slots, the cold pages
+    of a rank in its host's pinned memory."""
     device = torch.device(device)
     pin = device.type == "cuda"
 
@@ -143,7 +148,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, seq_len: int, spec: PagingSpe
         return torch.zeros(shape, dtype=dt, device=device)
 
     return {pos: {name: zeros(name, *sd) for name, sd in entry.items()}
-            for pos, entry in paged_cache_specs(cfg, batch, seq_len, spec).items()}
+            for pos, entry in paged_cache_specs(cfg, batch, seq_len, spec, tp).items()}
 
 
 def device_view(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -408,13 +413,13 @@ def assert_stream_idle(cache: dict) -> None:
 # Accounting
 # ---------------------------------------------------------------------------
 def cache_partition_bytes(cfg: ModelConfig, batch: int, seq_len: int,
-                          spec: PagingSpec | None) -> dict[str, int]:
+                          spec: PagingSpec | None, tp=None) -> dict[str, int]:
     """Bytes of the decode cache by residence tier: ``hbm`` (hot rings and
     Mamba-2 state, or the whole resident cache), ``host`` (cold store),
     ``transient`` (one attention position's gathered full cache -- the
     rebuild path's largest per-layer reconstruction; the kernel path builds
-    none)."""
-    base = KV.cache_specs(cfg, batch, seq_len)
+    none). ``tp``, ``batch``: a rank's heads and slots."""
+    base = KV.cache_specs(cfg, batch, seq_len, tp)
     hbm = host = transient = 0
     for entry in base.values():
         for name, (shape, dt) in entry.items():

@@ -92,6 +92,12 @@ and returns ``(state, next_tok)``, the greedy argmax taken on the device.
 ``state`` is ``{"params", "cache"}``; the cache is written in place; the
 step runs where the state's tensors lie. The stateless prefill's
 ``fn(params, batch)`` returns the next-token logits and touches no cache.
+On a mesh (``serve_layout(..., mesh)``, ``build_prefill_step(...,
+mesh=)``) a rank serves its slots and heads from its weight shards under
+the serve plan (``dist/sharding.serve_shards``): the model axis splits
+each sublayer as in training, the data ranks split the slots where they
+divide them, and a plan with non-persistent chunks ZeRO-shards them over
+the data ranks and gathers them at use (``dist.collectives.ServeGather``).
 """
 from __future__ import annotations
 
@@ -107,7 +113,15 @@ from repro_torch.core.plan import MemoryPlan
 from repro_torch.core.serve_plan import paging_from_plan
 from repro_torch.dist import collectives as COLL
 from repro_torch.dist import sharding as SH
-from repro_torch.dist.tensor_parallel import batch_group, make_tensor_parallel
+from repro_torch.dist.tensor_parallel import (
+    BatchGroup,
+    TensorParallel,
+    batch_group,
+    gather_rows,
+    gather_vocab,
+    make_tensor_parallel,
+    vocab_argmax,
+)
 from repro_torch.launch.mesh import LocalMesh
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
@@ -515,15 +529,85 @@ def pinned_zeros(tree):
                         tree)
 
 
-def check_serve_plan(plan: MemoryPlan) -> None:
-    if plan.n_persist != plan.n_chunks:
-        raise NotImplementedError(
-            f"serving plan {plan.describe()}: only an all-persistent weight placement "
-            "runs on one device (ROADMAP.md, the planner and distributed slices)")
+@dataclasses.dataclass
+class ServeLayout:
+    """A rank's serving layout (``serve_layout``): the page geometry (None
+    for a resident cache) and the cache hook the step threads through
+    ``decode_forward``; on a mesh also the model axis (``tp``), the MoE's
+    batch group over the data ranks where they split the slots
+    (``route``), this rank's slots (``slots``: first, count, of ``batch``)
+    and the serve tree's dims over the data and model ranks."""
+
+    paging: PagingSpec | None
+    kv_io: Any
+    batch: int
+    mesh: LocalMesh | None = None
+    plan: MemoryPlan | None = None
+    defs: dict | None = None
+    tp: Any = None
+    route: Any = None
+    slots: tuple[int, int] = (0, 0)
+    data_dims: dict | None = None
+
+    @property
+    def world(self) -> int:
+        return 1 if self.mesh is None else self.mesh.world
+
+    @property
+    def rows(self) -> slice:
+        """This rank's slots (rows of a whole-batch input)."""
+        return slice(self.slots[0], self.slots[0] + self.slots[1])
+
+    def shard(self, params: dict) -> dict:
+        """This rank's shards of the whole serve tree ``params``
+        (``params`` itself at a world of one)."""
+        if self.world == 1:
+            return params
+        return SH.serve_shards(params, self.defs, self.plan, self.mesh)
+
+    def gather(self, shards: dict, registry=None) -> COLL.ServeGather | None:
+        """The weights' gathers over the data ranks for this rank's
+        ``shards`` (None where no leaf is sharded over them)."""
+        dims = COLL.tree_leaves_dims(self.data_dims) if self.data_dims is not None else []
+        if not any(d is not None for d in dims):
+            return None
+        g = COLL.ServeGather(self.mesh.data_group,
+                             obs.NULL_REGISTRY if registry is None else registry)
+        g.register(shards, self.data_dims)
+        return g
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``x`` (this rank's slots first-dim) made
+        whole over the data ranks (``x`` itself where they hold every
+        slot)."""
+        if self.slots[1] == self.batch:
+            return x
+        return gather_rows(x, self.mesh.data_group, self.mesh.data)
+
+    def greedy(self, logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        """The whole batch's greedy tokens from this rank's logits (its
+        slots, its vocab slice): the argmax over the model group, then the
+        data group's all-gather."""
+        return self.gather_rows(vocab_argmax(logits, self.tp, cfg.vocab_size))
+
+
+def _mesh_layout(cfg: ModelConfig, plan: MemoryPlan, batch: int, mesh) -> dict:
+    """The fields of ``ServeLayout`` a mesh decides (none at a world of one)."""
+    if mesh is None or mesh.world == 1:
+        return {"slots": (0, batch)}
+    defs = M.param_defs(cfg)
+    slots = SH.slot_split(batch, mesh)
+    return {"mesh": mesh, "plan": plan, "defs": defs, "slots": slots,
+            "tp": (TensorParallel(mesh.model_group, mesh.model_rank, mesh.model)
+                   if mesh.model > 1 else None),
+            "route": (BatchGroup(mesh.data_group, mesh.data_rank, mesh.data)
+                      if slots[1] < batch else None),
+            "data_dims": SH.serve_dims(defs, plan, mesh)[0]}
 
 
 def build_prefill_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeConfig, *,
-                       chunk: int | None = None, attn_impl: str = "blockwise") -> StepArtifacts:
+                       chunk: int | None = None, attn_impl: str = "blockwise",
+                       mesh: LocalMesh | None = None) -> StepArtifacts:
     """The stateless full-sequence prefill (``chunk=None`` in the JAX
     package, ``step_builder.py:816-870``): one parallel forward of every
     layer with nothing kept for a backward, the final norm at the last
@@ -532,35 +616,67 @@ def build_prefill_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeC
     S), with an encoder-decoder's ``frames`` or a vision-language model's
     ``patches`` (B, min(1024, S), D), and returns the (B, V) next-token
     logits under ``torch.inference_mode``; it touches no decode cache.
-    Chunked prefill, which ingests a cache, is ``serve.prefill.ServeStep``."""
+    Chunked prefill, which ingests a cache, is ``serve.prefill.ServeStep``.
+
+    On a ``mesh`` (``device`` is then the mesh's): ``place_state(params)``
+    gives this rank's shards of the whole tree under the serve plan
+    (``dist/sharding.serve_shards``), which ``fn`` takes; every rank takes
+    the whole batch and runs its rows where the data ranks divide B, the
+    model axis split as in training (the encoder's frames and the VLM's
+    patches too), the MoE routed over the data ranks' rows, the
+    non-persistent chunks gathered over the data ranks at use (the layer
+    stack a superblock ahead, through ``dist.collectives.ServeGather``);
+    the logits come back whole on every rank, all-gathered over the vocab
+    and the batch."""
     if chunk is not None:
         raise ValueError(f"chunk={chunk}: chunked prefill into a decode cache is "
                          "serve.prefill.ServeStep (through serve.DecodeEngine)")
-    device = resolve_device(device)
-    check_serve_plan(plan)
+    device = mesh.device if mesh is not None else resolve_device(device)
     want = (shape.global_batch, shape.seq_len)
+    SH.serve_placements(plan)  # raises for weight chunks in host memory
+    lay = ServeLayout(None, None, shape.global_batch,
+                      **_mesh_layout(cfg, plan, shape.global_batch, mesh))
+    n_rep = M.num_repeats(cfg)
 
     def step_fn(params: dict, batch: dict) -> torch.Tensor:
         if tuple(batch["tokens"].shape) != want or batch["tokens"].device.type != device.type:
             raise ValueError(f"tokens {tuple(batch['tokens'].shape)} on "
                              f"{batch['tokens'].device}, want {want} on {device}")
+        gather = lay.gather(params)
         with torch.inference_mode():
-            runs = [M.Run(params=params["blocks"], n_repeats=M.num_repeats(cfg))]
-            h, _ = M.forward(params, batch, cfg, runs=runs, attn_impl=attn_impl)
-            return M.lm_head(params, h[:, -1:].contiguous(), cfg)[:, 0]
+            local = {k: v[lay.rows] for k, v in batch.items()}
+            p = params if gather is None else gather.outer(params)
+            # under a sharded plan the layer stack is gathered a superblock ahead
+            run = (M.Run(params=p["blocks"], n_repeats=n_rep) if gather is None else
+                   M.Run(params=p["blocks"], n_repeats=n_rep, proxies=p["blocks"],
+                         io=gather.lazy, prefetch=True))
+            h, _ = M.forward(p, local, cfg, runs=[run], attn_impl=attn_impl, tp=lay.tp,
+                             route=lay.route)
+            logits = M.lm_head(p, h[:, -1:].contiguous(), cfg, lay.tp)[:, 0]
+            return lay.gather_rows(gather_vocab(logits, lay.tp, cfg.vocab_size))
 
-    return StepArtifacts(fn=step_fn, plan=plan, runs=plan_runs(plan, M.num_repeats(cfg)))
+    return StepArtifacts(fn=step_fn, plan=plan, runs=plan_runs(plan, n_rep),
+                         place_state=lay.shard)
 
 
 def serve_layout(cfg: ModelConfig, plan: MemoryPlan, shape: ShapeConfig,
-                 paging: PagingSpec | None = None) -> tuple[PagingSpec | None, Any]:
-    """The serving step's cache layout: ``(paging, kv_io)``, the page
-    geometry (None for a resident cache) and the cache hook the step threads
-    through ``decode_forward``. Decode and chunked prefill are one step,
-    ``serve.prefill.ServeStep``, which the engine binds to its state; the
-    stateless full-sequence prefill is ``build_prefill_step``."""
-    check_serve_plan(plan)
+                 paging: PagingSpec | None = None, mesh: LocalMesh | None = None) -> ServeLayout:
+    """The serving step's layout: the page geometry (None for a resident
+    cache) and the cache hook the step threads through ``decode_forward``
+    and, on a ``mesh``, this rank's part: its slots (``B / data`` where the
+    data ranks divide B, else every slot), its heads over the model ranks,
+    its weight shards under the plan (the layer stack, and the embedding
+    and head where their chunks are not persistent, ZeRO-sharded over the
+    data ranks and gathered at use). Every plan ``core.serve_plan`` returns
+    runs: resident, paged, and ``n_persist = 0``. Decode and chunked
+    prefill are one step, ``serve.prefill.ServeStep``, which the engine
+    binds to its state; the stateless full-sequence prefill is
+    ``build_prefill_step``. The model axis splits the ``tp`` and ``exp``
+    dims (``dp_only`` and ``seq_shard_acts`` lay out training's batch and
+    activations, and serving keeps the decode step's layout)."""
+    SH.serve_placements(plan)  # raises for weight chunks in host memory
     if paging is None:
         paging = paging_from_plan(cfg, shape, plan)
     kv_io = KV.RESIDENT_KV if paging is None else PagedKV(paging)
-    return paging, kv_io
+    return ServeLayout(paging, kv_io, shape.global_batch,
+                       **_mesh_layout(cfg, plan, shape.global_batch, mesh))

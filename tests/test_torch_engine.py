@@ -184,7 +184,7 @@ def test_engine_stream_yields_every_token(model):
 
 
 def test_engine_refuses_what_this_slice_lacks(model):
-    cfg, _, tp = model
+    cfg, jp, tp = model
     shape = ShapeConfig("serve", S, B, "decode")
     # without prefill_chunk the engine takes the cost model's choice, the
     # JAX engine's (choose_prefill_chunk on LOCAL_CPU_HW, one device); the
@@ -204,9 +204,14 @@ def test_engine_refuses_what_this_slice_lacks(model):
                                             JMesh((1,), ("data",)), J_CPU, spec=spec,
                                             max_chunk=spec.page_size if paged else S)
         assert eng.prefill_chunk == want, (paged, eng.prefill_chunk, want)
-    with pytest.raises(NotImplementedError, match="all-persistent"):
-        DecodeEngine(cfg, MemoryPlan(3, 2, n_persist=0), "cpu", shape, tp,
-                     prefill_chunk=CHUNK)
+    # a sharded-weight plan (n_persist = 0) serves too: on one device its
+    # gathers are the identity, and its tokens are the JAX resident engine's
+    jeng = JEngine(cfg, JPlan(3, 2, n_persist=3), make_local_mesh(),
+                   JShape("serve", S, B, "decode"), jp, prefill_chunk=CHUNK)
+    jrep = jeng.run([JRequest(*r) for r in _prompts()])
+    rep = DecodeEngine(cfg, MemoryPlan(3, 2, n_persist=0), "cpu", shape, tp,
+                       prefill_chunk=CHUNK).run([Request(*r) for r in _prompts()])
+    assert rep.drained and rep.finished == jrep.finished
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DecodeEngine(cfg, MemoryPlan(3, 2, n_persist=3), None, shape, tp,

@@ -450,6 +450,15 @@ TP_MODELS = {  # name: (arch, overrides of its reduced config)
     # a vocab the model extent of 4 does not divide: embedding and head whole
     "seamlessv510": ("seamless-m4t-large-v2", dict(vocab_size=510)),
     "llava": ("llava-next-34b", {}),
+    # serving (tests/test_torch_serve_mesh.py): GQA kept, 2 KV heads
+    "mistral": ("mistral-7b", dict(num_kv_heads=2)),
+    # heads a model extent of 4 does not divide: 6 query heads over 2 (the
+    # sublayer runs replicated at 1 x 4) and 6 SSD heads (d_in 192 / 32)
+    "llava6": ("llava-next-34b", dict(num_heads=6, num_kv_heads=2)),
+    "mamba6": ("mamba2-130m", dict(d_model=96)),
+    # 6 query and KV heads: the encoder's attention, the decoder's self-
+    # and cross-attention run replicated at 1 x 4, the memory entered whole
+    "seamless6": ("seamless-m4t-large-v2", dict(num_heads=6, num_kv_heads=6)),
 }
 # Adam's eps where the default (1e-8) divides the two frameworks' fp32
 # noise into whole steps: the hybrid's one-device port misses the JAX
@@ -497,6 +506,13 @@ TP_CASES = {
     "llava_2x2": ("llava", "zero", (2, 2), {}),
     "llava_1x4_sp": ("llava", "zero", (1, 4), dict(seq_shard_acts=True)),
 }
+# the same machinery for the repairs of tests/test_torch_serve_mesh.py
+REPAIR_CASES = {
+    "llava6_1x4": ("llava6", "zero", (1, 4), {}),
+    "mamba6_1x4": ("mamba6", "zero", (1, 4), {}),
+    "seamless6_1x4": ("seamless6", "zero", (1, 4), {}),
+    "seamless6_1x4_sp": ("seamless6", "zero", (1, 4), dict(seq_shard_acts=True)),
+}
 TP_AUTO_ARGV = ["--arch", "llama3-405b", "--reduced", "--nproc", "4", "--model", "2",
                 "--steps", "2", "--batch", "16", "--seq", "32", "--device", "cpu",
                 "--plan", "auto"]
@@ -532,7 +548,7 @@ def tp_plan(case: str):
     from repro_torch.core.plan import MemoryPlan
     from repro_torch.models.model import num_repeats
 
-    model, plan, _, extra = TP_CASES[case]
+    model, plan, _, extra = {**TP_CASES, **REPAIR_CASES}[case]
     n = num_repeats(tp_config(model)[0])
     return MemoryPlan(n + 2, n, **TP_PLANS[plan], **extra)
 
@@ -546,7 +562,7 @@ def tp_run(case: str, params, mesh) -> dict:
     from repro_torch.optim.adam import AdamConfig, tree_leaves, tree_map
     from repro_torch.train.step_builder import build_train_step
 
-    model = TP_CASES[case][0]
+    model = {**TP_CASES, **REPAIR_CASES}[case][0]
     cfg, shape = tp_config(model)
     art = build_train_step(cfg, tp_plan(case), "cpu", shape, mesh=mesh,
                            adam=AdamConfig(lr=LR, **tp_adam_kw(model)))
@@ -616,3 +632,207 @@ def checkpoint_race(rank: int, directory: str) -> dict:
     mgr.save(4, {"w": torch.full((3,), 4.0 + rank)}, sync=True)
     got = mgr.restore_latest({"w": torch.zeros(3)})
     return {"listed": seen["step"], "resumed": got[0], "w": got[1]["w"].tolist()}
+
+
+# ---------------------------------------------------------------------------
+# Serving on a mesh (tests/test_torch_serve_mesh.py)
+# ---------------------------------------------------------------------------
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 16, 8
+SERVE_PAGING = (4, 2)  # page size, hot pages: 4 pages of 4 rows, 2 hot
+# name: (model, (data, model) layout, kind): a resident cache, a paged one
+# (PagedKV(use_kernel=False)), or every chunk ZeRO-sharded (n_persist=0)
+DECODE_CASES = {
+    **{f"mistral_{d}x{m}{k}": ("mistral", (d, m), k.strip("_") or "resident")
+       for d, m in ((1, 4), (2, 2), (4, 1)) for k in ("", "_paged")},
+    "mistral_4x1_sharded": ("mistral", (4, 1), "sharded"),
+    "mistral_2x2_sharded": ("mistral", (2, 2), "sharded"),
+    **{f"{f}_{d}x{m}": (f, (d, m), "resident")
+       for f in ("moe", "mamba", "hybrid", "seamless", "llava") for d, m in ((1, 4), (2, 2))},
+    "seamless_2x2_sharded": ("seamless", (2, 2), "sharded"),
+    "llava6_1x4": ("llava6", (1, 4), "resident"),
+    "mamba6_1x4": ("mamba6", (1, 4), "resident"),
+    "seamless6_1x4": ("seamless6", (1, 4), "resident"),
+}
+SERVE_MODELS = sorted({m for m, _, _ in DECODE_CASES.values()})
+ENGINE_S, ENGINE_CHUNK = 32, 8
+# name: (model, (data, model), slots, admission)
+ENGINE_CASES = {
+    "mistral_2x2_chunked": ("mistral", (2, 2), 4, "chunked"),
+    "mistral_2x2_b3": ("mistral", (2, 2), 3, "chunked"),  # 3 slots over 2 data ranks
+    "mamba_1x4_replay": ("mamba", (1, 4), 4, "replay"),
+}
+PREFILL_B, PREFILL_S = 4, 20
+# name: (model, (data, model), n_persist = 0)
+PREFILL_CASES = {
+    "llava_2x2": ("llava", (2, 2), False),
+    "llava_2x2_sharded": ("llava", (2, 2), True),
+    "seamless_2x2": ("seamless", (2, 2), False),
+}
+ARGMAX_VOCAB = 16
+
+
+def serve_inputs(vocab: int):
+    """The decode cases' teacher-forced tokens (B, steps) and per-step
+    active masks (steps, B)."""
+    rng = np.random.default_rng(21)
+    toks = rng.integers(0, vocab, (SERVE_B, SERVE_STEPS))
+    active = np.array([[True, t % 3 != 1, True, t % 2 == 0] for t in range(SERVE_STEPS)])
+    return toks, active
+
+
+def serve_frames(cfg):
+    """An encoder-decoder's frames, (B, S, D) fp32, from seeded numpy."""
+    rng = np.random.default_rng(22)
+    return rng.standard_normal((SERVE_B, SERVE_S, cfg.d_model)).astype(np.float32)
+
+
+def prompts(n: int) -> list[tuple]:
+    """The engine cases' requests: (rid, prompt, max_new)."""
+    rng = np.random.default_rng(5)
+    return [(i, rng.integers(1, 512, int(k)).tolist(), 4 + i)
+            for i, k in enumerate(rng.integers(3, 13, n))]
+
+
+def prefill_batch(cfg) -> dict:
+    """The stateless prefill's batch: tokens, and a VLM's patches or an
+    encoder-decoder's frames."""
+    rng = np.random.default_rng(23)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S))}
+    if cfg.frontend == "vision_patches":
+        out["patches"] = rng.standard_normal(
+            (PREFILL_B, min(1024, PREFILL_S), cfg.d_model)).astype(np.float32)
+    if cfg.kind == "encdec":
+        out["frames"] = rng.standard_normal(
+            (PREFILL_B, PREFILL_S, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _serve_plan(cfg, sharded: bool = False, n_host: int = 0):
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.models.model import num_repeats
+
+    n = num_repeats(cfg)
+    return MemoryPlan(n + 2, n, n_persist=0 if sharded else n + 2, n_host=n_host)
+
+
+def _clone(tree):
+    from repro_torch.optim.adam import tree_map
+
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def serve_decode(case: str, params, mesh) -> dict:
+    """``SERVE_STEPS`` teacher-forced decode steps of a case on this rank's
+    mesh from the whole ``params``: each step's logits made whole (vocab,
+    then slots), the layout."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.tensor_parallel import gather_vocab
+    from repro_torch.models import kvcache as KV
+    from repro_torch.models import model as TM
+    from repro_torch.serve import PagedKV, choose_paging, init_paged_cache
+    from repro_torch.train.step_builder import serve_layout
+
+    model, _, kind = DECODE_CASES[case]
+    cfg = tp_config(model)[0]
+    spec = choose_paging(SERVE_S, *SERVE_PAGING) if kind == "paged" else None
+    plan = _serve_plan(cfg, kind == "sharded", spec.n_cold if spec else 0)
+    lay = serve_layout(cfg, plan, ShapeConfig("serve", SERVE_S, SERVE_B, "decode"), spec, mesh)
+    kv_io = PagedKV(spec, use_kernel=False) if spec else None
+    shards = lay.shard(_clone(params))
+    gather = lay.gather(shards)
+    rows, n = lay.rows, lay.slots[1]
+    cache = (init_paged_cache(cfg, n, SERVE_S, spec, "cpu", lay.tp) if spec
+             else KV.init_cache(cfg, n, SERVE_S, "cpu", lay.tp))
+    if cfg.kind == "encdec":  # the cross cache primed from the encoder's output
+        memory = TM.encode(params, torch.from_numpy(serve_frames(cfg)), cfg)
+        KV.prime_cross_cache(shards, memory[rows], cache, cfg, lay.tp, gather)
+    toks, active = serve_inputs(cfg.vocab_size)
+    outs = []
+    with torch.inference_mode():
+        for t in range(SERVE_STEPS):
+            logits, _ = KV.decode_step(
+                shards, cache, torch.from_numpy(toks[rows, t:t + 1]),
+                torch.full((n,), t), cfg, kv_io=kv_io,
+                active=torch.from_numpy(active[t, rows]), tp=lay.tp, route=lay.route,
+                gather=gather)
+            outs.append(lay.gather_rows(gather_vocab(logits, lay.tp, cfg.vocab_size)))
+    leaf = next(iter(next(iter(cache.values())).values()))
+    return {"logits": torch.stack(outs).numpy(), "slots": lay.slots,
+            "cache_leaf": tuple(leaf.shape),
+            "cache_shapes": {p: {k: tuple(v.shape) for k, v in e.items()}
+                             for p, e in cache.items()},
+            "gathered": gather is not None}
+
+
+def serve_engine(case: str, params, mesh) -> dict:
+    """``DecodeEngine`` on this rank's mesh over ``prompts``: its tokens and
+    report."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.serve import DecodeEngine, Request
+
+    model, _, slots, admission = ENGINE_CASES[case]
+    cfg = tp_config(model)[0]
+    eng = DecodeEngine(cfg, _serve_plan(cfg), None, ShapeConfig("serve", ENGINE_S, slots,
+                                                                "decode"),
+                       params, mesh=mesh, admission=admission,
+                       prefill_chunk=ENGINE_CHUNK if admission != "replay" else None)
+    rep = eng.run([Request(*r) for r in prompts(4)])
+    return {"finished": rep.finished, "drained": rep.drained,
+            "ticks": (rep.prefill_ticks, rep.decode_ticks), "graph": eng.serve_step.graph,
+            "report": rep.to_dict(), "slots": eng.layout.slots}
+
+
+def serve_prefill(case: str, params, mesh) -> dict:
+    """The stateless prefill of a case on this rank's mesh: the whole (B,
+    V) logits every rank returns."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.step_builder import build_prefill_step
+
+    model, _, sharded = PREFILL_CASES[case]
+    cfg = tp_config(model)[0]
+    art = build_prefill_step(cfg, _serve_plan(cfg, sharded), None,
+                             ShapeConfig("p", PREFILL_S, PREFILL_B, "prefill"), mesh=mesh)
+    batch = {k: torch.from_numpy(v) for k, v in prefill_batch(cfg).items()}
+    return {"logits": art.fn(art.place_state(_clone(params)), batch).numpy()}
+
+
+def argmax_cases(rank: int, meshes) -> dict:
+    """``vocab_argmax`` over model extents 2 and 4 of ``ARGMAX_VOCAB``-wide
+    rows: seeded values, ties within a rank's slice, across slices, an
+    all-equal row. Returns (got, torch.argmax of the whole rows) a layout."""
+    from repro_torch.dist.tensor_parallel import TensorParallel, vocab_argmax
+
+    rng = np.random.default_rng(24)
+    rows = rng.standard_normal((6, ARGMAX_VOCAB)).astype(np.float32)
+    rows[1, [3, 5]] = rows[1].max() + 1.0  # a tie inside one slice
+    rows[2, [2, 13]] = rows[2].max() + 1.0  # across the first and last slices
+    rows[3, [9, 6]] = rows[3].max() + 1.0  # across two middle slices
+    rows[4] = 0.5  # every value equal
+    whole = torch.from_numpy(rows)
+    out = {}
+    for m in (2, 4):
+        mesh = meshes[m]
+        tp = TensorParallel(mesh.model_group, mesh.model_rank, mesh.model)
+        part = whole.chunk(m, -1)[mesh.model_rank]
+        out[m] = (vocab_argmax(part, tp, ARGMAX_VOCAB).numpy(),
+                  torch.argmax(whole, dim=-1).numpy())
+    return out
+
+
+def serve_mesh(rank: int, directory: str, params_file: str) -> dict:
+    """Every decode, engine and prefill case on its layout of the 4 ranks,
+    the argmax, and the repairs' training steps (``REPAIR_CASES``)."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    params = torch.load(params_file, weights_only=False)
+    meshes = {m: make_local_mesh("cpu", model=m) for m in (1, 2, 4)}
+    out = {"decode": {c: serve_decode(c, params["serve"][m], meshes[lay[1]])
+                      for c, (m, lay, _) in DECODE_CASES.items()},
+           "engine": {c: serve_engine(c, params["serve"][m], meshes[lay[1]])
+                      for c, (m, lay, _, _) in ENGINE_CASES.items()},
+           "prefill": {c: serve_prefill(c, params["serve"][m], meshes[lay[1]])
+                       for c, (m, lay, _) in PREFILL_CASES.items()},
+           "argmax": argmax_cases(rank, meshes)}
+    out["train"] = {c: tp_run(c, params["train"][c], meshes[REPAIR_CASES[c][2][1]])
+                    for c in REPAIR_CASES}
+    return out
