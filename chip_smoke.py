@@ -313,6 +313,19 @@ a spill in the quantizer's kernels or compiled one that ``KERNEL_KINDS``
 does not name. ``train_compare`` runs a second case under a ``compress8``
 / ``swap`` plan with the head's weights in host memory.
 
+The ``dryrun`` phase, after ``launchers`` and with no card phase beside
+it, runs the dry-run (``launch/dryrun.py``) in ``DRYRUN_WORKERS``
+processes of its own, which share its tasks (fake tensors are host
+work): every (architecture x shape) cell on both production meshes
+planned on ``H100_SXM``'s data sheet and its step built on fake CUDA
+tensors for rank 0 of 256 or 512 ranks (the kernel route: the kernels'
+fakes), and the MegaTrain demo. It prints a line a cell and fails unless
+all 66 are ``ok`` and no task launched a kernel or allocated on the card. ``dryrun_vs_card`` holds the fake builds of the
+``train`` phase's step and of the ``engine`` phase's decode step to the
+peaks those phases measured (``DRYRUN_VS_CARD_BOUND``). The ``tp``
+phase's ``mistral_pod`` run puts its two gloo ranks on two pods of one
+data rank each, under ZeRO-sharded ``hbm`` chunks (``tp_pod``).
+
 Then the kernels summary line, the card's name and power limit, and last
 the result line. Any failed check raises: the script exits non-zero and
 prints no result line. It exits non-zero at once without CUDA, or outside a
@@ -896,6 +909,27 @@ def decode_norms(cfg) -> int:
     return 1 + sum(layer_norms(cfg, i) for i in range(cfg.num_layers))
 
 
+def serve_setup(cfg):
+    """(shape, paging, plan, admission) of a serving phase: a model with
+    attention paged (``PAGE``-row pages, ``N_HOT`` hot) under chunked
+    admission, an attention-free one resident under replay."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.models import kvcache as KV
+    from repro_torch.models.model import num_repeats
+    from repro_torch.serve import choose_paging
+
+    shape = ShapeConfig("smoke", SEQ_LEN, BATCH, "decode")
+    n_chunks = num_repeats(cfg) + 2  # embedding + one per block + head
+    if cfg.attention_free:
+        plan = MemoryPlan(n_chunks, num_repeats(cfg), n_persist=n_chunks)
+        return shape, None, plan, dict(admission="replay")
+    spec = choose_paging(KV.cache_len(cfg, SEQ_LEN), PAGE, N_HOT)
+    assert (spec.page_size, spec.n_pages, spec.n_hot) == (PAGE, SEQ_LEN // PAGE, N_HOT)
+    plan = MemoryPlan(n_chunks, num_repeats(cfg), n_persist=n_chunks, n_host=spec.n_cold)
+    return shape, spec, plan, dict(admission="chunked", prefill_chunk=PREFILL_CHUNK)
+
+
 def serve_phase(cfg, hw, phase: str, prompt_lens=PROMPT_LENS, prime=None, params=None,
                 record: dict | None = None) -> dict[str, int]:
     """``DecodeEngine`` serving 4 requests of ``cfg`` (random bf16 weights
@@ -917,28 +951,16 @@ def serve_phase(cfg, hw, phase: str, prompt_lens=PROMPT_LENS, prime=None, params
     import torch
 
     from repro_torch import obs
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.core.plan import MemoryPlan
     from repro_torch.models import kvcache as KV
-    from repro_torch.models.model import init_params, num_repeats
-    from repro_torch.serve import DecodeEngine, PagedKV, Request, choose_paging
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import DecodeEngine, PagedKV, Request
 
     moe = cfg.moe is not None
     attn = not cfg.attention_free
     rms = cfg.norm == "rmsnorm"
     kernels = tuple(k for k in (SERVING_KERNELS if attn else ("rmsnorm",))
                     if k != "rmsnorm" or rms)
-    shape = ShapeConfig("smoke", SEQ_LEN, BATCH, "decode")
-    n_chunks = num_repeats(cfg) + 2  # embedding + one per block + head
-    if attn:
-        spec = choose_paging(KV.cache_len(cfg, SEQ_LEN), PAGE, N_HOT)
-        assert (spec.page_size, spec.n_pages, spec.n_hot) == (PAGE, SEQ_LEN // PAGE, N_HOT)
-        plan = MemoryPlan(n_chunks, num_repeats(cfg), n_persist=n_chunks, n_host=spec.n_cold)
-        admission = dict(admission="chunked", prefill_chunk=PREFILL_CHUNK)
-    else:
-        spec = None
-        plan = MemoryPlan(n_chunks, num_repeats(cfg), n_persist=n_chunks)
-        admission = dict(admission="replay")
+    shape, spec, plan, admission = serve_setup(cfg)
     t0 = time.perf_counter()
     if params is None:
         params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -966,7 +988,7 @@ def serve_phase(cfg, hw, phase: str, prompt_lens=PROMPT_LENS, prime=None, params
     report, launches = run["report"], run["launches"]
     peak = torch.cuda.max_memory_allocated()
     if record is not None:
-        record.update(prompts=prompts, finished=report.finished)
+        record.update(prompts=prompts, finished=report.finished, peak_device_bytes=peak)
     for name, n in launches.items():
         assert n > 0, f"kernel {name} was not launched by the {phase} run"
     # per step: one paged attention an attention layer; the layers' RMSNorms
@@ -1099,11 +1121,11 @@ def priming_reaches_graph(engine, tokens, pos) -> dict:
     return out
 
 
-def phase_engine(hw) -> dict[str, int]:
+def phase_engine(hw, record: dict | None = None) -> dict[str, int]:
     """``mistral-7b`` at full width and depth through ``serve_phase``."""
     from repro_torch.configs import get_config
 
-    return serve_phase(get_config("mistral-7b"), hw, "engine")
+    return serve_phase(get_config("mistral-7b"), hw, "engine", record=record)
 
 
 # ---------------------------------------------------------------------------
@@ -1742,25 +1764,33 @@ def expected_host_traffic(cfg, plan, shape, steps: int) -> dict[str, int]:
                 layer_sites(cfg, i) for i, p in enumerate(policies) if p == "compress8")}
 
 
+def train_setup():
+    """(config, shape, plan) of the ``train`` phase: 8-layer full-width
+    mistral-7b at S 4096, B 2 in two microbatches, two host chunks."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.plan import MemoryPlan
+
+    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=8)
+    plan = MemoryPlan(n_chunks=10, n_blocks=8, n_persist=4, n_host=2, n_checkpoint=4,
+                      microbatch=2, host_optimizer=True, host_params=False)
+    return cfg, ShapeConfig("train", TRAIN_SEQ, 2, "train"), plan
+
+
 def phase_train() -> dict[str, int]:
     """4 steps of 8-layer full-width mistral-7b through train_loop."""
     import torch
 
     from repro_torch import kernels as K
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.chunks import chunk_inventory, total_param_count
-    from repro_torch.core.plan import MemoryPlan
     from repro_torch.data.pipeline import SyntheticTokenPipeline
     from repro_torch.optim.adam import AdamConfig, tree_leaves
     from repro_torch.train.loop import LoopConfig, train_loop
     from repro_torch.train.step_builder import build_train_step
 
-    steps, batch = 4, 2
-    cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=8)
-    shape = ShapeConfig("train", TRAIN_SEQ, batch, "train")
-    plan = MemoryPlan(n_chunks=10, n_blocks=8, n_persist=4, n_host=2, n_checkpoint=4,
-                      microbatch=2, host_optimizer=True, host_params=False)
+    steps = 4
+    cfg, shape, plan = train_setup()
+    batch = shape.global_batch
     chunks = chunk_inventory(cfg)
     assert len(chunks) == plan.n_chunks
     art = build_train_step(cfg, plan, "cuda", shape, adam=AdamConfig(lr=3e-4))
@@ -3806,17 +3836,21 @@ TP_MAMBA_LAYERS, TP_MAMBA_SEQ = 4, 8192
 TP_ENCDEC_LAYERS = 2
 TP_VLM_LAYERS, TP_VLM_TOKENS = 2, 3072  # 1,024 patches ahead: P + S = 4,096
 TP_VLM_SEQ = TP_VLM_TOKENS + VLM_PATCHES
-# tp_ranks' runs, in order: (name, family, (data, model), seq_shard_acts)
+# tp_ranks' runs, in order: (name, family, (pod, data, model), seq_shard_acts,
+# plan): the resident plan, or "zero" (ZeRO-sharded hbm chunks, a persistent
+# embedding chunk); "mistral_pod" puts the two ranks on two pods of one data
+# rank each, its chunks sharded over the pod axis
 TP_RUNS = (
-    ("mistral", "mistral", (1, TP_MODEL), False),
-    ("mistral_sp", "mistral", (1, TP_MODEL), True),
-    ("moe_data", "moe", (TP_MODEL, 1), False),
-    ("mamba", "mamba", (1, TP_MODEL), False),
-    ("mamba_sp", "mamba", (1, TP_MODEL), True),
-    ("hybrid", "hybrid", (1, TP_MODEL), False),
-    ("seamless", "seamless", (1, TP_MODEL), False),
-    ("llava", "llava", (1, TP_MODEL), False),
-    ("llava_sp", "llava", (1, TP_MODEL), True),
+    ("mistral", "mistral", (1, 1, TP_MODEL), False, "resident"),
+    ("mistral_sp", "mistral", (1, 1, TP_MODEL), True, "resident"),
+    ("moe_data", "moe", (1, TP_MODEL, 1), False, "resident"),
+    ("mamba", "mamba", (1, 1, TP_MODEL), False, "resident"),
+    ("mamba_sp", "mamba", (1, 1, TP_MODEL), True, "resident"),
+    ("hybrid", "hybrid", (1, 1, TP_MODEL), False, "resident"),
+    ("seamless", "seamless", (1, 1, TP_MODEL), False, "resident"),
+    ("llava", "llava", (1, 1, TP_MODEL), False, "resident"),
+    ("llava_sp", "llava", (1, 1, TP_MODEL), True, "resident"),
+    ("mistral_pod", "mistral", (TP_MODEL, 1, 1), False, "zero"),
 )
 # the kernels each family's step must launch
 TP_KERNELS = {"mamba": ("rmsnorm", "fused_adam"),
@@ -3859,18 +3893,21 @@ def phase_tp_kernels() -> list[dict]:
     return rows
 
 
-def tp_setup(family: str, seq_shard: bool):
+def tp_setup(family: str, seq_shard: bool, plan_kind: str = "resident"):
     """(config, shape, plan) of a ``tp`` run: the family at full width and
-    its depth above, the resident plan; qwen2-moe-a2.7b at B 2, its
-    config's capacity factor 1.25."""
+    its depth above, the resident plan (or, ``"zero"``, every block's chunk
+    and the head's ZeRO-sharded in HBM, at B 2: a row a rank);
+    qwen2-moe-a2.7b at B 2, its config's capacity factor 1.25."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.core.plan import fully_resident_plan
+    from repro_torch.core.plan import MemoryPlan, fully_resident_plan
     from repro_torch.models.model import num_repeats
 
     seq, batch = TRAIN_SEQ, 1
     if family == "mistral":
         cfg = dataclasses.replace(get_config("mistral-7b"), num_layers=TP_LAYERS)
+        if plan_kind == "zero":  # the pod run: a row for each of its ranks
+            batch = TP_MODEL
     elif family == "moe":
         cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=TP_MOE_LAYERS)
         batch = TP_MOE_BATCH
@@ -3886,8 +3923,10 @@ def tp_setup(family: str, seq_shard: bool):
         cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=TP_VLM_LAYERS)
         seq = TP_VLM_TOKENS
     n = num_repeats(cfg)
+    plan = (MemoryPlan(n + 2, n, n_persist=1) if plan_kind == "zero"
+            else fully_resident_plan(n + 2, n))
     return cfg, ShapeConfig("tp", seq, batch, "train"), dataclasses.replace(
-        fully_resident_plan(n + 2, n), seq_shard_acts=seq_shard)
+        plan, seq_shard_acts=seq_shard)
 
 
 @contextlib.contextmanager
@@ -3918,14 +3957,15 @@ def moe_drop_count(into: dict):
         MOE.apply_moe = apply
 
 
-def tp_steps(family: str = "mistral", seq_shard: bool = False, mesh=None) -> dict:
+def tp_steps(family: str = "mistral", seq_shard: bool = False, mesh=None,
+             plan_kind: str = "resident") -> dict:
     """``TP_STEPS`` steps of ``family``'s ``tp`` run (Adam at ``TP_LR`` for
     mistral-7b, ``TP_FAMILY_LR`` for the others) from the weights of
     seed 0, on ``mesh`` (None: one device), ``seq_shard`` its
-    ``seq_shard_acts``: losses, norms, step seconds, the kernels' launches
-    over the steps, the peak, this rank's state bytes (weights and fp32
-    master, m and v); on one device an MoE's first step counts the choices
-    its capacity dropped."""
+    ``seq_shard_acts``, under ``plan_kind`` (``tp_setup``): losses, norms,
+    step seconds, the kernels' launches over the steps, the peak, this
+    rank's state bytes (weights and fp32 master, m and v); on one device an
+    MoE's first step counts the choices its capacity dropped."""
     import torch
 
     from repro_torch import kernels as K
@@ -3933,7 +3973,7 @@ def tp_steps(family: str = "mistral", seq_shard: bool = False, mesh=None) -> dic
     from repro_torch.optim.adam import AdamConfig, tree_leaves
     from repro_torch.train.step_builder import build_train_step
 
-    cfg, shape, plan = tp_setup(family, seq_shard)
+    cfg, shape, plan = tp_setup(family, seq_shard, plan_kind)
     lr = TP_LR if family == "mistral" else TP_FAMILY_LR
     art = build_train_step(cfg, plan, "cuda", shape, mesh=mesh, adam=AdamConfig(lr=lr))
     state = art.init(torch.Generator(device="cuda").manual_seed(0))
@@ -3957,8 +3997,9 @@ def tp_steps(family: str = "mistral", seq_shard: bool = False, mesh=None) -> dic
            "launches": dict(K.launch_counts()), "peak_bytes": torch.cuda.max_memory_allocated(),
            "state_bytes": state_bytes, "strategy": art.strategy.kind,
            "arch": cfg.name, "layers": cfg.num_layers, "seq": shape.seq_len, "lr": lr,
-           "batch": shape.global_batch,
-           "model_split_leaves": sum(ls.mdim is not None for ls in art.leaf_syncs)}
+           "batch": shape.global_batch, "plan": plan.describe(),
+           "model_split_leaves": sum(ls.mdim is not None for ls in art.leaf_syncs),
+           "data_split_leaves": sum(ls.dim is not None for ls in art.leaf_syncs)}
     if drops:
         out["moe_dropped_share"] = drops["dropped"] / drops["choices"]
         out["moe_choices"] = drops["choices"]
@@ -3970,8 +4011,8 @@ def tp_steps(family: str = "mistral", seq_shard: bool = False, mesh=None) -> dic
 
 def _tp_rank(rank: int, world: int, store: str, out: str) -> None:
     """One rank of ``tp_ranks``: a process of its own on ``cuda:0``, in a
-    gloo group of ``world``, running ``TP_RUNS`` in order on their layouts.
-    Rank 0 writes its runs."""
+    gloo group of ``world``, running ``TP_RUNS`` in order on their (pod,
+    data, model) layouts. Rank 0 writes its runs."""
     sys.path.insert(0, str(HERE / "src"))
     import torch
     import torch.distributed as dist
@@ -3983,9 +4024,10 @@ def _tp_rank(rank: int, world: int, store: str, out: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world)
     try:
-        meshes = {m: make_local_mesh("cuda:0", model=m) for m in (1, world)}
-        runs = {name: tp_steps(family, sp, meshes[layout[1]])
-                for name, family, layout, sp in TP_RUNS}
+        meshes = {lay: make_local_mesh("cuda:0", model=lay[2], pod=lay[0])
+                  for lay in dict.fromkeys(r[2] for r in TP_RUNS)}
+        runs = {name: tp_steps(family, sp, meshes[layout], kind)
+                for name, family, layout, sp, kind in TP_RUNS}
         if rank == 0:
             with open(out, "w") as f:
                 json.dump(runs, f)
@@ -3993,12 +4035,12 @@ def _tp_rank(rank: int, world: int, store: str, out: str) -> None:
         dist.destroy_process_group()
 
 
-def phase_tp() -> tuple[dict[str, int], list[dict]]:
+def phase_tp() -> tuple[dict[str, int], list[dict], dict[str, int]]:
     """The model axis on the card: the flash kernels at its shard shapes,
     then ``TP_MODEL`` ranks on the one card against the single-device step
     from the same weights, every family's run after the one-device
     reference of each has run and freed the card. Returns rank 0's
-    launches and the flash rows."""
+    launches, the flash rows and rank 0's launches over the pod axis."""
     import tempfile
 
     import torch
@@ -4006,7 +4048,8 @@ def phase_tp() -> tuple[dict[str, int], list[dict]]:
 
     rows = phase_tp_kernels()
     t0 = time.perf_counter()
-    one = {fam: tp_steps(fam) for fam in dict.fromkeys(f for _, f, _, _ in TP_RUNS)}
+    one = {(fam, kind): tp_steps(fam, plan_kind=kind)
+           for fam, kind in dict.fromkeys((r[1], r[4]) for r in TP_RUNS)}
     emit("tp_one_device_seconds", seconds=time.perf_counter() - t0)
     d = tempfile.mkdtemp()
     try:
@@ -4017,22 +4060,25 @@ def phase_tp() -> tuple[dict[str, int], list[dict]]:
     finally:
         shutil.rmtree(d, ignore_errors=True)
     launches: dict[str, int] = {}
+    pod_launches: dict[str, int] = {}  # the pod axis's run, a path of its own
     failed: list[str] = []
-    for name, family, (data, model), sp in TP_RUNS:
-        run, ref = runs[name], one[family]
+    for name, family, (pod, data, model), sp, kind in TP_RUNS:
+        run, ref = runs[name], one[family, kind]
         loss_diff = [abs(a - b) for a, b in zip(run["losses"], ref["losses"])]
         norm_rel = [abs(a - b) / b for a, b in zip(run["grad_norms"], ref["grad_norms"])]
-        line = "tp_ranks" if family == "mistral" else (
+        line = "tp_pod" if pod > 1 else "tp_ranks" if family == "mistral" else (
             "tp_moe_data" if family == "moe" else "tp_families")
         extra = {k: ref[k] for k in ("moe_dropped_share", "moe_choices") if k in ref}
         emit(line, run=name, arch=run["arch"], layers=run["layers"], seq=run["seq"],
-             batch=run["batch"], lr=run["lr"], layout={"data": data, "model": model},
-             backend="gloo", plan="resident", seq_shard_acts=sp,
+             batch=run["batch"], lr=run["lr"],
+             layout={"pod": pod, "data": data, "model": model},
+             backend="gloo", plan=run["plan"], seq_shard_acts=sp,
              losses=run["losses"], losses_one_device=ref["losses"],
              grad_norms=run["grad_norms"], grad_norms_one_device=ref["grad_norms"],
              loss_abs_diff=loss_diff, grad_norm_rel_diff=norm_rel,
              tol={"loss": TP_LOSS_TOL, "grad_norm_rel": TP_NORM_RTOL},
              strategy=run["strategy"], model_split_leaves=run["model_split_leaves"],
+             data_split_leaves=run["data_split_leaves"],
              launches=run["launches"],
              peak_bytes_rank0=run["peak_bytes"], peak_bytes_one_device=ref["peak_bytes"],
              state_bytes_rank0=run["state_bytes"], state_bytes_one_device=ref["state_bytes"],
@@ -4043,19 +4089,20 @@ def phase_tp() -> tuple[dict[str, int], list[dict]]:
              ranks=run["step_seconds"], one_device=ref["step_seconds"])
         checks = {"strategy xla": run["strategy"] == "xla",
                   "leaves split": model == 1 or run["model_split_leaves"] > 0,
+                  "chunks sharded over the pods": pod == 1 or run["data_split_leaves"] > 0,
                   "finite": all(math.isfinite(x) for x in run["losses"] + run["grad_norms"]),
                   "losses within TP_LOSS_TOL": max(loss_diff) <= TP_LOSS_TOL,
                   "grad norms within TP_NORM_RTOL": max(norm_rel) <= TP_NORM_RTOL}
         checks.update({f"{k} launched": run["launches"].get(k, 0) > 0
                        for k in TP_KERNELS.get(family, TP_DEFAULT_KERNELS)})
         failed += [f"{name}: {k}" for k, ok in checks.items() if not ok]
-        sum_launches(launches, run["launches"])
-    if not one["moe"]["moe_dropped_share"] > 0:
+        sum_launches(pod_launches if pod > 1 else launches, run["launches"])
+    if not one["moe", "resident"]["moe_dropped_share"] > 0:
         failed.append("moe_data: the capacity dropped nothing")
     emit("tp_ranks_seconds", seconds=time.perf_counter() - t0)
     assert not failed, failed  # every run's line printed first
     torch.cuda.empty_cache()
-    return launches, rows
+    return launches, rows, pod_launches
 
 
 # ---------------------------------------------------------------------------
@@ -4454,6 +4501,233 @@ def phase_launchers() -> dict[str, dict[str, int]]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The dry-run (launch/dryrun.py): every production cell planned on
+# H100_SXM's data sheet and built on fake tensors for rank 0 of the 256- and
+# 512-card meshes; the fake builds of the train and engine phases' own
+# steps against the peaks the card measured. It runs after the card's
+# phases, with nothing beside it
+# ---------------------------------------------------------------------------
+DRYRUN_MESHES = ("single", "multi")
+# the sweep's processes, a host core each beside the main process, which waits
+DRYRUN_WORKERS = 7
+# the most the sweep's processes may take together
+DRYRUN_TIMEOUT_S = 420
+# the card's peak over the dry-run's (argument + live bytes on the kernel
+# route), written in PERF.md before the first call that held it
+DRYRUN_VS_CARD_BOUND = (0.9, 1.15)
+
+
+def dryrun_tasks() -> list[tuple[str, ...]]:
+    """What the sweep's processes share, in the order they take it: the
+    fake builds of the card phases' own steps (``fake_vs_card``), the
+    MegaTrain demo, then every cell of both meshes, training first and the
+    largest models first, so that the longest builds start first."""
+    from repro_torch.configs import ARCHS, get_config, get_shape
+    from repro_torch.launch.dryrun import cells
+
+    first = {"train": 0, "prefill": 1, "decode": 2}
+    todo = [(arch, shape, mesh) for arch, shape in cells(sorted(ARCHS))
+            for mesh in DRYRUN_MESHES]
+    todo.sort(key=lambda c: (first[get_shape(c[1]).mode], -get_config(c[0]).param_count()))
+    return [("vs_card",), ("megatrain",)] + todo
+
+
+def dryrun_worker(out: str, index: str) -> None:
+    """A process of the sweep (``phase_dryrun``), on the kernel route: it
+    takes the next task of ``dryrun_tasks`` that no other process has
+    claimed (a file made with ``O_EXCL`` under ``out/claims``) until none
+    is left. Autograd on fake CUDA tensors needs a CUDA context, so each
+    process holds one: torch's fake mode makes it at the first fake CUDA
+    tensor with one real 4-byte tensor, freed at once
+    (``init_gpu_context``), which the process makes before its first task.
+    After each task it writes to ``out/tasks_<index>.jsonl`` the kernels
+    that task launched and the most it allocated on the card, both to be
+    0."""
+    import os
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.launch import dryrun as D
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    torch.set_num_threads(1)
+    with FakeTensorMode():
+        torch.empty(1, device="cuda")  # the CUDA context, before any task
+    os.makedirs(f"{out}/claims", exist_ok=True)
+    for task in dryrun_tasks():
+        try:
+            os.close(os.open(f"{out}/claims/{'.'.join(task)}", os.O_CREAT | os.O_EXCL))
+        except FileExistsError:
+            continue
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if task == ("vs_card",):
+            fake_vs_card(f"{out}/vs_card.json")
+            rc = 0
+        elif task == ("megatrain",):
+            try:
+                rc = D.main(["--megatrain", "--device", "cuda", "--out", f"{out}/megatrain"])
+            except AssertionError as e:  # the plan overflows the card: the reference's message
+                print(f"[dryrun] MEGATRAIN {e}", flush=True)
+                rc = str(e)
+        else:
+            arch, shape, mesh = task
+            rc = D.main(["--arch", arch, "--shape", shape, "--mesh", mesh,
+                         "--device", "cuda", "--out", f"{out}/w{index}"])
+        with open(f"{out}/tasks_{index}.jsonl", "a") as f:
+            f.write(json.dumps({"task": list(task), "rc": rc,
+                                "seconds": time.perf_counter() - t0,
+                                "launches": sum(K.launch_counts().values()),
+                                "max_allocated": torch.cuda.max_memory_allocated()}) + "\n")
+
+
+def fake_vs_card(path: str) -> None:
+    """The dry-run's fake builds of the ``train`` phase's step (its config,
+    shape and plan, world one) and of the ``engine`` phase's decode step
+    (mistral-7b, its paging, a chunk of ``PREFILL_CHUNK``), on the kernel
+    route, with the train plan's analytic FLOPs a step; written to ``path``
+    as JSON."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import build_workload, step_totals
+    from repro_torch.core.hardware import H100_SXM, ONE_CHIP
+    from repro_torch.launch import dryrun as D
+
+    cuda = torch.device("cuda")
+    out = {}
+    cfg, shape, plan = train_setup()
+    got = D.fake_step(cfg, shape, plan, ONE_CHIP, cuda)
+    out["train"] = {k: got[k] for k in ("memory", "counted_flops", "kernel_flops", "run_s")}
+    out["train"]["analytic_flops"] = step_totals(build_workload(cfg, shape, ONE_CHIP, H100_SXM),
+                                                 plan)[0]
+    cfg = get_config("mistral-7b")
+    shape, spec, plan, _ = serve_setup(cfg)
+    got = D.fake_step(cfg, shape, plan, ONE_CHIP, cuda, paging=spec, chunk=PREFILL_CHUNK)
+    out["engine"] = {k: got[k] for k in ("memory", "counted_flops", "kernel_flops", "run_s")}
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def _tail(path: str, n: int = 2000) -> str:
+    with open(path) as f:
+        return f.read()[-n:]
+
+
+def _jsonl(paths) -> list[dict]:
+    return [json.loads(line) for p in sorted(paths) for line in open(p)]
+
+
+def phase_dryrun(out: str) -> dict:
+    """The sweep in ``DRYRUN_WORKERS`` processes (``dryrun_worker``) after
+    the card's phases; one line a cell (plan, bottleneck, the three terms,
+    the built step's temp and peak bytes beside the modeled peak); each
+    mode's count, the failures, the seconds, the MegaTrain demo. Fails
+    unless all 66 cells are ``ok`` and no task launched a kernel or
+    allocated on the card. Returns the fake builds of the card phases'
+    steps (``fake_vs_card``)."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(HERE / "src"), "OMP_NUM_THREADS": "1"}
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for i in range(DRYRUN_WORKERS):
+            log = open(f"{out}/w{i}.log", "w")
+            procs.append((subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"),
+                                            "--dryrun-worker", out, str(i)],
+                                           stdout=log, stderr=subprocess.STDOUT, env=env,
+                                           cwd=HERE), log))
+        for i, (proc, _) in enumerate(procs):
+            rc = proc.wait(timeout=max(1.0, t0 + DRYRUN_TIMEOUT_S - time.perf_counter()))
+            if rc != 0:
+                print(_tail(f"{out}/w{i}.log", 6000), file=sys.stderr)
+            assert rc == 0, f"the dry-run's process {i}: {rc}"
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    tasks = _jsonl(pathlib.Path(out).glob("tasks_*.jsonl"))
+    assert sorted(tuple(t["task"]) for t in tasks) == sorted(dryrun_tasks()), "tasks lost"
+    card = {"launches": sum(t["launches"] for t in tasks),
+            "max_allocated": max(t["max_allocated"] for t in tasks),
+            "tasks": [t for t in tasks if t["launches"] or t["max_allocated"]]}
+    recs = _jsonl(pathlib.Path(out).glob("w*/dryrun_cells_torch.jsonl"))
+    for r in recs:
+        if not r["ok"]:
+            emit("dryrun_cell", arch=r["arch"], shape=r["shape"], mesh=r["mesh"], ok=False,
+                 error=r["error"], trace=r["trace"][-600:])
+            continue
+        modeled = r["modeled"].get("peak_gb_per_chip", r["modeled"].get("peak_gb"))
+        rl = r["roofline"]
+        emit("dryrun_cell", arch=r["arch"], shape=r["shape"], mesh=r["mesh"], ok=True,
+             plan=r["plan"], bottleneck=rl["bottleneck"], t_compute_s=rl["t_compute_s"],
+             t_memory_s=rl["t_memory_s"], t_collective_s=rl["t_collective_s"],
+             temp_gb=r["memory"]["temp_gb"], argument_gb=r["memory"]["argument_gb"],
+             host_gb=r["memory"]["host_gb"], peak_gb=r["peak_gb"], modeled_peak_gb=modeled,
+             counted_flops=rl["counted_flops"], flops_per_chip=rl["flops_per_chip"],
+             n_collectives=r["n_collectives"], build_s=r["build_s"], run_s=r["run_s"])
+    modes: dict[str, int] = {}
+    for r in recs:
+        if r["ok"]:
+            modes[r["mode"]] = modes.get(r["mode"], 0) + 1
+    failures = sum(not r["ok"] for r in recs)
+    mega_rc = next(t["rc"] for t in tasks if t["task"] == ["megatrain"])
+    if mega_rc == 0:
+        with open(f"{out}/megatrain/dryrun_cells_torch.jsonl") as f:
+            rec = json.loads(f.readline())
+        mega = {"ok": rec["ok"], "plan": rec["plan"], **rec["megatrain"],
+                "memory": rec["memory"], "bottleneck": rec["roofline"]["bottleneck"],
+                "build_s": rec["build_s"], "run_s": rec["run_s"]}
+    else:
+        mega = {"ok": False, "assertion": mega_rc}
+    emit("dryrun", cells=len(recs), by_mode=modes, failures=failures,
+         route="kernels (fake CUDA tensors)", target_hw="h100-sxm",
+         meshes={"single": [16, 16], "multi": [2, 16, 16]}, workers=DRYRUN_WORKERS,
+         seconds=wall, cell_seconds=sum(r.get("build_s", 0) + r.get("run_s", 0) for r in recs),
+         task_seconds=sum(t["seconds"] for t in tasks), card=card, megatrain=mega,
+         note="every number priced on the data sheet: modeled, not measured")
+    assert all(t["rc"] == 0 for t in tasks if t["task"] != ["megatrain"]), tasks
+    assert failures == 0 and len(recs) == 66, (len(recs), failures)
+    assert not card["tasks"], card
+    assert mega["ok"] or "overflows the chip" in mega["assertion"], mega
+    with open(f"{out}/vs_card.json") as f:
+        return json.load(f)
+
+
+def phase_dryrun_vs_card(fake: dict, train_run: dict, engine_record: dict) -> None:
+    """The dry-run's peak (argument + temp bytes) of the ``train`` and
+    ``engine`` phases' own steps (``fake``, from ``fake_vs_card``) against
+    the peaks those phases measured on the card; each ratio must lie in
+    ``DRYRUN_VS_CARD_BOUND``. Beside them, the fake train step's counted
+    FLOPs against the analytic ones."""
+    rows, failed = {}, []
+    for name, card in (("train", train_run["peak_device_bytes"]),
+                       ("engine", engine_record["peak_device_bytes"])):
+        mem = fake[name]["memory"]
+        dry = (mem["argument_gb"] + mem["temp_gb"]) * 1e9
+        ratio = card / dry
+        rows[name] = {"card_peak_bytes": card, "dryrun_peak_bytes": dry,
+                      "argument_gb": mem["argument_gb"], "temp_gb": mem["temp_gb"],
+                      "host_gb": mem["host_gb"], "card_over_dryrun": ratio,
+                      "counted_flops": fake[name]["counted_flops"],
+                      "kernel_flops": fake[name]["kernel_flops"]}
+        if not DRYRUN_VS_CARD_BOUND[0] <= ratio <= DRYRUN_VS_CARD_BOUND[1]:
+            failed.append(f"{name}: {ratio:.4f}")
+    rows["train"]["analytic_flops"] = fake["train"]["analytic_flops"]
+    rows["train"]["counted_over_analytic"] = (fake["train"]["counted_flops"]
+                                              / fake["train"]["analytic_flops"])
+    emit("dryrun_vs_card", bound=DRYRUN_VS_CARD_BOUND, **rows)
+    assert not failed, failed
+
+
 def timed_phase(name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -4467,11 +4741,26 @@ def main() -> int:
               "beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE / "src"))
+    if sys.argv[1:2] == ["--dryrun-worker"]:  # a process of phase_dryrun's
+        dryrun_worker(*sys.argv[2:4])
+        return 0
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+    dry_dir = tempfile.mkdtemp()
+    try:
+        return _main(dry_dir)
+    finally:
+        shutil.rmtree(dry_dir, ignore_errors=True)
+
+
+def _main(dry_dir: str) -> int:
+    import torch
+
     from repro_torch.core.hardware import local_cuda_hw
 
     t0 = time.perf_counter()
@@ -4479,7 +4768,8 @@ def main() -> int:
     timed_phase("build", phase_build)
     measured = timed_phase("kernels", phase_kernels)
     hw = local_cuda_hw()  # this card, its host and its host link, read now
-    launches = timed_phase("engine", lambda: phase_engine(hw))
+    engine_record: dict = {}
+    launches = timed_phase("engine", lambda: phase_engine(hw, engine_record))
     gc.collect()  # the engine's weights go with its phase
     torch.cuda.empty_cache()
     training = timed_phase("train_kernels", phase_train_kernels)
@@ -4535,9 +4825,11 @@ def main() -> int:
     dist_sync_launches, dist_rows = timed_phase("dist_sync", phase_dist_sync)
     dist_ranks_launches = timed_phase("dist_ranks", phase_dist_ranks)
     dist_xla_launches = timed_phase("dist_xla", lambda: phase_dist_xla(hw))
-    tp_launches, tp_rows = timed_phase("tp", phase_tp)
+    tp_launches, tp_rows, tp_pod_launches = timed_phase("tp", phase_tp)
     serve_mesh_launches, serve_mesh_rows = timed_phase("serve_mesh", phase_serve_mesh)
     launcher_launches = timed_phase("launchers", phase_launchers)
+    fake = timed_phase("dryrun", lambda: phase_dryrun(dry_dir))
+    timed_phase("dryrun_vs_card", lambda: phase_dryrun_vs_card(fake, train_run, engine_record))
     # each path's launches, counted from 0 just before it ran
     by_path = {"engine": launches, "train": train_launches, "train_policies": policy_launches,
                "plan": plan_out["launches"], "moe_serve": moe_serve_launches,
@@ -4549,7 +4841,7 @@ def main() -> int:
                "vlm_serve": vlm_serve_launches, "vlm_prefill": vlm_prefill_launches,
                "vlm_train_compare": vlm_compare_launches, "vlm_plan": vlm_plan_out["launches"],
                "dist_sync": dist_sync_launches, "dist_ranks": dist_ranks_launches,
-               "dist_xla": dist_xla_launches, "tp": tp_launches,
+               "dist_xla": dist_xla_launches, "tp": tp_launches, "tp_pod": tp_pod_launches,
                "serve_mesh": serve_mesh_launches,
                **{f"launch_{k}": v for k, v in launcher_launches.items()}}
     rms = measured["rmsnorm"][0]  # rows = batch: the decode path's shape

@@ -1,8 +1,16 @@
-"""Device resolution and the CUDA-kernel capability check.
+"""Device resolution, the CUDA-kernel capability check, and fake tensors.
 
 Entry points of the port run on ``cuda`` unless the caller passes
 ``device="cpu"`` (the CPU tests do). There is no silent fallback: asking for
 the default device on a machine without CUDA raises.
+
+The dry-run (``launch/dryrun.py``) runs a step on fake tensors
+(``FakeTensorMode``), which have no data pointer: ``faking`` says whether
+that mode is on, so that what needs a card (streams, the allocator's
+counters) is left out; ``pinned_empty`` is pinned host memory, plain host
+memory on fake tensors (which have no pinned kind); ``tensor_key`` / ``storage_key``
+name a tensor's first element and its storage as ``data_ptr`` does for a
+real tensor, for fake ones too.
 """
 from __future__ import annotations
 
@@ -56,3 +64,25 @@ def require_cuda_kernels() -> None:
     problems = cuda_kernel_problems()
     if problems:
         raise RuntimeError("CUDA kernels unavailable: " + "; ".join(problems))
+
+
+def faking() -> bool:
+    """Is a ``FakeTensorMode`` on (the dry-run's fake step)?"""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+def pinned_empty(shape, dtype: torch.dtype) -> torch.Tensor:
+    """An uninitialised host tensor in pinned memory (plain host memory on
+    fake tensors)."""
+    return torch.empty(shape, dtype=dtype, pin_memory=not faking())
+
+
+def storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage (its ``StorageImpl``)."""
+    return t.untyped_storage()._cdata
+
+
+def tensor_key(t: torch.Tensor) -> tuple[int, int]:
+    """The identity of ``t``'s first element: its storage and offset, where
+    ``data_ptr`` is their sum for a real tensor and 0 for a fake one."""
+    return storage_key(t), t.storage_offset()

@@ -51,6 +51,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.compat import storage_key, tensor_key
 from repro_torch import kernels as K
 from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.optim.adam import tree_leaves, tree_map
@@ -354,7 +355,7 @@ class LazyGather:
     (``compress="none"``: the wire numerics apply after the reduction).
 
     ``register(shard, dim, err, chunk, host)`` names a shard (a tensor or a
-    stacked run's per-repeat view, found again by its address), the dim
+    stacked run's per-repeat view, found again by its address, ``tensor_key``), the dim
     it gathers along, its residual, its chunk's label and whether it lies
     in host memory: then ``io`` (the step's ``models/offload.HostIO``)
     copies it to the device before the all-gather, and a replicated host
@@ -372,18 +373,18 @@ class LazyGather:
 
     def __init__(self, group, compress: str, registry=NULL_REGISTRY, io=None):
         self.group, self.compress, self.registry, self.io = group, compress, registry, io
-        self._leaves: dict[int, tuple[int | None, torch.Tensor | None, str, bool]] = {}
-        self._pending: dict[int, tuple[torch.Tensor, object]] = {}
+        self._leaves: dict[tuple, tuple[int | None, torch.Tensor | None, str, bool]] = {}
+        self._pending: dict[tuple, tuple[torch.Tensor, object]] = {}
 
     def register(self, w: torch.Tensor, dim: int | None, err: torch.Tensor | None,
                  chunk: str, host: bool = False) -> None:
         if dim is not None or host:
-            self._leaves[w.data_ptr()] = (dim, err, chunk, host)
+            self._leaves[tensor_key(w)] = (dim, err, chunk, host)
 
     def _hosts(self, tree) -> list:
         """The registered host leaves of ``tree``."""
         return [w for w in tree_leaves(tree)
-                if w.data_ptr() in self._leaves and self._leaves[w.data_ptr()][3]]
+                if tensor_key(w) in self._leaves and self._leaves[tensor_key(w)][3]]
 
     def will_fetch_again(self, tree) -> None:
         """The model's notice that the backward gathers ``tree`` again: a
@@ -402,10 +403,10 @@ class LazyGather:
         """The full leaf of registered shard ``w`` on the device (no
         gradient): the prefetched gather once it is done, else one now (a
         host shard copied to the device first)."""
-        dim, _, chunk, host = self._leaves[w.data_ptr()]
+        dim, _, chunk, host = self._leaves[tensor_key(w)]
         if dim is None:
             return self.io.take(w)
-        hit = self._pending.pop(w.data_ptr(), None)
+        hit = self._pending.pop(tensor_key(w), None)
         if hit is None:
             self._count(w, chunk, ahead=False)
             return tiled_all_gather(self.io.take(w) if host else w, self.group, dim)
@@ -421,7 +422,7 @@ class LazyGather:
         if not gather:
             return
         for w in tree_leaves(tree):
-            key = w.data_ptr()
+            key = tensor_key(w)
             entry = self._leaves.get(key)
             if entry is not None and entry[0] is not None and not entry[3] \
                     and key not in self._pending:
@@ -433,7 +434,7 @@ class LazyGather:
         same tree ``proxies``: the shards themselves where they lie on the
         device, their device proxies where they lie in host memory."""
         def one(px, w):
-            entry = self._leaves.get(w.data_ptr())
+            entry = self._leaves.get(tensor_key(w))
             if entry is None:
                 return w
             dim, err, _, host = entry
@@ -449,11 +450,11 @@ class LazyGather:
         self.will_fetch_again(shards)
         by_storage = {}
         for full, w in zip(tree_leaves(fetched), tree_leaves(shards)):
-            if w.data_ptr() in self._leaves:
-                by_storage[full.device, full.untyped_storage().data_ptr()] = _Regather(self, w)
+            if tensor_key(w) in self._leaves:
+                by_storage[full.device, storage_key(full)] = _Regather(self, w)
 
         def pack(t):
-            ref = by_storage.get((t.device, t.untyped_storage().data_ptr()))
+            ref = by_storage.get((t.device, storage_key(t)))
             return t if ref is None else (ref, t.size(), t.stride(), t.storage_offset())
 
         def unpack(obj):
@@ -482,7 +483,7 @@ class ServeGather:
     def __init__(self, group, registry=NULL_REGISTRY):
         self.group = group
         self.lazy = LazyGather(group, "none", registry)
-        self._outer: dict[int, int] = {}  # a leaf's data_ptr -> the dim it gathers along
+        self._outer: dict[tuple, int] = {}  # a leaf (tensor_key) -> the dim it gathers along
 
     def register(self, params: dict, dims: dict) -> None:
         """Name the sharded leaves of a rank's ``params`` (the serve tree)
@@ -497,12 +498,12 @@ class ServeGather:
                     for r in range(t.shape[0]):
                         self.lazy.register(t[r], d - 1, None, "blocks")
                 else:
-                    self._outer[t.data_ptr()] = d
+                    self._outer[tensor_key(t)] = d
 
     def outer(self, params: dict) -> dict:
         """``params`` with every leaf outside the layer stack whole."""
         def one(t):
-            d = self._outer.get(t.data_ptr())
+            d = self._outer.get(tensor_key(t))
             return t if d is None else tiled_all_gather(t, self.group, d)
         return {k: v if k == "blocks" else tree_map(one, v) for k, v in params.items()}
 
@@ -514,7 +515,7 @@ class ServeGather:
         """A layer's weights whole over the data group: each leaf's
         prefetched gather once it is done, else one now."""
         known = self.lazy._leaves
-        return tree_map(lambda w: self.lazy.gather(w) if w.data_ptr() in known else w, layer)
+        return tree_map(lambda w: self.lazy.gather(w) if tensor_key(w) in known else w, layer)
 
 
 def tree_leaves_dims(dims) -> list:

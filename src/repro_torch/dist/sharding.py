@@ -1,5 +1,5 @@
 """How a parameter leaf, a batch and an activation are sharded over the
-``(data, model)`` mesh.
+``(pod, data, model)`` mesh.
 
 Port of ``src/repro/dist/sharding.py``. Every ``ParamDef`` names its dims
 with tags (``models/layers.py``); under a ``MemoryPlan`` the reference's
@@ -37,15 +37,19 @@ the ZeRO-Offload split (the reference's ``param_place``,
 ``step_builder.py:146-148``); its optimizer states are pinned shards. A
 persistent leaf's optimizer states shard over data as an ``hbm`` leaf's
 under ``zero1_persistent`` while its weights stay replicated over data
-(``opt_dim``). The batch splits over ``batch_axes``: the data axis, and
-under ``dp_only`` the model axis too (``:53-55``), a rank taking its slice
-of each microbatch (``xla_batch_split``). ``shard_activation`` is
+(``opt_dim``). The batch splits over ``batch_axes``: the zero axes (``pod``
+and ``data``, pod-major), and under ``dp_only`` the model axis too
+(``:53-55``), a rank taking its slice of each microbatch
+(``xla_batch_split``). ``shard_activation`` is
 the activation sharder's three kinds (``make_activation_sharder``,
 ``:214-243``) as this rank's part of a whole tensor: ``bsd`` a
 block boundary (batch over the batch axes, the sequence over ``model``
 under ``seq_shard_acts``), ``enter`` batch only, ``logits`` the vocab
 dim over ``model``. Memory kinds and ``NamedSharding`` have no counterpart
-here; the multi-pod mesh waits in ROADMAP.md.
+here. On the multi-pod mesh the reference's zero axes are ``("pod",
+"data")`` (``:13-15, 46-53``); the port's "data" extent and rank are
+theirs (``launch/mesh.LocalMesh.data``: ``pod * data``, pod-major), so
+every table above reads the same across pods.
 
 Serving (``build_serve_params`` and ``_serve_cache_layout`` of the
 reference's step builder): ``serve_placements`` places the serve tree's
@@ -128,13 +132,16 @@ def def_leaves(tree) -> list[ParamDef]:
 # Batch and activations (sharding.py:53-55, 206-243)
 # ---------------------------------------------------------------------------
 def batch_axes(mesh, dp_only: bool = False) -> tuple[str, ...]:
-    """The axes the batch dim shards over; under ``dp_only`` the model axis
-    joins the data axis."""
-    return ("data", "model") if dp_only and mesh.model > 1 else ("data",)
+    """The axes the batch dim shards over: the zero axes (``pod`` and
+    ``data``); under ``dp_only`` the model axis joins them."""
+    zero = ("pod", "data") if getattr(mesh, "pod", 1) > 1 else ("data",)
+    return zero + ("model",) if dp_only and mesh.model > 1 else zero
 
 
 def batch_extent(mesh, dp_only: bool = False) -> tuple[int, int]:
-    """(this rank's index, the extent) along the batch axes."""
+    """(this rank's index, the extent) along the batch axes, pod-major:
+    the row-major rank over them, as the reference's batch spec
+    ``P(("pod", "data"))`` orders its shards."""
     if dp_only and mesh.model > 1:
         return mesh.rank, mesh.world
     return mesh.data_rank, mesh.data

@@ -371,9 +371,7 @@ def fused_adam_ref(p, g, master, m, v, *, lr, b1, b2, eps, weight_decay, bc1, bc
     gf = g.float()
     m_new = b1 * m + (1 - b1) * gf
     v_new = b2 * v + (1 - b2) * gf * gf
-    upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
-    if weight_decay:
-        upd = upd + weight_decay * master
+    upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps) + weight_decay * master
     master_new = master - lr * upd
     return master_new.to(p.dtype), master_new, m_new, v_new
 

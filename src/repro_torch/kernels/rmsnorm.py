@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.compat import faking
+from repro_torch.kernels import build, fake, ref
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
@@ -56,15 +57,16 @@ def empty_kernel_cuda(device: torch.device) -> None:
 
 
 class RMSNormFn(torch.autograd.Function):
-    """RMSNorm with a gradient: forward by device (the kernel on CUDA, the
-    plain version on the CPU), backward ``ref.rmsnorm_bwd_ref``."""
+    """RMSNorm with a gradient: forward by device (the kernel on CUDA, its
+    fake on a fake CUDA tensor, the plain version on the CPU), backward
+    ``ref.rmsnorm_bwd_ref``."""
 
     @staticmethod
     def forward(ctx, x, scale, eps: float):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
         if x.device.type == "cuda":
-            return rmsnorm_cuda(x, scale, eps)
+            return fake.rmsnorm(x, scale) if faking() else rmsnorm_cuda(x, scale, eps)
         return ref.rmsnorm_ref(x, scale, eps)
 
     @staticmethod

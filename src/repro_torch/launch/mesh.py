@@ -1,21 +1,33 @@
 """The process groups a training step syncs over.
 
 Port of ``src/repro/launch/mesh.py``. ``mesh_spec`` is the planner's data,
-unchanged. The port's mesh has the reference's two axes, ``data`` and
-``model``: ``world = data * model`` ranks, one a device, rank ``r`` at
-``(r // model, r % model)`` (the row-major order of ``jax.make_mesh``).
-``make_local_mesh`` returns it for this process (``LocalMesh``: ``rank``,
-``world``, the process ``group``, the ``device``, the ``model`` extent, and
-a process group for each axis: ``data_group``, this rank's column, the
-ranks that share its model rank; ``model_group``, its row, the ranks that
-share its data rank). ``spec`` is the ``MeshSpec`` the planner prices:
-``((world,), ("data",))`` at a model extent of one, as before the model
-axis, else ``((data, model), ("data", "model"))``. A model extent of one
-leaves every path as it was: ``data_group`` is then ``group``.
+unchanged. The port's mesh has the reference's axes, ``pod``, ``data`` and
+``model``: ``world = pod * data * model`` ranks, one a device, rank ``r``
+at ``(p, d, m)`` in row-major order (the order of ``jax.make_mesh((pod,
+data, model))``). ``make_local_mesh`` returns it for this process
+(``LocalMesh``: ``rank``, ``world``, the process ``group``, the ``device``,
+the ``model`` and ``pod`` extents, and a process group for each side:
+``data_group``, this rank's column, the ranks that share its model rank
+across pod x data -- the reference's zero axes, every axis but ``model``
+(``src/repro/dist/sharding.py:13-15, 46-48``); ``model_group``, its row,
+the ranks that share its pod and data ranks). ``LocalMesh.data`` is that
+column's extent, ``pod * data``, and ``data_rank`` this rank's place in it,
+pod-major: the ZeRO dims shard and the batch splits over it
+(``dist/sharding.py``), as the reference's over ``("pod", "data")``. The
+pod axis changes no arithmetic; it changes what the planner prices:
+``spec`` is the ``MeshSpec`` of the mesh, ``((world,), ("data",))`` at a
+model extent of one and a single pod, ``((data, model), ("data",
+"model"))`` with a model axis, and ``((pod, data, model), ("pod", "data",
+"model"))`` across pods, whose ZeRO gathers ``MeshSpec.gather_bw`` prices
+on the pods' network (``dcn_bw``). A model extent of one leaves every path
+as it was: ``data_group`` is then ``group``.
 
 The reference's ``make_local_mesh`` picks a model extent of 4, 2 or 1 by
 the device count; the port's takes it from the caller (``launch.train
---model M``). The multi-pod mesh is queued in ROADMAP.md.
+--model M``). ``make_production_mesh`` is this rank's place in the
+production meshes, 16 x 16 or 2 x 16 x 16, over a process group of 256 or
+512 ranks that the caller has joined (the dry-run's is a fake one,
+``launch/dryrun.py``).
 
 ``init_distributed`` joins the process group as ``torchrun`` describes it
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, and ``MASTER_ADDR`` /
@@ -36,6 +48,7 @@ from repro_torch.core.hardware import MULTI_POD, SINGLE_POD, MeshSpec
 
 AXES = ("data",)
 AXES_2D = ("data", "model")
+AXES_3D = ("pod", "data", "model")
 
 
 def mesh_spec(*, multi_pod: bool = False) -> MeshSpec:
@@ -44,24 +57,40 @@ def mesh_spec(*, multi_pod: bool = False) -> MeshSpec:
 
 @dataclasses.dataclass(frozen=True)
 class LocalMesh:
-    """This process's place in the ``(data, model)`` mesh."""
+    """This process's place in the ``(pod, data, model)`` mesh."""
 
     rank: int
     world: int
     group: object | None  # a torch.distributed ProcessGroup (None: the default group)
     device: torch.device
     model: int = 1  # the model axis's extent
-    col_group: object | None = None  # the data axis's group at model > 1
+    col_group: object | None = None  # the zero axes' group at model > 1
     row_group: object | None = None  # the model axis's group at model > 1
+    pod: int = 1  # the pod axis's extent
 
     def __post_init__(self):
-        if self.model < 1 or self.world % self.model:
-            raise ValueError(f"a model extent of {self.model} does not divide a world of "
-                             f"{self.world}")
+        if self.model < 1 or self.pod < 1 or self.world % (self.model * self.pod):
+            raise ValueError(f"a pod extent of {self.pod} and a model extent of "
+                             f"{self.model} do not divide a world of {self.world}")
 
     @property
     def data(self) -> int:
+        """The zero axes' extent: the pods' data ranks, ``pod * data``."""
         return self.world // self.model
+
+    @property
+    def coords(self) -> tuple[int, ...]:
+        """This rank's place along ``spec``'s axes, row-major."""
+        out, r = [], self.rank
+        for n in reversed(self.spec.shape):
+            out.append(r % n)
+            r //= n
+        return tuple(reversed(out))
+
+    @property
+    def zero_ranks(self) -> tuple[int, ...]:
+        """The ranks of ``data_group`` (numbered in ``group``), pod-major."""
+        return tuple(z * self.model + self.model_rank for z in range(self.data))
 
     @property
     def data_rank(self) -> int:
@@ -85,6 +114,8 @@ class LocalMesh:
 
     @property
     def spec(self) -> MeshSpec:
+        if self.pod > 1:
+            return MeshSpec((self.pod, self.data // self.pod, self.model), AXES_3D)
         if self.model == 1:
             return MeshSpec((self.world,), AXES)
         return MeshSpec((self.data, self.model), AXES_2D)
@@ -104,23 +135,36 @@ def axis_groups(world: int, model: int, group=None) -> tuple[object, object]:
     return cols[rank % model], rows[rank // model]
 
 
-def make_local_mesh(device=None, group=None, model: int = 1) -> LocalMesh:
+def make_local_mesh(device=None, group=None, model: int = 1, pod: int = 1) -> LocalMesh:
     """The mesh of this process: the initialised default process group (or
     ``group``) if there is one, else a world of one on ``device``; its
-    ranks laid out ``(world // model, model)``."""
+    ranks laid out ``(pod, world // (pod * model), model)``."""
     device = resolve_device(device)
     if not dist.is_initialized():
         if group is not None:
             raise ValueError("a process group was given, but torch.distributed is not "
                              "initialised")
-        return LocalMesh(0, 1, None, device, model=model)
+        return LocalMesh(0, 1, None, device, model=model, pod=pod)
     rank, world = dist.get_rank(group), dist.get_world_size(group)
+    if world % (model * pod):
+        raise ValueError(f"a pod extent of {pod} and a model extent of {model} do not "
+                         f"divide a world of {world}")
     if model == 1:
-        return LocalMesh(rank, world, group, device)
-    if world % model:
-        raise ValueError(f"a model extent of {model} does not divide a world of {world}")
+        return LocalMesh(rank, world, group, device, pod=pod)
     col, row = axis_groups(world, model, group)
-    return LocalMesh(rank, world, group, device, model=model, col_group=col, row_group=row)
+    return LocalMesh(rank, world, group, device, model=model, col_group=col, row_group=row,
+                     pod=pod)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> LocalMesh:
+    """This rank's place in the production mesh, ``(16, 16)`` or ``(2, 16,
+    16)`` (``src/repro/launch/mesh.py:17-26``), over the initialised
+    process group of 256 or 512 ranks."""
+    spec = mesh_spec(multi_pod=multi_pod)
+    if not dist.is_initialized() or dist.get_world_size() != spec.n_chips:
+        raise ValueError(f"the production mesh {spec.shape} needs a process group of "
+                         f"{spec.n_chips} ranks")
+    return make_local_mesh(device, model=spec.tp_degree, pod=spec.axis_size("pod"))
 
 
 def init_distributed(device=None, *, init_method: str | None = None,

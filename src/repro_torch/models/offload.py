@@ -49,6 +49,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.compat import faking, pinned_empty, storage_key, tensor_key
 from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.optim.adam import tree_leaves, tree_map
 
@@ -108,12 +109,14 @@ class HostIO:
 
     def __init__(self, device, registry=NULL_REGISTRY):
         self.device = torch.device(device)
-        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        # no side stream on a fake CUDA device (the dry-run): copies run in place
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" and not faking() else None)
         self.fetched = registry.counter("train.weight_fetch_bytes")
         self.swapped_out = registry.counter("train.act_swap_out_bytes")
         self.swapped_in = registry.counter("train.act_swap_in_bytes")
         self.quantized = registry.counter("train.act_quantize_launches")
-        self._pending: dict[int, tuple[torch.Tensor, torch.cuda.Event]] = {}
+        self._pending: dict[tuple, tuple[torch.Tensor, torch.cuda.Event]] = {}
         self.reset()
 
     def reset(self) -> None:
@@ -122,7 +125,7 @@ class HostIO:
         self._pending.clear()
         self._unit = -1
         self._reads: list[tuple[list, list]] = []  # per unit: (host weight trees, swaps)
-        self._host_unit: dict[int, int] = {}  # host weight data_ptr -> unit
+        self._host_unit: dict[tuple, int] = {}  # host weight (tensor_key) -> unit
         self._backward = False
         self._started: set[int] = set()
 
@@ -138,7 +141,7 @@ class HostIO:
             return
         self._reads[self._unit][0].append(hosts)
         for t in tree_leaves(hosts):
-            self._host_unit[t.data_ptr()] = self._unit
+            self._host_unit[tensor_key(t)] = self._unit
 
     def begin_backward(self) -> None:
         """The forward is over: start the reads of the last unit that has any."""
@@ -168,7 +171,7 @@ class HostIO:
         on the side stream (a no-op on a CPU device)."""
         if self.stream is None:
             return
-        leaves = [t for t in tree_leaves(tree) if t.data_ptr() not in self._pending]
+        leaves = [t for t in tree_leaves(tree) if tensor_key(t) not in self._pending]
         if not leaves:
             return
         # the side stream follows the work already queued: the update that
@@ -182,14 +185,14 @@ class HostIO:
             event = torch.cuda.Event()
             event.record(self.stream)
         for t, dev in zip(leaves, copies):
-            self._pending[t.data_ptr()] = (dev, event)
+            self._pending[tensor_key(t)] = (dev, event)
 
     def take(self, host: torch.Tensor) -> torch.Tensor:
         """The device copy of the host tensor ``host``: the prefetched one
         once its copy is done, else a copy queued now."""
         self.fetched.inc(_nbytes(host))
-        self._reached(self._host_unit.get(host.data_ptr(), -1))
-        hit = self._pending.pop(host.data_ptr(), None) if self.stream is not None else None
+        self._reached(self._host_unit.get(tensor_key(host), -1))
+        hit = self._pending.pop(tensor_key(host), None) if self.stream is not None else None
         if hit is None:
             return torch.empty(host.shape, dtype=host.dtype, device=self.device).copy_(
                 host, non_blocking=True)
@@ -214,10 +217,10 @@ class HostIO:
         self.will_fetch_again(hosts)
         by_storage = {}
         for dev, host in zip(tree_leaves(fetched), tree_leaves(hosts)):
-            by_storage[dev.device, dev.untyped_storage().data_ptr()] = _Refetch(self, host)
+            by_storage[dev.device, storage_key(dev)] = _Refetch(self, host)
 
         def pack(t):
-            ref = by_storage.get((t.device, t.untyped_storage().data_ptr()))
+            ref = by_storage.get((t.device, storage_key(t)))
             return t if ref is None else (ref, t.size(), t.stride(), t.storage_offset())
 
         def unpack(obj):
@@ -233,9 +236,10 @@ class HostIO:
     def swap_out(self, x: torch.Tensor) -> SwappedAct:
         """Copy ``x`` to pinned host memory on the side stream."""
         self.swapped_out.inc(_nbytes(x))
-        if self.stream is None:
-            return SwappedAct(x.detach().clone(), None, self._unit)
-        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        if self.stream is None:  # a CPU device, or a fake CUDA one: to host memory
+            host = x.detach().clone() if self.device.type == "cpu" else x.detach().cpu()
+            return SwappedAct(host, None, self._unit)
+        host = pinned_empty(x.shape, x.dtype)
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
             host.copy_(x, non_blocking=True)
@@ -264,7 +268,7 @@ class HostIO:
         self.swapped_in.inc(_nbytes(saved.host))
         self._reached(saved.unit)
         if saved.event is None:
-            return saved.host.clone()
+            return saved.host.to(self.device, copy=True)
         cur = torch.cuda.current_stream(self.device)
         if saved.ahead is not None:
             dev, event = saved.ahead

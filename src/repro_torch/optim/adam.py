@@ -43,6 +43,7 @@ import math
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.compat import pinned_empty
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +136,7 @@ def adam_scalars(cfg: AdamConfig, lr, count: int, device) -> torch.Tensor:
     host = torch.tensor([float(lr), cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay, bc1, bc2, 0.0],
                         dtype=torch.float32)
     if torch.device(device).type == "cuda":
-        host = host.pin_memory()
+        host = pinned_empty(host.shape, host.dtype).copy_(host)
     return host.to(device, non_blocking=True)
 
 

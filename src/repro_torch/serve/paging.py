@@ -59,6 +59,7 @@ import types
 
 import torch
 
+from repro_torch.compat import faking, pinned_empty, tensor_key
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import decode_paged_attention
 from repro_torch.models import kvcache as KV
@@ -144,7 +145,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, seq_len: int, spec: PagingSpe
 
     def zeros(name, shape, dt):
         if name.endswith("_cold") and pin:
-            return torch.zeros(shape, dtype=dt, pin_memory=True)
+            return pinned_empty(shape, dt).zero_()
         return torch.zeros(shape, dtype=dt, device=device)
 
     return {pos: {name: zeros(name, *sd) for name, sd in entry.items()}
@@ -159,6 +160,8 @@ def device_view(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     read and write in place."""
     if t.device == device:
         return t
+    if faking():  # the dry-run's fake tensors: no memory to map, a fake one on the device
+        return torch.empty(t.shape, dtype=t.dtype, device=device)
     if not (t.device.type == "cpu" and t.is_pinned() and t.is_contiguous()):
         raise ValueError(f"a view on {device} needs a contiguous pinned host tensor, "
                          f"got {t.device} (pinned={t.is_pinned()})")
@@ -213,7 +216,7 @@ class PagedKV:
         self.flush = flush
         self.use_kernel = use_kernel
         self.h2d_bytes = 0  # cold-store bytes read by attention, all steps
-        self._views: dict[int, torch.Tensor] = {}  # cold leaf's data_ptr -> device view
+        self._views: dict[tuple, torch.Tensor] = {}  # cold leaf (tensor_key) -> device view
 
     def _device_view(self, cold: torch.Tensor, device: torch.device) -> torch.Tensor:
         """``device_view`` of a whole cold leaf, made once (before a CUDA
@@ -221,10 +224,10 @@ class PagedKV:
         outside inference mode, so that ``commit`` may write it there too."""
         if cold.device == device:
             return cold
-        view = self._views.get(cold.data_ptr())
+        view = self._views.get(tensor_key(cold))
         if view is None:
             with torch.inference_mode(False):
-                view = self._views[cold.data_ptr()] = device_view(cold, device)
+                view = self._views[tensor_key(cold)] = device_view(cold, device)
         return view
 
     def layer_entry(self, pos_cache: dict, r: int) -> dict:

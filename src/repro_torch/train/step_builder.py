@@ -107,7 +107,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import obs
-from repro_torch.compat import resolve_device
+from repro_torch.compat import faking, pinned_empty, resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.plan import MemoryPlan
 from repro_torch.core.serve_plan import paging_from_plan
@@ -148,6 +148,7 @@ class StepArtifacts:
     strategy: Any = None  # training: the gradient sync (train/sync.py)
     leaf_syncs: list | None = None  # training: each param leaf's LeafSync, tree_leaves order
     opt_dims: list | None = None  # training: the dim each leaf's master, m, v shard over
+    defs: dict | None = None  # training: the full params' ParamDefs, in the params' tree
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +205,8 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
                      adam: OPT.AdamConfig | None = None, attn_impl: str = "blockwise",
                      ce_chunk: int = 2048,
                      lr_schedule: Callable[[int], float] | None = None,
-                     telemetry: obs.Telemetry | None = None) -> StepArtifacts:
+                     telemetry: obs.Telemetry | None = None,
+                     accumulate: Callable = accumulate_grads) -> StepArtifacts:
     """The plan-driven training step on ``device`` (CUDA unless told
     otherwise), this rank of ``mesh`` (default: a world of one).
     ``batch``: ``tokens`` and ``labels``, (B, S) integer on the device --
@@ -213,7 +215,9 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
     ``patches``. ``metrics``: ``loss`` (cross-entropy plus aux loss, the
     mean over the ranks), ``ce``, ``grad_norm`` (device scalars), ``lr``
     and, under int8_ef, ``ef_norm``. ``strategy`` replaces
-    ``train/sync.make_strategy``'s choice (a ``ManualSync`` on one rank)."""
+    ``train/sync.make_strategy``'s choice (a ``ManualSync`` on one rank).
+    ``accumulate`` is the microbatch loop (``train/sync.accumulate_grads``;
+    the dry-run passes one that runs two trips and counts the rest)."""
     device = resolve_device(device)
     adam = adam or OPT.AdamConfig()
     mesh = mesh if mesh is not None else LocalMesh(0, 1, None, device)
@@ -406,15 +410,16 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
 
         def micro_grad(mb_batch):
             io.reset()
-            before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+            measure = device.type == "cuda" and not faking()  # not on fake tensors
+            before = torch.cuda.memory_allocated(device) if measure else 0
             loss, ce = loss_fn(params, proxies, mb_batch, gather)
-            if device.type == "cuda":
+            if measure:
                 act_bytes.set(torch.cuda.memory_allocated(device) - before)
             io.begin_backward()  # its host reads run one unit ahead
             grads = iter(torch.autograd.grad(loss, flat))
             return OPT.tree_map(lambda _: next(grads), params), torch.stack([loss, ce]).detach()
 
-        grads, losses = accumulate_grads(micro_grad, batch, plan.microbatch)
+        grads, losses = accumulate(micro_grad, batch, plan.microbatch)
         return grads, strategy.batch_mean(losses) if sharded else losses
 
     def manual_grad_fn(state: dict, batch: dict):
@@ -429,7 +434,7 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
             lazy_loss = lambda p, mb: loss_fn(p, p, mb, gather)  # noqa: E731
         micro = strategy.micro_grad(params, ef, leafs, loss=lambda p, mb: loss_fn(p, p, mb),
                                     lazy_loss=lazy_loss)
-        grads, losses = accumulate_grads(micro, local, plan.microbatch, overlap=plan.overlap)
+        grads, losses = accumulate(micro, local, plan.microbatch, overlap=plan.overlap)
         return grads, COLL.manual_mean(losses, mesh.group)
 
     def step_fn(state: dict, batch: dict):
@@ -507,26 +512,23 @@ def build_train_step(cfg: ModelConfig, plan: MemoryPlan, device, shape: ShapeCon
     return StepArtifacts(fn=step_fn, plan=plan, runs=runs_layout, init=init,
                          place_state=place_state,
                          grad_fn=manual_grad_fn if manual else grad_fn, strategy=strategy,
-                         leaf_syncs=leafs,
+                         leaf_syncs=leafs, defs=p_defs,
                          opt_dims=[ls.dim if z is None else z for ls, z in zip(leafs, zero1_dims)])
 
 
 def to_pinned(tree):
     """A copy of a tree in pinned host memory."""
-    return OPT.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                        .copy_(t), tree)
+    return OPT.tree_map(lambda t: pinned_empty(t.shape, t.dtype).copy_(t), tree)
 
 
 def pinned_master(tree):
     """fp32 copies of a tree's weights, made in pinned host memory."""
-    return OPT.tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32, pin_memory=True)
-                        .copy_(t.detach()), tree)
+    return OPT.tree_map(lambda t: pinned_empty(t.shape, torch.float32).copy_(t.detach()), tree)
 
 
 def pinned_zeros(tree):
     """fp32 zeros shaped like a tree, in pinned host memory."""
-    return OPT.tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32, pin_memory=True),
-                        tree)
+    return OPT.tree_map(lambda t: pinned_empty(t.shape, torch.float32).zero_(), tree)
 
 
 @dataclasses.dataclass

@@ -68,7 +68,8 @@ class Deferred:
         return tree_map(lambda _: next(done), self.like)
 
 
-def _ready(g):
+def ready(g):
+    """``g``, or the synced tree a ``Deferred`` ``g`` waits for."""
     return g.wait() if isinstance(g, Deferred) else g
 
 
@@ -84,7 +85,7 @@ def accumulate_grads(micro_grad, batch: dict, microbatch: int, overlap: bool = F
     result is bitwise the serial one. Returns ``(grads, loss)``."""
     if microbatch == 1:
         g, loss = micro_grad(batch)
-        return _ready(g), loss
+        return ready(g), loss
 
     def split(x):
         return x.reshape(microbatch, x.shape[0] // microbatch, *x.shape[1:]).unbind(0)
@@ -94,7 +95,7 @@ def accumulate_grads(micro_grad, batch: dict, microbatch: int, overlap: bool = F
     loss = None
 
     def fold(g):
-        g = _ready(g)
+        g = ready(g)
         if acc["grads"] is None:  # fp32 grads are fresh tensors of ours: accumulate in them
             acc["grads"] = tree_map(lambda t: t.float(), g)
         else:

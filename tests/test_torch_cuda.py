@@ -1104,3 +1104,37 @@ def test_launchers_on_card(which, argv, capsys):
     else:
         assert summary["drained"]
         assert after["paged_attention"] > before["paged_attention"]
+
+
+@pytest.mark.cuda
+def test_dryrun_kernel_route_builds_and_launches_nothing():
+    """The dry-run's kernel route: a fake CUDA step of reduced llama3-405b
+    at world one (fake tensors under ``FakeTensorMode``, the kernels'
+    fakes) launches no kernel, counts the flash fakes' FLOPs, and
+    allocates nothing on the card once the process has its CUDA context
+    (which torch's fake mode makes with one real 4-byte tensor at the
+    first fake CUDA tensor, ``init_gpu_context``)."""
+    _require_card()
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.hardware import ONE_CHIP
+    from repro_torch.core.plan import MemoryPlan
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.model import num_repeats
+
+    cfg = reduced(get_config("llama3-405b"))
+    n = num_repeats(cfg)
+    plan = MemoryPlan(n + 2, n, n_persist=1, n_checkpoint=1, microbatch=4)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before, launches = torch.cuda.memory_allocated(), dict(K.launch_counts())
+    got = D.fake_step(cfg, ShapeConfig("t", 256, 8, "train"), plan, ONE_CHIP, "cuda")
+    assert K.launch_counts() == launches
+    assert torch.cuda.max_memory_allocated() == before
+    assert got["kernel_flops"]["flash_attention"] > 0
+    assert got["kernel_flops"]["flash_attention_bwd"] > 0
+    assert got["memory"]["temp_gb"] > 0 and got["counted_flops"] > 0

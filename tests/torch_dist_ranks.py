@@ -506,6 +506,13 @@ TP_CASES = {
     "llava_2x2": ("llava", "zero", (2, 2), {}),
     "llava_1x4_sp": ("llava", "zero", (1, 4), dict(seq_shard_acts=True)),
 }
+# the pod axis (tests/test_torch_pod.py): (pod, data, model) layouts of
+# the 4 ranks, held against the JAX step of their model and plan
+POD_LAYOUTS = ((2, 2, 1), (2, 1, 2))
+POD_CASES = {f"{m}_{p}x{d}x{k}": (m, "zero", (p, d, k), {})
+             for m in ("dense", "moe") for p, d, k in POD_LAYOUTS}
+# the step whose collectives rank 0 records, beside the dry-run's fake one
+POD_RECORD_CASE = "dense_2x1x2"
 # the same machinery for the repairs of tests/test_torch_serve_mesh.py
 REPAIR_CASES = {
     "llava6_1x4": ("llava6", "zero", (1, 4), {}),
@@ -548,7 +555,7 @@ def tp_plan(case: str):
     from repro_torch.core.plan import MemoryPlan
     from repro_torch.models.model import num_repeats
 
-    model, plan, _, extra = {**TP_CASES, **REPAIR_CASES}[case]
+    model, plan, _, extra = {**TP_CASES, **REPAIR_CASES, **POD_CASES}[case]
     n = num_repeats(tp_config(model)[0])
     return MemoryPlan(n + 2, n, **TP_PLANS[plan], **extra)
 
@@ -562,7 +569,7 @@ def tp_run(case: str, params, mesh) -> dict:
     from repro_torch.optim.adam import AdamConfig, tree_leaves, tree_map
     from repro_torch.train.step_builder import build_train_step
 
-    model = {**TP_CASES, **REPAIR_CASES}[case][0]
+    model = {**TP_CASES, **REPAIR_CASES, **POD_CASES}[case][0]
     cfg, shape = tp_config(model)
     art = build_train_step(cfg, tp_plan(case), "cpu", shape, mesh=mesh,
                            adam=AdamConfig(lr=LR, **tp_adam_kw(model)))
@@ -654,6 +661,7 @@ DECODE_CASES = {
     "seamless6_1x4": ("seamless6", (1, 4), "resident"),
 }
 SERVE_MODELS = sorted({m for m, _, _ in DECODE_CASES.values()})
+POD_DECODE_CASES = {"mistral_2x1x2": ("mistral", (2, 1, 2), "resident")}
 ENGINE_S, ENGINE_CHUNK = 32, 8
 # name: (model, (data, model), slots, admission)
 ENGINE_CASES = {
@@ -732,7 +740,7 @@ def serve_decode(case: str, params, mesh) -> dict:
     from repro_torch.serve import PagedKV, choose_paging, init_paged_cache
     from repro_torch.train.step_builder import serve_layout
 
-    model, _, kind = DECODE_CASES[case]
+    model, _, kind = {**DECODE_CASES, **POD_DECODE_CASES}[case]
     cfg = tp_config(model)[0]
     spec = choose_paging(SERVE_S, *SERVE_PAGING) if kind == "paged" else None
     plan = _serve_plan(cfg, kind == "sharded", spec.n_cold if spec else 0)
@@ -835,4 +843,51 @@ def serve_mesh(rank: int, directory: str, params_file: str) -> dict:
            "argmax": argmax_cases(rank, meshes)}
     out["train"] = {c: tp_run(c, params["train"][c], meshes[REPAIR_CASES[c][2][1]])
                     for c in REPAIR_CASES}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The pod axis (tests/test_torch_pod.py)
+# ---------------------------------------------------------------------------
+def recorded_step(case: str, params, mesh) -> list[tuple]:
+    """The collectives one step of a case issues on this rank's mesh, in
+    order: (kind, payload bytes, dtype, group size)."""
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.launch.roofline import CollectiveRecorder
+    from repro_torch.optim.adam import AdamConfig, tree_map
+    from repro_torch.train.step_builder import build_train_step
+
+    model = POD_CASES[case][0]
+    cfg, shape = tp_config(model)
+    art = build_train_step(cfg, tp_plan(case), "cpu", shape, mesh=mesh,
+                           adam=AdamConfig(lr=LR, **tp_adam_kw(model)))
+    state = art.place_state(tree_map(lambda t: t.clone(), params))
+    batch = SyntheticTokenPipeline(cfg, shape, seed=0).next_sync()
+    with CollectiveRecorder() as rec:
+        art.fn(state, batch)
+    return [(o.kind, o.nbytes, o.dtype, o.group_size) for o in rec.ops]
+
+
+def pod_steps(rank: int, directory: str, params_file: str) -> dict:
+    """Each layout's place of this rank and its zero group, every
+    ``POD_CASES`` run and ``POD_DECODE_CASES`` decode on its layout, and the
+    collectives of ``POD_RECORD_CASE``'s step."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import make_local_mesh
+
+    params = torch.load(params_file, weights_only=False)
+    meshes = {lay: make_local_mesh("cpu", model=lay[2], pod=lay[0]) for lay in POD_LAYOUTS}
+    out = {"mesh": {lay: {"coords": m.coords, "zero_ranks": m.zero_ranks,
+                          "zero_group": dist.get_process_group_ranks(
+                              m.data_group or dist.group.WORLD),
+                          "spec": (m.spec.shape, m.spec.axes),
+                          "batch": SH.batch_extent(m), "batch_axes": SH.batch_axes(m)}
+                    for lay, m in meshes.items()}}
+    out["train"] = {c: tp_run(c, params["train"][f"{model}_{plan}"], meshes[lay])
+                    for c, (model, plan, lay, _) in POD_CASES.items()}
+    out["decode"] = {c: serve_decode(c, params["serve"][m], meshes[lay])
+                     for c, (m, lay, _) in POD_DECODE_CASES.items()}
+    model, plan, lay, _ = POD_CASES[POD_RECORD_CASE]
+    out["recorded"] = recorded_step(POD_RECORD_CASE, params["train"][f"{model}_{plan}"],
+                                    meshes[lay])
     return out
